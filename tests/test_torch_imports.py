@@ -1,0 +1,81 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package ``repro``, and the port's
+entry points run on the CUDA card unless the caller asks for the CPU."""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "src", "repro_torch")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _modules():
+    mods = []
+    for path in _port_sources()[1:]:
+        rel = os.path.relpath(path, os.path.join(REPO, "src"))[:-3]
+        mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return mods
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name == "repro"
+            or name.startswith("repro."))
+
+
+def test_importing_every_module_loads_no_jax_and_no_reference():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')]\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_have_no_jax_or_reference_imports():
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+    assert len(_port_sources()) > 20
+
+
+def test_connect_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch import serving
+    from repro_torch.device import resolve_device
+    from repro_torch.models.cnn import init_cnn_params, tiny_cnn_config
+    cfg = tiny_cnn_config(num_classes=7, hw=32)
+    plan = serving.DeploymentPlan.from_args(init_cnn_params(0, cfg), cfg, 6)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serving.connect(plan, backend="local", device=device)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with serving.connect(plan, backend="local", device="cpu") as sess:
+        assert sess.device == torch.device("cpu")

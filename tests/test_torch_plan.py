@@ -1,0 +1,135 @@
+"""The port's ``DeploymentPlan`` and split sweep against the reference's:
+equal digests, plan directories that load across the two packages in
+both directions, and identical Eq. 5 sweep rows and greedy splits."""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from repro import serving as rserving
+from repro.core.collab.adaptive import AdaptivePolicy
+from repro.core.collab.faults import FaultPolicy
+from repro.core.partition import latency_model as rlat
+from repro.core.partition import splitter as rsplit
+from repro.core.partition.profiles import PAPER_PROFILE as R_PAPER
+from repro_torch import serving as tserving
+from repro_torch.core.partition import latency_model as tlat
+from repro_torch.core.partition import splitter as tsplit
+from repro_torch.core.partition.profiles import PAPER_PROFILE as T_PAPER
+from torch_parity import port_params, ref_tree, tiny_setup
+
+VARIANTS = {
+    "plain": {},
+    "quant": {"quant": "int8"},
+    "unported_sections": {"adaptive": True, "faults": True},
+}
+
+
+def _plans(split, variant, **kw):
+    """The same contract built by both packages (sections the port keeps
+    as JSON are handed over as the reference's ``to_json()``)."""
+    cfg_r, cfg_t, params, masks, _ = tiny_setup()
+    opts = VARIANTS[variant]
+    r_extra, t_extra = {}, {}
+    if "quant" in opts:
+        r_extra["quant"] = rserving.QuantPolicy(weight_bits=8)
+        t_extra["quant"] = tserving.QuantPolicy(weight_bits=8)
+    if "adaptive" in opts:
+        pol = AdaptivePolicy(candidates=(10, 3, 13))
+        r_extra["adaptive"], t_extra["adaptive"] = pol, pol.to_json()
+    if "faults" in opts:
+        pol = FaultPolicy(max_retries=2)
+        r_extra["faults"], t_extra["faults"] = pol, pol.to_json()
+    p_r = rserving.DeploymentPlan.from_args(
+        ref_tree(params), cfg_r, split, masks=masks, **kw, **r_extra)
+    p_t = tserving.DeploymentPlan.from_args(
+        port_params(params), cfg_t, split, masks=masks, **kw, **t_extra)
+    return p_r, p_t
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("split", [6, None])
+def test_digest_equals_reference(variant, split):
+    for kw in ({"compact": True, "codec": "int8"},
+               {"compact": False, "codec": "fp16", "pack": True}):
+        p_r, p_t = _plans(split, variant, **kw)
+        assert p_t.split == p_r.split
+        as_json = lambda doc: json.loads(json.dumps(doc))  # noqa: E731
+        assert as_json(p_t.contract()) == as_json(p_r.contract())
+        assert p_t.digest == p_r.digest
+
+
+def _assert_same_plan(p_t, p_r):
+    assert p_t.digest == p_r.digest
+    for name, layer in p_r.params.items():
+        for leaf, arr in layer.items():
+            np.testing.assert_array_equal(p_t.params[name][leaf].numpy(),
+                                          np.asarray(arr))
+    assert sorted(p_t.masks) == sorted(p_r.masks)
+    for i in p_r.masks:
+        np.testing.assert_array_equal(p_t.masks[i], p_r.masks[i])
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_plan_directory_loads_across_packages(variant, tmp_path):
+    p_r, p_t = _plans(6, variant, compact=True, codec="int8")
+    p_r.save(str(tmp_path / "ref"))
+    p_t.save(str(tmp_path / "port"))
+    # the two directories hold the same files with the same JSON
+    for sub in ("ref", "port"):
+        assert sorted(os.listdir(tmp_path / sub)) == [
+            "masks.npz", "params.json", "params.npz", "plan.json"]
+    for fname in ("plan.json", "params.json"):
+        with open(tmp_path / "ref" / fname) as f:
+            want = json.load(f)
+        with open(tmp_path / "port" / fname) as f:
+            assert json.load(f) == want, fname
+    _assert_same_plan(tserving.DeploymentPlan.load(str(tmp_path / "ref")),
+                      p_r)
+    back = rserving.DeploymentPlan.load(str(tmp_path / "port"))
+    _assert_same_plan(p_t, back)
+
+
+@pytest.mark.parametrize("deploy", ["dense", "masked", "packed",
+                                    "compacted"])
+def test_split_sweep_identical_to_reference(deploy):
+    """Same rows (T_D, T_TX, T_S, T, tx_bytes per split) and the same
+    greedy split on ``PAPER_PROFILE``: plain Python arithmetic in the
+    same order, so equal to the last bit."""
+    cfg_r, cfg_t, _, masks, _ = tiny_setup()
+    m = None if deploy == "dense" else masks
+    compact = deploy == "compacted"
+    pack = deploy == "packed"
+    if compact:
+        c_r = rlat.compacted_cnn_layer_costs(cfg_r, m)
+        c_t = tlat.compacted_cnn_layer_costs(cfg_t, m)
+    else:
+        c_r, c_t = rlat.cnn_layer_costs(cfg_r, m), tlat.cnn_layer_costs(cfg_t, m)
+    assert [vars(c) for c in c_t] == [vars(c) for c in c_r]
+    for codec in ("fp32", "int8"):
+        s_r = lambda c: rlat.wire_tx_scale(cfg_r, m, c, codec=codec,  # noqa
+                                           pack=pack, compact=compact)
+        s_t = lambda c: tlat.wire_tx_scale(cfg_t, m, c, codec=codec,  # noqa
+                                           pack=pack, compact=compact)
+        d_r = rsplit.greedy_split(c_r, R_PAPER, rlat.cnn_input_bytes(cfg_r),
+                                  tx_scale=s_r)
+        d_t = tsplit.greedy_split(c_t, T_PAPER, tlat.cnn_input_bytes(cfg_t),
+                                  tx_scale=s_t)
+        assert d_t.table == d_r.table
+        assert d_t.split_point == d_r.split_point
+
+
+def test_params_round_trip_exact():
+    """Reference tree -> port tensors -> reference tree changes no value,
+    dtype or layout."""
+    from repro_torch.interop import params_from_reference, params_to_reference
+    _, _, params, _, _ = tiny_setup()
+    back = params_to_reference(params_from_reference(ref_tree(params)))
+    assert sorted(back) == sorted(params)
+    for name, layer in params.items():
+        for leaf, arr in layer.items():
+            assert back[name][leaf].dtype == arr.dtype
+            np.testing.assert_array_equal(back[name][leaf], arr)
