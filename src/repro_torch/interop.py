@@ -3,7 +3,12 @@
 In memory: a parameter tree of the reference (``{"l{i}": {"w", "b"}}`` of
 numpy or JAX arrays, HWIO conv weights, ``(din, dout)`` dense weights)
 becomes the port's dict of CPU tensors in the same layout, and back, with
-no change to a single value.
+no change to a single value. The transformer's tree (``{"embed",
+"final_norm", "lm_head", "runs": [stacked per-run dicts]}``) and its
+per-run pruning masks cross the same way (``transformer_params_*``,
+``transformer_masks_from_reference``). A bfloat16 leaf arrives from JAX as
+numpy's ``bfloat16`` extension type, which ``torch.from_numpy`` refuses: it
+crosses as its 16-bit pattern (a ``uint16`` view), bit for bit.
 
 On disk: the reference's checkpoint format (``repro/checkpoint/store.py``)
 — ``<path>.npz`` holding the leaves as ``a0..aN`` in JAX's tree-flatten
@@ -41,6 +46,53 @@ def params_to_reference(params: Params) -> Dict[str, Dict[str, np.ndarray]]:
     return {name: {leaf: t.detach().cpu().numpy()
                    for leaf, t in layer.items()}
             for name, layer in params.items()}
+
+
+def _tensor_from_reference(arr) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a.view(np.uint16), copy=True)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _tensor_to_reference(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError as e:
+        raise TypeError("a bfloat16 array needs numpy's bfloat16 type, "
+                        "which importing JAX (or ml_dtypes) registers") from e
+    return t.view(torch.uint16).numpy().view(bf16)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def transformer_params_from_reference(tree) -> Dict[str, Any]:
+    """Reference transformer tree (numpy or JAX arrays, any dtype incl.
+    bfloat16) -> the same tree of CPU tensors, bit for bit."""
+    return _map_tree(_tensor_from_reference, tree)
+
+
+def transformer_params_to_reference(params) -> Dict[str, Any]:
+    """The port's transformer tree -> the same tree of numpy arrays
+    (bfloat16 as numpy's ``bfloat16`` type), bit for bit."""
+    return _map_tree(_tensor_to_reference, params)
+
+
+def transformer_masks_from_reference(masks) -> Optional[List[Any]]:
+    """Reference per-run masks (a list of ``None`` or ``{axis: (count,
+    n_units)}``) -> the same list of CPU tensors."""
+    return None if masks is None else _map_tree(_tensor_from_reference,
+                                                masks)
 
 
 def _flatten(tree, path: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...],

@@ -3,7 +3,9 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C entry point. It is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) and
-loaded with ``ctypes``. The library's file name carries a hash of the
+loaded with ``ctypes``; ``launch`` calls one of its entry points on
+PyTorch's current stream and raises on the CUDA error it returns. The
+library's file name carries a hash of the
 source and the flags, so an edited source is rebuilt and a stale library
 is never loaded. Nothing is built when a module is imported: the first
 launch builds, or ``build_all`` builds every kernel at once, one ``nvcc``
@@ -18,7 +20,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -27,7 +31,7 @@ BUILD_DIR = PKG_DIR.parents[1] / "build" / "kernels"
 #: and spills per kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("masked_matmul",)
+KERNELS = ("masked_matmul", "rmsnorm", "flash_attention")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -97,3 +101,20 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, so, tmp, proc)
             _libs[name] = ctypes.CDLL(str(so))
         return _libs[name]
+
+
+def launch(name: str, symbol: str, argtypes: Sequence[Any],
+           device: torch.device, *args) -> None:
+    """Call the C entry point ``symbol`` of kernel ``name`` with ``args``
+    and the current stream of ``device``, which it launches on; raises if
+    the launch failed (the entry returns ``cudaGetLastError()``, since a
+    launch the card refuses never runs and a later synchronize would not
+    report it)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: kernel launch failed with CUDA "
+                           f"error {err}")

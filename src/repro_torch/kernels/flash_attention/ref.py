@@ -1,0 +1,38 @@
+"""Plain PyTorch version of the flash-attention kernel (the reference's
+``kernels/flash_attention/ref.py``): materialising softmax attention with
+causal / sliding-window masks and GQA head grouping. The CPU path, and the
+yardstick the CUDA kernel is held against on the card."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) with H % Hkv == 0 -> (B,Sq,H,D).
+
+    Positions are 0..S-1 on both sides (self-attention; Sq == Sk assumed
+    for the masked cases). fp32 math, output in q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qg = q.to(torch.float32).reshape(B, Sq, Hkv, group, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                          k.to(torch.float32)) * scale
+    d = (torch.arange(Sq, device=q.device)[:, None]
+         - torch.arange(Sk, device=q.device)[None, :])
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= d >= 0
+    if window is not None:
+        ok &= d < window
+    logits = torch.where(ok, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    return out.reshape(B, Sq, H, D).to(q.dtype)

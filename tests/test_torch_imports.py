@@ -79,3 +79,18 @@ def test_connect_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with serving.connect(plan, backend="local", device="cpu") as sess:
         assert sess.device == torch.device("cpu")
+
+
+def test_transformer_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.configs.qwen2_7b import smoke_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as tr
+    cfg = smoke_config()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: tr.init_params(cfg),
+                 lambda: tr.init_cache(cfg, 1, 8),
+                 lambda: make_prefill_step(cfg),
+                 lambda: make_decode_step(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert tr.init_params(cfg, device="cpu")["embed"].device.type == "cpu"

@@ -84,3 +84,37 @@ def test_wrapper_flattens_leading_dims_without_a_launch():
     # the degenerate dims keep the leading shape too
     empty = masked_matmul(a[:, :0], b, m)
     assert empty.shape == (2, 0, 5, 11)
+
+
+# bf16 operands, as the pruned transformer's FFN up and gate products give
+# them (M = B*S, K = d_model, N = d_ff, at the tests' small widths)
+BF16_CASES = {
+    "ffn_smoke": (40, 256, 512, "partial"),
+    "ragged": (77, 29, 45, "partial"),
+    "m1": (1, 256, 512, "partial"),
+    "all_kept": (16, 64, 96, "ones"),
+    "zero_mask": (8, 32, 24, "zeros"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_bf16_matches_reference_pallas_kernel(case):
+    """Both accumulate the bf16 products in fp32 and round the masked sum
+    to bf16 once: the fp32 sums differ by at most K·eps·(|A|@|B|) and the
+    roundings by one bf16 spacing more."""
+    import jax.numpy as jnp
+    from repro_torch.interop import transformer_params_from_reference
+    from torch_parity import BF16_SPACING, to_f32
+    M, K, N, kind = BF16_CASES[case]
+    a, b, m = _operands(M, K, N, kind, seed=7)
+    a16, b16 = a.astype(jnp.bfloat16), b.astype(jnp.bfloat16)
+    want = to_f32(ref_masked_matmul(jnp.asarray(a16), jnp.asarray(b16),
+                                    jnp.asarray(m), interpret=True))
+    ta, tb = transformer_params_from_reference([a16, b16])
+    got = masked_matmul(ta, tb, torch.from_numpy(m))
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    got = to_f32(got)
+    fp32 = _tol(to_f32(a16), to_f32(b16))
+    tol = fp32 + BF16_SPACING * (np.abs(want) + fp32)
+    assert (np.abs(got - want) <= tol).all()
+    assert (got[:, m == 0] == 0).all()

@@ -14,6 +14,18 @@ from repro_torch.models import cnn as tcnn
 
 #: fp32 float epsilon (unit roundoff is half of it)
 EPS32 = float(np.finfo(np.float32).eps)
+#: bf16 keeps 8 significant bits: neighbouring values of magnitude v lie at
+#: most 2**-7 * |v| apart, so two roundings of nearby fp32 values to bf16
+#: differ by at most their fp32 gap plus that much
+BF16_SPACING = 2.0 ** -7
+
+
+def to_f32(x) -> np.ndarray:
+    """A torch tensor or a (JAX / numpy, any float dtype) array as a
+    float32 numpy array."""
+    if torch.is_tensor(x):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x).astype(np.float32)
 
 
 def tiny_setup(seed: int = 0, batch: int = 2):
@@ -65,3 +77,32 @@ def fp32_tol(ref: np.ndarray) -> float:
     compounds through, and is still far below what a wrong index or
     layout would give."""
     return 64 * EPS32 * max(1.0, float(np.max(np.abs(ref))))
+
+
+def transformer_params_np(cfg, seed: int = 0):
+    """A parameter tree of numpy arrays in the reference transformer's
+    layout for ``cfg`` (shapes from ``jax.eval_shape`` of its
+    ``init_params``), in ``cfg.dtype``: weights normal / sqrt(fan_in),
+    embeddings normal x 0.02, and — unlike the reference's zeros and ones —
+    random QKV biases and norm scales near 1, so the bias and scale paths
+    carry real numbers."""
+    import jax
+    from repro.models import transformer as rtr
+    shapes = jax.eval_shape(lambda: rtr.init_params(cfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(seed)
+    dtype = jnp.dtype(cfg.dtype)
+
+    def leaf(path, sd):
+        name = path[-1].key
+        shp = sd.shape
+        if name in ("ln1", "ln2", "final_norm"):
+            a = 1.0 + 0.1 * rng.standard_normal(shp)
+        elif name in ("bq", "bk", "bv"):
+            a = 0.1 * rng.standard_normal(shp)
+        elif name == "embed":
+            a = 0.02 * rng.standard_normal(shp)
+        else:   # (count, fan_in, fan_out) stacked, or (fan_in, fan_out)
+            a = rng.standard_normal(shp) / np.sqrt(shp[-2])
+        return np.asarray(a.astype(np.float32)).astype(dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
