@@ -21,7 +21,12 @@ Phases, each printing its own lines:
    2048 and 2000 rows of 3584 (R1's and R2's prefill) and 1000, bf16 and
    fp32, offsets 0 and 1, and at 1 and 2 rows (decode); ``flash_attention`` at (B=1,
    S=2048) and (B=2, S=1000) with 28/4 heads of 128, causal, plus windowed,
-   non-causal, fp32, head-dim 64 and ragged (S=77) cases;
+   non-causal, fp32, head-dim 64 and ragged (S=77) cases, and Zamba2's
+   shared attention (32/32 heads of 64, S=2048); ``ssd_scan`` at Mamba2's
+   R1 (B=1, S=2048, 80 heads of 64, d_state 128) and R2 (B=2, S=1000,
+   ragged), Zamba2's R1 (64 heads, d_state 64), with half the heads masked,
+   x, B and C as slices of one conv output as the block hands them in, plus
+   2 groups, S=77, S=1, every head pruned and fp32 cases;
 4. slice (AlexNet) — the paper's int8-quantized, compacted AlexNet
    (``alexnet_config(38)``, 224x224x3, random weights from a seed) served
    through ``repro_torch.serving.connect(plan, backend="local")`` on the
@@ -43,7 +48,20 @@ Phases, each printing its own lines:
    path must lie within twice the bf16 plain run's distance from the fp32
    run, plus one bf16 spacing of the largest logit;
 7. profile (Qwen2-7B) — where one R1 prefill's and one decode step's device
-   time goes.
+   time goes;
+8. slice (Mamba2-2.7B) — the pruned SSM at full width and depth
+   (``configs/mamba2_2p7b.CONFIG``: 64 layers, d_model 2560, 80 SSD heads of
+   64, d_state 128, vocab 50304, bf16; masks at ratio 0.5 keep 40 heads a
+   layer) serving R1 and R2 as in phase 6: 64 ssd_scan launches per prefill
+   and none per decode step, 65 rmsnorm per forward step; the same logit
+   yardstick;
+9. slice (Zamba2-1.2B) — the pruned hybrid at full width and depth
+   (``configs/zamba2_1p2b.CONFIG``: 38 Mamba2 layers of 64 heads, d_state
+   64, one shared attention + GELU-MLP block after every 6th, so 6 groups
+   and a tail of 2) serving R1: 38 ssd_scan and 6 flash_attention launches
+   per prefill, 51 rmsnorm per forward step; the same logit yardstick;
+10. profile (Mamba2-2.7B) — where one R1 prefill's and one decode step's
+   device time goes.
 
 It then prints the kernels' JSON line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -72,13 +90,16 @@ PEAK_BF16_FLOP_S = 989e12
 #: the TPU kernel each CUDA kernel replaces
 REPLACES = {"masked_matmul": "src/repro/kernels/masked_matmul/kernel.py:26",
             "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:20",
-            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:38"}
+            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:38",
+            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:36"}
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 #: bf16 keeps 8 significant bits: two roundings of nearby fp32 values to
 #: bf16 differ by at most their gap plus 2**-7 of the value
 BF16_SPACING = 2.0 ** -7
 #: the transformer requests: (label, batch, prompt length); 16 decode steps
 TRANSFORMER_REQUESTS = (("R1", 1, 2048), ("R2", 2, 1000))
+#: float32 eps
+EPS32 = 2.0 ** -23
 DECODE_STEPS = 16
 
 
@@ -345,6 +366,131 @@ def check_flash(cases):
     return rows
 
 
+def ssd_inputs(B: int, S: int, H: int, G: int, P: int, N: int, dtype: str,
+               gen):
+    """The scan's inputs as the Mamba2 block hands them in: x, B and C as
+    slices of one (B, S, H*P + 2*G*N) conv output in ``dtype``; dt =
+    softplus(u + dt_bias) in float32 with u normal and dt_bias the inverse
+    softplus of a log-uniform dt in [1e-3, 1e-1] per head; A = -linspace(1,
+    16, H), the reference's init, so that the fast heads decay by up to
+    e^-16 a step and exp above the decay matrix's diagonal overflows."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    dt_ = getattr(torch, dtype)
+    xBC = torch.randn(B, S, H * P + 2 * G * N, device="cuda",
+                      generator=gen).to(dt_)
+    xh = xBC[..., :H * P].reshape(B, S, H, P)
+    Bm = xBC[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xBC[..., H * P + G * N:].reshape(B, S, G, N)
+    u = torch.rand(H, device="cuda", generator=gen)
+    d0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    bias = d0 + torch.log(-torch.expm1(-d0))
+    dt = F.softplus(torch.randn(B, S, H, device="cuda", generator=gen)
+                    + bias)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    return xh, dt, A, Bm, Cm
+
+
+def ssd_tolerance(xh, dt, A, Bm, Cm, chunk: int):
+    """Elementwise bounds (on y, on the final state) between two float32
+    evaluations of the chunked SSD scan that sum in other orders or walk
+    other chunk lengths up to ``chunk`` (the kernel 64, the plain version
+    256). Every output is a sum of products of x, B, C, step sizes and
+    decay factors in [0, 1]; the plain version on |x|, |B|, |C| gives the
+    sum of their magnitudes, M. A float32 dot product of length n errs by at
+    most n·eps/2·M: the lengths are N (C·B), the chunk (W·x and the chunk's
+    state) and the number of chunks (the carried state); the decay
+    exponents are differences of within-chunk cumulative sums, rounded by
+    eps·|cs| at most, which is the relative error of their exp: so
+    (N + chunk + n_chunks + 2·max|cs|)·eps·M."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    S, N = xh.shape[1], Bm.shape[3]
+    Q = max(1, min(chunk, S))
+    mag_y, mag_s = ssd_chunked(xh.float().abs(), dt, A, Bm.float().abs(),
+                               Cm.float().abs(), Q)
+    nc = -(-S // Q)
+    da = F.pad(dt * A.abs(), (0, 0, 0, nc * Q - S))
+    cs_max = float(da.reshape(da.shape[0], nc, Q, -1).sum(2).max())
+    k = (N + Q + nc + 2 * cs_max) * EPS32
+    return k * mag_y, k * mag_s
+
+
+def ssd_bound(row, B, S, H, G, P, N, itemsize, kept_heads, chunk=256):
+    """Bytes: x, B, C, dt, A and the head mask read once, y and the float32
+    state written once. Operations, at the reference's chunk: per chunk of
+    q steps, the causal half of C·B^T (q(q+1)/2·N multiply-adds) and of W·x
+    (q(q+1)/2·P), C·state^T and the state update (q·P·N each) for a kept
+    head; only the state update for a pruned one (its y is zeros, its state
+    is still written). At the peak of the inputs' type."""
+    nbytes = (itemsize * (2 * B * S * H * P + 2 * B * S * G * N)
+              + 4 * (B * S * H + 2 * H + B * H * P * N))
+    mac_kept = mac_pruned = 0
+    for s0 in range(0, S, chunk):
+        q = min(chunk, S - s0)
+        mac_kept += q * (q + 1) // 2 * (N + P) + 2 * q * P * N
+        mac_pruned += q * P * N
+    flops = 2 * B * (kept_heads * mac_kept + (H - kept_heads) * mac_pruned)
+    return set_bound(row, nbytes, flops, PEAK_FP32_FLOP_S if itemsize == 4
+                     else PEAK_BF16_FLOP_S)
+
+
+def check_ssd(cases):
+    """Phase 3: the SSD scan kernel against its plain version at each (name,
+    B, S, H, G, P, N, dtype, mask), mask one of "half" (a random half of the
+    heads pruned, as the main path's ratio-0.5 masks), "none", "zeros"
+    (every head pruned): y and the final state, pruned heads' y exact
+    zeros. No PyTorch call computes the SSD scan, so ``library_ms`` is
+    null."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = []
+    with exact_fp32():
+        for name, B, S, H, G, P, N, dtype, kind in cases:
+            xh, dt, A, Bm, Cm = ssd_inputs(B, S, H, G, P, N, dtype, gen)
+            hm = {"half": (torch.randperm(H, device="cuda", generator=gen)
+                           < H // 2).float(),
+                  "none": torch.ones(H, device="cuda"),
+                  "zeros": torch.zeros(H, device="cuda")}[kind]
+            got_y, got_s = ssd_scan(xh, dt, A, Bm, Cm, hm, 256)
+            torch.cuda.synchronize()
+            want_y, want_s = ssd_chunked(xh, dt, A, Bm, Cm, min(256, S))
+            want_y = want_y * hm[None, None, :, None]
+            tol_y, tol_s = ssd_tolerance(xh, dt, A, Bm, Cm, 256)
+            tol_y = tol_y * hm[None, None, :, None]
+            if dtype == "bfloat16":
+                tol_y = tol_y + BF16_SPACING * (want_y.abs() + tol_y)
+            err_y = (got_y.float() - want_y).abs()
+            err_s = (got_s - want_s).abs()
+            pruned_exact = bool((got_y[:, :, hm == 0] == 0).all())
+            ok = (bool((err_y <= tol_y).all()) and bool((err_s <= tol_s).all())
+                  and pruned_exact and got_y.dtype == xh.dtype
+                  and bool(torch.isfinite(got_y).all()))
+            over = max(float((err_y / tol_y.clamp_min(1e-30)).max()),
+                       float((err_s / tol_s.clamp_min(1e-30)).max()))
+            row = {"case": name, "dtype": dtype, "B": B, "S": S, "H": H,
+                   "G": G, "P": P, "N": N, "mask": kind,
+                   "kept_heads": int(hm.sum()),
+                   "max_abs_err": max(float(err_y.max()), float(err_s.max())),
+                   "max_abs_err_state": float(err_s.max()),
+                   "max_err_over_tol": over,
+                   "pruned_exact_zero": pruned_exact, "ok": ok,
+                   "ms": time_ms(lambda: ssd_scan(xh, dt, A, Bm, Cm, hm,
+                                                  256)),
+                   "plain_ms": time_ms(lambda: ssd_scan_ref(
+                       xh, dt, A, Bm, Cm, hm, 256)),
+                   "library_ms": None}
+            ssd_bound(row, B, S, H, G, P, N, xh.element_size(),
+                      row["kept_heads"])
+            rows.append(check_row("ssd_scan", row, ok))
+            del xh, dt, Bm, Cm, got_y, got_s, want_y, want_s, tol_y, tol_s
+    return rows
+
+
 def half_masks(cfg, params, rng):
     """Keep a random half of each prunable layer's channels."""
     import numpy as np
@@ -459,11 +605,22 @@ def edge_gemm_count(plan) -> int:
                if s.kind in ("conv", "dense"))
 
 
+#: device kernels grouped by a substring of their name: the port's own
+#: kernels, cuBLAS's products, PyTorch's elementwise and reduction kernels
+KINDS = (("masked_matmul", "masked_matmul_kernel"), ("rmsnorm", "rmsnorm_kernel"),
+         ("flash_attention", "flash_kernel"), ("ssd_scan", "ssd_kernel"),
+         ("cublas", "nvjet"), ("cublas", "gemm"), ("cublas", "gemv"),
+         ("elementwise", "elementwise"), ("reduce", "reduce"),
+         ("copy", "Memcpy"), ("copy", "copy"), ("cat", "Cat"))
+
+
 def device_profile(fn):
     """Device time by kernel for one call of ``fn`` (which ends in a
     synchronize), against that call's unprofiled host wall-clock, after a
     warm-up call; the first profiler pass, which pays the tracer's
-    start-up, is discarded."""
+    start-up, is discarded. ``by_kind`` sums the device time over the
+    groups of ``KINDS`` (the first whose substring the name holds; "other"
+    for the rest)."""
     import torch
     fn()
     t0 = time.perf_counter()
@@ -479,8 +636,13 @@ def device_profile(fn):
               and e.device_time_total > 0]
     device_ms = sum(e.device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.device_time_total)[:8]
+    by_kind = {}
+    for e in events:
+        kind = next((k for k, sub in KINDS if sub in e.key), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total / 1e3
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
+            "by_kind": by_kind,
             "top": [{"name": e.key[:60], "count": e.count,
                      "device_ms": e.device_time_total / 1e3} for e in top]}
 
@@ -497,33 +659,65 @@ def profile_request(plan, image):
 # ---------------------------------------------------------------------------
 # phases 6-7: the pruned Qwen2-7B served by prefill and greedy decode
 # ---------------------------------------------------------------------------
-def qwen_setup(seed: int):
-    """Full-width Qwen2-7B on the card: random bf16 weights from a seeded
-    CUDA generator (``init_params`` draws one tensor at a time), random
-    QKV biases and norm scales near 1 (the reference initialises them to 0
-    and 1, which would leave the bias and scale paths untested), and masks
-    from ``transformer_masks_from_ratios`` at ratio 0.5 on every unit: half
-    the KV groups, half the FFN channels of every layer."""
+def model_setup(cfg, seed: int):
+    """``cfg`` at full width on the card: random weights from a seeded CUDA
+    generator in the reference's distributions (``init_params`` draws one
+    tensor at a time), then random norm scales near 1, QKV and conv biases
+    and SSD skip weights ``D`` (the reference initialises them to ones and
+    zeros, which would leave the scale, bias and skip paths untested), and
+    masks from ``transformer_masks_from_ratios`` at ratio 0.5 on every unit:
+    half the KV groups and FFN channels of every attention layer, half the
+    SSD heads of every Mamba2 layer."""
     import torch
-    from repro_torch.configs.qwen2_7b import CONFIG
     from repro_torch.core.pruning.masks import (transformer_masks_from_ratios,
                                                 transformer_prunable_units)
     from repro_torch.models import transformer as tr
-    params = tr.init_params(CONFIG, seed)
+    params = tr.init_params(cfg, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
 
     def fill(t, mean, std):
         t.copy_(mean + std * torch.randn(t.shape, device="cuda",
                                          generator=gen))
     for rp in params["runs"]:
-        for name in ("bq", "bk", "bv"):
-            fill(rp["attn"][name], 0.0, 0.1)
-        fill(rp["ln1"], 1.0, 0.1)
-        fill(rp["ln2"], 1.0, 0.1)
+        if "attn" in rp:
+            for name in ("bq", "bk", "bv"):
+                fill(rp["attn"][name], 0.0, 0.1)
+            fill(rp["ln1"], 1.0, 0.1)
+            fill(rp["ln2"], 1.0, 0.1)
+        else:
+            fill(rp["ln1"], 1.0, 0.1)
+            fill(rp["ssm"]["norm_scale"], 1.0, 0.1)
+            fill(rp["ssm"]["conv_b"], 0.0, 0.1)
+            fill(rp["ssm"]["D"], 1.0, 0.1)
+    if "shared" in params:
+        fill(params["shared"]["ln1"], 1.0, 0.1)
+        fill(params["shared"]["ln2"], 1.0, 0.1)
     fill(params["final_norm"], 1.0, 0.1)
-    n = len(transformer_prunable_units(CONFIG))
-    masks = transformer_masks_from_ratios(params, CONFIG, [0.5] * n)
-    return CONFIG, params, masks
+    n = len(transformer_prunable_units(cfg))
+    masks = transformer_masks_from_ratios(params, cfg, [0.5] * n)
+    return params, masks
+
+
+def describe(cfg, params, masks) -> None:
+    """The ``slice`` line naming the model being served."""
+    from repro_torch.models.transformer import param_count
+    row = {"model": cfg.name, "arch_type": cfg.arch_type,
+           "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab_size": cfg.vocab_size, "dtype": cfg.dtype,
+           "params": param_count(params)}
+    if cfg.ssm is not None:
+        row.update(ssm_heads=cfg.ssm_heads, ssm_head_dim=cfg.ssm.head_dim,
+                   d_state=cfg.ssm.d_state, chunk_size=cfg.ssm.chunk_size,
+                   kept_ssm_heads_per_layer=float(
+                       masks[0]["ssm_head_mask"].sum(1)[0]))
+    if cfg.num_heads:
+        row.update(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                   head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+                   shared_attn_period=cfg.shared_attn_period)
+    if masks[0] is not None and "head_mask" in masks[0]:
+        row.update(kept_heads_per_layer=float(masks[0]["head_mask"].sum(1)[0]),
+                   kept_ffn_per_layer=float(masks[0]["ffn_mask"].sum(1)[0]))
+    print("slice " + json.dumps(row), flush=True)
 
 
 def serve_tokens(cfg, params, masks, tokens, plain: bool = False,
@@ -574,31 +768,43 @@ def transformer_wrappers():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     return {"rmsnorm": rmsnorm, "masked_matmul": masked_matmul,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
-def transformer_slice(cfg, params, masks):
-    """Phase 6: both requests through the kernel path with the launch
-    counters zeroed just before and read just after each; the same
-    requests through the plain versions in bf16 and in fp32, teacher-forced
-    with the kernel path's tokens; every logit row held to the tolerance.
-    Returns the per-request rows and the launch totals."""
+def expected_launches(cfg):
+    """Kernel launches of one request (a prefill and DECODE_STEPS decode
+    steps) of ``cfg``'s pruned stack: an attention layer has two pre-norms,
+    the masked FFN's up and gate products and (prefill only) one attention;
+    a Mamba2 layer one pre-norm and (prefill only) one scan; each invocation
+    of a hybrid's shared block two norms and (prefill only) one attention,
+    its MLP unmasked; the final norm once a step."""
+    from repro_torch.models.transformer import hybrid_split, layer_runs
+    steps = 1 + DECODE_STEPS
+    attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
+    ssm = cfg.num_layers - attn
+    shared = (hybrid_split(cfg, ssm)[0] if cfg.shared_attn_period else 0)
+    return {"rmsnorm": (2 * attn + ssm + 2 * shared + 1) * steps,
+            "masked_matmul": 2 * attn * steps,
+            "flash_attention": attn + shared, "ssd_scan": ssm}
+
+
+def transformer_slice(cfg, params, masks, requests):
+    """Phases 6, 8, 9: each request (label, B, S) through the kernel path
+    with the launch counters zeroed just before and read just after; the
+    same requests through the plain versions in bf16 and in fp32, teacher-
+    forced with the kernel path's tokens; every logit row held to the
+    tolerance. Returns the per-request rows and the launch totals."""
     import numpy as np
     import torch
     from repro_torch.device import exact_fp32
     from repro_torch.models import transformer as tr
     wrappers = transformer_wrappers()
-    L = cfg.num_layers
-    # per forward step: two pre-norms a layer and the final norm; the up
-    # and gate products of each layer's masked FFN; per prefill: one
-    # attention a layer
-    per_request = {"rmsnorm": (2 * L + 1) * (1 + DECODE_STEPS),
-                   "masked_matmul": 2 * L * (1 + DECODE_STEPS),
-                   "flash_attention": L}
+    per_request = expected_launches(cfg)
     rng = np.random.default_rng(SEED)
     requests = [(label, rng.integers(0, cfg.vocab_size, (B, S)))
-                for label, B, S in TRANSFORMER_REQUESTS]
+                for label, B, S in requests]
     kern, totals = {}, dict.fromkeys(wrappers, 0)
     for label, tok in requests:
         for w in wrappers.values():
@@ -606,8 +812,8 @@ def transformer_slice(cfg, params, masks):
         kern[label] = serve_tokens(cfg, params, masks, tok)
         counts = {name: w.launches for name, w in wrappers.items()}
         if counts != per_request:
-            raise AssertionError(f"{label}: launches {counts}, expected "
-                                 f"{per_request}")
+            raise AssertionError(f"{cfg.name} {label}: launches {counts}, "
+                                 f"expected {per_request}")
         kern[label]["launches"] = counts
         for name in totals:
             totals[name] += counts[name]
@@ -629,7 +835,7 @@ def transformer_slice(cfg, params, masks):
         worst, gaps_k, gaps_p, gaps_kp = 0.0, [], [], []
         for g, p, f in zip(kern[label]["logits"], plain[label]["logits"],
                            fp32[label]["logits"]):
-            if g.shape != (B, cfg.vocab_size) or not bool(
+            if g.shape != (B, cfg.padded_vocab) or not bool(
                     torch.isfinite(g).all()):
                 raise AssertionError(f"{label}: bad logits {tuple(g.shape)}")
             gap_k = float((g - f).abs().max())
@@ -643,7 +849,7 @@ def transformer_slice(cfg, params, masks):
             gaps_p.append(gap_p)
             gaps_kp.append(float((g - p).abs().max()))
         med = statistics.median(kern[label]["decode_ms"])
-        row = {"request": label, "batch": B, "prompt": S,
+        row = {"model": cfg.name, "request": label, "batch": B, "prompt": S,
                "decode_steps": DECODE_STEPS,
                "prefill_ms": kern[label]["prefill_ms"],
                "prefill_tokens_per_s": B * S / kern[label]["prefill_ms"] * 1e3,
@@ -661,15 +867,15 @@ def transformer_slice(cfg, params, masks):
                "tokens": kern[label]["tokens"].tolist()}
         print("slice " + json.dumps(row), flush=True)
         if worst > 1.0:
-            raise AssertionError(f"{label}: kernel-path logits off by "
-                                 f"{worst} of the tolerance")
+            raise AssertionError(f"{cfg.name} {label}: kernel-path logits "
+                                 f"off by {worst} of the tolerance")
         rows.append(row)
     return rows, totals
 
 
 def profile_transformer(cfg, params, masks):
-    """Phase 7: device time of one R1 prefill and one decode step of the
-    kernel path, against their unprofiled wall-clock."""
+    """Phases 7 and 10: device time of one R1 prefill and one decode step of
+    the kernel path, against their unprofiled wall-clock."""
     import numpy as np
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -698,10 +904,12 @@ def kernel_entry(name, rows, main_rows, scale: int, launches: int,
     """One kernel of the JSON line: times and bound summed over
     ``main_rows`` and multiplied by ``scale`` (how often one main-path
     request or prefill launches that shape), the worst error over all its
-    checked ``rows``."""
+    checked ``rows``; ``library_ms`` null where no PyTorch call computes
+    the function."""
     total = {k: scale * sum(r[k] for r in main_rows)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                       "bytes_ms", "ops_ms")}
+             for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    library = (None if any(r["library_ms"] is None for r in main_rows)
+               else scale * sum(r["library_ms"] for r in main_rows))
     base = name.removesuffix("_bf16")
     return {"name": name, "route": "cuda", "source": SOURCES[base],
             "replaces": REPLACES[base], **extra, "launches": launches,
@@ -710,7 +918,7 @@ def kernel_entry(name, rows, main_rows, scale: int, launches: int,
             "bound_ms": total["bound_ms"],
             "bound_by": ("bytes" if total["bytes_ms"] > total["ops_ms"]
                          else "operations"),
-            "library_ms": total["library_ms"]}
+            "library_ms": library}
 
 
 def main() -> int:
@@ -770,7 +978,13 @@ def main() -> int:
          for off in (0.0, 1.0)]
         + [("decode rows 1 bfloat16 +0", 1, d, "bfloat16", 0.0),
            ("decode rows 2 bfloat16 +0", 2, d, "bfloat16", 0.0),
-           ("ragged", 3, 77, "bfloat16", 1.0)])
+           ("ragged", 3, 77, "bfloat16", 1.0)]
+        # Mamba2-2.7B (d_model 2560) and Zamba2-1.2B (2048): prefill and
+        # decode rows of R1 and R2
+        + [(f"{name} {r} rows bfloat16 +0", r, w, "bfloat16", 0.0)
+           for name, w, rs in (("mamba2", 2560, (2048, 2000, 1, 2)),
+                               ("zamba2", 2048, (2048, 1)))
+           for r in rs])
     flash_rows = check_flash(
         [("prefill R1", 1, 2048, 28, 4, 128, True, None, "bfloat16"),
          ("prefill R2", 2, 1000, 28, 4, 128, True, None, "bfloat16"),
@@ -779,7 +993,20 @@ def main() -> int:
          ("window noncausal", 1, 300, 28, 4, 128, False, 40, "bfloat16"),
          ("fp32", 1, 512, 28, 4, 128, True, None, "float32"),
          ("head dim 64", 2, 300, 8, 2, 64, True, None, "bfloat16"),
-         ("ragged 77", 1, 77, 28, 4, 128, True, None, "bfloat16")])
+         ("ragged 77", 1, 77, 28, 4, 128, True, None, "bfloat16"),
+         ("zamba2 shared R1", 1, 2048, 32, 32, 64, True, None, "bfloat16")])
+    # Mamba2-2.7B: 80 heads of 64, d_state 128; Zamba2-1.2B: 64 heads of
+    # 64, d_state 64; one B/C group each
+    ssd_rows = check_ssd(
+        [("mamba2 R1", 1, 2048, 80, 1, 64, 128, "bfloat16", "half"),
+         ("mamba2 R2", 2, 1000, 80, 1, 64, 128, "bfloat16", "half"),
+         ("zamba2 R1", 1, 2048, 64, 1, 64, 64, "bfloat16", "half"),
+         ("groups 2", 1, 512, 8, 2, 64, 128, "bfloat16", "none"),
+         ("short 77", 1, 77, 80, 1, 64, 128, "bfloat16", "half"),
+         ("s1", 2, 1, 80, 1, 64, 128, "bfloat16", "half"),
+         ("all pruned", 1, 300, 16, 1, 64, 64, "bfloat16", "zeros"),
+         ("fp32", 1, 1000, 16, 1, 64, 128, "float32", "half"),
+         ("fp32 d_state 64", 2, 300, 8, 2, 64, 64, "float32", "none")])
     if kernels_only:
         print(smi, flush=True)
         return 0
@@ -808,28 +1035,45 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. the pruned Qwen2-7B at full width, served by prefill and decode
-    qcfg, qparams, qmasks = qwen_setup(SEED)
-    from repro_torch.models.transformer import param_count
-    print("slice " + json.dumps({
-        "model": qcfg.name, "num_layers": qcfg.num_layers,
-        "d_model": qcfg.d_model, "num_heads": qcfg.num_heads,
-        "num_kv_heads": qcfg.num_kv_heads, "head_dim": qcfg.head_dim,
-        "d_ff": qcfg.d_ff, "vocab_size": qcfg.vocab_size,
-        "dtype": qcfg.dtype, "params": param_count(qparams),
-        "kept_heads_per_layer": float(qmasks[0]["head_mask"].sum(1)[0]),
-        "kept_ffn_per_layer": float(qmasks[0]["ffn_mask"].sum(1)[0])}),
-        flush=True)
-    _, totals = transformer_slice(qcfg, qparams, qmasks)
+    from repro_torch.configs import (mamba2_2p7b, qwen2_7b, zamba2_1p2b)
+    qcfg = qwen2_7b.CONFIG
+    qparams, qmasks = model_setup(qcfg, SEED)
+    describe(qcfg, qparams, qmasks)
+    _, totals = transformer_slice(qcfg, qparams, qmasks, TRANSFORMER_REQUESTS)
 
     # 7. where one R1 prefill's and one decode step's device time goes
     profile_transformer(qcfg, qparams, qmasks)
     del qparams
     torch.cuda.empty_cache()
 
+    # 8. the pruned Mamba2-2.7B at full width and depth
+    mcfg = mamba2_2p7b.CONFIG
+    mparams, mmasks = model_setup(mcfg, SEED)
+    describe(mcfg, mparams, mmasks)
+    _, mtotals = transformer_slice(mcfg, mparams, mmasks,
+                                   TRANSFORMER_REQUESTS)
+
+    # 9. the pruned Zamba2-1.2B (hybrid) at full width and depth
+    zcfg = zamba2_1p2b.CONFIG
+    zparams, zmasks = model_setup(zcfg, SEED)
+    describe(zcfg, zparams, zmasks)
+    _, ztotals = transformer_slice(zcfg, zparams, zmasks,
+                                   TRANSFORMER_REQUESTS[:1])
+    del zparams
+    torch.cuda.empty_cache()
+
+    # 10. where one Mamba2 R1 prefill's and one decode step's time goes
+    profile_transformer(mcfg, mparams, mmasks)
+    del mparams
+    torch.cuda.empty_cache()
+    for name in totals:
+        totals[name] += mtotals[name] + ztotals[name]
+
     # times of the kernel line: masked_matmul (fp32) summed over the GEMMs
     # of one c=N request of the compacted AlexNet plan (each conv and dense
-    # layer once); the transformer's kernels over one R1 prefill (56 FFN
-    # products, 57 norms, 28 attentions at the prefill's shapes)
+    # layer once); the other kernels over one R1 prefill of the model that
+    # launches them most (Qwen2-7B: 56 FFN products, 57 norms, 28
+    # attentions; Mamba2-2.7B: 64 scans) at the prefill's shapes
     L = qcfg.num_layers
 
     def case(rs, name):
@@ -846,7 +1090,9 @@ def main() -> int:
                      totals["rmsnorm"]),
         kernel_entry("flash_attention", flash_rows,
                      case(flash_rows, "prefill R1"), L,
-                     totals["flash_attention"])]
+                     totals["flash_attention"]),
+        kernel_entry("ssd_scan", ssd_rows, case(ssd_rows, "mamba2 R1"),
+                     mcfg.num_layers, totals["ssd_scan"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 Each module in this package exports CONFIG (exact published shape, citation
 in brackets) and smoke_config() (reduced same-family variant). It holds the
-dense families the port serves, plus one MoE and one SSM config whose
-blocks come with later slices (the stack refuses them); the other families
-of the JAX package come with the slice that runs them.
+families the port serves (dense, Mamba2 SSM and the Zamba2 hybrid), plus
+one MoE config whose blocks come with a later slice (the stack refuses
+it); the other families of the JAX package come with the slice that runs
+them.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ ARCH_IDS = [
     "qwen1.5-4b",
     "qwen2-7b",
     "nemotron-4-340b",
+    "zamba2-1.2b",
     "mixtral-8x7b",
 ]
 
@@ -28,6 +30,7 @@ _MODULES = {
     "qwen1.5-4b": "qwen1p5_4b",
     "qwen2-7b": "qwen2_7b",
     "nemotron-4-340b": "nemotron4_340b",
+    "zamba2-1.2b": "zamba2_1p2b",
     "mixtral-8x7b": "mixtral_8x7b",
 }
 

@@ -2,10 +2,11 @@
 
 The paper prunes conv channels of AlexNet. The reference generalizes the
 action "keep fraction a of layer i's structured units" to every family;
-the port has the CNN case and the dense transformer's axes:
+the port has the CNN case, the dense transformer's axes and the SSD heads:
 
   CNN         conv out-channels / dense units        (the paper's case)
   dense attn  attention heads (whole GQA groups) + FFN inner channels
+  SSD         ssm heads
 
 Importance ranking is L1 weight magnitude (as in AMC): the kept units are
 the top-a fraction by importance, emitted as 0/1 float32 masks. The
@@ -73,6 +74,11 @@ def transformer_prunable_units(cfg: ModelConfig) -> List[Dict]:
     for r_idx, run in enumerate(layer_runs(cfg)):
         for j in range(run.count):
             layer = run.start + j
+            if run.kind == "ssm":
+                units.append(dict(run=r_idx, layer_in_run=j, layer=layer,
+                                  axis="ssm_head_mask",
+                                  n_units=cfg.ssm_heads))
+                continue
             units.append(dict(run=r_idx, layer_in_run=j, layer=layer,
                               axis="head_mask", n_units=cfg.num_heads))
             units.append(dict(run=r_idx, layer_in_run=j, layer=layer,
@@ -89,6 +95,9 @@ def _axis_importance(params, cfg: ModelConfig, unit: Dict) -> np.ndarray:
         return _l1(w.reshape(cfg.num_heads, -1), 1)
     if axis == "ffn_mask":
         return _l1(rp["mlp"]["w_down"][j], 1)         # (dff, d)
+    if axis == "ssm_head_mask":
+        w = rp["ssm"]["w_out"][j]                     # (d_in, d)
+        return _l1(w.reshape(cfg.ssm_heads, cfg.ssm.head_dim, -1), (1, 2))
     raise ValueError(axis)
 
 

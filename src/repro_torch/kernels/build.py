@@ -31,7 +31,7 @@ BUILD_DIR = PKG_DIR.parents[1] / "build" / "kernels"
 #: and spills per kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("masked_matmul", "rmsnorm", "flash_attention")
+KERNELS = ("masked_matmul", "rmsnorm", "flash_attention", "ssd_scan")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

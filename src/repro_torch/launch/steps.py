@@ -36,7 +36,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
 def make_decode_step(cfg: ModelConfig, masks=None,
                      device: DeviceLike = None):
     """-> ``decode_step(params, cache, tokens (B,1)) -> (logits (B,V),
-    cache)``; the cache's KV tensors are updated in place."""
+    cache)``; the cache's tensors (KV slots, SSD states and conv windows)
+    are updated in place."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
 

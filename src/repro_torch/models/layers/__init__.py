@@ -1,2 +1,3 @@
-"""Transformer layers: norms, rotary embeddings, GQA attention and the
-feed-forward block (the reference's ``models/layers``, dense half)."""
+"""Transformer layers: norms, rotary embeddings, GQA attention, the
+feed-forward block and the Mamba2 (SSD) block (the reference's
+``models/layers``, without MoE and MLA)."""

@@ -1,13 +1,18 @@
-"""Decoder stack of the dense transformer families (gemma, qwen, nemotron):
-pre-norm GQA attention + (gated / non-gated) FFN, layer after layer.
+"""Decoder stack of the transformer families the port serves:
+
+  dense   — pre-norm GQA + (gated / non-gated) FFN      [gemma, qwen, nemotron]
+  ssm     — Mamba2 (SSD) blocks, attention-free         [mamba2]
+  hybrid  — Mamba2 backbone + one SHARED attention block
+            applied every ``shared_attn_period`` layers  [zamba2]
 
 The reference (``models/transformer.py``) groups layers into homogeneous
 *runs* and scans each run with ``lax.scan`` over stacked per-layer
 weights; the port keeps the same stacked parameter layout (so trees cross
 between the packages unchanged) and walks each run with a Python loop over
-views of its stacked tensors. Only ``attn`` runs are ported so far: MoE,
-SSM, hybrid, MLA, audio and VLM configs raise ``NotImplementedError``
-naming the slice that brings them.
+views of its stacked tensors. A hybrid run walks groups of ``period`` ssm
+layers, each followed by the shared block, then the ungrouped tail. MoE,
+MLA, audio, VLM and MTP configs raise ``NotImplementedError`` naming the
+slice that brings them.
 
 Three entry points, cache-consistent with each other:
   forward      — full sequence, logits for every position
@@ -15,14 +20,15 @@ Three entry points, cache-consistent with each other:
   decode_step  — one token per sequence against the cache
 
 Pruning integration: ``masks`` mirrors the runs structure with per-layer
-structured masks — attention ``head_mask`` (num_heads,) and FFN
-``ffn_mask`` (d_ff,), stacked per run as ``(count, n_units)``.
+structured masks — attention ``head_mask`` (num_heads,), FFN ``ffn_mask``
+(d_ff,) and SSD ``ssm_head_mask`` (ssm_heads,), stacked per run as
+``(count, n_units)``. The shared block of a hybrid is not pruned.
 
 ``backend="auto"`` runs every kernel of the path (``rmsnorm``,
-``flash_attention``, ``masked_matmul``) through its wrapper, which
-launches the CUDA kernel for a tensor on the card and the plain version
-for one on the CPU; ``backend="ref"`` runs the plain versions wherever the
-tensors are (the yardstick on the card).
+``flash_attention``, ``masked_matmul``, ``ssd_scan``) through its wrapper,
+which launches the CUDA kernel for a tensor on the card and the plain
+version for one on the CPU; ``backend="ref"`` runs the plain versions
+wherever the tensors are (the yardstick on the card).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers.attention import (KVCache, gqa_decode,
                                                  gqa_forward, init_gqa_params)
+from repro_torch.models.layers import ssm as ssm_lib
 from repro_torch.models.layers.mlp import init_mlp_params, mlp_forward
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rope import positions_for, rope_angles
@@ -63,17 +70,19 @@ def layer_runs(cfg: ModelConfig) -> List[Run]:
     return runs
 
 
+def hybrid_split(cfg: ModelConfig, count: int) -> Tuple[int, int]:
+    """(n_groups, tail) for a hybrid run of ``count`` ssm layers."""
+    period = cfg.shared_attn_period
+    return count // period, count % period
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose blocks the port
     does not have yet, naming the slice that brings them."""
-    if cfg.arch_type in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2/SSD blocks (ssd_scan) come with the "
-            f"Mamba2 slice (port slice 3)")
     if cfg.arch_type == "moe" or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE blocks come with the MoE/MLA slice")
-    if cfg.attention != "gqa":
+    if cfg.attention != "gqa" and cfg.arch_type != "ssm":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.attention!r} attention comes with the "
             f"MoE/MLA slice")
@@ -83,10 +92,10 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.arch_type == "vlm" or cfg.vision_tokens or cfg.rope_mode == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: vision tokens and M-RoPE come with the VLM slice")
-    if cfg.shared_attn_period or cfg.mtp_depth:
+    if cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: shared-attention and MTP blocks are not ported")
-    if cfg.arch_type != "dense":
+            f"{cfg.name}: multi-token-prediction blocks are not ported")
+    if cfg.arch_type not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: arch {cfg.arch_type!r}")
 
 
@@ -118,6 +127,17 @@ def _init_attn_layer(cfg: ModelConfig, gen: torch.Generator,
     }
 
 
+def _init_ssm_layer(cfg: ModelConfig, gen: torch.Generator,
+                    dtype: torch.dtype, device: torch.device):
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "ssm": ssm_lib.init_ssm_params(gen, cfg, dtype, device),
+    }
+
+
+_RUN_INIT = {"attn": _init_attn_layer, "ssm": _init_ssm_layer}
+
+
 def _stack_into(dst, src, i: int, count: int):
     """Write layer ``i``'s tree into the stacked tree ``dst`` (allocated
     from the first layer's shapes); returns ``dst``."""
@@ -137,7 +157,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Random parameters in the reference's tree layout and distributions
     (normal embeddings x 0.02, weights scaled by 1/sqrt(fan_in), unit norm
-    scales, zero QKV biases), drawn from a ``torch.Generator`` seeded with
+    scales, zero QKV biases; the Mamba2 block's own in
+    ``ssm.init_ssm_params``), drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the card unless the caller asks for the CPU).
     Each tensor is drawn in float32 and cast on its own, one layer at a
     time, so no float32 copy of the model is ever held."""
@@ -164,9 +185,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         stacked = None
         for i in range(run.count):
             stacked = _stack_into(stacked,
-                                  _init_attn_layer(cfg, gen, dtype, dev),
+                                  _RUN_INIT[run.kind](cfg, gen, dtype, dev),
                                   i, run.count)
         params["runs"].append(stacked)
+    if cfg.shared_attn_period:
+        params["shared"] = _init_attn_layer(
+            cfg.replace(d_ff=cfg.d_ff or 4 * cfg.d_model), gen, dtype, dev)
     return params
 
 
@@ -240,18 +264,55 @@ def _attn_block(cfg, lp, x, angles, mask, backend):
     return x, kv
 
 
+def _ssm_block(cfg, lp, x, mask, backend, collect_state: bool):
+    head_mask = None if mask is None else mask.get("ssm_head_mask")
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
+    if collect_state:
+        o, st = ssm_lib.ssm_forward(lp["ssm"], cfg, h, head_mask=head_mask,
+                                    return_state=True, backend=backend)
+        return x + o, st
+    return x + ssm_lib.ssm_forward(lp["ssm"], cfg, h, head_mask=head_mask,
+                                   backend=backend), None
+
+
+def _shared_after(cfg: ModelConfig, count: int, j: int) -> Optional[int]:
+    """The shared block's invocation that follows layer ``j`` of an ssm run
+    of ``count`` layers (the last layer of each whole group of
+    ``shared_attn_period``), else None."""
+    period = cfg.shared_attn_period
+    if not period or j >= hybrid_split(cfg, count)[0] * period \
+            or (j + 1) % period:
+        return None
+    return j // period
+
+
 def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
-               backend: str, on_kv=None):
-    """Run every layer over x; ``on_kv(run_index, layer_in_run, k, v)``
-    receives each layer's keys and values (prefill fills its cache)."""
+               backend: str, on_kv=None, on_state=None, on_shared_kv=None):
+    """Run every layer over x. Each callback, when given, receives what
+    prefill keeps: ``on_kv(run, layer_in_run, k, v)`` each attention
+    layer's keys and values, ``on_state(run, layer_in_run, SSMCache)`` each
+    Mamba2 layer's conv tail and final state, ``on_shared_kv(g, k, v)`` the
+    keys and values of the shared block's invocation ``g``."""
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
     for r, (run, rp, rmask) in enumerate(zip(runs, params["runs"], masks)):
         for j in range(run.count):
-            x, (k, v) = _attn_block(cfg, _index(rp, j), x, angles,
-                                    _index(rmask, j), backend)
-            if on_kv is not None:
-                on_kv(r, j, k, v)
+            lp, mk = _index(rp, j), _index(rmask, j)
+            if run.kind != "ssm":
+                x, (k, v) = _attn_block(cfg, lp, x, angles, mk, backend)
+                if on_kv is not None:
+                    on_kv(r, j, k, v)
+                continue
+            x, st = _ssm_block(cfg, lp, x, mk, backend,
+                               collect_state=on_state is not None)
+            if on_state is not None:
+                on_state(r, j, st)
+            g = _shared_after(cfg, run.count, j)
+            if g is not None:      # the shared block: unpruned
+                x, (k, v) = _attn_block(cfg, params["shared"], x, angles,
+                                        None, backend)
+                if on_shared_kv is not None:
+                    on_shared_kv(g, k, v)
     return x
 
 
@@ -281,24 +342,45 @@ def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
-def _zero_caches(cfg: ModelConfig, batch_size: int, clen: int,
-                 device: torch.device) -> List[KVCache]:
+def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
+                 device: torch.device) -> Dict[str, Any]:
+    """{"runs": [KVCache((count, B, clen, Hkv, D) x2) for an attention run,
+    SSMCache(conv (count, B, d_conv-1, conv_dim), state (count, B, H, P, N)
+    float32) for an ssm run]} and, for a hybrid, "shared": KVCache((ninv,
+    B, max_len, Hkv, D) x2), one slot per invocation of the shared block.
+    A hybrid's ssm layers are stacked flat, in layer order (the reference
+    splits them into (groups, period) and a tail)."""
     dtype = getattr(torch, cfg.dtype)
-    return [KVCache(*(torch.zeros(
-        (run.count, batch_size, clen, cfg.num_kv_heads, cfg.head_dim),
-        dtype=dtype, device=device) for _ in range(2)))
-        for run in layer_runs(cfg)]
+    clen = cache_len_for(cfg, max_len)
+
+    def kv(n, length):
+        return KVCache(*(torch.zeros(
+            (n, batch_size, length, cfg.num_kv_heads, cfg.head_dim),
+            dtype=dtype, device=device) for _ in range(2)))
+
+    caches: List[Any] = []
+    for run in layer_runs(cfg):
+        if run.kind == "ssm":
+            base = ssm_lib.init_ssm_cache(cfg, batch_size, dtype, device)
+            caches.append(ssm_lib.SSMCache(*(
+                t.new_zeros((run.count,) + tuple(t.shape)) for t in base)))
+        else:
+            caches.append(kv(run.count, clen))
+    out: Dict[str, Any] = {"runs": caches}
+    if cfg.shared_attn_period:
+        out["shared"] = kv(max(cfg.num_layers // cfg.shared_attn_period, 1),
+                           max_len)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device: DeviceLike = None):
-    """Zero KV caches ``{"runs": [KVCache((count, B, clen, Hkv, D) x2)],
-    "pos": (B,) int32}`` on ``device`` (the card unless asked)."""
+    """Zero caches (``_zero_caches``) and ``"pos": (B,) int32`` on
+    ``device`` (the card unless asked)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return {"runs": _zero_caches(cfg, batch_size,
-                                 cache_len_for(cfg, max_len), dev),
-            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
+    return dict(_zero_caches(cfg, batch_size, max_len, dev),
+                pos=torch.zeros((batch_size,), dtype=torch.int32, device=dev))
 
 
 def _kv_to_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
@@ -326,34 +408,44 @@ def _kv_to_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
             masks: Masks = None, backend: str = "auto"):
     """Returns (last_logits (B,V), cache) — or (all_logits, None) for a
-    bidirectional config (no decode). Each layer's keys and values are
-    written into the cache as the layer finishes."""
+    bidirectional config (no decode). Each layer's keys and values, or its
+    conv tail and SSD state, are written into the cache as the layer
+    finishes."""
     check_supported(cfg)
     _check_backend(backend)
     x, B, S = embed_inputs(params, cfg, batch)
     angles = _angles_for(cfg, B, S, 0, x.device)
     max_len = max_len or S
+    callbacks = {}
     if cfg.causal:
-        clen = cache_len_for(cfg, max_len)
-        if clen < S and cfg.sliding_window is None:
+        has_kv = cfg.shared_attn_period or any(
+            run.kind != "ssm" for run in layer_runs(cfg))
+        if has_kv and max_len < S and cfg.sliding_window is None:
             raise ValueError(
                 f"prefill max_len={max_len} < prefill length {S}")
-        caches = _zero_caches(cfg, B, clen, x.device)
+        caches = _zero_caches(cfg, B, max_len, x.device)
 
         def on_kv(r, j, k, v):
             kc, vc = _kv_to_cache(cfg, k, v, max_len)
-            caches[r].k[j] = kc
-            caches[r].v[j] = vc
-    else:
-        on_kv = None
-    x = _run_stack(params, cfg, x, angles, masks, backend, on_kv)
+            caches["runs"][r].k[j] = kc
+            caches["runs"][r].v[j] = vc
+
+        def on_state(r, j, st):
+            caches["runs"][r].conv[j] = st.conv
+            caches["runs"][r].state[j] = st.state
+
+        def on_shared_kv(g, k, v):
+            caches["shared"].k[g, :, :S] = k
+            caches["shared"].v[g, :, :S] = v
+        callbacks = dict(on_kv=on_kv, on_state=on_state,
+                         on_shared_kv=on_shared_kv)
+    x = _run_stack(params, cfg, x, angles, masks, backend, **callbacks)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
     if not cfg.causal:
         return _lm_logits(params, cfg, x), None
     logits = _lm_logits(params, cfg, x[:, -1])
-    cache = {"runs": caches,
-             "pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}
-    return logits, cache
+    caches["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------
@@ -361,9 +453,10 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
 # ---------------------------------------------------------------------------
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 masks: Masks = None, backend: str = "auto"):
-    """tokens (B,1) -> (logits (B,V), new cache). The KV tensors of
-    ``cache`` are updated in place (``gqa_decode``); the returned cache
-    holds them and the advanced positions."""
+    """tokens (B,1) -> (logits (B,V), new cache). The tensors of ``cache``
+    are updated in place (KV slots by ``gqa_decode``, each Mamba2 layer's
+    conv window and state copied over); the returned cache holds them and
+    the advanced positions."""
     check_supported(cfg)
     _check_backend(backend)
     pos = cache["pos"]
@@ -378,15 +471,37 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                                   masks):
         for j in range(run.count):
             lp, mk = _index(rp, j), _index(rmask, j)
-            hm = None if mk is None else mk.get("head_mask")
-            fm = None if mk is None else mk.get("ffn_mask")
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
-            a, _ = gqa_decode(lp["attn"], cfg, h, angles,
-                              KVCache(rc.k[j], rc.v[j]), pos, head_mask=hm)
-            x = x + a
-            h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
-            x = x + mlp_forward(lp["mlp"], h, cfg.activation, ffn_mask=fm,
-                                backend=backend)
+            if run.kind == "ssm":
+                hm = None if mk is None else mk.get("ssm_head_mask")
+                h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
+                o, nc = ssm_lib.ssm_decode(
+                    lp["ssm"], cfg, h,
+                    ssm_lib.SSMCache(rc.conv[j], rc.state[j]), head_mask=hm)
+                rc.conv[j].copy_(nc.conv)
+                rc.state[j].copy_(nc.state)
+                x = x + o
+                g = _shared_after(cfg, run.count, j)
+                if g is not None:      # the shared block's slot g
+                    shared = cache["shared"]
+                    x = _attn_decode(cfg, params["shared"], x, angles,
+                                     KVCache(shared.k[g], shared.v[g]), pos,
+                                     None, backend)
+                continue
+            x = _attn_decode(cfg, lp, x, angles, KVCache(rc.k[j], rc.v[j]),
+                             pos, mk, backend)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
     logits = _lm_logits(params, cfg, x[:, 0])
     return logits, dict(cache, pos=pos + 1)
+
+
+def _attn_decode(cfg, lp, x, angles, kv: KVCache, pos, mask, backend):
+    """One token through an attention block; its key and value go into
+    slot ``pos`` of ``kv``, in place."""
+    hm = None if mask is None else mask.get("head_mask")
+    fm = None if mask is None else mask.get("ffn_mask")
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
+    a, _ = gqa_decode(lp["attn"], cfg, h, angles, kv, pos, head_mask=hm)
+    x = x + a
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
+    return x + mlp_forward(lp["mlp"], h, cfg.activation, ffn_mask=fm,
+                           backend=backend)

@@ -14,7 +14,8 @@ from repro_torch.kernels import build
 
 WRAPPERS = {"masked_matmul": "repro_torch.kernels.masked_matmul.ops",
             "rmsnorm": "repro_torch.kernels.rmsnorm.ops",
-            "flash_attention": "repro_torch.kernels.flash_attention.ops"}
+            "flash_attention": "repro_torch.kernels.flash_attention.ops",
+            "ssd_scan": "repro_torch.kernels.ssd_scan.ops"}
 
 
 def _c_entries(name):

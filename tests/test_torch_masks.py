@@ -1,6 +1,7 @@
 """The port's structured pruning masks (``repro_torch.core.pruning
 .masks``) against the reference's on the same parameters: the kept units
-must be identical, bit for bit."""
+must be identical, bit for bit — attention heads and FFN channels of the
+dense families, SSD heads of Mamba2 and Zamba2, and the CNN's channels."""
 from __future__ import annotations
 
 import jax
@@ -88,7 +89,39 @@ def test_cnn_masks_from_ratios_identical():
         rmasks.mask_sparsity(mr))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-2.7b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssm_head_masks_from_ratios_identical(arch, dtype):
+    """The SSD head axis: one ``ssm_head_mask`` unit per Mamba2 layer,
+    importance the L1 norm of each head's rows of ``w_out``; the
+    hybrid's shared block has no unit."""
+    cr, ct, pj, pt = _setup(arch, dtype)
+    units = rmasks.transformer_prunable_units(cr)
+    assert tmasks.transformer_prunable_units(ct) == units
+    assert [u["axis"] for u in units] == ["ssm_head_mask"] * ct.num_layers
+    ratios = list(np.random.default_rng(1).uniform(0.1, 1.0, len(units)))
+    mt = tmasks.transformer_masks_from_ratios(pt, ct, ratios)
+    _assert_same_masks(rmasks.transformer_masks_from_ratios(pj, cr, ratios),
+                       mt)
+    assert mt[0]["ssm_head_mask"].shape == (ct.num_layers, ct.ssm_heads)
+
+
+def test_ssm_half_ratio_and_min_keep_match_reference():
+    """The chip run's masks: ratio 0.5 keeps half the SSD heads of every
+    layer; ``min_keep`` floors the count as in the reference."""
+    cr, ct, pj, pt = _setup("mamba2-2.7b", "bfloat16", seed=2)
+    n = len(rmasks.transformer_prunable_units(cr))
+    mt = tmasks.transformer_masks_from_ratios(pt, ct, [0.5] * n)
+    _assert_same_masks(
+        rmasks.transformer_masks_from_ratios(pj, cr, [0.5] * n), mt)
+    assert (mt[0]["ssm_head_mask"].sum(1) == ct.ssm_heads // 2).all()
+    keep = {"ssm_head_mask": 5}
+    _assert_same_masks(
+        rmasks.transformer_masks_from_ratios(pj, cr, [0.0] * n, keep),
+        tmasks.transformer_masks_from_ratios(pt, ct, [0.0] * n, keep))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         tmasks.transformer_prunable_units(treg.get_smoke_config(arch))

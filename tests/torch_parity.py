@@ -81,28 +81,84 @@ def fp32_tol(ref: np.ndarray) -> float:
 
 def transformer_params_np(cfg, seed: int = 0):
     """A parameter tree of numpy arrays in the reference transformer's
-    layout for ``cfg`` (shapes from ``jax.eval_shape`` of its
-    ``init_params``), in ``cfg.dtype``: weights normal / sqrt(fan_in),
+    layout for ``cfg`` (shapes and dtypes from ``jax.eval_shape`` of its
+    ``init_params``: ``cfg.dtype``, except the Mamba2 block's float32
+    ``A_log``, ``dt_bias`` and ``D``): weights normal / sqrt(fan_in),
     embeddings normal x 0.02, and — unlike the reference's zeros and ones —
-    random QKV biases and norm scales near 1, so the bias and scale paths
-    carry real numbers."""
+    random QKV and conv biases, norm scales near 1 and skip weights ``D``
+    near 1, so the bias, scale and skip paths carry real numbers. The SSD
+    decay parameters are drawn in the reference's ranges, per head:
+    ``A_log = log(A)`` with A uniform in [1, 16], ``dt_bias`` the inverse
+    softplus of a log-uniform dt in [1e-3, 1e-1]."""
     import jax
     from repro.models import transformer as rtr
     shapes = jax.eval_shape(lambda: rtr.init_params(cfg, jax.random.PRNGKey(0)))
     rng = np.random.default_rng(seed)
-    dtype = jnp.dtype(cfg.dtype)
 
     def leaf(path, sd):
         name = path[-1].key
         shp = sd.shape
-        if name in ("ln1", "ln2", "final_norm"):
+        if name in ("ln1", "ln2", "final_norm", "norm_scale", "D"):
             a = 1.0 + 0.1 * rng.standard_normal(shp)
-        elif name in ("bq", "bk", "bv"):
+        elif name in ("bq", "bk", "bv", "conv_b"):
             a = 0.1 * rng.standard_normal(shp)
         elif name == "embed":
             a = 0.02 * rng.standard_normal(shp)
+        elif name == "A_log":
+            a = np.log(rng.uniform(1.0, 16.0, shp))
+        elif name == "dt_bias":
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), shp))
+            a = dt + np.log(-np.expm1(-dt))
         else:   # (count, fan_in, fan_out) stacked, or (fan_in, fan_out)
             a = rng.standard_normal(shp) / np.sqrt(shp[-2])
-        return np.asarray(a.astype(np.float32)).astype(dtype)
+        return np.asarray(a.astype(np.float32)).astype(sd.dtype)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def ssd_inputs(B, S, H, G, P, N, dtype="float32", seed=0):
+    """Inputs of the SSD scan as the Mamba2 block gives them, as numpy
+    arrays: x, B and C normal (in ``dtype``); dt = softplus(u + dt_bias)
+    with u normal and dt_bias the inverse softplus of a log-uniform dt in
+    [1e-3, 1e-1] per head; A = -linspace(1, 16, H) (the reference's init),
+    so the fast heads decay by up to e^-16 a step, where ``exp`` above the
+    decay matrix's diagonal overflows."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    d0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), H))
+    bias = d0 + np.log(-np.expm1(-d0))
+    u = rng.standard_normal((B, S, H)) + bias
+    dt = np.logaddexp(u, 0.0).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    Bm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    dt_np = {"float32": np.float32, "bfloat16": jnp.bfloat16}[dtype]
+    return (x.astype(dt_np), dt, A, Bm.astype(dt_np), Cm.astype(dt_np))
+
+
+def ssd_tolerance(xh, dt, A, Bm, Cm, chunk: int):
+    """Elementwise bounds (on y, on the final state) between two float32
+    evaluations of the chunked SSD scan that sum in other orders, or walk
+    other chunk lengths up to ``chunk``.
+
+    Every output is a sum of products of x, B, C, the step sizes and decay
+    factors in [0, 1]; the plain version run on |x|, |B|, |C| gives the sum
+    of those products' magnitudes, M. A dot product of length n in float32
+    errs by at most n·eps/2·M: the lengths here are N (C·B), the chunk Q
+    (W·x and the chunk's state), and the number of chunks (the carried
+    state). The decay exponents are differences of cumulative sums within
+    a chunk, whose rounding is eps·|cs| absolute at most, and a relative
+    error of e^x is the absolute error of x: so 2·max|cs|·eps more. Hence
+    (N + Q + n_chunks + 2·max|cs|)·eps·M."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    t = [torch.from_numpy(np.asarray(a).astype(np.float32))
+         for a in (xh, dt, A, Bm, Cm)]
+    S, N = t[0].shape[1], t[3].shape[3]
+    Q = max(1, min(chunk, S))
+    mag_y, mag_s = ssd_chunked(t[0].abs(), t[1], t[2], t[3].abs(),
+                               t[4].abs(), Q)
+    nc = -(-S // Q)
+    da = torch.nn.functional.pad(t[1] * t[2].abs(), (0, 0, 0, nc * Q - S))
+    cs_max = float(da.reshape(da.shape[0], nc, Q, -1).sum(2).max())
+    k = (N + Q + nc + 2 * cs_max) * EPS32
+    return k * mag_y.numpy(), k * mag_s.numpy()
