@@ -17,7 +17,12 @@ Phases, each printing its own lines:
    every GEMM of full-width AlexNet (uncompacted and with half of every
    prunable layer's channels compacted away); the bf16 ``masked_matmul`` at
    Qwen2-7B's FFN up/gate shapes (M = 2048 and 2000 in prefill, 1 and 2 in
-   decode; K = 3584; N = 18944; half the columns masked); ``rmsnorm`` at
+   decode, and 3, 8, 9, 16, 64; K = 3584; N = 18944; half the columns
+   masked) and at ragged and all-zero-mask shapes, each row naming the
+   entry its route picks (the decode GEMV, the wgmma/TMA tiles, the
+   CUDA-core tiles), then one ``crossover`` line per M of 1, 2, 3, 4, 8, 16, 64
+   timing the GEMV and the tiles on the same operands, and a ``host`` line
+   with one wrapper call's host time; ``rmsnorm`` at
    2048 and 2000 rows of 3584 (R1's and R2's prefill) and 1000, bf16 and
    fp32, offsets 0 and 1, and at 1 and 2 rows (decode); ``flash_attention`` at (B=1,
    S=2048) and (B=2, S=1000) with 28/4 heads of 128, causal, plus windowed,
@@ -42,7 +47,8 @@ Phases, each printing its own lines:
    serving two requests through ``launch.steps.make_prefill_step`` and 16
    greedy ``make_decode_step`` steps each: R1 (B=1, S=2048) and R2 (B=2,
    S=1000). The launch counts must be 57 rmsnorm and 56 masked_matmul per
-   forward step and 28 flash_attention per prefill. The same requests run
+   forward step and 28 flash_attention per prefill, the prefill's products
+   on the wgmma tiles and the decode steps' on the GEMV. The same requests run
    through the plain versions on the card in bf16 and in fp32 (teacher-
    forced with the kernel path's tokens); every logit row of the kernel
    path must lie within twice the bf16 plain run's distance from the fp32
@@ -189,7 +195,7 @@ def check_masked_matmul(cases, dtype: str = "float32"):
     kind) with operands of ``dtype``; returns the per-case rows."""
     import torch
     from repro_torch.device import exact_fp32
-    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.kernels.masked_matmul.ops import _route, masked_matmul
     from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
     eps = torch.finfo(torch.float32).eps
     dt = getattr(torch, dtype)
@@ -226,6 +232,7 @@ def check_masked_matmul(cases, dtype: str = "float32"):
             ok = bool((err <= tol).all()) and pruned_exact
             row = {"case": name, "dtype": dtype, "M": M, "K": K, "N": N,
                    "mask": kind, "kept": int(m.sum()),
+                   "entry": _route(dt, M, K, N),
                    "max_abs_err": float(err.max()),
                    "max_err_over_tol": float((err / tol.clamp_min(1e-30))
                                              .max()),
@@ -237,6 +244,79 @@ def check_masked_matmul(cases, dtype: str = "float32"):
             rows.append(check_row("masked_matmul", row, ok))
             del a, b, got, want, tol, err
     return rows
+
+
+def gemv_tiles_crossover(rows_m, K: int, N: int):
+    """Phase 3: the bf16 product at each M of ``rows_m`` through both
+    Hopper routes, the GEMV and the wgmma tiles, whatever ``_route`` would
+    pick: each held against the plain version with the tolerance of
+    ``check_masked_matmul`` and timed; one ``crossover`` line per M. These
+    launches are for comparison only."""
+    import torch
+    from repro_torch.kernels.masked_matmul import ops
+    from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
+    eps = torch.finfo(torch.float32).eps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    routes = {"gemv": ops._ENTRIES["gemv"], "tiles": ops._ENTRIES["tiles"]}
+    rows = []
+    for M in rows_m:
+        a = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+        b = (torch.randn(K, N, device="cuda", generator=gen)
+             / K ** 0.5).to(torch.bfloat16)
+        m = torch.zeros(N, device="cuda")
+        m[torch.randperm(N, device="cuda", generator=gen)[:N // 2]] = 1
+        want = masked_matmul_ref(a, b, m).float()
+        tol = K * eps * (a.float().abs() @ b.float().abs())
+        tol = tol + BF16_SPACING * (want.abs() + tol)
+        row = {"M": M, "K": K, "N": N, "entry": ops._route(
+            torch.bfloat16, M, K, N)}
+        for label, symbol in routes.items():
+            got = ops._launch(a, b, m, symbol).float()
+            torch.cuda.synchronize()
+            over = float(((got - want).abs() / tol.clamp_min(1e-30)).max())
+            if over > 1.0 or not bool((got[:, m == 0] == 0).all()):
+                raise AssertionError(f"masked_matmul {label} route at M={M}"
+                                     f" disagrees with its plain version "
+                                     f"({over} of the tolerance)")
+            row[f"{label}_ms"] = time_ms(
+                lambda: ops._launch(a, b, m, symbol))
+            row[f"{label}_err_over_tol"] = over
+        row["library_ms"] = time_ms(lambda: torch.matmul(a, b) * m)
+        print("crossover " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def launch_host_us(K: int, N: int, calls: int = 200):
+    """Host time of one wrapper call of the decode GEMV (enqueue only: the
+    card is slower than the host here, so no call waits), and the time of
+    the symbol lookup and ``argtypes`` assignment that ``build.launch``
+    now does once per entry instead of on every call."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.masked_matmul import ops
+    a = torch.randn(1, K, device="cuda").to(torch.bfloat16)
+    b = torch.randn(K, N, device="cuda").to(torch.bfloat16)
+    m = torch.ones(N, device="cuda")
+    ops.masked_matmul(a, b, m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        ops.masked_matmul(a, b, m)
+    call_us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    lib = build.load("masked_matmul")
+    t0 = time.perf_counter()
+    for _ in range(20 * calls):
+        fn = getattr(lib, ops._ENTRIES["gemv"])
+        fn.argtypes = [*ops._ARGTYPES, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lookup_us = 1e6 * (time.perf_counter() - t0) / (20 * calls)
+    row = {"wrapper_call_host_us": call_us,
+           "per_call_lookup_removed_us": lookup_us}
+    print("host " + json.dumps(row), flush=True)
+    return row
 
 
 def check_rmsnorm(cases):
@@ -319,11 +399,14 @@ def check_flash(cases):
             # tolerance: two float32 evaluations of the same softmax-
             # weighted sum (online over tiles against materialised) differ
             # by roundoff in the scores, exponentials and sums, a few eps
-            # of max|v| an output; 64 eps of it leaves a wide margin. A bf16
-            # output adds one bf16 spacing of the value
-            tol = 64 * eps32 * float(v.float().abs().max())
-            tol = torch.full_like(want, tol)
+            # of max|v| an output; 64 eps of it leaves a wide margin. The
+            # bf16 kernel rounds P to bf16 before P V (at most 2**-8 of
+            # each weight, so 2**-8 * max|v| an output, l summed from the
+            # fp32 P), and its output adds one bf16 spacing of the value
+            vmax = float(v.float().abs().max())
+            tol = torch.full_like(want, 64 * eps32 * vmax)
             if dtype == "bfloat16":
+                tol = tol + 2.0 ** -8 * vmax
                 tol = tol + BF16_SPACING * (want.abs() + tol)
             err = (got.float() - want).abs()
             ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
@@ -558,8 +641,14 @@ def serve_path(label, plan, images, edge_gemms):
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     sess = serving.connect(plan, backend="local")        # the card
     masked_matmul.launches = 0
+    masked_matmul.route_launches = dict.fromkeys(
+        masked_matmul.route_launches, 0)
     got = sess.infer_many(images)
     launches = masked_matmul.launches
+    if masked_matmul.route_launches["masked_matmul_f32"] != launches:
+        raise AssertionError(f"{label}: masked_matmul routes "
+                             f"{masked_matmul.route_launches}, expected "
+                             f"every launch on masked_matmul_f32")
     want_launches = edge_gemms * len(images)
     cpu = serving.connect(plan, backend="local", device="cpu")
     want = cpu.infer_many(images)
@@ -607,7 +696,9 @@ def edge_gemm_count(plan) -> int:
 
 #: device kernels grouped by a substring of their name: the port's own
 #: kernels, cuBLAS's products, PyTorch's elementwise and reduction kernels
-KINDS = (("masked_matmul", "masked_matmul_kernel"), ("rmsnorm", "rmsnorm_kernel"),
+KINDS = (("masked_matmul tiles", "masked_matmul_wgmma"),
+         ("masked_matmul gemv", "masked_matmul_gemv"),
+         ("masked_matmul", "masked_matmul_kernel"), ("rmsnorm", "rmsnorm_kernel"),
          ("flash_attention", "flash_kernel"), ("ssd_scan", "ssd_kernel"),
          ("cublas", "nvjet"), ("cublas", "gemm"), ("cublas", "gemv"),
          ("elementwise", "elementwise"), ("reduce", "reduce"),
@@ -779,7 +870,10 @@ def expected_launches(cfg):
     the masked FFN's up and gate products and (prefill only) one attention;
     a Mamba2 layer one pre-norm and (prefill only) one scan; each invocation
     of a hybrid's shared block two norms and (prefill only) one attention,
-    its MLP unmasked; the final norm once a step."""
+    its MLP unmasked; the final norm once a step. The FFN products, by
+    ``masked_matmul`` entry: the prefill's (M = B*S rows) on the wgmma
+    tiles, the decode steps' (M = B) on the GEMV."""
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.models.transformer import hybrid_split, layer_runs
     steps = 1 + DECODE_STEPS
     attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
@@ -787,7 +881,10 @@ def expected_launches(cfg):
     shared = (hybrid_split(cfg, ssm)[0] if cfg.shared_attn_period else 0)
     return {"rmsnorm": (2 * attn + ssm + 2 * shared + 1) * steps,
             "masked_matmul": 2 * attn * steps,
-            "flash_attention": attn + shared, "ssd_scan": ssm}
+            "flash_attention": attn + shared, "ssd_scan": ssm,
+            **dict.fromkeys(masked_matmul.route_launches, 0),
+            "masked_matmul_bf16_tiles": 2 * attn,
+            "masked_matmul_bf16_gemv": 2 * attn * DECODE_STEPS}
 
 
 def transformer_slice(cfg, params, masks, requests):
@@ -801,16 +898,19 @@ def transformer_slice(cfg, params, masks, requests):
     from repro_torch.device import exact_fp32
     from repro_torch.models import transformer as tr
     wrappers = transformer_wrappers()
+    mm = wrappers["masked_matmul"]
     per_request = expected_launches(cfg)
     rng = np.random.default_rng(SEED)
     requests = [(label, rng.integers(0, cfg.vocab_size, (B, S)))
                 for label, B, S in requests]
-    kern, totals = {}, dict.fromkeys(wrappers, 0)
+    kern, totals = {}, dict.fromkeys(per_request, 0)
     for label, tok in requests:
         for w in wrappers.values():
             w.launches = 0
+        mm.route_launches = dict.fromkeys(mm.route_launches, 0)
         kern[label] = serve_tokens(cfg, params, masks, tok)
         counts = {name: w.launches for name, w in wrappers.items()}
+        counts.update(mm.route_launches)
         if counts != per_request:
             raise AssertionError(f"{cfg.name} {label}: launches {counts}, "
                                  f"expected {per_request}")
@@ -910,7 +1010,7 @@ def kernel_entry(name, rows, main_rows, scale: int, launches: int,
              for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     library = (None if any(r["library_ms"] is None for r in main_rows)
                else scale * sum(r["library_ms"] for r in main_rows))
-    base = name.removesuffix("_bf16")
+    base = next(k for k in REPLACES if name.startswith(k))
     return {"name": name, "route": "cuda", "source": SOURCES[base],
             "replaces": REPLACES[base], **extra, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -947,7 +1047,8 @@ def main() -> int:
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "arning")):
                 print(f"build {name}: {line.strip()}", flush=True)
 
     # 3. kernels against their plain versions
@@ -966,12 +1067,23 @@ def main() -> int:
     rows = check_masked_matmul(full + compacted + edge_cases)
     # Qwen2-7B: d_model 3584, d_ff 18944, 28 heads / 4 KV heads of 128
     d, dff = 3584, 18944
+    # every route and its edges: the GEMV at 1 and 2 rows (and with K and N
+    # off its block sizes), the wgmma tiles from 3 rows (3, 8, 9, 16, 64;
+    # R2's ragged 2000, R1's 2048; K, N and M off the tile sizes), the
+    # CUDA-core tiles for K or N not a multiple of 8; all-zero masks
     rows16 = check_masked_matmul(
         [("ffn prefill R1", 2048, d, dff, "half"),
          ("ffn prefill R2", 2000, d, dff, "half"),
          ("ffn decode R1", 1, d, dff, "half"),
-         ("ffn decode R2", 2, d, dff, "half"),
-         ("ragged", 77, 29, 45, "partial")], dtype="bfloat16")
+         ("ffn decode R2", 2, d, dff, "half")]
+        + [(f"ffn M={M}", M, d, dff, "half") for M in (3, 8, 9, 16, 64)]
+        + [("tiles ragged", 200, 3576, 1000, "partial"),
+           ("gemv ragged", 2, 1000, 1000, "partial"),
+           ("all_zero_mask tiles", 256, 512, 1024, "zeros"),
+           ("all_zero_mask gemv", 2, 512, 1024, "zeros"),
+           ("ragged", 77, 29, 45, "partial")], dtype="bfloat16")
+    gemv_tiles_crossover((1, 2, 3, 4, 8, 16, 64), d, dff)
+    launch_host_us(d, dff)
     norm_rows = check_rmsnorm(
         [(f"{r} rows {dt} +{off:g}", r, d, dt, off)
          for r in (2048, 2000, 1000) for dt in ("bfloat16", "float32")
@@ -1071,9 +1183,11 @@ def main() -> int:
 
     # times of the kernel line: masked_matmul (fp32) summed over the GEMMs
     # of one c=N request of the compacted AlexNet plan (each conv and dense
-    # layer once); the other kernels over one R1 prefill of the model that
-    # launches them most (Qwen2-7B: 56 FFN products, 57 norms, 28
-    # attentions; Mamba2-2.7B: 64 scans) at the prefill's shapes
+    # layer once); the bf16 masked_matmul's GEMV over one Qwen2-7B R1
+    # decode step (56 products); the other kernels over one R1 prefill of
+    # the model that launches them most (Qwen2-7B: 56 FFN products on the
+    # wgmma tiles, 57 norms, 28 attentions; Mamba2-2.7B: 64 scans) at the
+    # prefill's shapes
     L = qcfg.num_layers
 
     def case(rs, name):
@@ -1082,9 +1196,16 @@ def main() -> int:
         kernel_entry("masked_matmul", rows,
                      [r for r in rows if r["case"].endswith(" compact")], 1,
                      launches, dtype="float32"),
-        kernel_entry("masked_matmul_bf16", rows16,
+        kernel_entry("masked_matmul_bf16_tiles",
+                     [r for r in rows16
+                      if r["entry"] == "masked_matmul_bf16_tiles"],
                      case(rows16, "ffn prefill R1"), 2 * L,
-                     totals["masked_matmul"], dtype="bfloat16"),
+                     totals["masked_matmul_bf16_tiles"], dtype="bfloat16"),
+        kernel_entry("masked_matmul_bf16_gemv",
+                     [r for r in rows16
+                      if r["entry"] == "masked_matmul_bf16_gemv"],
+                     case(rows16, "ffn decode R1"), 2 * L,
+                     totals["masked_matmul_bf16_gemv"], dtype="bfloat16"),
         kernel_entry("rmsnorm", norm_rows,
                      case(norm_rows, "2048 rows bfloat16 +0"), 2 * L + 1,
                      totals["rmsnorm"]),

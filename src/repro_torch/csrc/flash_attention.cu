@@ -11,36 +11,48 @@
 // the denominator l and the accumulator acc across grid steps in VMEM, on
 // inputs its wrapper had transposed to (B, H, S, D) and padded to 512-blocks.
 // Blocks on this card run in parallel and in no order, so here one block
-// owns a 64-query tile of one (batch, head) pair and walks the KV tiles
-// itself, with m, l and acc in registers: 128 threads, thread (ty, tx) of
-// the 8 x 16 layout owns query rows 8*ty .. 8*ty+7, score columns tx + 16*j
-// of each 32-key tile and output columns tx + 16*j. Row maxima and sums go
-// across the 16 threads of a row group by warp shuffles. The kernel indexes
-// the (B, S, H, D) strides itself, so nothing is transposed or padded:
-// query rows past Sq are neither loaded nor stored, and keys at or past
-// seq_k score NEG_INF with zero values, exactly as the reference's padded
-// keys do.
+// owns a tile of queries of one (batch, head) pair and walks the KV tiles
+// itself, with m, l and acc in registers. The kernels index the (B, S, H, D)
+// strides themselves, so nothing is transposed or padded: query rows past Sq
+// are neither loaded nor stored, and keys at or past seq_k score NEG_INF with
+// zero values, exactly as the reference's padded keys do.
 //
-// Semantics kept from the reference: scores are (q * scale) . k in float32;
-// masked scores are NEG_INF = -2^30, not -inf, so a tile in which a row has
-// no valid key adds exp(0) = 1 per key to l and the row's m stays NEG_INF
-// until a valid key wipes it with alpha = exp(NEG_INF - m) = 0 (no NaN ever
-// appears); a KV tile is skipped when it lies wholly above the causal
-// diagonal or wholly behind every query's window, with the reference's test
-// (kernel.py:53-60) at this kernel's tile sizes; the output is acc / max(l,
-// 1e-37). A row with no valid key at all therefore comes out as the mean of
-// the values of the tiles it walked, which depends on the tile size, as in
-// the reference; self-attention never has such a row.
+// Semantics kept from the reference: masked scores are NEG_INF = -2^30, not
+// -inf, so a tile in which a row has no valid key adds exp(0) = 1 per key to
+// l and the row's m stays NEG_INF until a valid key wipes it with alpha =
+// exp(NEG_INF - m) = 0 (no NaN ever appears); a KV tile is skipped when it
+// lies wholly above the causal diagonal or wholly behind every query's
+// window, with the reference's test (kernel.py:53-60) at each kernel's tile
+// sizes; the output is acc / max(l, 1e-37). A row with no valid key at all
+// therefore comes out as the mean of the values of the tiles it walked,
+// which depends on the tile size, as in the reference; self-attention never
+// has such a row.
 //
 // What bounds it: operations. Causal prefill at S = 2048, H = 28, D = 128 is
 // 2 * S^2 * D * H = 30 GFLOP a layer, 30 us at the bf16 tensor-core rate.
-// This first version computes Q K^T and P V in float32 on the CUDA cores from
-// tiles widened to float32 in shared memory (73 KB a block), as the
-// reference computes them, so it is far from that bound; bf16 mma/wgmma
-// tiles (which round P to bf16 before P V) are later work.
+//
+// flash_attention_bf16 (flash_kernel_mma) is a FlashAttention-2 design on the
+// tensor cores: 64-query blocks of 4 warps, two blocks an SM, 16 query rows a
+// warp, Q's fragments held in registers; 64-key K and V tiles double-buffered in shared
+// memory by cp.async (XOR-swizzled rows, so ldmatrix is free of bank
+// conflicts); S = Q K^T and O += P V by mma.sync m16n8k16 (bf16 in, fp32
+// accumulators); the scale applied to the fp32 scores, as the reference
+// applies it in fp32; the online softmax across each row's quad of lanes by
+// shuffles; P rounded to bf16 in registers to feed P V, while l sums the fp32
+// P. That rounding is the one numeric change from the reference, which keeps
+// P in fp32 (kernel.py:81-87): each P entry moves by at most 2^-8 of itself,
+// so each output by at most 2^-8 * max|v|.
+//
+// flash_attention_f32 (flash_kernel) keeps the reference's fp32 numerics on
+// the CUDA cores: 64-query tiles and 32-key tiles, 128 threads in an 8 x 16
+// layout (thread (ty, tx) owns query rows 8*ty .. 8*ty+7, score columns
+// tx + 16*j and output columns tx + 16*j), q pre-scaled and K, V, P staged in
+// 73 KB of shared memory, row maxima and sums across the 16 threads of a row
+// group by warp shuffles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -53,13 +65,7 @@ constexpr int TR = BQ / (THREADS / RG);   // 8 query rows per thread
 constexpr int TC = BK / RG;               // 2 score columns per thread
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -238,6 +244,306 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 entry: FlashAttention-2 tiles on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+namespace mma_tiles {
+constexpr int WARPS = 4;
+constexpr int BQ = 16 * WARPS;   // query rows a block: 16 a warp
+constexpr int BKV = 64;          // keys a KV tile
+constexpr int THREADS = 32 * WARPS;
+// Q [BQ][D], then K and V [2 buffers][BKV][D], bf16
+template <int D>
+constexpr size_t smem_bytes() {
+  return 2 * (size_t)(BQ * D + 2 * 2 * BKV * D);
+}
+}  // namespace mma_tiles
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// c(16x8, fp32) += a(16x16, bf16, row) * b(16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Offset (in elements) of 16-byte chunk `chunk` of row `row` in a tile of
+// rows of D bf16: the chunk index is XORed with row % 8, so the 8 rows an
+// ldmatrix reads at one column fall on 8 different bank groups.
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * D + ((chunk ^ (row & 7)) << 3);
+}
+
+// One block owns 64 query rows of one (batch, head); warp w owns rows
+// 16w .. 16w+15 of them. Per KV tile of 64 keys: S = Q K^T (16 x 64 a warp,
+// fp32 in registers), scaled, masked, the online softmax across each row's
+// quad of lanes, P rounded to bf16 in registers and used as the A operand
+// of O += P V. The next KV tile is in flight (cp.async) meanwhile.
+//
+// mma.sync m16n8k16 fragments (g = lane / 4, t = lane % 4): A holds rows g
+// and g+8, columns 2t, 2t+1 and 2t+8, 2t+9; B columns (n) g, rows (k) 2t,
+// 2t+1 and 2t+8, 2t+9; C rows g and g+8, columns 2t, 2t+1. Q's A fragments
+// and K's B fragments come from row-major tiles by ldmatrix, V's B fragments
+// (k = key, n = d) by ldmatrix.trans; the score accumulators of two
+// neighbouring 8-key tiles are exactly P's A fragment for a 16-key step.
+template <int D>
+__global__ void __launch_bounds__(mma_tiles::THREADS, 2)
+flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int Hkv,
+                 int seq_k, float scale, int causal, int has_window,
+                 int window) {
+  // block-scope names hide the fp32 kernel's BQ and THREADS
+  using mma_tiles::BQ; using mma_tiles::BKV; using mma_tiles::THREADS;
+  constexpr int CH = D / 8;        // 16-byte chunks a row
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
+  __nv_bfloat16* Ks = Qs + BQ * D;
+  __nv_bfloat16* Vs = Ks + 2 * BKV * D;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // blocks start in the order x, y, z: query tiles on z, last tile first,
+  // so the longest causal rows of every head start first and the short
+  // tiles fill the last wave
+  const int q_start = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)Hkv * D;
+  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
+  const __nv_bfloat16* kb = k + (size_t)b * Sk * kv_row + (size_t)hk * D;
+  const __nv_bfloat16* vb = v + (size_t)b * Sk * kv_row + (size_t)hk * D;
+  __nv_bfloat16* ob = o + (size_t)b * Sq * q_row + (size_t)h * D;
+
+  // the KV tiles the reference's skip test keeps (kernel.py:53-60, at this
+  // kernel's tile sizes) form the range kt_lo .. kt_hi
+  int kt_lo = 0, kt_hi = (seq_k + BKV - 1) / BKV - 1;
+  if (causal) kt_hi = min(kt_hi, (q_start + BQ - 1) / BKV);
+  if (has_window) {
+    const int t = q_start - window - BKV + 1;   // relevant iff k_start > t
+    if (t >= 0) kt_lo = t / BKV + 1;
+  }
+
+  for (int i = tid; i < BQ * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH, s = q_start + r;
+    cp_async16(Qs + swz<D>(r, c), qb + (size_t)min(s, Sq - 1) * q_row + c * 8,
+               s < Sq ? 16 : 0);
+  }
+  auto load_kv = [&](int kt, int buf) {
+    __nv_bfloat16* kd = Ks + buf * BKV * D;
+    __nv_bfloat16* vd = Vs + buf * BKV * D;
+    for (int i = tid; i < BKV * CH; i += THREADS) {
+      const int r = i / CH, c = i % CH, key = kt * BKV + r;
+      const bool in = key < seq_k;              // past seq_k: zeros
+      const size_t off = (size_t)(in ? key : 0) * kv_row + c * 8;
+      cp_async16(kd + swz<D>(r, c), kb + off, in ? 16 : 0);
+      cp_async16(vd + swz<D>(r, c), vb + off, in ? 16 : 0);
+    }
+  };
+  if (kt_lo <= kt_hi) load_kv(kt_lo, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's 16 query rows as A fragments, one per 16-deep step of D
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    ldmatrix_x4(qf[kd], Qs + swz<D>(warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2),
+                                    kd * 2 + lane / 16));
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  float m_run[2] = {NEG_INF, NEG_INF};   // rows g and g + 8
+  float l_run[2] = {0.0f, 0.0f};         // this thread's share of the row sum
+  const int q_g = q_start + warp * 16 + lane / 4;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int buf = (kt - kt_lo) & 1;
+    if (kt < kt_hi) load_kv(kt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* Kt = Ks + buf * BKV * D;
+    const __nv_bfloat16* Vt = Vs + buf * BKV * D;
+
+    float s[BKV / 8][4];
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int np = 0; np < BKV / 16; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + swz<D>(np * 16 + (lane % 8) + 8 * (lane / 16),
+                                    kd * 2 + (lane / 8) % 2));
+        mma_bf16(s[2 * np], qf[kd], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[kd], kf[2], kf[3]);
+      }
+
+    // scale the fp32 scores; mask only tiles that cross the diagonal, the
+    // window's edge or seq_k
+    const int k0 = kt * BKV;
+    const bool edge = k0 + BKV > seq_k ||
+                      (causal && k0 + BKV - 1 > q_start) ||
+                      (has_window && q_start + BQ - 1 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int kp = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+          const int qp = q_g + (e >= 2 ? 8 : 0);
+          bool ok = kp < seq_k;
+          if (causal) ok = ok && qp >= kp;
+          if (has_window) ok = ok && (qp - kp < window);
+          if (!ok) x = NEG_INF;
+        }
+        s[j][e] = x;
+      }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float alpha = __expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        s[j][2 * r] = __expf(s[j][2 * r] - m_new);
+        s[j][2 * r + 1] = __expf(s[j][2 * r + 1] - m_new);
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l_run[r] = l_run[r] * alpha + sum;   // l from the fp32 P
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * r] *= alpha;
+        acc[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + swz<D>(kk * 16 + (lane % 8) + 8 * ((lane / 8) % 2),
+                                          dp * 2 + lane / 16));
+        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();   // this buffer is refilled two tiles on
+  }
+
+  // out = acc / max(l, 1e-37), staged through this warp's own rows of Qs
+  // (read only by this warp, into qf, before the loop) so that the stores
+  // to global memory are whole 16-byte chunks
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float denom = fmaxf(l, 1e-37f);
+    const int row = warp * 16 + lane / 4 + 8 * r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(Qs + swz<D>(row, j) + (lane % 4) * 2) =
+          __floats2bfloat162_rn(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = i % CH, s = q_start + warp * 16 + r;
+    if (s < Sq)
+      *reinterpret_cast<uint4*>(ob + (size_t)s * q_row + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<D>(warp * 16 + r, c));
+  }
+}
+
+template <int D>
+int launch_mma_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                 const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Sq,
+                 int Sk, int H, int Hkv, int seq_k, float scale, int causal,
+                 int has_window, int window, cudaStream_t stream) {
+  using mma_tiles::BQ; using mma_tiles::THREADS;
+  constexpr size_t smem = mma_tiles::smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  flash_kernel_mma<D><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, Sq, Sk, H, Hkv, seq_k, scale, causal, has_window, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+               const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Sq, int Sk,
+               int H, int Hkv, int D, int seq_k, float scale, int causal,
+               int has_window, int window, cudaStream_t stream) {
+  if (D == 64)
+    return launch_mma_d<64>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
+                            causal, has_window, window, stream);
+  if (D == 128)
+    return launch_mma_d<128>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
+                             causal, has_window, window, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream` and
@@ -259,6 +565,6 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     int D, int seq_k, float scale, int causal,
                                     int has_window, int window,
                                     cudaStream_t stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, D, seq_k, scale,
-                               causal, has_window, window, stream);
+  return launch_mma(q, k, v, o, B, Sq, Sk, H, Hkv, D, seq_k, scale, causal,
+                    has_window, window, stream);
 }

@@ -35,6 +35,8 @@ KERNELS = ("masked_matmul", "rmsnorm", "flash_attention", "ssd_scan")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: each entry point with its argument types set, by (kernel, symbol)
+_fns: Dict[Tuple[str, str], Any] = {}
 
 
 def find_nvcc() -> str:
@@ -109,10 +111,14 @@ def launch(name: str, symbol: str, argtypes: Sequence[Any],
     and the current stream of ``device``, which it launches on; raises if
     the launch failed (the entry returns ``cudaGetLastError()``, since a
     launch the card refuses never runs and a later synchronize would not
-    report it)."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    report it). The bound function is looked up once per (kernel, symbol):
+    ``argtypes`` is the same on every call of an entry."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
