@@ -12,17 +12,28 @@ Phases, each printing its own lines:
 3. kernels — each kernel's wrapper on card tensors at every shape the main
    paths give it, plus edge cases, held against its plain PyTorch version
    with the tolerance stated beside it, and timed with CUDA events beside
-   the plain version, one PyTorch call computing the same function
-   (``library_ms``) and the card's bound: the fp32 ``masked_matmul`` at
-   every GEMM of full-width AlexNet (uncompacted and with half of every
-   prunable layer's channels compacted away); the bf16 ``masked_matmul`` at
+   the plain version (rounds taken in turn), one PyTorch call computing
+   the same function (``library_ms``) and the card's bound; ``device_ms``
+   is the same call replayed from a CUDA graph, without the host's
+   enqueue, each call on its own copy of the operands so that they come
+   from memory, not from L2, and it must not beat the bound: the fp32
+   ``masked_matmul`` at every GEMM of full-width AlexNet (uncompacted and
+   with half of every prunable layer's channels compacted away), each row
+   naming the route and plan it takes (split-K GEMV, split-K cluster tiles)
+   and holding a second call to the same bits; ``masked_matmul_q8`` (int8
+   codes dequantized in the kernel's load) at the same full and compacted
+   shapes (every shape an int8 plan of phase 4 launches), its
+   split-K results bit-identical to the float32 route's on the dequantized
+   weights; one ``crossover`` line per M of 1-32 timing the float32 GEMV
+   against the split-K tiles at dense14's shape; the bf16 ``masked_matmul`` at
    Qwen2-7B's FFN up/gate shapes (M = 2048 and 2000 in prefill, 1 and 2 in
    decode, and 3, 8, 9, 16, 64; K = 3584; N = 18944; half the columns
    masked) and at ragged and all-zero-mask shapes, each row naming the
    entry its route picks (the decode GEMV, the wgmma/TMA tiles, the
    CUDA-core tiles), then one ``crossover`` line per M of 1, 2, 3, 4, 8, 16, 64
    timing the GEMV and the tiles on the same operands, and a ``host`` line
-   with one wrapper call's host time; ``rmsnorm`` at
+   with one call's host time (the bf16, float32 and codes GEMV wrappers,
+   ``matmul * mask``); ``rmsnorm`` at
    2048 and 2000 rows of 3584 (R1's and R2's prefill) and 1000, bf16 and
    fp32, offsets 0 and 1, and at 1 and 2 rows (decode); ``flash_attention`` at (B=1,
    S=2048) and (B=2, S=1000) with 28/4 heads of 128, causal, plus windowed,
@@ -31,13 +42,16 @@ Phases, each printing its own lines:
    R1 (B=1, S=2048, 80 heads of 64, d_state 128) and R2 (B=2, S=1000,
    ragged), Zamba2's R1 (64 heads, d_state 64), with half the heads masked,
    x, B and C as slices of one conv output as the block hands them in, plus
-   2 groups, S=77, S=1, every head pruned and fp32 cases;
+   2 groups, S=77, S=1, every head pruned and fp32 cases, the device time
+   of each of the bf16 entry's three launches at the two R1 cases;
 4. slice (AlexNet) — the paper's int8-quantized, compacted AlexNet
    (``alexnet_config(38)``, 224x224x3, random weights from a seed) served
    through ``repro_torch.serving.connect(plan, backend="local")`` on the
    card at the greedy split, at c=13 (every conv on the edge) and at c=N
-   (every layer through the kernel), plus one uncompacted masked plan; the
-   kernel's launch count must equal (edge conv+dense layers) x requests, and
+   (every layer through the kernel), plus one uncompacted masked plan and
+   one c=N plan with float32 weights; the kernel's launch count must equal
+   (edge conv+dense layers) x requests, each on the route its shape picks
+   (from codes where the plan quantizes), and
    the logits and wire bytes must match the same plan served on the CPU;
 5. profile (AlexNet) — where one full-width request's device time goes;
 6. slice (Qwen2-7B) — the pruned dense transformer at full width and depth
@@ -75,8 +89,10 @@ exits non-zero without that line; so does a machine without a CUDA device.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -93,6 +109,10 @@ REQUESTS = 8
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+#: the card's L2 cache (50 MB on an H100 SXM), and the most operand copies
+#: ``graph_ms`` rotates through to read past it
+L2_BYTES = 50 * 2 ** 20
+GRAPH_COPIES = 256
 #: the TPU kernel each CUDA kernel replaces
 REPLACES = {"masked_matmul": "src/repro/kernels/masked_matmul/kernel.py:26",
             "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:20",
@@ -121,25 +141,83 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     """Median over ``rounds`` of the mean ms of ``reps`` back-to-back calls,
     from CUDA events after a warm-up. A call slower than 2.5 ms takes fewer
     reps (at least 3), so that a round lasts about 50 ms."""
+    return time_interleaved_ms({"": fn}, reps, rounds)[""]
+
+
+def time_interleaved_ms(fns, reps: int = 20, rounds: int = 5):
+    """``time_ms`` of each function of the dict ``fns``, their rounds taken
+    in turn (one round of each, then the next), so that a stretch of host
+    noise falls on all of them alike; a dict of the medians."""
     import torch
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    stop.record()
-    torch.cuda.synchronize()
-    reps = max(3, min(reps, int(50.0 / max(start.elapsed_time(stop), 1e-3))))
-    samples = []
-    for _ in range(rounds):
+
+    def one_round(fn, n):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
+        for _ in range(n):
             fn()
         stop.record()
         torch.cuda.synchronize()
-        samples.append(start.elapsed_time(stop) / reps)
-    return statistics.median(samples)
+        return start.elapsed_time(stop) / n
+    n = {k: max(3, min(reps, int(50.0 / max(one_round(fn, 1), 1e-3))))
+         for k, fn in fns.items()}
+    samples = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            samples[k].append(one_round(fn, n[k]))
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def copy_like(t):
+    """``t`` in new memory: its whole storage copied, then viewed with its
+    own sizes, strides and offset (a slice of a larger tensor stays one)."""
+    import torch
+    storage = t.untyped_storage()
+    flat = torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        storage, 0, (storage.nbytes() // t.element_size(),)).clone()
+    return flat.as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+def graph_ms(fn, *operands, reps: int = 20) -> float:
+    """Device time of one ``fn(*operands)`` with its operands read from the
+    card's memory: calls captured in a CUDA graph after a warm-up call, each
+    on its own copy of the operands, as many copies as together exceed
+    three times the L2 (at most ``GRAPH_COPIES``: operands under 0.6 MB may
+    stay in L2, where reading them from memory would cost under 0.2 µs),
+    so that no call finds its inputs left in L2 by the calls before it; the
+    graph replayed as ``time_ms`` times it. Back-to-back calls of a small
+    kernel wait on the host's enqueue (a wrapper call costs tens of µs);
+    the replay does not."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size() for t in operands)
+    copies = max(2, min(GRAPH_COPIES, -(-3 * L2_BYTES // max(nbytes, 1))))
+    sets = [operands] + [tuple(copy_like(t) for t in operands)
+                         for _ in range(copies - 1)]
+    calls = max(reps, copies)
+    fn(*operands)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(calls):
+            fn(*sets[i % copies])
+    torch.cuda.synchronize()
+    ms = time_ms(graph.replay, reps=5) / calls
+    del graph, sets
+    return ms
+
+
+def hold_to_bound(row):
+    """No time measured on the card can beat the card's bound: a device
+    time under ``bound_ms`` means the replay did not read its operands from
+    memory. Adds ``device_over_bound`` (and the library's) to ``row``;
+    returns whether both are at least 1."""
+    row["device_over_bound"] = row["device_ms"] / row["bound_ms"]
+    ok = row["device_over_bound"] >= 1.0
+    if row.get("library_device_ms") is not None:
+        row["library_device_over_bound"] = (row["library_device_ms"]
+                                            / row["bound_ms"])
+        ok = ok and row["library_device_over_bound"] >= 1.0
+    return ok
 
 
 def gemm_shapes(cfg):
@@ -172,12 +250,16 @@ def set_bound(row, nbytes: float, flops: float, peak_flop_s: float):
 
 
 def masked_matmul_bound(row, M: int, K: int, N: int, kept: int,
-                        itemsize: int):
+                        itemsize: int, codes: bool = False):
     """The masked GEMM needs only the kept columns: A and the kept columns
     of B read once, the mask read and C written once, against 2*M*K*kept
-    + M*N operations (fp32 peak for fp32 operands, bf16 for bf16)."""
-    nbytes = itemsize * (M * K + K * kept + M * N) + 4 * N
-    flops = 2 * M * K * kept + M * N
+    + M*N operations (fp32 peak for fp32 operands, bf16 for bf16). With
+    ``codes`` B is read at 1 byte an element, plus its float32 scale and
+    zero, and each kept code costs a dequant (2 operations) once."""
+    b_bytes = K * kept if codes else itemsize * K * kept
+    nbytes = itemsize * (M * K + M * N) + b_bytes + 4 * N + (8 * N if codes
+                                                             else 0)
+    flops = 2 * M * K * kept + M * N + (2 * K * kept if codes else 0)
     return set_bound(row, nbytes, flops, PEAK_FP32_FLOP_S if itemsize == 4
                      else PEAK_BF16_FLOP_S)
 
@@ -190,12 +272,18 @@ def check_row(kernel: str, row, ok: bool):
     return row
 
 
+def matmul_times_mask(a, b, m):
+    """The library call computing the masked GEMM."""
+    import torch
+    return torch.matmul(a, b) * m
+
+
 def check_masked_matmul(cases, dtype: str = "float32"):
     """Phase 3: kernel against plain version at each (name, M, K, N, mask
     kind) with operands of ``dtype``; returns the per-case rows."""
     import torch
     from repro_torch.device import exact_fp32
-    from repro_torch.kernels.masked_matmul.ops import _route, masked_matmul
+    from repro_torch.kernels.masked_matmul.ops import _plan, masked_matmul
     from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
     eps = torch.finfo(torch.float32).eps
     dt = getattr(torch, dtype)
@@ -230,19 +318,159 @@ def check_masked_matmul(cases, dtype: str = "float32"):
             err = (got.float() - want.float()).abs()
             pruned_exact = bool((got[:, m == 0] == 0).all())
             ok = bool((err <= tol).all()) and pruned_exact
+            entry, plan = _plan(dt, M, K, N)
+            # the cluster routes sum their partial tiles in a fixed order:
+            # a second call gives the same bits
+            same = (bool(torch.equal(got, masked_matmul(a, b, m)))
+                    if plan else None)
+            ok = ok and same is not False
             row = {"case": name, "dtype": dtype, "M": M, "K": K, "N": N,
-                   "mask": kind, "kept": int(m.sum()),
-                   "entry": _route(dt, M, K, N),
+                   "mask": kind, "kept": int(m.sum()), "entry": entry,
+                   "plan": list(plan), "max_abs_err": float(err.max()),
+                   "max_err_over_tol": float((err / tol.clamp_min(1e-30))
+                                             .max()),
+                   "pruned_exact_zero": pruned_exact,
+                   "bit_identical_rerun": same,
+                   **time_interleaved_ms(
+                       {"ms": lambda: masked_matmul(a, b, m),
+                        "plain_ms": lambda: masked_matmul_ref(a, b, m),
+                        "library_ms": lambda: torch.matmul(a, b) * m},
+                       rounds=9),
+                   "device_ms": graph_ms(masked_matmul, a, b, m),
+                   "library_device_ms": graph_ms(matmul_times_mask, a, b, m)}
+            masked_matmul_bound(row, M, K, N, row["kept"], a.element_size())
+            row["ok"] = ok = ok and hold_to_bound(row)
+            rows.append(check_row("masked_matmul", row, ok))
+            del a, b, got, want, tol, err
+    return rows
+
+
+def q8_operands(M: int, K: int, N: int, gen):
+    """A float32 (M, K) and uint8 codes (K, N) with per-column scale and
+    zero as ``quantize_weights`` makes them (zero the column's minimum,
+    scale its range over 255 levels), for weights of spread K**-0.5."""
+    import torch
+    a = torch.randn(M, K, device="cuda", generator=gen)
+    codes = torch.randint(0, 256, (K, N), device="cuda", generator=gen,
+                          dtype=torch.uint8)
+    spread = (1 + torch.rand(N, device="cuda", generator=gen)) / K ** 0.5
+    scale = 2 * spread / 255
+    zero = -spread * (1 + 0.1 * torch.rand(N, device="cuda", generator=gen))
+    return a, codes, scale, zero
+
+
+def check_masked_matmul_q8(cases):
+    """Phase 3: ``masked_matmul_q8`` (codes dequantized in the kernel's
+    load) against the plain version after the dequant, ``codes * scale +
+    zero`` as ``quant.dequantize_weights`` rounds it, at each (name, M, K,
+    N, mask kind); the library call is ``torch.matmul`` on the dequantized
+    B times the mask. The split-K route must also give, bit for bit, what
+    the float32 split-K route gives on the dequantized B (the same tiles and
+    split, so the same sums in the same order: the dequant is exact)."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.kernels.masked_matmul import ops
+    from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
+    eps = torch.finfo(torch.float32).eps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = []
+    with exact_fp32():
+        for name, M, K, N, kind in cases:
+            a, codes, scale, zero = q8_operands(M, K, N, gen)
+            m = (torch.ones(N, device="cuda") if kind == "ones" else
+                 (torch.rand(N, device="cuda", generator=gen) < 0.5).float())
+
+            def plain():
+                return masked_matmul_ref(a, codes.float() * scale + zero, m)
+
+            def library(a, codes, scale, zero, m):
+                return torch.matmul(a, codes.float() * scale + zero) * m
+            got = ops.masked_matmul_q8(a, codes, scale, zero, m)
+            torch.cuda.synchronize()
+            b = codes.float() * scale + zero
+            want = masked_matmul_ref(a, b, m)
+            tol = K * eps * (a.abs() @ b.abs())
+            err = (got - want).abs()
+            pruned_exact = bool((got[:, m == 0] == 0).all())
+            entry, plan = ops._plan(torch.uint8, M, K, N)
+            same = bool(torch.equal(
+                got, ops.masked_matmul_q8(a, codes, scale, zero, m)))
+            as_f32 = None
+            if entry == ops._ENTRIES["q8_splitk"]:
+                as_f32 = bool(torch.equal(got, ops._launch(
+                    a, b, m, ops._ENTRIES["f32_splitk"], plan)))
+            ok = (bool((err <= tol).all()) and pruned_exact and same
+                  and as_f32 is not False)
+            operands = (a, codes, scale, zero, m)
+            row = {"case": name, "dtype": "uint8 codes", "M": M, "K": K,
+                   "N": N, "mask": kind, "kept": int(m.sum()),
+                   "entry": entry, "plan": list(plan),
                    "max_abs_err": float(err.max()),
                    "max_err_over_tol": float((err / tol.clamp_min(1e-30))
                                              .max()),
-                   "pruned_exact_zero": pruned_exact, "ok": ok,
-                   "ms": time_ms(lambda: masked_matmul(a, b, m)),
-                   "plain_ms": time_ms(lambda: masked_matmul_ref(a, b, m)),
-                   "library_ms": time_ms(lambda: torch.matmul(a, b) * m)}
-            masked_matmul_bound(row, M, K, N, row["kept"], a.element_size())
+                   "pruned_exact_zero": pruned_exact,
+                   "bit_identical_rerun": same,
+                   "bit_identical_to_f32_splitk": as_f32,
+                   **time_interleaved_ms(
+                       {"ms": lambda: ops.masked_matmul_q8(*operands),
+                        "plain_ms": plain,
+                        "library_ms": lambda: library(*operands)},
+                       rounds=9),
+                   "device_ms": graph_ms(ops.masked_matmul_q8, *operands),
+                   "library_device_ms": graph_ms(library, *operands)}
+            masked_matmul_bound(row, M, K, N, row["kept"], 4, codes=True)
+            row["ok"] = ok = ok and hold_to_bound(row)
             rows.append(check_row("masked_matmul", row, ok))
-            del a, b, got, want, tol, err
+            del a, codes, b, got, want, tol, err
+    return rows
+
+
+def f32_gemv_splitk_crossover(rows_m, K: int, N: int):
+    """Phase 3: the float32 product at each M of ``rows_m`` through the
+    split-K GEMV and the split-K tiles, each with the plan the host would
+    give it, whatever ``_route`` picks: each held to ``check_masked_matmul``'s
+    tolerance and timed from a CUDA graph (device time) and back to back;
+    one ``crossover`` line per M. These launches are for comparison only."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.kernels.masked_matmul import ops
+    from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
+    eps = torch.finfo(torch.float32).eps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    with exact_fp32():
+        for M in rows_m:
+            a = torch.randn(M, K, device="cuda", generator=gen)
+            b = torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5
+            m = torch.ones(N, device="cuda")
+            want = masked_matmul_ref(a, b, m)
+            tol = K * eps * (a.abs() @ b.abs())
+            routes = {"gemv": (ops._ENTRIES["f32_gemv"],
+                               ops._gemv_f32_plan(False, M, K, N, True)),
+                      "splitk": (ops._ENTRIES["f32_splitk"],
+                                 ops._splitk_plan(M, K, N)
+                                 + (4 if N % 4 == 0 else 1,))}
+            row = {"dtype": "float32", "M": M, "K": K, "N": N,
+                   "entry": ops._route(torch.float32, M, K, N)}
+            for label, (symbol, plan) in routes.items():
+                got = ops._launch(a, b, m, symbol, plan)
+                torch.cuda.synchronize()
+                over = float(((got - want).abs() / tol.clamp_min(1e-30))
+                             .max())
+                if over > 1.0:
+                    raise AssertionError(f"masked_matmul {label} route at "
+                                         f"M={M} disagrees with its plain "
+                                         f"version ({over} of the tolerance)")
+                row[f"{label}_plan"] = list(plan)
+                row[f"{label}_device_ms"] = graph_ms(
+                    lambda a, b, m: ops._launch(a, b, m, symbol, plan),
+                    a, b, m)
+                row[f"{label}_ms"] = time_ms(
+                    lambda: ops._launch(a, b, m, symbol, plan))
+                row[f"{label}_err_over_tol"] = over
+            row["library_device_ms"] = graph_ms(matmul_times_mask, a, b, m)
+            print("crossover " + json.dumps(row), flush=True)
+            rows.append(row)
     return rows
 
 
@@ -287,34 +515,56 @@ def gemv_tiles_crossover(rows_m, K: int, N: int):
     return rows
 
 
-def launch_host_us(K: int, N: int, calls: int = 200):
-    """Host time of one wrapper call of the decode GEMV (enqueue only: the
-    card is slower than the host here, so no call waits), and the time of
-    the symbol lookup and ``argtypes`` assignment that ``build.launch``
-    now does once per entry instead of on every call."""
+def launch_host_us(K: int, N: int, K32: int, N32: int, calls: int = 200):
+    """Host time of one call (enqueue only: the card is faster than the
+    host at these shapes, so no call waits; median of 5 batches of
+    ``calls``) of the bf16 decode GEMV's wrapper at (1, K) @ (K, N), and of
+    the float32 GEMV's and codes GEMV's wrappers and ``matmul * mask`` at
+    (1, K32) @ (K32, N32) (dense14's compacted shape); and the time of the
+    symbol lookup and ``argtypes`` assignment that ``build.launch`` does
+    once per entry instead of on every call."""
     import ctypes
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.masked_matmul import ops
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            samples.append(1e6 * (time.perf_counter() - t0) / calls)
+            torch.cuda.synchronize()
+        return statistics.median(samples)
     a = torch.randn(1, K, device="cuda").to(torch.bfloat16)
     b = torch.randn(K, N, device="cuda").to(torch.bfloat16)
     m = torch.ones(N, device="cuda")
-    ops.masked_matmul(a, b, m)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        ops.masked_matmul(a, b, m)
-    call_us = 1e6 * (time.perf_counter() - t0) / calls
-    torch.cuda.synchronize()
+    a32 = torch.randn(1, K32, device="cuda")
+    b32 = torch.randn(K32, N32, device="cuda")
+    codes = torch.randint(0, 256, (K32, N32), device="cuda",
+                          dtype=torch.uint8)
+    scale, zero = torch.rand(N32, device="cuda"), torch.rand(N32,
+                                                             device="cuda")
+    m32 = torch.ones(N32, device="cuda")
+    row = {"wrapper_call_host_us": host_us(
+               lambda: ops.masked_matmul(a, b, m)),
+           "f32_gemv_call_host_us": host_us(
+               lambda: ops.masked_matmul(a32, b32, m32)),
+           "q8_gemv_call_host_us": host_us(
+               lambda: ops.masked_matmul_q8(a32, codes, scale, zero, m32)),
+           "matmul_times_mask_host_us": host_us(
+               lambda: matmul_times_mask(a32, b32, m32))}
     lib = build.load("masked_matmul")
     t0 = time.perf_counter()
     for _ in range(20 * calls):
         fn = getattr(lib, ops._ENTRIES["gemv"])
         fn.argtypes = [*ops._ARGTYPES, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lookup_us = 1e6 * (time.perf_counter() - t0) / (20 * calls)
-    row = {"wrapper_call_host_us": call_us,
-           "per_call_lookup_removed_us": lookup_us}
+    row["per_call_lookup_removed_us"] = (1e6 * (time.perf_counter() - t0)
+                                         / (20 * calls))
     print("host " + json.dumps(row), flush=True)
     return row
 
@@ -519,13 +769,14 @@ def ssd_bound(row, B, S, H, G, P, N, itemsize, kept_heads, chunk=256):
                      else PEAK_BF16_FLOP_S)
 
 
-def check_ssd(cases):
+def check_ssd(cases, profile_cases=()):
     """Phase 3: the SSD scan kernel against its plain version at each (name,
     B, S, H, G, P, N, dtype, mask), mask one of "half" (a random half of the
     heads pruned, as the main path's ratio-0.5 masks), "none", "zeros"
     (every head pruned): y and the final state, pruned heads' y exact
     zeros. No PyTorch call computes the SSD scan, so ``library_ms`` is
-    null."""
+    null. The cases named in ``profile_cases`` also give each launch's
+    device time (``passes_ms``)."""
     import torch
     from repro_torch.device import exact_fp32
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -564,11 +815,21 @@ def check_ssd(cases):
                    "pruned_exact_zero": pruned_exact, "ok": ok,
                    "ms": time_ms(lambda: ssd_scan(xh, dt, A, Bm, Cm, hm,
                                                   256)),
+                   "device_ms": graph_ms(ssd_scan, xh, dt, A, Bm, Cm, hm),
                    "plain_ms": time_ms(lambda: ssd_scan_ref(
                        xh, dt, A, Bm, Cm, hm, 256)),
                    "library_ms": None}
+            if name in profile_cases:
+                # device ms of each launch of one call, by kernel
+                prof = device_profile(lambda: (ssd_scan(xh, dt, A, Bm, Cm,
+                                                        hm, 256),
+                                               torch.cuda.synchronize()))
+                row["passes_ms"] = {
+                    re.search(r"ssd_\w+_kernel", e["name"]).group(0):
+                    e["device_ms"] for e in prof["top"] if "ssd_" in e["name"]}
             ssd_bound(row, B, S, H, G, P, N, xh.element_size(),
                       row["kept_heads"])
+            row["ok"] = ok = ok and hold_to_bound(row)
             rows.append(check_row("ssd_scan", row, ok))
             del xh, dt, Bm, Cm, got_y, got_s, want_y, want_s, tol_y, tol_s
     return rows
@@ -645,10 +906,11 @@ def serve_path(label, plan, images, edge_gemms):
         masked_matmul.route_launches, 0)
     got = sess.infer_many(images)
     launches = masked_matmul.launches
-    if masked_matmul.route_launches["masked_matmul_f32"] != launches:
-        raise AssertionError(f"{label}: masked_matmul routes "
-                             f"{masked_matmul.route_launches}, expected "
-                             f"every launch on masked_matmul_f32")
+    routes = {k: v for k, v in masked_matmul.route_launches.items() if v}
+    want_routes = {k: v * len(images) for k, v in edge_routes(plan).items()}
+    if routes != want_routes:
+        raise AssertionError(f"{label}: masked_matmul routes {routes}, "
+                             f"expected {want_routes}")
     want_launches = edge_gemms * len(images)
     cpu = serving.connect(plan, backend="local", device="cpu")
     want = cpu.infer_many(images)
@@ -676,7 +938,8 @@ def serve_path(label, plan, images, edge_gemms):
     cloud_ms = [1e3 * r["wallclock"]["cloud"] for r in got]
     row = {"path": label, "split": plan.split,
            "n_layers": len(plan.cfg.layers), "compact": plan.compact,
-           "requests": len(images), "launches": launches,
+           "weight_bits": plan.quant.weight_bits,
+           "requests": len(images), "launches": launches, "routes": routes,
            "tx_bytes": got[0]["tx_bytes"],
            "edge_ms": edge_ms, "cloud_ms": cloud_ms,
            "edge_ms_first": edge_ms[0],
@@ -694,13 +957,36 @@ def edge_gemm_count(plan) -> int:
                if s.kind in ("conv", "dense"))
 
 
+def edge_routes(plan):
+    """``masked_matmul`` launches of one request by entry: each edge conv
+    and dense layer of the deployed (compacted or masked) network on the
+    route its shape picks, from codes where the plan quantizes."""
+    import collections
+    import torch
+    from repro_torch.core.collab.local_runtime import deploy_submodels
+    from repro_torch.kernels.masked_matmul.ops import _route
+    _, dcfg, _ = deploy_submodels(plan.params, plan.cfg, plan.masks,
+                                  plan.compact)
+    dtype = torch.float32 if plan.quant.weight_bits is None else torch.uint8
+    return collections.Counter(
+        _route(dtype, M, K, N)
+        for _, M, K, N in gemm_shapes(dcfg)[:edge_gemm_count(plan)])
+
+
 #: device kernels grouped by a substring of their name: the port's own
-#: kernels, cuBLAS's products, PyTorch's elementwise and reduction kernels
+#: kernels, cuBLAS's products, PyTorch's im2col, pooling, elementwise and
+#: reduction kernels
 KINDS = (("masked_matmul tiles", "masked_matmul_wgmma"),
+         ("masked_matmul splitk", "masked_matmul_splitk"),
+         ("masked_matmul gemv f32", "masked_matmul_gemv_f32"),
          ("masked_matmul gemv", "masked_matmul_gemv"),
          ("masked_matmul", "masked_matmul_kernel"), ("rmsnorm", "rmsnorm_kernel"),
-         ("flash_attention", "flash_kernel"), ("ssd_scan", "ssd_kernel"),
+         ("flash_attention", "flash_kernel"),
+         ("ssd_scan chunk states", "ssd_chunk_state"),
+         ("ssd_scan state pass", "ssd_state_pass"),
+         ("ssd_scan outputs", "ssd_chunk_out"), ("ssd_scan", "ssd_kernel"),
          ("cublas", "nvjet"), ("cublas", "gemm"), ("cublas", "gemv"),
+         ("im2col", "im2col"), ("maxpool", "max_pool"),
          ("elementwise", "elementwise"), ("reduce", "reduce"),
          ("copy", "Memcpy"), ("copy", "copy"), ("cat", "Cat"))
 
@@ -1010,6 +1296,8 @@ def kernel_entry(name, rows, main_rows, scale: int, launches: int,
              for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     library = (None if any(r["library_ms"] is None for r in main_rows)
                else scale * sum(r["library_ms"] for r in main_rows))
+    if all("device_ms" in r for r in main_rows):   # from a CUDA graph
+        extra["device_ms"] = scale * sum(r["device_ms"] for r in main_rows)
     base = next(k for k in REPLACES if name.startswith(k))
     return {"name": name, "route": "cuda", "source": SOURCES[base],
             "replaces": REPLACES[base], **extra, "launches": launches,
@@ -1065,6 +1353,16 @@ def main() -> int:
                   ("all_zero_mask", 64, 128, 96, "zeros"),
                   ("partial_mask", 512, 256, 192, "partial")]
     rows = check_masked_matmul(full + compacted + edge_cases)
+    # the compacted shapes from int8 codes, as the quantized edge runs them,
+    # plus a ragged N (no vector copies) and a partial mask
+    rows_q8 = check_masked_matmul_q8(
+        full + compacted + [("q8 ragged", 77, 29, 45, "partial"),
+                     ("q8 m1 ragged", 1, 300, 50, "partial"),
+                     ("q8 partial_mask", 512, 256, 192, "partial")])
+    # the float32 GEMV against the split-K tiles at dense14's compacted shape
+    dense14 = next(r for r in rows if r["case"] == "dense14 compact")
+    f32_gemv_splitk_crossover((1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
+                              dense14["K"], dense14["N"])
     # Qwen2-7B: d_model 3584, d_ff 18944, 28 heads / 4 KV heads of 128
     d, dff = 3584, 18944
     # every route and its edges: the GEMV at 1 and 2 rows (and with K and N
@@ -1083,7 +1381,7 @@ def main() -> int:
            ("all_zero_mask gemv", 2, 512, 1024, "zeros"),
            ("ragged", 77, 29, 45, "partial")], dtype="bfloat16")
     gemv_tiles_crossover((1, 2, 3, 4, 8, 16, 64), d, dff)
-    launch_host_us(d, dff)
+    launch_host_us(d, dff, dense14["K"], dense14["N"])
     norm_rows = check_rmsnorm(
         [(f"{r} rows {dt} +{off:g}", r, d, dt, off)
          for r in (2048, 2000, 1000) for dt in ("bfloat16", "float32")
@@ -1118,7 +1416,8 @@ def main() -> int:
          ("s1", 2, 1, 80, 1, 64, 128, "bfloat16", "half"),
          ("all pruned", 1, 300, 16, 1, 64, 64, "bfloat16", "zeros"),
          ("fp32", 1, 1000, 16, 1, 64, 128, "float32", "half"),
-         ("fp32 d_state 64", 2, 300, 8, 2, 64, 64, "float32", "none")])
+         ("fp32 d_state 64", 2, 300, 8, 2, 64, 64, "float32", "none")],
+        profile_cases=("mamba2 R1", "zamba2 R1"))
     if kernels_only:
         print(smi, flush=True)
         return 0
@@ -1126,19 +1425,20 @@ def main() -> int:
     # 4. the AlexNet slice at full width
     images = [rng.standard_normal((1, 224, 224, 3), dtype=np.float32)
               for _ in range(REQUESTS)]
-    quant = serving.QuantPolicy(weight_bits=8)
     n = len(cfg.layers)
     plans = {}
-    for label, split, compact in (("greedy", None, True),
-                                  ("c13", 13, True),
-                                  ("cN", n, True),
-                                  ("masked_cN", n, False)):
+    for label, split, compact, bits in (("greedy", None, True, 8),
+                                        ("c13", 13, True, 8),
+                                        ("cN", n, True, 8),
+                                        ("masked_cN", n, False, 8),
+                                        ("cN_fp32", n, True, None)):
         plans[label] = serving.DeploymentPlan.from_args(
             params, cfg, split, masks=masks, compact=compact, codec="int8",
-            quant=quant)
-    launches = sum(serve_path(label, plan, images,
-                              edge_gemm_count(plan))["launches"]
-                   for label, plan in plans.items())
+            quant=serving.QuantPolicy(weight_bits=bits))
+    alex_routes = collections.Counter()
+    for label, plan in plans.items():
+        alex_routes.update(serve_path(label, plan, images,
+                                      edge_gemm_count(plan))["routes"])
 
     # 5. where one full-width AlexNet request's device time goes
     profile_request(plans["greedy"], images[0])
@@ -1181,9 +1481,10 @@ def main() -> int:
     for name in totals:
         totals[name] += mtotals[name] + ztotals[name]
 
-    # times of the kernel line: masked_matmul (fp32) summed over the GEMMs
-    # of one c=N request of the compacted AlexNet plan (each conv and dense
-    # layer once); the bf16 masked_matmul's GEMV over one Qwen2-7B R1
+    # times of the kernel line: each float32 / codes masked_matmul route
+    # summed over the GEMMs of one c=N request of the compacted AlexNet plan
+    # that take it (the convs on the split-K tiles, the dense layers on the
+    # GEMV); the bf16 masked_matmul's GEMV over one Qwen2-7B R1
     # decode step (56 products); the other kernels over one R1 prefill of
     # the model that launches them most (Qwen2-7B: 56 FFN products on the
     # wgmma tiles, 57 norms, 28 attentions; Mamba2-2.7B: 64 scans) at the
@@ -1192,10 +1493,16 @@ def main() -> int:
 
     def case(rs, name):
         return [r for r in rs if r["case"] == name]
+    def alex(rs, entry):
+        mine = [r for r in rs if r["entry"] == entry]
+        return mine, [r for r in mine if r["case"].endswith(" compact")]
     kernels = [
-        kernel_entry("masked_matmul", rows,
-                     [r for r in rows if r["case"].endswith(" compact")], 1,
-                     launches, dtype="float32"),
+        kernel_entry(entry, *alex(rs, entry), 1, alex_routes[entry],
+                     dtype=dtype)
+        for rs, dtype in ((rows, "float32"), (rows_q8, "uint8 codes"))
+        for entry in (f"masked_matmul_{'q8' if rs is rows_q8 else 'f32'}"
+                      f"_{route}" for route in ("splitk", "gemv"))]
+    kernels += [
         kernel_entry("masked_matmul_bf16_tiles",
                      [r for r in rows16
                       if r["entry"] == "masked_matmul_bf16_tiles"],
@@ -1213,7 +1520,8 @@ def main() -> int:
                      case(flash_rows, "prefill R1"), L,
                      totals["flash_attention"]),
         kernel_entry("ssd_scan", ssd_rows, case(ssd_rows, "mamba2 R1"),
-                     mcfg.num_layers, totals["ssd_scan"])]
+                     mcfg.num_layers, totals["ssd_scan"],
+                     passes=case(ssd_rows, "mamba2 R1")[0]["passes_ms"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,12 @@ byte for byte as the reference does, giving the per-layer contract
 
     |y_quant - y_fp32|_n <= (scale_n / 2) * ||x||_1      (``gemm_error_bound``)
 
-The dequant ``codes * scale + zero`` is a tensor op ahead of the kernel,
-as it is ahead of the Pallas kernel in the reference.
+The reference dequantizes ``codes * scale + zero`` as a tensor op ahead of
+its Pallas kernel; so does the port on the CPU and with ``backend="ref"``.
+On the card a quantized layer goes to ``masked_matmul_q8``, whose kernel
+dequantizes each code as it loads it, with the same two roundings, so the
+GEMM multiplies by the same float32 weights while reading a quarter of the
+bytes.
 
 Backend resolution (``resolve_backend``): ``"ref"`` — the plain PyTorch
 GEMM; ``"pallas"`` — the hand-written kernel (the name is kept so plans
@@ -36,7 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import CNNConfig
 from repro_torch.core.collab.protocol import affine_quantize
-from repro_torch.kernels.masked_matmul.ops import masked_matmul
+from repro_torch.kernels.masked_matmul.ops import (masked_matmul,
+                                                   masked_matmul_q8)
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 from repro_torch.models.cnn import maxpool_nhwc
 
@@ -183,11 +188,15 @@ def gemm_error_bound(x: torch.Tensor, scale) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the kernel-dispatched forward
 # ---------------------------------------------------------------------------
-def _gemm(x: torch.Tensor, w2: torch.Tensor, mvec: torch.Tensor,
+def _gemm(x: torch.Tensor, lp: Dict[str, torch.Tensor], mvec: torch.Tensor,
           backend: str) -> torch.Tensor:
+    """x @ dequant(layer) * mvec: the plain GEMM after the dequant for
+    ``"ref"``; else the kernel, from the codes where the layer has them."""
     if backend == "ref":
-        return masked_matmul_ref(x, w2, mvec)
-    return masked_matmul(x, w2, mvec)
+        return masked_matmul_ref(x, dequantize_weights(lp), mvec)
+    if "wq" in lp:
+        return masked_matmul_q8(x, lp["wq"], lp["scale"], lp["zero"], mvec)
+    return masked_matmul(x, lp["w"], mvec)
 
 
 def im2col_nhwc(x: torch.Tensor, kernel: int, stride: int,
@@ -218,13 +227,12 @@ def quant_cnn_apply(qparams, cfg: CNNConfig, x: torch.Tensor,
         spec = cfg.layers[i]
         if spec.kind in ("conv", "dense"):
             lp = qparams[f"l{i}"]
-            w2 = dequantize_weights(lp)          # (K, N)
             if spec.kind == "conv":
                 x = im2col_nhwc(x, spec.kernel, spec.stride, spec.padding)
             mvec = (masks[i].to(torch.float32) if i in masks
-                    else torch.ones(w2.shape[1], dtype=torch.float32,
-                                    device=w2.device))
-            x = _gemm(x, w2, mvec, backend) + lp["b"] * mvec
+                    else torch.ones(lp["b"].shape[0], dtype=torch.float32,
+                                    device=lp["b"].device))
+            x = _gemm(x, lp, mvec, backend) + lp["b"] * mvec
         elif spec.kind == "relu":
             x = torch.relu(x)
         elif spec.kind == "maxpool":

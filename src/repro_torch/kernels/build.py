@@ -112,15 +112,22 @@ def launch(name: str, symbol: str, argtypes: Sequence[Any],
     the launch failed (the entry returns ``cudaGetLastError()``, since a
     launch the card refuses never runs and a later synchronize would not
     report it). The bound function is looked up once per (kernel, symbol):
-    ``argtypes`` is the same on every call of an entry."""
+    ``argtypes`` is the same on every call of an entry. The device is
+    switched only when it is not the current one already: a small kernel's
+    time is its wrapper's host time."""
     fn = _fns.get((name, symbol))
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = [*argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[(name, symbol)] = fn
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{symbol}: kernel launch failed with CUDA "
                            f"error {err}")

@@ -2,15 +2,18 @@
 (B,S,G,N), head_mask (H,) -> (y (B,S,H,P) in xh's dtype, state (B,H,P,N)
 float32).
 
-On a CUDA tensor it launches the hand-written Hopper kernel
+On a CUDA tensor it launches the hand-written Hopper kernels
 (``csrc/ssd_scan.cu``) on the current stream, or raises; on a CPU tensor it
 runs the plain version (``ref.ssd_scan_ref``). There is no fallback from
-one to the other. ``ssd_scan.launches`` counts kernel launches. Unlike the
-reference's wrapper this one pads nothing: the kernel bounds-checks the
-ragged last chunk, walks 64-step chunks whatever ``chunk`` says (the result
-does not depend on the chunk length in exact arithmetic), and reads x, B and
-C through their batch and step strides, so the slices of the Mamba2 block's
-conv output go in without a copy.
+one to the other. One call is one C entry: for bf16 inputs three launches
+(chunk states, the state pass across chunks, the outputs; chunks of 256
+steps on the tensor cores, with a float32 workspace this wrapper
+allocates), for float32 inputs the one-block-per-head kernel (64-step
+chunks; the result does not depend on the chunk length in exact
+arithmetic). ``ssd_scan.launches`` counts calls. Unlike the reference's
+wrapper this one pads nothing: the kernels bound-check the ragged last
+chunk and read x, B and C through their batch and step strides, so the
+slices of the Mamba2 block's conv output go in without a copy.
 """
 from __future__ import annotations
 
@@ -23,15 +26,40 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 _ENTRIES = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
 #: the (P, N) head and state sizes the kernel is built for
 SHAPES = ((64, 64), (64, 128))
+#: steps a chunk of the bf16 entry (its workspace is per chunk)
+CHUNK = 256
 
 
 def _strides_ok(t: torch.Tensor) -> bool:
     """Innermost dimension contiguous and the one before it packed
-    against it: the kernel adds the batch and step strides only."""
-    return t.stride(-1) == 1 and t.stride(-2) == t.shape[-1]
+    against it: the kernel adds the batch and step strides only. The bf16
+    entry copies rows of 16 bytes: there the address and the batch and
+    step strides must be multiples of 16 bytes too."""
+    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return (t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+            and t.stride(1) % 8 == 0)
+
+
+def _kernel_layout(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x, B and C as the kernels read them: each passes ``_strides_ok``, and
+    B and C share their batch and step strides. A tensor that does not is
+    copied into new memory (``contiguous`` alone would hand back a
+    contiguous view whose address breaks the bf16 entry's 16-byte rule)."""
+    def fresh(t):
+        return t.clone(memory_format=torch.contiguous_format)
+    if not _strides_ok(xh):
+        xh = fresh(xh)
+    if not (_strides_ok(Bm) and _strides_ok(Cm)
+            and Bm.stride()[:2] == Cm.stride()[:2]):
+        Bm, Cm = fresh(Bm), fresh(Cm)
+    return xh, Bm, Cm
 
 
 def _check_cuda_operands(xh, dt, A, Bm, Cm, head_mask) -> None:
@@ -85,20 +113,26 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if head_mask is None:
         head_mask = torch.ones((H,), dtype=torch.float32, device=xh.device)
     _check_cuda_operands(xh, dt, A, Bm, Cm, head_mask)
-    if not _strides_ok(xh):
-        xh = xh.contiguous()
-    if not (_strides_ok(Bm) and _strides_ok(Cm)
-            and Bm.stride()[:2] == Cm.stride()[:2]):
-        Bm, Cm = Bm.contiguous(), Cm.contiguous()
+    xh, Bm, Cm = _kernel_layout(xh, Bm, Cm)
     dt, A, head_mask = dt.contiguous(), A.contiguous(), head_mask.contiguous()
     y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
     if B == 0 or H == 0:
         return y, state
+    ws_cs = ws_st = None
+    if xh.dtype == torch.bfloat16:
+        nc = -(-S // CHUNK)
+        ws_cs = torch.empty((B, H, nc, CHUNK), dtype=torch.float32,
+                            device=xh.device)
+        ws_st = torch.empty((B, H, nc, P, N), dtype=torch.float32,
+                            device=xh.device)
     build.launch("ssd_scan", _ENTRIES[xh.dtype], _ARGTYPES, xh.device,
                  xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(), head_mask.data_ptr(), y.data_ptr(),
-                 state.data_ptr(), B, S, H, Bm.shape[2], P, N,
+                 state.data_ptr(),
+                 None if ws_cs is None else ws_cs.data_ptr(),
+                 None if ws_st is None else ws_st.data_ptr(),
+                 B, S, H, Bm.shape[2], P, N,
                  xh.stride(0), xh.stride(1), Bm.stride(0), Bm.stride(1),
                  dt.stride(0), dt.stride(1))
     ssd_scan.launches += 1
