@@ -9,6 +9,7 @@ Phases, each printing its own lines:
 1. device — the card's name, and its name and power limit from nvidia-smi;
 2. build — every CUDA kernel of the paths, compiled from ``src/repro_torch/
    csrc`` in parallel (one nvcc per source), with ptxas's resource report;
+   every ``flash_attention`` instance must report 0 bytes of spills;
 3. kernels — each kernel's wrapper on card tensors at every shape the main
    paths give it, plus edge cases, held against its plain PyTorch version
    with the tolerance stated beside it, and timed with CUDA events beside
@@ -35,11 +36,14 @@ Phases, each printing its own lines:
    with one call's host time (the bf16, float32 and codes GEMV wrappers,
    ``matmul * mask``); ``rmsnorm`` at
    2048 and 2000 rows of 3584 (R1's and R2's prefill) and 1000, bf16 and
-   fp32, offsets 0 and 1, and at 1 and 2 rows (decode); ``flash_attention`` at (B=1,
+   fp32, offsets 0 and 1, and at 1 and 2 rows (decode), with its and
+   ``F.rms_norm``'s device time; ``flash_attention`` at (B=1,
    S=2048) and (B=2, S=1000) with 28/4 heads of 128, causal, plus windowed,
-   non-causal, fp32, head-dim 64 and ragged (S=77) cases, and Zamba2's
-   shared attention (32/32 heads of 64, S=2048); ``ssd_scan`` at Mamba2's
-   R1 (B=1, S=2048, 80 heads of 64, d_state 128) and R2 (B=2, S=1000,
+   non-causal, fp32, head-dim 64 and ragged (S=77) cases, Zamba2's
+   shared attention (32/32 heads of 64, S=2048), gemma-7b's R1 (16/16 heads
+   of 256, S=2048) and nemotron-4-340b's heads (96/8 of 192, S=2048), each
+   of the two head dims also ragged (S=77) and in fp32; ``ssd_scan`` at
+   Mamba2's R1 (B=1, S=2048, 80 heads of 64, d_state 128) and R2 (B=2, S=1000,
    ragged), Zamba2's R1 (64 heads, d_state 64), with half the heads masked,
    x, B and C as slices of one conv output as the block hands them in, plus
    2 groups, S=77, S=1, every head pruned and fp32 cases, the device time
@@ -81,9 +85,26 @@ Phases, each printing its own lines:
    and a tail of 2) serving R1: 38 ssd_scan and 6 flash_attention launches
    per prefill, 51 rmsnorm per forward step; the same logit yardstick;
 10. profile (Mamba2-2.7B) — where one R1 prefill's and one decode step's
-   device time goes.
+   device time goes;
+11. socket (AlexNet) — phase 4's int8 compacted plans served through
+   ``serving.CloudServer(plan)`` on 127.0.0.1 and ``serving.connect(plan,
+   backend="socket")``, both peers on the card in this process: c=19 (the
+   logits cross the wire) and c=13 (the dense layers in the cloud), then
+   c=13 with a ``faults`` section and a server that drops one response and
+   corrupts another (both recovered by replay), each with ``REQUESTS``
+   images sent one after another, every logit row and ``tx_bytes`` equal,
+   bit for bit, to the local backend's (at c=19 to its logits through the
+   codec), ``masked_matmul`` launches = edge GEMMs x requests on their
+   routes; and c=13 with a ``batching`` section (``max_batch`` 4), one
+   client alone and then 4 sessions at once, 8 images each, every row equal
+   to the sequential logits, the lanes showing batches of more than one
+   row. One ``socket`` line per plan: per-request wall ms (median, p90)
+   beside the local backend's, and the batched run's req/s beside one
+   client's.
 
-It then prints the kernels' JSON line, the nvidia-smi line, and as its last
+It then prints the kernels' JSON line (the ``masked_matmul`` launches of
+phases 4 and 11, counted where one thread launches), the nvidia-smi line,
+and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero without that line; so does a machine without a CUDA device.
 """
@@ -262,6 +283,21 @@ def masked_matmul_bound(row, M: int, K: int, N: int, kept: int,
     flops = 2 * M * K * kept + M * N + (2 * K * kept if codes else 0)
     return set_bound(row, nbytes, flops, PEAK_FP32_FLOP_S if itemsize == 4
                      else PEAK_BF16_FLOP_S)
+
+
+def check_no_spills(name: str, log: str) -> None:
+    """Phase 2: every kernel instance ptxas compiled for ``name`` (each
+    ``Compiling entry`` of its log) reports 0 bytes of spill stores and
+    loads; prints one ``build`` line with the count."""
+    entries = log.count("Compiling entry")
+    spills = [tuple(map(int, m)) for m in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    bad = [sp for sp in spills if sp != (0, 0)]
+    print(f"build {name}: {entries} instances, {len(spills)} spill reports, "
+          f"{len(bad)} with spills", flush=True)
+    if not entries or len(spills) < entries or bad:
+        raise AssertionError(f"{name}: ptxas reports spills or no report "
+                             f"({entries} instances, spills {spills})")
 
 
 def check_row(kernel: str, row, ok: bool):
@@ -604,11 +640,17 @@ def check_rmsnorm(cases):
                "ms": time_ms(lambda: rmsnorm(x, scale, 1e-6, offset)),
                "plain_ms": time_ms(lambda: rmsnorm_ref(x, scale, 1e-6,
                                                        offset)),
-               "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))}
+               "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
+               "device_ms": graph_ms(
+                   lambda x, scale: rmsnorm(x, scale, 1e-6, offset),
+                   x, scale),
+               "library_device_ms": graph_ms(
+                   lambda x, w: F.rms_norm(x, (d,), w, 1e-6), x, w)}
         # x read and y written once, the scale read once; about 4
         # operations an element (square-add, then two multiplies)
         set_bound(row, x.element_size() * (2 * R * d + d), 4 * R * d,
                   PEAK_FP32_FLOP_S)
+        row["ok"] = ok = ok and hold_to_bound(row)
         rows.append(check_row("rmsnorm", row, ok))
     return rows
 
@@ -860,7 +902,7 @@ def logit_tolerance(plan):
     every element through the cloud half (the codec part)."""
     import numpy as np
     import torch
-    from repro_torch.core.collab.local_runtime import deploy_submodels
+    from repro_torch.core.collab.runtime import deploy_submodels
     from repro_torch.core.collab.protocol import affine_qparams
     from repro_torch.core.collab.quant import quant_cnn_apply, quantize_params
     from repro_torch.device import exact_fp32
@@ -963,7 +1005,7 @@ def edge_routes(plan):
     route its shape picks, from codes where the plan quantizes."""
     import collections
     import torch
-    from repro_torch.core.collab.local_runtime import deploy_submodels
+    from repro_torch.core.collab.runtime import deploy_submodels
     from repro_torch.kernels.masked_matmul.ops import _route
     _, dcfg, _ = deploy_submodels(plan.params, plan.cfg, plan.masks,
                                   plan.compact)
@@ -1285,6 +1327,248 @@ def profile_transformer(cfg, params, masks):
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the socket deployment (AlexNet), both peers on the card
+# ---------------------------------------------------------------------------
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that the OS assigns."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def percentile(xs, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def zero_counts():
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    masked_matmul.launches = 0
+    masked_matmul.route_launches = dict.fromkeys(
+        masked_matmul.route_launches, 0)
+
+
+def read_counts():
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    return masked_matmul.launches, {
+        k: v for k, v in masked_matmul.route_launches.items() if v}
+
+
+def local_reference(plan, images):
+    """Phase 4's local backend on the card: each image's result and wall
+    ms (host clock around ``infer``, which ends in a copy to the host)."""
+    from repro_torch import serving
+    sess = serving.connect(plan, backend="local")
+    out, wall = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        out.append(sess.infer(img))
+        wall.append(1e3 * (time.perf_counter() - t0))
+    return out, wall
+
+
+def expected_frame(plan, res):
+    """What one request through the socket must give, from the local
+    backend's result: at an interior split the same logits and
+    ``tx_bytes``; at c=N the edge sends the logits themselves, so they
+    come back through the plan's codec (as bits, the codec's roundtrip of
+    the local logits) and the frame is their encoding."""
+    from repro_torch.core.collab.protocol import decode_any, encode_feature
+    if plan.split < len(plan.cfg.layers):
+        return res["logits"], res["tx_bytes"]
+    buf = encode_feature(res["logits"], codec=plan.codec)
+    return decode_any(buf)[0], len(buf)
+
+
+def socket_run(label, plan, images, local, local_wall, faults=None,
+               expected_faults: int = 0, profile: bool = False):
+    """Phase 11 for one plan: ``CloudServer(plan)`` on 127.0.0.1 and one
+    ``connect(plan, "socket")`` session, both on the card in this process;
+    the images sent one after another, each request's logits and
+    ``tx_bytes`` held, bit for bit, to the local backend's, the
+    ``masked_matmul`` launches (all from this thread: the cloud half runs
+    no kernel of the port) counted from just before the first request to
+    just after the last. With ``profile``, a ``profile`` line follows for
+    one more request: both peers' device time against its wall-clock.
+    Returns the ``socket`` row."""
+    from repro_torch import serving
+    with serving.CloudServer(plan, faults=faults) as server:
+        with serving.connect(plan, backend="socket") as sess:
+            zero_counts()
+            got, wall = [], []
+            for img in images:
+                t0 = time.perf_counter()
+                got.append(sess.infer(img))
+                wall.append(1e3 * (time.perf_counter() - t0))
+            launches, routes = read_counts()
+            if profile:
+                print("profile " + json.dumps({
+                    "path": f"socket {label}", "split": plan.split,
+                    **device_profile(lambda: sess.infer(images[0]))}),
+                    flush=True)
+    for i, (g, w) in enumerate(zip(got, local)):
+        want, tx = expected_frame(plan, w)
+        if not same_bits(g["logits"], want) or g["tx_bytes"] != tx:
+            raise AssertionError(f"socket {label}: request {i} differs from "
+                                 f"the local backend (tx {g['tx_bytes']} "
+                                 f"against {tx})")
+    want_routes = {k: v * len(images) for k, v in edge_routes(plan).items()}
+    if launches != edge_gemm_count(plan) * len(images) or \
+            routes != want_routes:
+        raise AssertionError(f"socket {label}: masked_matmul {launches} "
+                             f"launches {routes}, expected {want_routes}")
+    n_faults = sum(g["fault"]["faults"] for g in got)
+    n_retries = sum(g["fault"]["retries"] for g in got)
+    if n_faults != expected_faults or n_retries != expected_faults or \
+            any(g["fault"]["fallback"] for g in got):
+        raise AssertionError(f"socket {label}: fault records "
+                             f"{[g['fault'] for g in got]}")
+    row = {"plan": label, "split": plan.split, "requests": len(images),
+           "bit_identical_to_local": True, "tx_bytes": got[0]["tx_bytes"],
+           "launches": launches, "routes": routes,
+           "faults": n_faults, "retries": n_retries,
+           "fault_records": [g["fault"] for g in got],
+           "server_fault_stats": dict(server.fault_stats),
+           "wall_ms": wall,
+           "wall_ms_median": statistics.median(wall[1:]),
+           "wall_ms_p90": percentile(wall[1:], 90),
+           "t_edge_ms_median": 1e3 * statistics.median(
+               g["t_edge"] for g in got[1:]),
+           "t_upstream_ms_median": 1e3 * statistics.median(
+               g["t_upstream"] for g in got[1:]),
+           "local_wall_ms_median": statistics.median(local_wall[1:]),
+           "local_wall_ms_p90": percentile(local_wall[1:], 90)}
+    print("socket " + json.dumps(row), flush=True)
+    return row
+
+
+def socket_batched(plan, images_by_client, local_by_client):
+    """Phase 11, batching plan: ``CloudServer(plan)``, one
+    ``SocketSession`` per client opened first (its deployment built, its
+    HELLO done), then one client sending its images alone (req/s of one
+    client) and all of them at once, each from its own thread (req/s of
+    the fleet of clients); each row's logits held, bit for bit, to the
+    local backend's; the server's lane accounting must show batches of
+    more than one row."""
+    import threading
+    from repro_torch import serving
+    got, wall, errors = {}, {}, []
+
+    def client(c, sess, images):
+        try:
+            got[c], wall[c] = [], []
+            for img in images:
+                t0 = time.perf_counter()
+                got[c].append(sess.infer(img))
+                wall[c].append(1e3 * (time.perf_counter() - t0))
+        except Exception as e:                           # noqa: BLE001
+            errors.append(e)
+    with serving.CloudServer(plan) as server:
+        sessions = {c: serving.connect(plan, backend="socket")
+                    for c in images_by_client}
+        first = next(iter(images_by_client))
+        t0 = time.perf_counter()
+        client(first, sessions[first], images_by_client[first])
+        one_s = time.perf_counter() - t0
+        solo, solo_wall = got.pop(first), wall.pop(first)
+        threads = [threading.Thread(target=client,
+                                    args=(c, sessions[c], ims))
+                   for c, ims in images_by_client.items()]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        all_s = time.perf_counter() - t0
+        for sess in sessions.values():
+            sess.close()
+    if errors:
+        raise errors[0]
+    for c, results in [*got.items(), ("alone", solo)]:
+        local = local_by_client[first if c == "alone" else c]
+        for i, (res, want) in enumerate(zip(results, local)):
+            logits, tx = expected_frame(plan, want)
+            if not same_bits(res["logits"], logits) or res["tx_bytes"] != tx:
+                raise AssertionError(f"socket batched: client {c} request "
+                                     f"{i} differs from sequential")
+    sizes = [b for lane in server.batch_stats.values()
+             for b in lane["batch_sizes"]]
+    n = sum(len(ims) for ims in images_by_client.values())
+    if max(sizes, default=0) < 2:
+        raise AssertionError(f"socket batched: no batch of more than one "
+                             f"row ({server.batch_stats})")
+    together = [w for ws in wall.values() for w in ws[1:]]
+    row = {"plan": "batched", "split": plan.split,
+           "max_batch": plan.batching.max_batch,
+           "max_wait_ms": plan.batching.max_wait_ms,
+           "clients": len(images_by_client), "requests": n,
+           "bit_identical_to_sequential": True,
+           "req_per_s": n / all_s,
+           "one_client_req_per_s": len(solo) / one_s,
+           "wall_ms_median": statistics.median(together),
+           "wall_ms_p90": percentile(together, 90),
+           "one_client_wall_ms_median": statistics.median(solo_wall[1:]),
+           "one_client_wall_ms_p90": percentile(solo_wall[1:], 90),
+           "rows_served": sum(l["rows"] for l in server.batch_stats.values()),
+           "batches": sum(l["batches"] for l in server.batch_stats.values()),
+           "batch_sizes": sizes}
+    print("socket " + json.dumps(row), flush=True)
+    return row
+
+
+def socket_phase(plans, images):
+    """Phase 11: the socket deployment of the int8 compacted AlexNet. c=19
+    (every layer on the edge: the logits cross the wire) and c=13 (the
+    convs on the edge, the dense layers in the cloud), plain; c=13 with a
+    ``batching`` section (4 clients at once); c=13 with a ``faults``
+    section and a server that drops one response and corrupts another,
+    each recovered by replay. Returns the routes of the counted runs."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.collab.channel import FaultInjector
+    from repro_torch.core.partition.profiles import FaultEvent, FaultSchedule
+    from repro_torch.serving import BatchingPolicy, FaultPolicy
+
+    def on_socket(plan, **sections):
+        # loopback without the link shaper: what is measured is the TCP
+        # hop, the framing and the threads, not a modelled Wi-Fi link
+        return dataclasses.replace(plan, port=free_port(), shape_link=False,
+                                   **sections)
+    routes = collections.Counter()
+    for label in ("greedy", "c13"):
+        plan = on_socket(plans[label])
+        local, local_wall = local_reference(plan, images)
+        routes.update(socket_run(label, plan, images, local, local_wall,
+                                 profile=True)["routes"])
+    c13 = plans["c13"]
+    local, local_wall = local_reference(c13, images)
+    faults = FaultInjector(FaultSchedule("drop_and_corrupt", (
+        FaultEvent(2, "drop"), FaultEvent(5, "corrupt"))))
+    routes.update(socket_run(
+        "faults", on_socket(c13, faults=FaultPolicy(
+            max_retries=3, backoff_base_s=0.001, request_deadline_s=4.0)),
+        images, local, local_wall, faults=faults,
+        expected_faults=2)["routes"])
+    rng = np.random.default_rng(SEED + 11)
+    by_client = {c: [rng.standard_normal((1, 224, 224, 3), dtype=np.float32)
+                     for _ in range(REQUESTS)] for c in range(4)}
+    batched = on_socket(c13, batching=BatchingPolicy(max_batch=4,
+                                                     max_wait_ms=2.0))
+    local_by_client = {c: local_reference(batched, ims)[0]
+                       for c, ims in by_client.items()}
+    socket_batched(batched, by_client, local_by_client)
+    return routes
+
+
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                  **extra):
     """One kernel of the JSON line: times and bound summed over
@@ -1338,6 +1622,7 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "arning")):
                 print(f"build {name}: {line.strip()}", flush=True)
+    check_no_spills("flash_attention", logs["flash_attention"])
 
     # 3. kernels against their plain versions
     cfg = alexnet_config(38)
@@ -1404,7 +1689,15 @@ def main() -> int:
          ("fp32", 1, 512, 28, 4, 128, True, None, "float32"),
          ("head dim 64", 2, 300, 8, 2, 64, True, None, "bfloat16"),
          ("ragged 77", 1, 77, 28, 4, 128, True, None, "bfloat16"),
-         ("zamba2 shared R1", 1, 2048, 32, 32, 64, True, None, "bfloat16")])
+         ("zamba2 shared R1", 1, 2048, 32, 32, 64, True, None, "bfloat16"),
+         # the large head dims: gemma-7b's R1 (16/16 heads of 256) and
+         # nemotron-4-340b's heads (96/8 of 192), ragged and in fp32
+         ("gemma-7b R1 D256", 1, 2048, 16, 16, 256, True, None, "bfloat16"),
+         ("nemotron R1 D192", 1, 2048, 96, 8, 192, True, None, "bfloat16"),
+         ("ragged 77 D256", 1, 77, 16, 16, 256, True, None, "bfloat16"),
+         ("ragged 77 D192", 1, 77, 96, 8, 192, True, None, "bfloat16"),
+         ("fp32 D256", 1, 512, 16, 16, 256, True, None, "float32"),
+         ("fp32 D192", 1, 512, 96, 8, 192, True, None, "float32")])
     # Mamba2-2.7B: 80 heads of 64, d_state 128; Zamba2-1.2B: 64 heads of
     # 64, d_state 64; one B/C group each
     ssd_rows = check_ssd(
@@ -1443,7 +1736,6 @@ def main() -> int:
     # 5. where one full-width AlexNet request's device time goes
     profile_request(plans["greedy"], images[0])
     profile_request(plans["c13"], images[0])
-    del plans
     torch.cuda.empty_cache()
 
     # 6. the pruned Qwen2-7B at full width, served by prefill and decode
@@ -1480,6 +1772,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name in totals:
         totals[name] += mtotals[name] + ztotals[name]
+
+    # 11. the socket deployment of the AlexNet plans, both peers on the card
+    alex_routes.update(socket_phase(plans, images))
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan

@@ -3,10 +3,10 @@
 
 ``SimChannel`` computes transmission time analytically on a virtual clock;
 it never sleeps (a caller that wants real-time pacing sleeps the returned
-cost itself, as ``local_runtime.CollabRunner`` does with
+cost itself, as ``runtime.CollabRunner`` does with
 ``realtime_channel=True``). ``ShapedSocket`` wraps a real TCP socket with a
-token-bucket rate limiter; the socket backend that uses it comes with a
-later slice of the port.
+token-bucket rate limiter; ``runtime.serve_cloud`` and
+``runtime.EdgeClient`` send through it.
 
 Both channels accept a ``LinkTrace`` (``repro_torch.core.partition.profiles``)
 for *time-varying* links: ``SimChannel`` keeps a virtual clock and charges

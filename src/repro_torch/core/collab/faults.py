@@ -1,14 +1,18 @@
-"""Fault-tolerance policy and the per-request fault record (a copy of part
-of the JAX package's ``repro.core.collab.faults``).
+"""Fault-tolerance policy and typed failure surface for collaborative
+serving (a copy of the JAX package's ``repro.core.collab.faults``).
 
 - ``FaultPolicy`` — the serializable recovery contract carried as the
   ``faults`` section of a ``DeploymentPlan``: retry budget, exponential
   backoff with deterministic jitter, a per-request deadline, heartbeat
   interval, and what to do when the budget runs out (edge-only fallback
-  or a raised error). The port's plan keeps that section as JSON and
-  ``connect`` refuses it until the socket slice ports the retry
-  machinery; the class is here so the static analysis gate's
-  unit-suffix check holds for this path as it does for the reference's.
+  or a raised error). Like the other optional plan sections it folds
+  into the plan digest only when set.
+- ``RequestTimeout`` — the typed error of a read past the deadline on a
+  dead cloud.
+- ``ServerDraining`` / ``ServerBusy`` — typed signals decoded from the
+  DRAIN and BUSY control frames: the server is restarting (drain-migrate)
+  or shedding load (redirect), and a fleet-routed edge moves the request
+  to another member instead of burning its fault budget.
 - ``fault_record`` — the uniform per-request ``{faults, retries,
   migrations, fallback}`` accounting every backend attaches to its
   results.
@@ -133,3 +137,32 @@ class FaultPolicy:
             fallback=str(doc.get("fallback", "edge")),
             seed=int(doc.get("seed", 0)),
         )
+
+
+class RequestTimeout(TimeoutError):
+    """A collaborative-inference request exceeded its deadline waiting
+    on the cloud (connect, send, or response read). Replaces the silent
+    forever-block of a plain socket read against a dead peer; subclass
+    of ``TimeoutError`` (hence ``OSError``), so generic socket-error
+    handling still catches it."""
+
+
+class ServerDraining(ConnectionError):
+    """The cloud answered a request with a DRAIN control frame: it is
+    flushing for a rolling restart and admits nothing new. Not a fault —
+    a fleet-routed edge migrates to the next healthy member and replays
+    the request there (zero failed requests across a rolling drain)."""
+
+
+class ServerBusy(ConnectionError):
+    """The cloud answered a request with a BUSY backpressure frame: the
+    bounded batching lane is saturated (shed reason mirrors the fleet
+    simulator's admission vocabulary). With ``redirect`` set, a
+    fleet-routed edge replays the request on another member immediately
+    instead of queueing behind the overload."""
+
+    def __init__(self, reason: str = "queue", redirect: bool = True):
+        super().__init__(f"server shed request (reason={reason!r}, "
+                         f"redirect={redirect})")
+        self.reason = reason
+        self.redirect = redirect

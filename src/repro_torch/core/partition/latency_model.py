@@ -125,6 +125,38 @@ def _segment_time(costs: Sequence[LayerCost], idx, comp,
     return t
 
 
+def batched_segment_time(costs: Sequence[LayerCost], start: int, stop: int,
+                         comp, batch: int) -> float:
+    """Analytic time for ONE invocation running layers ``[start, stop)``
+    over ``batch`` fused rows on ``comp`` (a ``ComputeProfile``) — the
+    same per-layer roofline + once-per-call overhead formula as
+    ``split_latency``, exposed for *partial* stacks: the fleet
+    simulator's cloudlet tier runs ``[c1, c2)`` and its cloud tier
+    ``[c2, N)``, both priced here so tier numbers can never drift from
+    the two-tier model."""
+    if batch < 1:
+        raise ValueError("batch must be >= 1")
+    if not 0 <= start <= stop <= len(costs):
+        raise ValueError(f"segment [{start}, {stop}) outside "
+                         f"[0, {len(costs)}]")
+    return _segment_time(costs, range(start, stop), comp, batch)
+
+
+def batched_server_time(costs: Sequence[LayerCost], c: int,
+                        server, batch: int) -> float:
+    """Analytic T_S for ONE cloud invocation serving ``batch`` fused
+    requests on ``server`` (a ``ComputeProfile``): per-layer FLOPs and
+    activation traffic scale with the batch, but the per-invocation
+    constant (``ComputeProfile.overhead_s`` — kernel launch, dispatch,
+    framework overhead) is paid once per *batch* instead of once per
+    *request*. The gap between ``batch * batched_server_time(..., 1)``
+    and ``batched_server_time(..., batch)`` is exactly the throughput
+    headroom the cross-client dynamic batching engine recovers; per
+    request it approaches ``overhead_s``-free compute as the batching
+    window fills."""
+    return batched_segment_time(costs, c, len(costs), server, batch)
+
+
 def split_latency(costs: Sequence[LayerCost], c: int,
                   profile: TwoTierProfile,
                   input_bytes: float,

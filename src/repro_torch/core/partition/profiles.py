@@ -185,6 +185,30 @@ PHONE_EDGE = ComputeProfile("phone-class edge", flops_per_s=25e9,
                             mem_bw=12e9, overhead_s=2e-4)
 
 
+# --- canned time-varying link traces ----------------------------------------
+#: the paper's steady testbed link, as a (degenerate) trace
+WIFI_STEADY = LinkTrace.from_mbps("wifi_steady",
+                                  [(float("inf"), 50.0)], rtt_ms=4.0)
+#: edge device walks away from the access point: 50 -> 18 -> 5 Mbps
+WIFI_DEGRADING = LinkTrace.from_mbps(
+    "wifi_degrading", [(4.0, 50.0), (4.0, 18.0), (float("inf"), 5.0)],
+    rtt_ms=4.0)
+#: 4G field link with a coverage hole mid-route (handover dip)
+LTE_HANDOVER = LinkTrace.from_mbps(
+    "lte_handover",
+    [(3.0, 30.0, 30.0), (2.0, 2.0, 80.0), (float("inf"), 25.0, 30.0)])
+#: shared uplink that sawtooths between free and congested, forever
+CONGESTED_SAWTOOTH = LinkTrace.from_mbps(
+    "congested_sawtooth", [(2.0, 40.0), (2.0, 6.0)], rtt_ms=10.0, loop=True)
+
+TRACES = {
+    "wifi_steady": WIFI_STEADY,
+    "wifi_degrading": WIFI_DEGRADING,
+    "lte_handover": LTE_HANDOVER,
+    "congested_sawtooth": CONGESTED_SAWTOOTH,
+}
+
+
 # --- fault schedules ---------------------------------------------------------
 #: failure modes a schedule may inject, in roughly increasing severity
 FAULT_KINDS = ("drop", "corrupt", "stall", "disconnect", "die")
@@ -282,3 +306,25 @@ class FaultSchedule:
             elif u < p_total:
                 events.append(FaultEvent(a, "disconnect"))
         return cls(name, tuple(events))
+
+
+#: lossy uplink: ~6% of frames vanish in flight
+FAULT_DROP_BURST = FaultSchedule.seeded("drop_burst", seed=7,
+                                        n_attempts=600, drop=0.06)
+#: congested AP: ~8% of frames stall for 30 ms, a few are corrupted
+FAULT_STALL_STORM = FaultSchedule.seeded("stall_storm", seed=11,
+                                         n_attempts=600, corrupt=0.02,
+                                         stall=0.08, stall_s=0.03)
+#: coverage hole: every attempt in a contiguous window tears the
+#: connection down — retries inside the window keep failing
+FAULT_OUTAGE = FaultSchedule(
+    "outage", tuple(FaultEvent(a, "disconnect") for a in range(12, 18)))
+#: the cloud process is killed mid-stream at attempt 8
+FAULT_CLOUD_DEATH = FaultSchedule("cloud_death", (FaultEvent(8, "die"),))
+
+FAULT_SCHEDULES = {
+    "drop_burst": FAULT_DROP_BURST,
+    "stall_storm": FAULT_STALL_STORM,
+    "outage": FAULT_OUTAGE,
+    "cloud_death": FAULT_CLOUD_DEATH,
+}

@@ -2,8 +2,8 @@
 // and sliding-window masks and grouped KV heads (GQA), in the model layout
 //     q, out (B, Sq, H, D)     k, v (B, Sk, Hkv, D)      row-major,
 // all float32 (flash_attention_f32) or all bfloat16 (flash_attention_bf16),
-// D = 64 or 128. Query head h reads KV head h / (H / Hkv). Scores, softmax
-// and the output accumulator are float32; the output is rounded once.
+// D = 64, 128, 192 or 256. Query head h reads KV head h / (H / Hkv). Scores,
+// softmax and the output accumulator are float32; the output is rounded once.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // _flash_kernel (flash_attention_pallas). That kernel ran a grid (B, H, nq,
@@ -41,14 +41,18 @@
 // shuffles; P rounded to bf16 in registers to feed P V, while l sums the fp32
 // P. That rounding is the one numeric change from the reference, which keeps
 // P in fp32 (kernel.py:81-87): each P entry moves by at most 2^-8 of itself,
-// so each output by at most 2^-8 * max|v|.
+// so each output by at most 2^-8 * max|v|. At D = 192 and 256 a warp's
+// accumulator alone is 96 or 128 registers a thread and Q, K and V take
+// 120 or 160 KB of shared memory, so those head dims run one block an SM and
+// reload Q's fragments from shared memory by ldmatrix at each 16-deep step
+// instead of holding them in registers (64 more at D = 256, which would spill).
 //
 // flash_attention_f32 (flash_kernel) keeps the reference's fp32 numerics on
 // the CUDA cores: 64-query tiles and 32-key tiles, 128 threads in an 8 x 16
 // layout (thread (ty, tx) owns query rows 8*ty .. 8*ty+7, score columns
 // tx + 16*j and output columns tx + 16*j), q pre-scaled and K, V, P staged in
-// 73 KB of shared memory, row maxima and sums across the 16 threads of a row
-// group by warp shuffles.
+// 73 KB of shared memory at D = 128 (141 KB at D = 256, one block an SM),
+// row maxima and sums across the 16 threads of a row group by warp shuffles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -241,6 +245,12 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
   if (D == 128)
     return launch_d<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
                             causal, has_window, window, stream);
+  if (D == 192)
+    return launch_d<T, 192>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
+                            causal, has_window, window, stream);
+  if (D == 256)
+    return launch_d<T, 256>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
+                            causal, has_window, window, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -257,6 +267,14 @@ constexpr int THREADS = 32 * WARPS;
 template <int D>
 constexpr size_t smem_bytes() {
   return 2 * (size_t)(BQ * D + 2 * 2 * BKV * D);
+}
+// up to D = 128 Q's fragments stay in registers and two blocks share an SM;
+// above, Q is reread from shared memory and a block has the SM to itself
+template <int D>
+__host__ __device__ constexpr bool q_in_registers() { return D <= 128; }
+template <int D>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return q_in_registers<D>() ? 2 : 1;
 }
 }  // namespace mma_tiles
 
@@ -327,7 +345,8 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 // (k = key, n = d) by ldmatrix.trans; the score accumulators of two
 // neighbouring 8-key tiles are exactly P's A fragment for a 16-key step.
 template <int D>
-__global__ void __launch_bounds__(mma_tiles::THREADS, 2)
+__global__ void __launch_bounds__(mma_tiles::THREADS,
+                                  mma_tiles::blocks_per_sm<D>())
 flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -385,12 +404,17 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, one per 16-deep step of D
-  uint32_t qf[D / 16][4];
+  // this warp's 16 query rows as A fragments, one per 16-deep step of D:
+  // loaded once into registers, or at each step from Qs (which only this
+  // warp reads at its rows) for the large head dims
+  constexpr bool QREG = mma_tiles::q_in_registers<D>();
+  const int q_row0 = warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2);
+  uint32_t qf[QREG ? D / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd)
-    ldmatrix_x4(qf[kd], Qs + swz<D>(warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2),
-                                    kd * 2 + lane / 16));
+    for (int kd = 0; kd < D / 16; ++kd)
+      ldmatrix_x4(qf[kd], Qs + swz<D>(q_row0, kd * 2 + lane / 16));
+  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -413,15 +437,23 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+        qa[0] = qf[kd][0]; qa[1] = qf[kd][1];
+        qa[2] = qf[kd][2]; qa[3] = qf[kd][3];
+      } else {
+        ldmatrix_x4(qa, Qs + swz<D>(q_row0, kd * 2 + lane / 16));
+      }
 #pragma unroll
       for (int np = 0; np < BKV / 16; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, Kt + swz<D>(np * 16 + (lane % 8) + 8 * (lane / 16),
                                     kd * 2 + (lane / 8) % 2));
-        mma_bf16(s[2 * np], qf[kd], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[kd], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
+    }
 
     // scale the fp32 scores; mask only tiles that cross the diagonal, the
     // window's edge or seq_k
@@ -491,8 +523,8 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   }
 
   // out = acc / max(l, 1e-37), staged through this warp's own rows of Qs
-  // (read only by this warp, into qf, before the loop) so that the stores
-  // to global memory are whole 16-byte chunks
+  // (read only by this warp, for its Q fragments, and no longer) so that
+  // the stores to global memory are whole 16-byte chunks
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
@@ -541,6 +573,12 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (D == 128)
     return launch_mma_d<128>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
                              causal, has_window, window, stream);
+  if (D == 192)
+    return launch_mma_d<192>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
+                             causal, has_window, window, stream);
+  if (D == 256)
+    return launch_mma_d<256>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
+                             causal, has_window, window, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -548,7 +586,7 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream` and
 // returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for a head
-// size other than 64 or 128, which the wrapper refuses first).
+// size other than 64, 128, 192 or 256, which the wrapper refuses first).
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int B, int Sq,
                                    int Sk, int H, int Hkv, int D, int seq_k,

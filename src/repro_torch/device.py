@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Union
 
 import torch
@@ -21,21 +22,35 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+_fp32_lock = threading.Lock()
+#: threads inside ``exact_fp32`` now, and the switches the first one found
+_fp32_state = {"depth": 0, "prev": None}
+
+
 @contextlib.contextmanager
 def exact_fp32() -> Iterator[None]:
     """Run fp32 convolutions and GEMMs in full fp32, as the JAX reference
     does. cuDNN runs fp32 convolutions in TF32 by default, which keeps only
     about three decimal digits; both switches are set off for the duration
-    and restored after."""
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    and restored after. The switches are global, and a server's threads
+    enter and leave this context at any time: they are restored only when
+    the last thread inside leaves, so none runs with TF32 on while another
+    leaves."""
+    with _fp32_lock:
+        if _fp32_state["depth"] == 0:
+            _fp32_state["prev"] = (torch.backends.cudnn.allow_tf32,
+                                   torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _fp32_state["depth"] += 1
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+        with _fp32_lock:
+            _fp32_state["depth"] -= 1
+            if _fp32_state["depth"] == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _fp32_state["prev"]
 
 
 def synchronize(device: Optional[torch.device]) -> None:

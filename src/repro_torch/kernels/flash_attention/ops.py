@@ -23,7 +23,15 @@ _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] * 3)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 192, 256)
+
+
+def check_head_dim(D: int) -> None:
+    """Raise ``ValueError`` for a head dim the CUDA kernel has no instance
+    of (the plain version takes any)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head "
+                         f"dims {HEAD_DIMS}, got {D}")
 
 
 def _check_cuda_operands(q: torch.Tensor, k: torch.Tensor,
@@ -43,9 +51,7 @@ def _check_cuda_operands(q: torch.Tensor, k: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not line up (H % Hkv == 0)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head "
-                         f"dims {HEAD_DIMS}, got {D}")
+    check_head_dim(D)
     if H > 65535 or B > 65535 or max(q.numel(), k.numel()) >= 2 ** 31:
         raise ValueError("flash_attention: a dimension exceeds the launch "
                          "grid (H, B <= 65535, sizes < 2**31)")

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_attention.ops import check_head_dim
 from repro_torch.models import transformer as tr
 
 
@@ -23,9 +24,13 @@ def _on(device: torch.device, tokens) -> torch.Tensor:
 
 def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
                       masks=None, device: DeviceLike = None):
-    """-> ``prefill_step(params, batch) -> (last_logits (B,V), cache)``."""
+    """-> ``prefill_step(params, batch) -> (last_logits (B,V), cache)``.
+    On the card a config whose attention head dim the flash kernel has no
+    instance of is refused here, not in its first attention layer."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
+    if dev.type == "cuda" and cfg.num_heads:
+        check_head_dim(cfg.head_dim)
 
     def prefill_step(params, batch):
         batch = dict(batch, tokens=_on(dev, batch["tokens"]))

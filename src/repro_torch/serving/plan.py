@@ -8,12 +8,15 @@ and read the reference's directory layout (``plan.json``,
 ``params.npz``/``params.json``, ``masks.npz``), so a plan made by either
 package loads in the other with the same digest.
 
-Sections of the contract whose machinery is not ported yet (``adaptive``,
-``batching``, ``energy``, ``faults``, ``fleet``, ``routing``) are held as
-their JSON dicts: they fold into the digest and round-trip through
-``save``/``load`` unchanged, and ``serving.connect`` refuses to serve a
-plan that carries one (``NotImplementedError``). The ``quant`` section is
-a ``QuantPolicy``.
+The ``quant``, ``batching``, ``faults`` and ``routing`` sections are the
+policy objects of the reference (``QuantPolicy``, ``BatchingPolicy``,
+``FaultPolicy``, ``RoutingPolicy``; a section given as its JSON dict is
+read with the policy's ``from_json``). Sections whose machinery is not
+ported yet (``adaptive``, ``energy``, ``fleet``) are held as their JSON
+dicts: they fold into the digest and round-trip through ``save``/``load``
+unchanged, and ``serving.connect`` and ``serving.serve`` refuse a plan
+that carries one (``NotImplementedError``). Each optional section folds
+into the digest only when set, as in the reference.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ import torch
 
 from repro_torch import interop
 from repro_torch.configs.base import CNNConfig, ConvLayerSpec
+from repro_torch.core.collab.batching import BatchingPolicy
+from repro_torch.core.collab.cluster import RoutingPolicy
+from repro_torch.core.collab.faults import FaultPolicy
 from repro_torch.core.collab.protocol import CODEC_TX_SCALE
 from repro_torch.core.collab.quant import QuantPolicy
 from repro_torch.core.partition.latency_model import (
@@ -40,9 +46,11 @@ from repro_torch.core.partition.profiles import (ComputeProfile, LinkProfile,
 from repro_torch.core.partition.splitter import greedy_split
 
 PLAN_VERSION = 1
-#: contract sections this slice keeps as JSON and does not serve yet
-UNPORTED_SECTIONS = ("adaptive", "batching", "energy", "faults", "fleet",
-                     "routing")
+#: contract sections the port keeps as JSON and does not serve yet
+UNPORTED_SECTIONS = ("adaptive", "energy", "fleet")
+#: sections held as policy objects, by the policy class
+POLICY_SECTIONS = {"batching": BatchingPolicy, "faults": FaultPolicy,
+                   "routing": RoutingPolicy}
 
 
 def _cfg_to_json(cfg: CNNConfig) -> Dict[str, Any]:
@@ -84,8 +92,7 @@ class DeploymentPlan:
     ``codec``/``pack`` pick the wire encoding of the split-boundary
     tensor; ``profile`` is the two-tier hardware model for the analytic
     Eq. 5 timing; ``host``/``port``/``connect_timeout_s``/``shape_link``
-    are the transport section (kept for the contract; the socket backend
-    is not ported yet).
+    are the transport section the socket backend connects and listens by.
     """
     cfg: CNNConfig
     params: Dict
@@ -100,11 +107,11 @@ class DeploymentPlan:
     connect_timeout_s: float = 30.0
     shape_link: bool = True
     adaptive: Optional[Dict[str, Any]] = None
-    batching: Optional[Dict[str, Any]] = None
+    batching: Optional[BatchingPolicy] = None
     energy: Optional[Dict[str, Any]] = None
-    faults: Optional[Dict[str, Any]] = None
+    faults: Optional[FaultPolicy] = None
     fleet: Optional[Dict[str, Any]] = None
-    routing: Optional[Dict[str, Any]] = None
+    routing: Optional[RoutingPolicy] = None
     quant: Optional[QuantPolicy] = None
     version: int = PLAN_VERSION
 
@@ -121,6 +128,10 @@ class DeploymentPlan:
         if self.masks is not None:
             self.masks = {int(i): _mask_array(m) for i, m in
                           sorted(self.masks.items())}
+        for name, policy in POLICY_SECTIONS.items():
+            sec = getattr(self, name)
+            if isinstance(sec, dict):
+                setattr(self, name, policy.from_json(sec))
         if self.adaptive is not None:
             # the reference normalizes its candidates the same way:
             # sorted, unique, always containing the initial split
@@ -179,15 +190,15 @@ class DeploymentPlan:
         if self.adaptive is not None:
             doc["adaptive"] = dict(self.adaptive)
         if self.batching is not None:
-            doc["batching"] = dict(self.batching)
+            doc["batching"] = self.batching.to_json()
         if self.energy is not None:
             doc["energy"] = dict(self.energy)
         if self.faults is not None:
-            doc["faults"] = dict(self.faults)
+            doc["faults"] = self.faults.to_json()
         if self.fleet is not None:
             doc["fleet"] = dict(self.fleet)
         if self.routing is not None:
-            doc["routing"] = dict(self.routing)
+            doc["routing"] = self.routing.to_json()
         if self.quant is not None:
             doc["quant"] = self.quant.to_json()
         return doc
@@ -198,7 +209,7 @@ class DeploymentPlan:
         return hashlib.sha256(blob).hexdigest()[:16]
 
     def unported_sections(self):
-        """Names of the set sections this slice cannot serve."""
+        """Names of the set sections the port cannot serve yet."""
         return [s for s in UNPORTED_SECTIONS if getattr(self, s) is not None]
 
     # -- persistence --------------------------------------------------------
@@ -224,6 +235,9 @@ class DeploymentPlan:
         for name in UNPORTED_SECTIONS:
             sec = getattr(self, name)
             doc[name] = dict(sec) if sec else None
+        for name in POLICY_SECTIONS:
+            sec = getattr(self, name)
+            doc[name] = sec.to_json() if sec else None
         with open(os.path.join(path, "plan.json"), "w") as f:
             json.dump(doc, f, indent=1, sort_keys=True)
         return path
@@ -242,7 +256,7 @@ class DeploymentPlan:
                 masks = {int(k): data[k] for k in data.files}
         link = doc["link"]
         sections = {name: doc.get(name) or None
-                    for name in UNPORTED_SECTIONS}
+                    for name in (*UNPORTED_SECTIONS, *POLICY_SECTIONS)}
         quant = (QuantPolicy.from_json(doc["quant"])
                  if doc.get("quant") else None)
         plan = cls(cfg=cfg, params=params, split=doc["split"], masks=masks,

@@ -26,9 +26,8 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash
 from repro_torch.interop import transformer_params_from_reference as to_port
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.kernels.masked_matmul import ops
-from torch_parity import BF16_SPACING, EPS32, to_f32
+from torch_parity import flash_bf16_tolerance, p_in_bf16_attention, to_f32
 
 #: Qwen2-7B's FFN up/gate product: K = d_model, N = d_ff
 K, N = 3584, 18944
@@ -212,30 +211,6 @@ FLASH_CASES = {
 }
 
 
-def _p_in_bf16_attention(q, k, v, causal, window):
-    """Plain attention as the bf16 kernel rounds it: fp32 scores scaled
-    after Q·Kᵀ, NEG_INF masks, fp32 softmax numerator P and denominator l,
-    P rounded to bf16 before P·V, the fp32 sum divided by max(l, 1e-37) and
-    rounded to bf16 once."""
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
-    qf = q.float().reshape(B, S, Hkv, H // Hkv, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * D ** -0.5
-    d = torch.arange(S)[:, None] - torch.arange(S)[None, :]
-    ok = torch.ones(S, S, dtype=torch.bool)
-    if causal:
-        ok &= d >= 0
-    if window is not None:
-        ok &= d < window
-    s = torch.where(ok, s, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    l = p.sum(-1, keepdim=True)
-    p16 = p.to(torch.bfloat16).float()
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p16 / l.clamp_min(1e-37),
-                       v.float())
-    return out.reshape(B, S, H, D).to(torch.bfloat16)
-
-
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_p_in_bf16_stays_within_the_stated_flash_tolerance(case):
     """Rounding each P entry to bf16 moves it by at most 2⁻⁸ of itself, so
@@ -248,10 +223,8 @@ def test_p_in_bf16_stays_within_the_stated_flash_tolerance(case):
                                   (B, S, Hkv, D)))
     want = to_f32(ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                             causal=causal, window=window, interpret=True))
-    got = to_f32(_p_in_bf16_attention(to_port(q), to_port(k), to_port(v),
+    got = to_f32(p_in_bf16_attention(to_port(q), to_port(k), to_port(v),
                                       causal, window))
-    vmax = float(np.abs(to_f32(v)).max())
-    fp = (64 * EPS32 + 2.0 ** -8) * vmax
-    tol = fp + BF16_SPACING * (np.abs(want) + fp)
+    tol = flash_bf16_tolerance(to_f32(v), want)
     assert got.shape == want.shape
     assert (np.abs(got - want) <= tol).all()

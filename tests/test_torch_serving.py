@@ -112,8 +112,8 @@ def test_unported_section_and_backend_raise():
     with pytest.raises(NotImplementedError, match="adaptive"):
         tserving.connect(plan, backend="local", device="cpu")
     plain = tserving.DeploymentPlan.from_args(port_params(params), cfg_t, 6)
-    with pytest.raises(NotImplementedError, match="socket"):
-        tserving.connect(plain, backend="socket", device="cpu")
+    with pytest.raises(NotImplementedError, match="streaming"):
+        tserving.connect(plain, backend="streaming", device="cpu")
     with pytest.raises(ValueError):
         tserving.connect(plain, backend="carrier-pigeon", device="cpu")
     with pytest.raises(NotImplementedError, match="energy"):

@@ -4,12 +4,15 @@ and the PyTorch port (``repro_torch``). Never a ``jax.random`` key: the
 reference's PRNG stream moved between JAX versions."""
 from __future__ import annotations
 
+import socket
+
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro.models import cnn as rcnn
 from repro_torch.interop import params_from_reference
+from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import cnn as tcnn
 
 #: fp32 float epsilon (unit roundoff is half of it)
@@ -162,3 +165,46 @@ def ssd_tolerance(xh, dt, A, Bm, Cm, chunk: int):
     cs_max = float(da.reshape(da.shape[0], nc, Q, -1).sum(2).max())
     k = (N + Q + nc + 2 * cs_max) * EPS32
     return k * mag_y.numpy(), k * mag_s.numpy()
+
+
+def p_in_bf16_attention(q, k, v, causal, window):
+    """Plain attention as the bf16 kernel rounds it: fp32 scores scaled
+    after Q·Kᵀ, NEG_INF masks, fp32 softmax numerator P and denominator l,
+    P rounded to bf16 before P·V, the fp32 sum divided by max(l, 1e-37) and
+    rounded to bf16 once."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qf = q.float().reshape(B, S, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * D ** -0.5
+    d = torch.arange(S)[:, None] - torch.arange(S)[None, :]
+    ok = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        ok &= d >= 0
+    if window is not None:
+        ok &= d < window
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    p16 = p.to(torch.bfloat16).float()
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p16 / l.clamp_min(1e-37),
+                       v.float())
+    return out.reshape(B, S, H, D).to(torch.bfloat16)
+
+
+def flash_bf16_tolerance(v: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """The bf16 flash kernel's stated tolerance: rounding each P entry to
+    bf16 moves it by at most 2⁻⁸ of itself, so an output by at most
+    2⁻⁸·max|v|; with 64·eps32·max|v| for the fp32 roundoff and one bf16
+    spacing of the value."""
+    vmax = float(np.abs(v).max())
+    fp = (64 * EPS32 + 2.0 ** -8) * vmax
+    return fp + BF16_SPACING * (np.abs(want) + fp)
+
+
+def free_port() -> int:
+    """A TCP port the OS assigns on 127.0.0.1 (bind port 0, read it back,
+    release it) for a server the test then starts there; the reference's
+    socket tests hold fixed ports below the OS's ephemeral range."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
