@@ -9,7 +9,8 @@ Phases, each printing its own lines:
 1. device — the card's name, and its name and power limit from nvidia-smi;
 2. build — every CUDA kernel of the paths, compiled from ``src/repro_torch/
    csrc`` in parallel (one nvcc per source), with ptxas's resource report;
-   every ``flash_attention`` instance must report 0 bytes of spills;
+   every ``flash_attention`` and ``rmsnorm`` instance must report 0 bytes
+   of spills;
 3. kernels — each kernel's wrapper on card tensors at every shape the main
    paths give it, plus edge cases, held against its plain PyTorch version
    with the tolerance stated beside it, and timed with CUDA events beside
@@ -37,7 +38,14 @@ Phases, each printing its own lines:
    ``matmul * mask``); ``rmsnorm`` at
    2048 and 2000 rows of 3584 (R1's and R2's prefill) and 1000, bf16 and
    fp32, offsets 0 and 1, and at 1 and 2 rows (decode), with its and
-   ``F.rms_norm``'s device time; ``flash_attention`` at (B=1,
+   ``F.rms_norm``'s device time, each row naming its launch plan; its gated
+   entry (Mamba2's norm-then-gate) at Mamba2's R1 and R2 (2048 and 2000
+   rows of 5120, z a slice of the (rows, 10576) input projection), decode
+   (1 and 2 rows), Zamba2's R1 (2048 rows of 4096 in a 8384-wide
+   projection), fp32, a ragged width and an unaligned z (the scalar
+   route), beside the eager chain and the composite of PyTorch calls that
+   computes it; one ``plans`` line per R1 width timing every threads-a-row
+   the kernel can take; ``flash_attention`` at (B=1,
    S=2048) and (B=2, S=1000) with 28/4 heads of 128, causal, plus windowed,
    non-causal, fp32, head-dim 64 and ragged (S=77) cases, Zamba2's
    shared attention (32/32 heads of 64, S=2048), gemma-7b's R1 (16/16 heads
@@ -77,13 +85,14 @@ Phases, each printing its own lines:
    (``configs/mamba2_2p7b.CONFIG``: 64 layers, d_model 2560, 80 SSD heads of
    64, d_state 128, vocab 50304, bf16; masks at ratio 0.5 keep 40 heads a
    layer) serving R1 and R2 as in phase 6: 64 ssd_scan launches per prefill
-   and none per decode step, 65 rmsnorm per forward step; the same logit
-   yardstick;
+   and none per decode step, 65 rmsnorm and 64 gated rmsnorm per forward
+   step; the same logit yardstick;
 9. slice (Zamba2-1.2B) — the pruned hybrid at full width and depth
    (``configs/zamba2_1p2b.CONFIG``: 38 Mamba2 layers of 64 heads, d_state
    64, one shared attention + GELU-MLP block after every 6th, so 6 groups
    and a tail of 2) serving R1: 38 ssd_scan and 6 flash_attention launches
-   per prefill, 51 rmsnorm per forward step; the same logit yardstick;
+   per prefill, 51 rmsnorm and 38 gated rmsnorm per forward step; the
+   same logit yardstick;
 10. profile (Mamba2-2.7B) — where one R1 prefill's and one decode step's
    device time goes;
 11. socket (AlexNet) — phase 4's int8 compacted plans served through
@@ -134,12 +143,15 @@ PEAK_BF16_FLOP_S = 989e12
 #: ``graph_ms`` rotates through to read past it
 L2_BYTES = 50 * 2 ** 20
 GRAPH_COPIES = 256
-#: the TPU kernel each CUDA kernel replaces
+#: the TPU kernel each CUDA kernel replaces; the rmsnorm kernel's gated
+#: entry replaces an XLA fusion of the reference (no Pallas kernel)
 REPLACES = {"masked_matmul": "src/repro/kernels/masked_matmul/kernel.py:26",
             "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:20",
+            "rmsnorm_gated": "src/repro/models/layers/norms.py:45",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:38",
             "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:36"}
-SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES = {name: f"src/repro_torch/csrc/{name.split('_gated')[0]}.cu"
+           for name in REPLACES}
 #: bf16 keeps 8 significant bits: two roundings of nearby fp32 values to
 #: bf16 differ by at most their gap plus 2**-7 of the value
 BF16_SPACING = 2.0 ** -7
@@ -610,7 +622,7 @@ def check_rmsnorm(cases):
     (name, rows, d, dtype, scale_offset)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ops import _plan, rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     eps32 = torch.finfo(torch.float32).eps
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -634,7 +646,8 @@ def check_rmsnorm(cases):
         ok = bool((err <= tol).all()) and got.dtype == dt
         w = scale + offset      # the library call takes the offset folded in
         row = {"case": name, "dtype": dtype, "rows": R, "d": d,
-               "scale_offset": offset, "max_abs_err": float(err.max()),
+               "scale_offset": offset, "plan": _plan(R, d, dt),
+               "max_abs_err": float(err.max()),
                "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
                "ok": ok,
                "ms": time_ms(lambda: rmsnorm(x, scale, 1e-6, offset)),
@@ -653,6 +666,114 @@ def check_rmsnorm(cases):
         row["ok"] = ok = ok and hold_to_bound(row)
         rows.append(check_row("rmsnorm", row, ok))
     return rows
+
+
+def check_gated_rmsnorm(cases, eps: float = 1e-6):
+    """Phase 3: the rmsnorm kernel's gated entry against its plain version
+    at each (name, rows, d, row stride of z, z's first column, dtype): z a
+    slice of a (rows, ld) projection, as the Mamba2 block hands it in (ld =
+    d and column 0: contiguous), x contiguous. ``library_ms`` is a
+    composite of several calls (``F.rms_norm`` of ``x * silu(z)``): no one
+    PyTorch call computes the gated norm."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import _plan, gated_rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref
+    eps32 = torch.finfo(torch.float32).eps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def composite(x, z, scale):
+        return F.rms_norm(x.float() * F.silu(z.float()), (x.shape[-1],),
+                          scale.float(), eps).to(x.dtype)
+    rows = []
+    for name, R, d, ld, col, dtype in cases:
+        dt = getattr(torch, dtype)
+        x = torch.randn(R, d, device="cuda", generator=gen).to(dt)
+        proj = (3 * torch.randn(R, ld, device="cuda", generator=gen)).to(dt)
+        z = proj[:, col:col + d]
+        scale = (1 + 0.1 * torch.randn(d, device="cuda",
+                                       generator=gen)).to(dt)
+        got = gated_rmsnorm(x, z, scale, eps)
+        torch.cuda.synchronize()
+        want = gated_rmsnorm_ref(x, z, scale, eps).float()
+        # tolerance: the plain entry's (d/2 + 4)·eps·|y| (the two float32
+        # sums of d squares in other orders, the root and the products),
+        # plus 8 eps for the gate: expf within 2 ulp, 1 + e, the sigmoid's
+        # division and the two products of g, each within half an ulp, and
+        # the output's division; a bf16 output adds one bf16 spacing
+        tol = (d / 2 + 12) * eps32 * want.abs()
+        if dtype == "bfloat16":
+            tol = tol + BF16_SPACING * (want.abs() + tol)
+        err = (got.float() - want).abs()
+        ok = (bool((err <= tol).all()) and got.dtype == dt
+              and bool(torch.isfinite(got).all()))
+        w = x.element_size()
+        aligned = not (x.data_ptr() | z.data_ptr()) % 16 and not ld % (16 // w)
+        row = {"case": name, "dtype": dtype, "rows": R, "d": d, "ldz": ld,
+               "z_col": col, "plan": _plan(R, d, dt, aligned, gated=True),
+               "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
+               "ok": ok,
+               "ms": time_ms(lambda: gated_rmsnorm(x, z, scale, eps)),
+               "plain_ms": time_ms(lambda: gated_rmsnorm_ref(x, z, scale,
+                                                             eps)),
+               "library": "composite: F.rms_norm(x.float() * F.silu("
+                          "z.float()), (d,), scale.float(), eps).to(x.dtype)",
+               "library_ms": time_ms(lambda: composite(x, z, scale)),
+               "device_ms": graph_ms(
+                   lambda x, z, scale: gated_rmsnorm(x, z, scale, eps),
+                   x, z, scale),
+               "library_device_ms": graph_ms(composite, x, z, scale)}
+        # x's and z's d columns read and y written once, the scale read
+        # once; about 12 operations an element (the gate's exp, two
+        # divisions, add and products; the square-add; the division and
+        # the product by the scale)
+        set_bound(row, w * (3 * R * d + d), 12 * R * d, PEAK_FP32_FLOP_S)
+        row["ok"] = ok = ok and hold_to_bound(row)
+        rows.append(check_row("rmsnorm_gated", row, ok))
+    return rows
+
+
+def rmsnorm_plans(cases, eps: float = 1e-6):
+    """Phase 3: the device time of each launch plan the kernel can take at
+    (name, rows, d, gated): every threads-a-row of ``ops.ROW_THREADS``
+    with the fewest slots a lane that covers the row, on the vector route,
+    bf16, against the plan ``_plan`` picks. One ``plans`` line each."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm import ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    dt = torch.bfloat16
+    for name, R, d, gated in cases:
+        x = torch.randn(R, d, device="cuda", generator=gen).to(dt)
+        z = torch.randn(R, d, device="cuda", generator=gen).to(dt)
+        scale = torch.ones(d, device="cuda", dtype=dt)
+        most = ops.GATED_MOST[dt] if gated else ops.LANE_SLOTS[-1]
+        times = {}
+        for tpr in ops.ROW_THREADS:
+            per_lane = -(-d // (8 * tpr))
+            if per_lane > most:
+                continue
+            plan = (8, tpr, next(n for n in ops.LANE_SLOTS if n >= per_lane))
+
+            def run(x, z, scale, plan=plan):
+                y = torch.empty_like(x)
+                if gated:
+                    build.launch("rmsnorm", ops._ENTRIES[True, dt],
+                                 ops._GATED_ARGTYPES, x.device, x.data_ptr(),
+                                 z.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                                 R, d, d, d, eps, *plan)
+                else:
+                    build.launch("rmsnorm", ops._ENTRIES[False, dt],
+                                 ops._ARGTYPES, x.device, x.data_ptr(),
+                                 scale.data_ptr(), y.data_ptr(), R, d, eps,
+                                 0.0, *plan)
+                return y
+            times[str(list(plan))] = graph_ms(run, x, z, scale)
+        print("plans " + json.dumps(
+            {"case": name, "rows": R, "d": d, "gated": gated,
+             "picked": list(ops._plan(R, d, dt, True, gated)),
+             "device_ms": times}), flush=True)
 
 
 def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -1022,7 +1143,8 @@ KINDS = (("masked_matmul tiles", "masked_matmul_wgmma"),
          ("masked_matmul splitk", "masked_matmul_splitk"),
          ("masked_matmul gemv f32", "masked_matmul_gemv_f32"),
          ("masked_matmul gemv", "masked_matmul_gemv"),
-         ("masked_matmul", "masked_matmul_kernel"), ("rmsnorm", "rmsnorm_kernel"),
+         ("masked_matmul", "masked_matmul_kernel"),
+         ("rmsnorm gated", "rmsnorm_gated_rows"), ("rmsnorm", "rmsnorm_rows"),
          ("flash_attention", "flash_kernel"),
          ("ssd_scan chunk states", "ssd_chunk_state"),
          ("ssd_scan state pass", "ssd_state_pass"),
@@ -1186,9 +1308,10 @@ def serve_tokens(cfg, params, masks, tokens, plain: bool = False,
 def transformer_wrappers():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ops import gated_rmsnorm, rmsnorm
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
-    return {"rmsnorm": rmsnorm, "masked_matmul": masked_matmul,
+    return {"rmsnorm": rmsnorm, "rmsnorm_gated": gated_rmsnorm,
+            "masked_matmul": masked_matmul,
             "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
@@ -1196,9 +1319,10 @@ def expected_launches(cfg):
     """Kernel launches of one request (a prefill and DECODE_STEPS decode
     steps) of ``cfg``'s pruned stack: an attention layer has two pre-norms,
     the masked FFN's up and gate products and (prefill only) one attention;
-    a Mamba2 layer one pre-norm and (prefill only) one scan; each invocation
-    of a hybrid's shared block two norms and (prefill only) one attention,
-    its MLP unmasked; the final norm once a step. The FFN products, by
+    a Mamba2 layer one pre-norm, one gated norm and (prefill only) one
+    scan; each invocation of a hybrid's shared block two norms and
+    (prefill only) one attention, its MLP unmasked; the final norm once a
+    step. The FFN products, by
     ``masked_matmul`` entry: the prefill's (M = B*S rows) on the wgmma
     tiles, the decode steps' (M = B) on the GEMV."""
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
@@ -1208,6 +1332,7 @@ def expected_launches(cfg):
     ssm = cfg.num_layers - attn
     shared = (hybrid_split(cfg, ssm)[0] if cfg.shared_attn_period else 0)
     return {"rmsnorm": (2 * attn + ssm + 2 * shared + 1) * steps,
+            "rmsnorm_gated": ssm * steps,
             "masked_matmul": 2 * attn * steps,
             "flash_attention": attn + shared, "ssd_scan": ssm,
             **dict.fromkeys(masked_matmul.route_launches, 0),
@@ -1582,7 +1707,7 @@ def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                else scale * sum(r["library_ms"] for r in main_rows))
     if all("device_ms" in r for r in main_rows):   # from a CUDA graph
         extra["device_ms"] = scale * sum(r["device_ms"] for r in main_rows)
-    base = next(k for k in REPLACES if name.startswith(k))
+    base = max((k for k in REPLACES if name.startswith(k)), key=len)
     return {"name": name, "route": "cuda", "source": SOURCES[base],
             "replaces": REPLACES[base], **extra, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1623,6 +1748,7 @@ def main() -> int:
                                        "spill", "arning")):
                 print(f"build {name}: {line.strip()}", flush=True)
     check_no_spills("flash_attention", logs["flash_attention"])
+    check_no_spills("rmsnorm", logs["rmsnorm"])
 
     # 3. kernels against their plain versions
     cfg = alexnet_config(38)
@@ -1680,6 +1806,23 @@ def main() -> int:
            for name, w, rs in (("mamba2", 2560, (2048, 2000, 1, 2)),
                                ("zamba2", 2048, (2048, 1)))
            for r in rs])
+    # Mamba2-2.7B (d_inner 5120, projection 10576 wide) and Zamba2-1.2B
+    # (4096 of 8384): z a slice of the projection, as the block hands it in
+    gated_rows = check_gated_rmsnorm(
+        [("mamba2 R1", 2048, 5120, 10576, 0, "bfloat16"),
+         ("mamba2 R2", 2000, 5120, 10576, 0, "bfloat16"),
+         ("mamba2 decode rows 1", 1, 5120, 10576, 0, "bfloat16"),
+         ("mamba2 decode rows 2", 2, 5120, 10576, 0, "bfloat16"),
+         ("zamba2 R1", 2048, 4096, 8384, 0, "bfloat16"),
+         ("zamba2 decode rows 1", 1, 4096, 8384, 0, "bfloat16"),
+         ("fp32", 1000, 5120, 10576, 0, "float32"),
+         ("ragged", 33, 77, 77, 0, "bfloat16"),
+         ("unaligned z", 300, 5120, 10576, 1, "bfloat16")])
+    rmsnorm_plans([("qwen2 R1", 2048, d, False),
+                   ("mamba2 R1", 2048, 2560, False),
+                   ("zamba2 R1", 2048, 2048, False),
+                   ("mamba2 gated R1", 2048, 5120, True),
+                   ("zamba2 gated R1", 2048, 4096, True)])
     flash_rows = check_flash(
         [("prefill R1", 1, 2048, 28, 4, 128, True, None, "bfloat16"),
          ("prefill R2", 2, 1000, 28, 4, 128, True, None, "bfloat16"),
@@ -1782,8 +1925,8 @@ def main() -> int:
     # GEMV); the bf16 masked_matmul's GEMV over one Qwen2-7B R1
     # decode step (56 products); the other kernels over one R1 prefill of
     # the model that launches them most (Qwen2-7B: 56 FFN products on the
-    # wgmma tiles, 57 norms, 28 attentions; Mamba2-2.7B: 64 scans) at the
-    # prefill's shapes
+    # wgmma tiles, 57 norms, 28 attentions; Mamba2-2.7B: 64 scans, 64 gated
+    # norms) at the prefill's shapes
     L = qcfg.num_layers
 
     def case(rs, name):
@@ -1811,6 +1954,10 @@ def main() -> int:
         kernel_entry("rmsnorm", norm_rows,
                      case(norm_rows, "2048 rows bfloat16 +0"), 2 * L + 1,
                      totals["rmsnorm"]),
+        kernel_entry("rmsnorm_gated", gated_rows,
+                     case(gated_rows, "mamba2 R1"), mcfg.num_layers,
+                     totals["rmsnorm_gated"],
+                     library=gated_rows[0]["library"]),
         kernel_entry("flash_attention", flash_rows,
                      case(flash_rows, "prefill R1"), L,
                      totals["flash_attention"]),

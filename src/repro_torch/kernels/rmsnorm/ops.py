@@ -1,24 +1,135 @@
-"""Wrapper of the fused RMSNorm: ``x (..., d)`` normalised row by row.
+"""Wrappers of the fused RMSNorm's two entries, ``x (..., d)`` normalised
+row by row: ``rmsnorm`` (``x * rsqrt(mean(x²) + eps) * (scale + offset)``)
+and ``gated_rmsnorm`` (Mamba2's ``RMSNorm(x * silu(z)) * scale``).
 
-On a CUDA tensor it launches the hand-written Hopper kernel
+On a CUDA tensor each launches the hand-written Hopper kernel
 (``csrc/rmsnorm.cu``) on the current stream, or raises; on a CPU tensor it
-runs the plain version (``ref.rmsnorm_ref``). There is no fallback from
-one to the other. ``rmsnorm.launches`` counts kernel launches. Unlike the
-reference's wrapper it pads nothing: the kernel runs one block per row.
+runs the plain version (``ref.rmsnorm_ref``, ``ref.gated_rmsnorm_ref``).
+There is no fallback from one to the other. ``_plan`` picks the launch
+before it: the threads a row gets, how many 16-byte slots of the row a
+lane holds in registers, and the vector or the scalar route.
+``rmsnorm.launches`` and ``gated_rmsnorm.launches`` count kernel launches.
+Unlike the reference's wrapper they pad nothing: the kernel masks the
+last rows and columns itself.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref, rmsnorm_ref
 
-_ENTRIES = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
+#: every C entry of csrc/rmsnorm.cu, by (gated, dtype)
+_ENTRIES = {(False, torch.float32): "rmsnorm_f32",
+            (False, torch.bfloat16): "rmsnorm_bf16",
+            (True, torch.float32): "rmsnorm_gated_f32",
+            (True, torch.bfloat16): "rmsnorm_gated_bf16"}
+#: the plan every entry ends with: vec, threads a row, slots a lane
+_PLAN_ARGTYPES = [ctypes.c_int] * 3
+#: x, scale, y; rows, d; eps, scale_offset; the plan
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-             + [ctypes.c_float] * 2)
+             + [ctypes.c_float] * 2 + _PLAN_ARGTYPES)
+#: x, z, scale, y; rows, d, ldx, ldz; eps; the plan
+_GATED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + _PLAN_ARGTYPES)
+#: each entry's ctypes argument types (the stream is appended at launch)
+_SIGNATURES = {name: _GATED_ARGTYPES if gated else _ARGTYPES
+               for (gated, _), name in _ENTRIES.items()}
+#: threads a block; a row gets one of ROW_THREADS of them
+THREADS = 256
+ROW_THREADS = (32, 64, 128, 256)
+#: the kernel's instances of the most slots a lane holds
+LANE_SLOTS = (4, 6, 8, 12, 16)
+#: a row gets one warp while a lane holds at most WARP_SLOTS of its slots,
+#: else the fewest warps (2 or 4) that leave a lane at most SPLIT_SLOTS
+#: (GATED_SLOTS for the gated entry, whose gate costs an exp and a division
+#: a value); the widest rows take a whole block. chip_smoke.py's ``plans``
+#: lines time every choice at the served widths (PERF.md): at 2048 rows of
+#: 2048-3584 bf16 the plain entry is fastest with 4-7 slots a lane, the
+#: gated one with 2-4
+WARP_SLOTS = 4
+SPLIT_SLOTS = 8
+GATED_SLOTS = 4
+#: the gated instances hold g in fp32 (8 values a slot in bf16, 4 in
+#: fp32): the most slots a lane they have instances for
+GATED_MOST = {torch.bfloat16: 8, torch.float32: 12}
+#: rows up to this many (a decode step's) get a whole block each
+DECODE_ROWS = 2
+
+
+def _slot(dtype: torch.dtype) -> int:
+    """Values of ``dtype`` in one 16-byte slot."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(rows: int, d: int, dtype: torch.dtype, aligned: bool = True,
+          gated: bool = False) -> Tuple[int, int, int]:
+    """(vec, tpr, nv) of one launch: ``vec`` the values a load moves (the
+    slot's 8 bf16 or 4 fp32 on the vector route, 1 on the scalar route,
+    which ragged widths and unaligned operands take: ``aligned`` says every
+    base pointer is 16-byte aligned and every row stride a multiple of the
+    slot); ``tpr`` the threads a row; ``nv`` the kernel instance's slots a
+    lane (at least the row's slots over ``tpr``). Raises for a row wider
+    than a block's registers hold."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rmsnorm: the CUDA kernel takes float32 or "
+                        f"bfloat16, got {dtype}")
+    w = _slot(dtype)
+    vec = w if aligned and d % w == 0 else 1
+    slots = -(-d // w)
+    most = GATED_MOST[dtype] if gated else LANE_SLOTS[-1]
+    split = GATED_SLOTS if gated else SPLIT_SLOTS
+    if rows <= DECODE_ROWS:
+        tries = ((ROW_THREADS[-1], most),)
+    else:
+        tries = ((ROW_THREADS[0], WARP_SLOTS),
+                 *((t, split) for t in ROW_THREADS[1:-1]),
+                 (ROW_THREADS[-1], most))
+    for tpr, limit in tries:
+        per_lane = -(-slots // tpr)
+        if per_lane <= limit:
+            return vec, tpr, next(n for n in LANE_SLOTS if n >= per_lane)
+    raise ValueError(f"rmsnorm: d = {d} is wider than the kernel holds in "
+                     f"registers ({ROW_THREADS[-1] * most * w} {dtype} "
+                     f"values a row)")
+
+
+def _row_stride(t: torch.Tensor) -> Optional[int]:
+    """The one stride, in elements, between the rows of ``t (..., d)`` read
+    as ``(rows, d)``; None where its last dim is not contiguous or its
+    leading dims do not collapse into one stride of at least d."""
+    if t.dim() == 0 or (t.shape[-1] > 1 and t.stride(-1) != 1):
+        return None
+    d = t.shape[-1]
+    lead = [(n, s) for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n != 1]
+    if not lead:
+        return d
+    for (_, outer), (n, inner) in zip(lead, lead[1:]):
+        if outer != inner * n:
+            return None
+    return lead[-1][1] if lead[-1][1] >= d else None
+
+
+def _check(name: str, x: torch.Tensor, *others: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or "
+                        f"bfloat16, x is {x.dtype}")
+    for t in others:
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"{name}: an operand is {t.dtype} on "
+                            f"{t.device}, x is {x.dtype} on {x.device}")
+
+
+def _aligned(*ptrs: int) -> bool:
+    return not functools.reduce(int.__or__, ptrs) % 16
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
@@ -26,16 +137,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     """x (..., d), scale (d,) -> (..., d) in x's dtype; fp32 math."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps, scale_offset)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    _check("rmsnorm", x, scale)
     d = x.shape[-1]
     rows = math.prod(x.shape[:-1])
-    if x.dtype not in _ENTRIES:
-        raise TypeError(f"rmsnorm: the CUDA kernel takes float32 or "
-                        f"bfloat16, x is {x.dtype}")
-    if scale.dtype != x.dtype or scale.device != x.device:
-        raise TypeError(f"rmsnorm: scale is {scale.dtype} on "
-                        f"{scale.device}, x is {x.dtype} on {x.device}")
     if tuple(scale.shape) != (d,):
         raise ValueError(f"rmsnorm: scale {tuple(scale.shape)} does not "
                          f"match x {tuple(x.shape)}")
@@ -46,11 +150,57 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     out = torch.empty_like(x)
     if rows == 0 or d == 0:
         return out
-    build.launch("rmsnorm", _ENTRIES[x.dtype], _ARGTYPES, x.device,
+    plan = _plan(rows, d, x.dtype, _aligned(x.data_ptr(), scale.data_ptr(),
+                                            out.data_ptr()))
+    build.launch("rmsnorm", _ENTRIES[False, x.dtype], _ARGTYPES, x.device,
                  x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
-                 float(eps), float(scale_offset))
+                 float(eps), float(scale_offset), *plan)
     rmsnorm.launches += 1
     return out
 
 
 rmsnorm.launches = 0
+
+
+def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """x, z (..., d), scale (d,) -> ``RMSNorm(x * silu(z)) * scale`` (...,
+    d) in x's dtype; fp32 math. z is read in place: a view whose last dim
+    is contiguous and whose rows lie one stride apart (Mamba2's z, a slice
+    of the input projection) is not copied; x is made contiguous where it
+    is not such a view."""
+    if x.device.type == "cpu":
+        return gated_rmsnorm_ref(x, z, scale, eps)
+    _check("gated_rmsnorm", x, z, scale)
+    d = x.shape[-1]
+    rows = math.prod(x.shape[:-1])
+    if z.shape != x.shape or tuple(scale.shape) != (d,):
+        raise ValueError(f"gated_rmsnorm: z {tuple(z.shape)} and scale "
+                         f"{tuple(scale.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    ldz = _row_stride(z)
+    if ldz is None:
+        raise ValueError(f"gated_rmsnorm: z (strides {z.stride()}) needs a "
+                         f"contiguous last dim and rows one stride apart")
+    ldx = _row_stride(x)
+    if ldx is None:
+        x, ldx = x.contiguous(), d
+    if rows >= 2 ** 31 or max(ldx, ldz) >= 2 ** 31:
+        raise ValueError("gated_rmsnorm: rows and row strides must be "
+                         "below 2**31")
+    scale = scale.contiguous()
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if rows == 0 or d == 0:
+        return out
+    w = _slot(x.dtype)
+    aligned = (_aligned(x.data_ptr(), z.data_ptr(), scale.data_ptr(),
+                        out.data_ptr()) and not ldx % w and not ldz % w)
+    plan = _plan(rows, d, x.dtype, aligned, gated=True)
+    build.launch("rmsnorm", _ENTRIES[True, x.dtype], _GATED_ARGTYPES,
+                 x.device, x.data_ptr(), z.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), rows, d, ldx, ldz, float(eps), *plan)
+    gated_rmsnorm.launches += 1
+    return out
+
+
+gated_rmsnorm.launches = 0

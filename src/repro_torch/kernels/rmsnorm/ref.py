@@ -1,6 +1,8 @@
-"""Plain PyTorch version of the fused RMSNorm (the reference's
-``kernels/rmsnorm/ref.py``): the CPU path, and the yardstick the CUDA
-kernel is held against on the card."""
+"""Plain PyTorch versions of the fused RMSNorm's two entries: the CPU
+path, and the yardstick the CUDA kernel is held against on the card.
+``rmsnorm_ref`` is the reference's ``kernels/rmsnorm/ref.py``;
+``gated_rmsnorm_ref`` the reference's ``models/layers/norms.py``
+``gated_rmsnorm`` (Mamba2's norm-then-gate)."""
 from __future__ import annotations
 
 import torch
@@ -16,3 +18,16 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * (1.0 / torch.sqrt(var + eps))
     return (y * (scale.to(torch.float32) + scale_offset)).to(x.dtype)
+
+
+def gated_rmsnorm_ref(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's norm-then-gate: RMSNorm(x * silu(z)) * scale, in fp32 with
+    the stable sigmoid, cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    z32 = z.to(torch.float32)
+    g = x32 * (z32 * torch.where(z32 >= 0, 1 / (1 + torch.exp(-z32)),
+                                 torch.exp(z32) / (1 + torch.exp(z32))))
+    var = torch.mean(torch.square(g), dim=-1, keepdim=True)
+    return ((g / torch.sqrt(var + eps))
+            * scale.to(torch.float32)).to(x.dtype)

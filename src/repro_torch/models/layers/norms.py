@@ -1,19 +1,22 @@
 """Normalization layers.
 
-``rmsnorm`` is the one the transformer stack calls: it goes through the
-kernel wrapper (``kernels.rmsnorm.ops``), which launches the CUDA kernel
-for a tensor on the card and runs the plain version for one on the CPU.
-``backend="ref"`` runs the plain version on the card too: the yardstick
-that the kernel path is held against there.
+``rmsnorm`` (every pre-norm of the stack) and ``gated_rmsnorm`` (the
+Mamba2 block's norm-then-gate) go through the kernel wrappers
+(``kernels.rmsnorm.ops``), which launch the CUDA kernel for a tensor on
+the card and run the plain version for one on the CPU. ``backend="ref"``
+runs the plain versions on the card too: the yardstick that the kernel
+path is held against there.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.rmsnorm.ops import gated_rmsnorm as _gated_kernel
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref, rmsnorm_ref
 
-__all__ = ["rmsnorm_ref", "rmsnorm", "layernorm", "gated_rmsnorm"]
+__all__ = ["rmsnorm_ref", "gated_rmsnorm_ref", "rmsnorm", "layernorm",
+           "gated_rmsnorm"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
@@ -36,12 +39,9 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                  eps: float = 1e-6) -> torch.Tensor:
-    """Mamba2's norm-then-gate: RMSNorm(x * silu(z))."""
-    x32 = x.to(torch.float32)
-    z32 = z.to(torch.float32)
-    g = x32 * (z32 * torch.where(z32 >= 0, 1 / (1 + torch.exp(-z32)),
-                                 torch.exp(z32) / (1 + torch.exp(z32))))
-    var = torch.mean(torch.square(g), dim=-1, keepdim=True)
-    return ((g / torch.sqrt(var + eps))
-            * scale.to(torch.float32)).to(x.dtype)
+                  eps: float = 1e-6, backend: str = "auto") -> torch.Tensor:
+    """Mamba2's norm-then-gate, RMSNorm(x * silu(z)) * scale: the kernel's
+    gated entry (``"auto"``) or the plain version (``"ref"``)."""
+    if backend == "ref":
+        return gated_rmsnorm_ref(x, z, scale, eps)
+    return _gated_kernel(x, z, scale, eps)

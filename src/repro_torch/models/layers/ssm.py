@@ -4,12 +4,14 @@ reference's ``models/layers/ssm.py``.
 The full-sequence forward runs the chunked SSD scan through its kernel
 wrapper (``kernels.ssd_scan``: the CUDA kernel on the card, its plain
 version on the CPU or with ``backend="ref"``), as the reference's Pallas
-path does; the products around it (``w_in``, ``w_out``), the causal conv
-and the gated norm are plain PyTorch, as they are XLA's in the reference.
+path does, and the gated norm through the rmsnorm kernel's gated entry
+(``kernels.rmsnorm.ops.gated_rmsnorm``, which reads z in place from the
+input projection); the products around them (``w_in``, ``w_out``) and
+the causal conv are plain PyTorch, as they are XLA's in the reference.
 
-Decode: O(1) per token, plain PyTorch as in the reference (which has no
-kernel there) — conv rolling state (d_conv-1 taps) + SSM state (H, P, N)
-per layer.
+Decode: O(1) per token — conv rolling state (d_conv-1 taps) + SSM state
+(H, P, N) per layer, plain PyTorch as in the reference (which has no
+kernel there), then the same gated norm entry.
 
 Pruning hook: ``head_mask`` (ssm_heads,) zeroes pruned SSD heads, on the
 scan's output and on the skip term alike.
@@ -124,7 +126,8 @@ def ssm_forward(params, cfg, x: torch.Tensor, *, head_mask=None,
         skip = skip * head_mask[None, None, :, None]
     y = y + skip
     y = y.reshape(Bsz, S, d_in).to(x.dtype)
-    y = gated_rmsnorm(y, z, params["norm_scale"], cfg.norm_eps)
+    y = gated_rmsnorm(y, z, params["norm_scale"], cfg.norm_eps,
+                      backend=backend)
     out = y @ params["w_out"]
     if return_state:
         K = s.d_conv
@@ -147,11 +150,12 @@ def init_ssm_cache(cfg, batch: int, dtype: torch.dtype,
 
 
 def ssm_decode(params, cfg, x: torch.Tensor, cache: SSMCache, *,
-               head_mask=None):
+               head_mask=None, backend: str = "auto"):
     """One-token decode. x (B,1,d_model) -> (out (B,1,d), new cache). The
     conv window and the state are float32, as in the reference; the new
     cache is returned as new tensors (the stack copies them into its
-    stacked cache)."""
+    stacked cache). ``backend="ref"`` runs the gated norm's plain
+    version."""
     s = cfg.ssm
     H, P = cfg.ssm_heads, s.head_dim
     B = x.shape[0]
@@ -183,5 +187,6 @@ def ssm_decode(params, cfg, x: torch.Tensor, cache: SSMCache, *,
     if head_mask is not None:
         y = y * head_mask[None, :, None]
     y = y.reshape(B, 1, d_in).to(x.dtype)
-    y = gated_rmsnorm(y, z[:, None], params["norm_scale"], cfg.norm_eps)
+    y = gated_rmsnorm(y, z[:, None], params["norm_scale"], cfg.norm_eps,
+                      backend=backend)
     return y @ params["w_out"], SSMCache(new_conv, state)

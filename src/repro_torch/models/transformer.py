@@ -24,11 +24,11 @@ structured masks — attention ``head_mask`` (num_heads,), FFN ``ffn_mask``
 (d_ff,) and SSD ``ssm_head_mask`` (ssm_heads,), stacked per run as
 ``(count, n_units)``. The shared block of a hybrid is not pruned.
 
-``backend="auto"`` runs every kernel of the path (``rmsnorm``,
-``flash_attention``, ``masked_matmul``, ``ssd_scan``) through its wrapper,
-which launches the CUDA kernel for a tensor on the card and the plain
-version for one on the CPU; ``backend="ref"`` runs the plain versions
-wherever the tensors are (the yardstick on the card).
+``backend="auto"`` runs every kernel of the path (``rmsnorm`` and its gated
+entry, ``flash_attention``, ``masked_matmul``, ``ssd_scan``) through its
+wrapper, which launches the CUDA kernel for a tensor on the card and the
+plain version for one on the CPU; ``backend="ref"`` runs the plain
+versions wherever the tensors are (the yardstick on the card).
 """
 from __future__ import annotations
 
@@ -476,7 +476,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
                 o, nc = ssm_lib.ssm_decode(
                     lp["ssm"], cfg, h,
-                    ssm_lib.SSMCache(rc.conv[j], rc.state[j]), head_mask=hm)
+                    ssm_lib.SSMCache(rc.conv[j], rc.state[j]), head_mask=hm,
+                    backend=backend)
                 rc.conv[j].copy_(nc.conv)
                 rc.state[j].copy_(nc.state)
                 x = x + o
