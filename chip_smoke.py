@@ -109,11 +109,43 @@ Phases, each printing its own lines:
    to the sequential logits, the lanes showing batches of more than one
    row. One ``socket`` line per plan: per-request wall ms (median, p90)
    beside the local backend's, and the batched run's req/s beside one
-   client's.
+   client's;
+12. pipeline (AlexNet) — the paper's pipeline, ``core.pipeline.
+   run_paper_pipeline``, at full ``alexnet_config(38)`` width on the card:
+   ``PlantVillageSynthetic(n_per_class=8, hw=224)`` (304 images, 228 to
+   train), SGD with momentum 0.9 and StepLR, 2 training epochs of 7 steps
+   at batch 32, 12 DDPG episodes (4 of warm-up), 1 fine-tuning epoch,
+   FLOPs budget 0.5. First one train step on the card (TF32 off) held
+   against the same step in float64 on the CPU (the loss and each
+   parameter's update within the tolerances stated at ``STEP_LOSS_RTOL``;
+   the CPU's float32 step, and the card's with TF32 on, reported beside
+   it) and timed, one
+   stage-2 reward evaluation timed, the agent alone timed per episode (and
+   per episode that updates it, giving the search's seconds per 100
+   episodes); then
+   the pipeline, whose epoch losses must be finite, FLOPs kept within the
+   budget, ratios in [0.05, 1], split tables N + 1 rows with the argmin
+   chosen, plan digest unchanged through ``save``/``load``. One
+   ``pipeline`` line (the three accuracies printed, not asserted), then
+   ``DeploymentPlan.from_pipeline(result, quant=QuantPolicy(8))`` served as
+   phase 4 serves its plans (a ``slice`` line);
+13. streaming (AlexNet) — phase 4's int8 compacted plans at c=13 and c=19
+   through ``serving.connect(plan, backend="streaming",
+   realtime_channel=False)``, ``microbatch`` 1 and 4, ``REQUESTS`` images
+   each: every logit row and ``tx_bytes`` bit-equal to the local backend's
+   (at ``microbatch`` 4 to its halves over the frames the stream fused:
+   one int8 scale a frame), ``masked_matmul`` launches = edge GEMMs x
+   requests on their routes (the edge stage is the one thread that
+   launches). Then, in 2 rounds, the local backend over 256 requests (the
+   images taken cyclically) and a stream of the same 256 at each
+   ``microbatch``, each held to the same bits. One ``streaming`` line per
+   plan and microbatch: the timed streams' req/s beside the local
+   backend's over the same requests in the same round (requests over the
+   host clock around the whole run), frame sizes, stage occupancy.
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
-phases 4 and 11, counted where one thread launches), the nvidia-smi line,
-and as its last
+phases 4, 11, 12 and 13, counted where one thread launches), the
+nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero without that line; so does a machine without a CUDA device.
 """
@@ -133,6 +165,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
 REQUESTS = 8
+#: phase 13's timed streams: requests a stream (the images taken
+#: cyclically; a few hundred, so a stream's start and drain are a small
+#: part of its window) and rounds of local backend, then streams
+STREAM_REQUESTS = 256
+STREAM_ROUNDS = 2
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): HBM3
 #: bandwidth, the fp32 rate of the CUDA cores and the dense bf16 rate of
 #: the tensor cores; a bound takes the peak of its inputs' type
@@ -1693,6 +1730,394 @@ def socket_phase(plans, images):
     socket_batched(batched, by_client, local_by_client)
     return routes
 
+# ---------------------------------------------------------------------------
+# phase 12: the paper's pipeline at full AlexNet width, on the card
+# ---------------------------------------------------------------------------
+#: one train step on the card against the same step in float64 on the
+#: CPU: the loss within this relative gap, each parameter's update within
+#: this share of its norm. Measured on an H100 80GB HBM3 (700 W): loss
+#: 7e-8, updates at most 1.8e-4 of their norm (cuDNN's filter gradients of
+#: the 11x11 and 5x5 convs), and the CPU's own float32 step 7.7e-4 from
+#: float64 (oneDNN's); the same step on the card with TF32 on is reported
+#: beside them (``tf32_*``), to show what the check tells apart
+STEP_LOSS_RTOL = 1e-6
+STEP_UPDATE_RTOL = 5e-4
+
+
+def direct_step(cfg, params, batch, lr: float, device: str, dtype):
+    """The loss and each leaf's update of the first SGD step (momentum
+    starts at zero, so the update is ``-lr * grad``) by autograd on
+    ``cnn_apply`` in ``dtype`` on ``device``, under the caller's TF32
+    switches; returned on the CPU in float64."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pipeline import _xent
+    from repro_torch.models.cnn import cnn_apply
+    from repro_torch.optim import value_and_grad
+    x = torch.from_numpy(batch["image"]).to(device, dtype)
+    y = torch.from_numpy(batch["label"].astype(np.int64)).to(device)
+    loss, grads = value_and_grad(
+        lambda p: _xent(cnn_apply(p, cfg, x), y),
+        {k: {n: t.to(device, dtype) for n, t in v.items()}
+         for k, v in params.items()})
+    return float(loss), {(k, n): -lr * g.double().cpu()
+                         for k, v in grads.items() for n, g in v.items()}
+
+
+def step_gaps(loss, updates, loss64, want):
+    """(loss gap relative to float64, the largest update gap as a share
+    of the float64 update's norm)."""
+    worst = 0.0
+    for kn, w in want.items():
+        worst = max(worst, float((updates[kn] - w).norm())
+                    / max(float(w.norm()), 1e-30))
+    return abs(loss - loss64) / abs(loss64), worst
+
+
+def train_step_check(cfg, data):
+    """One SGD step (momentum 0.9, StepLR) of ``make_train_step`` from the
+    same parameters and batch on the card (TF32 off) and on the CPU in
+    float32, each update ``p1 - p0`` and loss held to the same step in
+    float64 on the CPU (the card's within the tolerances above; the CPU's,
+    and the card's with TF32 on, reported beside it). Then the card's step
+    timed: host clock around each step, which ends when its loss reaches
+    the host. Returns the row."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.models.cnn import init_cnn_params
+    from repro_torch.optim import make_optimizer, step_lr
+    steps_per_epoch = max(len(data.train_ids) // 32, 1)
+    schedule = step_lr(0.01, 0.1, 20, steps_per_epoch)
+    opt = make_optimizer("sgd", schedule, momentum=0.9)
+    batch = next(data.iter_train(32, epochs=1, seed=100))
+    p0 = init_cnn_params(SEED, cfg)
+    lr = float(schedule(0))
+    loss64, want = direct_step(cfg, p0, batch, lr, "cpu", torch.float64)
+    device = "cuda"
+    gaps, out = {}, {}
+    for dev in (device, "cpu"):
+        p = pipeline.params_to(p0, torch.device(dev))
+        step = pipeline.make_train_step(cfg, opt, device=dev)
+        out[dev] = (step, *step(p, opt.init(p), batch))
+        _, p1, _, loss = out[dev]
+        updates = {(k, n): (p1[k][n].cpu() - p0[k][n]).double()
+                   for k, n in want}
+        gaps[dev] = step_gaps(float(loss), updates, loss64, want)
+    switches = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gaps["tf32"] = step_gaps(*direct_step(
+            cfg, p0, batch, lr, device, torch.float32), loss64, want)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = switches
+    loss_gap, worst = gaps[device]
+    if not (np.isfinite(loss_gap) and loss_gap <= STEP_LOSS_RTOL
+            and worst <= STEP_UPDATE_RTOL):
+        raise AssertionError(f"pipeline: a train step on {device} differs "
+                             f"from float64: loss gap {loss_gap}, update "
+                             f"gap {worst} of its norm")
+    step, p, s, loss_dev = out[device]
+    ms = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        p, s, loss = step(p, s, batch)
+        float(loss)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"loss_card": float(loss_dev), "loss_f64": loss64,
+            "loss_rel_gap": loss_gap, "loss_rtol": STEP_LOSS_RTOL,
+            "update_rel_gap": worst, "update_rtol": STEP_UPDATE_RTOL,
+            "cpu_f32_loss_rel_gap": gaps["cpu"][0],
+            "cpu_f32_update_rel_gap": gaps["cpu"][1],
+            "tf32_loss_rel_gap": gaps["tf32"][0],
+            "tf32_update_rel_gap": gaps["tf32"][1],
+            "train_step_ms": ms,
+            "train_step_ms_median": statistics.median(ms[1:])}
+
+
+def search_timings(cfg, data):
+    """One stage-2 reward evaluation on the card (masks from the ratios,
+    the masked forward over the evaluation subset, top-1 on the host; each
+    ratio vector new, so no cache hit) and the agent alone (12 episodes, 4
+    of warm-up, against a reward that does no device work): ms each, and
+    the ms of an episode that updates the agent (each episode from the
+    5th on: 7 transitions an episode fill the batch of 32 after 5), timed
+    between consecutive rewards. From these, the search's seconds per 100
+    episodes (an updating episode and a reward each), the unit a longer
+    search costs."""
+    import numpy as np
+    from repro_torch.core import pipeline
+    from repro_torch.core.pruning.amc_env import PruningEnv, cnn_layer_descs
+    from repro_torch.core.pruning.policy import search_pruning_policy
+    from repro_torch.models.cnn import init_cnn_params, prunable_layers
+    evaluate = pipeline.reward_evaluator(init_cnn_params(SEED, cfg), cfg,
+                                         data, device="cuda")
+    rng = np.random.default_rng(SEED + 12)
+    n_layers = len(prunable_layers(cfg))
+    reward_ms = []
+    for _ in range(6):
+        actions = rng.uniform(0.1, 1.0, n_layers).tolist()
+        t0 = time.perf_counter()
+        evaluate(actions)
+        reward_ms.append(1e3 * (time.perf_counter() - t0))
+    stamps = []
+
+    def reward(actions):
+        stamps.append(time.perf_counter())
+        return float(np.mean(actions))
+    env = PruningEnv(cnn_layer_descs(cfg), reward)
+    t0 = time.perf_counter()
+    search_pruning_policy(env, episodes=12, warmup=4, seed=SEED,
+                          device="cuda")
+    agent_s = time.perf_counter() - t0
+    updating = [1e3 * (b - a) for a, b in zip(stamps[4:], stamps[5:])]
+    row = {"reward_eval_ms": reward_ms,
+           "reward_eval_ms_median": statistics.median(reward_ms[1:]),
+           "agent_ms_per_episode": 1e3 * agent_s / 12,
+           "agent_ms_per_updating_episode": updating,
+           "agent_ms_per_updating_episode_median":
+               statistics.median(updating)}
+    row["search_s_per_100_episodes"] = 0.1 * (
+        row["agent_ms_per_updating_episode_median"]
+        + row["reward_eval_ms_median"])
+    return row
+
+
+def check_pipeline_result(res, budget: float) -> None:
+    """What the pipeline must give: finite losses (from its log), FLOPs
+    kept within the budget (AMC's clipping keeps the budget reachable
+    whenever it is above the 0.1 action floor), every ratio in the action
+    range, N + 1 rows in each split table with the argmin chosen, and a
+    plan whose digest survives ``save``/``load``."""
+    import tempfile
+    from repro_torch import serving
+    if not res.search.best_flops_kept <= budget + 1e-9:
+        raise AssertionError(f"pipeline: FLOPs kept "
+                             f"{res.search.best_flops_kept} over {budget}")
+    if not all(0.05 <= r <= 1.0 for r in res.ratios.values()):
+        raise AssertionError(f"pipeline: ratios {res.ratios}")
+    n = len(res.cfg.layers)
+    for dec in (res.split, res.deploy_split):
+        best = min(dec.table, key=lambda r: r["T"])["split"]
+        if len(dec.table) != n + 1 or dec.split_point != best:
+            raise AssertionError(f"pipeline: split table of "
+                                 f"{len(dec.table)} rows, decision "
+                                 f"{dec.split_point}, argmin {best}")
+    with tempfile.TemporaryDirectory() as tmp:
+        loaded = serving.DeploymentPlan.load(res.plan.save(tmp))
+    if loaded.digest != res.plan.digest:
+        raise AssertionError("pipeline: plan digest changed through "
+                             "save/load")
+
+
+def pipeline_phase(images):
+    """Phase 12: ``run_paper_pipeline`` at full ``alexnet_config(38)``
+    width on the card with the paper's SGD (momentum 0.9) and StepLR: 2
+    training epochs of 7 steps at batch 32 over
+    ``PlantVillageSynthetic(n_per_class=8, hw=224)``, 12 DDPG episodes (4
+    of warm-up), 1 fine-tuning epoch, FLOPs budget 0.5; then its plan
+    with an int8 ``quant`` section served through ``connect(plan,
+    "local")`` as phase 4 serves its plans. Returns the serving row."""
+    import math
+    import re
+    from repro_torch import serving
+    from repro_torch.core import pipeline
+    from repro_torch.data.synthetic import PlantVillageSynthetic
+    from repro_torch.models.cnn import alexnet_config
+    cfg, hw = alexnet_config(38), 224
+    t0 = time.perf_counter()
+    data = PlantVillageSynthetic(n_per_class=8, hw=hw, seed=SEED)
+    data._batch(data.train_ids)          # every image made once, up front
+    data._batch(data.test_ids)
+    data_s = time.perf_counter() - t0
+    row = {"cfg": cfg.name, "hw": hw, "images": data.n_per_class * 38,
+           "data_s": data_s}
+    row.update(train_step_check(cfg, data))
+    row.update(search_timings(cfg, data))
+    budget = 0.5
+    lines = []
+    t0 = time.perf_counter()
+    res = pipeline.run_paper_pipeline(
+        cfg, data, train_epochs=2, finetune_epochs=1, episodes=12, warmup=4,
+        flops_budget=budget, seed=SEED, optimizer_name="sgd", lr=0.01,
+        deploy_codec="int8", device="cuda",
+        log=lambda m: lines.append((time.perf_counter() - t0, m)))
+    row["pipeline_s"] = time.perf_counter() - t0
+    for _, m in lines:
+        print(f"pipeline log {m}", flush=True)
+    losses = [float(x) for _, m in lines
+              for x in re.findall(r"^epoch \d+: loss (\S+)$", m)]
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pipeline: epoch losses {losses}")
+    marks = [(t, m[:5]) for t, m in lines if m.startswith("[")]
+    ends = [t for t, _ in marks[1:]] + [row["pipeline_s"]]
+    check_pipeline_result(res, budget)
+    row.update({
+        "epoch_losses": losses,
+        "stage_s": {m: e - t for (t, m), e in zip(marks, ends)},
+        "acc_original": res.acc_original, "acc_pruned": res.acc_pruned,
+        "acc_finetuned": res.acc_finetuned,
+        "ratios": {str(k): v for k, v in res.ratios.items()},
+        "flops_kept": res.search.best_flops_kept, "flops_budget": budget,
+        "best_reward": res.search.best_reward,
+        "split": res.split.split_point,
+        "deploy_split": res.deploy_split.split_point,
+        "digest": res.plan.digest})
+    print("pipeline " + json.dumps(row, default=float), flush=True)
+    plan = serving.DeploymentPlan.from_pipeline(
+        res, quant=serving.QuantPolicy(weight_bits=8))
+    return serve_path("pipeline", plan, images, edge_gemm_count(plan))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the streaming backend (AlexNet), on the card
+# ---------------------------------------------------------------------------
+def stream_frames(report):
+    """The stream's frames as lists of request ids: the edge stage fuses
+    consecutive requests, and each result records its frame's size."""
+    out, i = [], 0
+    while i < len(report.results):
+        n = report.results[i]["frame_n"]
+        if any(r["frame_n"] != n for r in report.results[i:i + n]):
+            raise AssertionError(f"streaming: a frame of {n} at request "
+                                 f"{i} holds requests of other frames")
+        out.append(list(range(i, i + n)))
+        i += n
+    return out
+
+
+def stream_expected(halves, call, codec, images, frames, protocol=None):
+    """Each request's logits and ``tx_bytes`` as batch-1 split halves give
+    them over the stream's frames: every request's edge output, one frame
+    per fused group through ``codec`` (one int8 scale a frame, as the
+    reference's edge stage encodes its fused rows), each decoded row
+    through the cloud half. ``halves`` is ``(edge, cloud, keep)`` of a
+    split-function bank and ``call(fn, x)`` runs one half to a numpy
+    array; ``protocol`` the wire module (the port's unless given)."""
+    import numpy as np
+    if protocol is None:
+        from repro_torch.core.collab import protocol
+    edge, cloud, keep = halves
+    out = {}
+    for ids in frames:
+        feats = [call(edge, images[i]) if edge else images[i] for i in ids]
+        if cloud is None:
+            out.update({i: (f, 0) for i, f in zip(ids, feats)})
+            continue
+        buf = protocol.encode_feature(np.concatenate(feats), codec=codec,
+                                      keep=keep)
+        dec = protocol.decode_any(buf)[0]
+        for j, i in enumerate(ids):
+            out[i] = (call(cloud, dec[j:j + 1]), int(len(buf) / len(ids)))
+    return [out[i] for i in range(len(images))]
+
+
+def check_stream(label, mb, sess, plan, images, got, local):
+    """Every row the session's last stream gave (``got``) and its
+    ``tx_bytes`` equal, bit for bit, to the local backend's halves over the
+    frames it fused, and at ``microbatch`` 1 to the local backend's own
+    results (``local``, one a phase-4 image; ``images`` are those images,
+    taken cyclically). Returns the frames."""
+    bank = sess._runner._bank
+    frames = stream_frames(sess.last_report)
+    expected = stream_expected(bank.get(plan.split), bank.call, plan.codec,
+                               images, frames)
+    if len(got) != len(images):
+        raise AssertionError(f"streaming {label}: {len(got)} results for "
+                             f"{len(images)} requests")
+    for i, (g, (logits, tx)) in enumerate(zip(got, expected)):
+        w = local[i % len(local)]
+        ok = same_bits(g["logits"], logits) and g["tx_bytes"] == tx
+        if mb == 1:
+            ok = ok and same_bits(g["logits"], w["logits"]) and \
+                g["tx_bytes"] == w["tx_bytes"]
+        if not ok:
+            raise AssertionError(
+                f"streaming {label} microbatch {mb}: request {i} differs "
+                f"(tx {g['tx_bytes']}, local {w['tx_bytes']}, frames "
+                f"{[len(f) for f in frames]})")
+    return frames
+
+
+def local_rate(sess, images) -> float:
+    """req/s of the local backend over ``images`` served one after
+    another: the requests over the host clock around the whole loop."""
+    t0 = time.perf_counter()
+    for img in images:
+        sess.infer(img)
+    return len(images) / (time.perf_counter() - t0)
+
+
+def streaming_phase(plans, images):
+    """Phase 13: phase 4's int8 compacted plans at c=13 (the dense layers
+    in the cloud) and c=19 through ``connect(plan, "streaming",
+    realtime_channel=False)`` with ``microbatch`` 1 and 4. A stream of the
+    ``REQUESTS`` images first: every logit row and ``tx_bytes`` bit-equal
+    to the local backend's halves over the frames the stream formed (and at
+    ``microbatch`` 1 to the local backend's results), ``masked_matmul``
+    launches (the edge stage is the one thread that launches) = edge GEMMs
+    x requests on their routes. Then the timing, in ``STREAM_ROUNDS``
+    rounds: the local backend over ``STREAM_REQUESTS`` requests (the
+    images taken cyclically), then a stream of the same requests at each
+    ``microbatch``, each held to the same bits; req/s of each is the
+    requests over the host clock around the whole run. Returns the
+    routes."""
+    from repro_torch import serving
+    routes = collections.Counter()
+    timed = [images[i % len(images)] for i in range(STREAM_REQUESTS)]
+    for label in ("c13", "greedy"):
+        plan = plans[label]
+        local, _ = local_reference(plan, images)
+        sessions, rows = {}, {}
+        for mb in (1, 4):
+            sess = serving.connect(plan, backend="streaming",
+                                   realtime_channel=False, microbatch=mb)
+            zero_counts()
+            got = sess.infer_many(images)
+            launches, counted = read_counts()
+            frames = check_stream(label, mb, sess, plan, images, got,
+                                  local)
+            want = {k: v * len(images) for k, v in edge_routes(plan).items()}
+            if launches != edge_gemm_count(plan) * len(images) or \
+                    counted != want:
+                raise AssertionError(
+                    f"streaming {label}: masked_matmul {launches} launches "
+                    f"{counted}, expected {want}")
+            routes.update(counted)
+            sessions[mb] = sess
+            rows[mb] = {"plan": label, "split": plan.split, "microbatch": mb,
+                        "requests": len(images),
+                        "frames": [len(f) for f in frames],
+                        "bit_identical": True, "tx_bytes": got[0]["tx_bytes"],
+                        "launches": launches, "routes": counted,
+                        "timed_requests": len(timed), "req_per_s": [],
+                        "local_req_per_s": [], "frame_sizes": [],
+                        "occupancy": [], "busy_ms": []}
+        lsess = serving.connect(plan, backend="local")
+        for _ in range(STREAM_ROUNDS):
+            rate = local_rate(lsess, timed)
+            for mb, sess in sessions.items():
+                got = sess.infer_many(timed)
+                frames = check_stream(label, mb, sess, plan, timed, got,
+                                      local)
+                rep, row = sess.last_report, rows[mb]
+                row["local_req_per_s"].append(rate)
+                row["req_per_s"].append(rep.throughput_rps)
+                row["frame_sizes"].append(dict(sorted(collections.Counter(
+                    len(f) for f in frames).items())))
+                row["occupancy"].append(rep.occupancy)
+                row["busy_ms"].append({k: 1e3 * st.busy_s
+                                       for k, st in rep.stages.items()})
+        for row in rows.values():
+            row["stream_over_local"] = [
+                s / l for s, l in zip(row["req_per_s"],
+                                      row["local_req_per_s"])]
+            print("streaming " + json.dumps(row), flush=True)
+    return routes
+
 
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                  **extra):
@@ -1918,6 +2343,12 @@ def main() -> int:
 
     # 11. the socket deployment of the AlexNet plans, both peers on the card
     alex_routes.update(socket_phase(plans, images))
+
+    # 12. the paper's pipeline at full AlexNet width, then its plan served
+    alex_routes.update(pipeline_phase(images)["routes"])
+
+    # 13. the streaming backend of the AlexNet plans
+    alex_routes.update(streaming_phase(plans, images))
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan

@@ -96,6 +96,13 @@ class QuantPolicy:
                    backend=doc.get("backend", "auto"),
                    calibration=doc.get("calibration", "minmax"))
 
+    def describe(self) -> str:
+        """Short human summary, e.g. ``int8/pc@auto`` or ``fp32@ref``."""
+        w = ("fp32" if self.weight_bits is None
+             else f"int{self.weight_bits}"
+                  + ("/pc" if self.per_channel else "/pt"))
+        return f"{w}@{self.backend}"
+
 
 def resolve_backend(policy: QuantPolicy, device: torch.device) -> str:
     """-> ``"pallas"`` (the CUDA kernel) or ``"ref"`` (plain GEMM) for a

@@ -1,7 +1,12 @@
 """Split-point selection — Algorithm 1, lines 20-27 (the greedy argmin of
 Eq. 5 over every candidate split), from the JAX package's
-``core/partition/splitter.py``. The energy-aware objective comes with the
-energy slice."""
+``core/partition/splitter.py``.
+
+``balanced_split`` (beyond the paper) minimizes max(T_D, T_TX, T_S) — the
+steady-state bottleneck when requests stream and device, link and server
+overlap. ``joint_two_stage`` wires Eq. 6's two-stage decomposition: DDPG
+pruning first, then the split sweep on the pruned network. The
+energy-aware objective comes with the energy slice."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -44,3 +49,24 @@ def greedy_split(costs: Sequence[LayerCost], profile: TwoTierProfile,
     table = sweep_splits(costs, profile, input_bytes, **kw)
     best = min(table, key=lambda r: r["T"])
     return SplitDecision(int(best["split"]), best, table)
+
+
+def balanced_split(costs: Sequence[LayerCost], profile: TwoTierProfile,
+                   input_bytes: float, **kw) -> SplitDecision:
+    """Beyond-paper: minimize the pipeline bottleneck max(T_D, T_TX, T_S)."""
+    table = sweep_splits(costs, profile, input_bytes, **kw)
+    best = min(table, key=lambda r: max(r["T_D"], r["T_TX"], r["T_S"]))
+    return SplitDecision(int(best["split"]), best, table)
+
+
+def joint_two_stage(search_pruning: Callable[[], Sequence[float]],
+                    costs_for_ratios: Callable[[Sequence[float]],
+                                               Sequence[LayerCost]],
+                    profile: TwoTierProfile, input_bytes: float,
+                    mode: str = "greedy") -> Dict:
+    """Eq. 6 two-stage solver: S* from DRL, then c* from the split sweep."""
+    ratios = list(search_pruning())
+    costs = costs_for_ratios(ratios)
+    split = (greedy_split if mode == "greedy" else balanced_split)(
+        costs, profile, input_bytes)
+    return {"ratios": ratios, "split": split}

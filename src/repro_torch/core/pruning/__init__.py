@@ -1,2 +1,2 @@
-"""Structured pruning masks (the pruner's actuator); the DDPG search comes
-with the paper-pipeline slice."""
+"""Structured pruning: the masks (the pruner's actuator), the AMC
+environment, the DDPG agent and the policy search (paper §3.2)."""

@@ -1,0 +1,127 @@
+"""Optimizers as functional updates on trees of tensors (the JAX package's
+``optim/optimizers.py``): ``update(grads, state, params)`` returns new
+parameters and a new state and changes neither argument, with the
+reference's arithmetic in the reference's order, so one step can be held
+to it. ``torch.optim`` is not used: its SGD and AdamW order the weight
+decay and momentum differently and have no global-norm clip.
+
+``sgd_momentum`` is the paper's fine-tuning optimizer (§4.1: momentum 0.9).
+``adamw`` drives the reduced-scale runs; its moments may be held in a
+narrower dtype (``moment_dtype``).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Tuple
+
+import torch
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], Any]   # (grads, state, params) -> (params, state)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the tensor leaves of nested dicts, lists and tuples
+    (every tree in ``rest`` has ``tree``'s structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def value_and_grad(loss_fn: Callable, tree) -> Tuple[torch.Tensor, Any]:
+    """``loss_fn(tree)`` and its gradient with respect to every leaf of
+    ``tree``, as a tree of the same structure (autograd on a detached
+    copy of the leaves; ``tree`` is left unchanged)."""
+    with torch.enable_grad():
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), tree)
+        loss = loss_fn(leaves)
+        flat = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+    return loss.detach(), tree_map(lambda _: next(flat), tree)
+
+
+def _zeros_like(params, dtype=None):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype or p.dtype,
+                                          device=p.device), params)
+
+
+def sgd_momentum(schedule, momentum: float = 0.9,
+                 weight_decay: float = 0.0) -> Optimizer:
+    def init(params):
+        return {"mom": _zeros_like(params, torch.float32), "step": 0}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        lr = schedule(state["step"])
+        mom = tree_map(lambda m, g: momentum * m + g.to(torch.float32),
+                       state["mom"], grads)
+        new_params = tree_map(
+            lambda p, m: (p.to(torch.float32)
+                          - lr * (m + weight_decay * p.to(torch.float32))
+                          ).to(p.dtype),
+            params, mom)
+        return new_params, {"mom": mom, "step": state["step"] + 1}
+
+    return Optimizer(init, update)
+
+
+def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0, moment_dtype=torch.float32,
+          grad_clip: float = 1.0) -> Optimizer:
+    def init(params):
+        return {"m": _zeros_like(params, moment_dtype),
+                "v": _zeros_like(params, moment_dtype), "step": 0}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr = schedule(state["step"])
+        if grad_clip:
+            gnorm = torch.sqrt(sum(
+                torch.sum(torch.square(g.to(torch.float32)))
+                for g in tree_leaves(grads)))
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
+                                max=1.0)
+            grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
+        m = tree_map(lambda mm, g: (b1 * mm.to(torch.float32)
+                                    + (1 - b1) * g.to(torch.float32)
+                                    ).to(moment_dtype), state["m"], grads)
+        v = tree_map(lambda vv, g: (b2 * vv.to(torch.float32)
+                                    + (1 - b2) * torch.square(
+                                        g.to(torch.float32))
+                                    ).to(moment_dtype), state["v"], grads)
+        t = torch.tensor(step, dtype=torch.float32)
+        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
+        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
+
+        def upd(p, mm, vv):
+            mhat = mm.to(torch.float32) / bc1
+            vhat = vv.to(torch.float32) / bc2
+            delta = (mhat / (torch.sqrt(vhat) + eps)
+                     + weight_decay * p.to(torch.float32))
+            return (p.to(torch.float32) - lr * delta).to(p.dtype)
+
+        new_params = tree_map(upd, params, m, v)
+        return new_params, {"m": m, "v": v, "step": step}
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, schedule, **kw) -> Optimizer:
+    if name == "sgd":
+        return sgd_momentum(schedule, **kw)
+    if name == "adamw":
+        return adamw(schedule, **kw)
+    raise ValueError(name)

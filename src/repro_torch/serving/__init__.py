@@ -12,11 +12,17 @@
         with serving.connect(plan, backend="socket") as sess:
             out = sess.infer(image)
 
+    with serving.connect(plan, backend="streaming",
+                         microbatch=4) as sess:     # edge ∥ link ∥ cloud
+        outs = sess.infer_many(images)
+
+    plan = serving.DeploymentPlan.from_pipeline(run_paper_pipeline(...))
+
 Plans are byte-compatible with ``repro.serving``'s (same digest, same
 directory layout), and the socket peers speak the reference's frames, so
 a port edge and a JAX cloud (or the reverse) serve each other. The
-``local`` and ``socket`` backends are ported; ``streaming`` and the
-``adaptive``, ``energy`` and ``fleet`` plan sections come with the next
+``local``, ``socket`` and ``streaming`` backends are ported; the
+``adaptive``, ``energy`` and ``fleet`` plan sections come with a later
 slice.
 """
 from repro_torch.core.collab.batching import (BatchingPolicy, LaneSaturated,
@@ -36,11 +42,13 @@ from repro_torch.core.partition.profiles import (FAULT_SCHEDULES, TRACES,
 from repro_torch.serving.plan import PLAN_VERSION, DeploymentPlan
 from repro_torch.serving.session import (BACKENDS, CloudFleet, CloudServer,
                                          InferenceSession, LocalSession,
-                                         SocketSession, connect, serve)
+                                         SocketSession, StreamingSession,
+                                         connect, serve)
 
 __all__ = [
     "BACKENDS", "PLAN_VERSION", "DeploymentPlan", "InferenceSession",
-    "LocalSession", "SocketSession", "CloudServer", "CloudFleet",
+    "LocalSession", "SocketSession", "StreamingSession", "CloudServer",
+    "CloudFleet",
     "PlanMismatchError", "connect", "serve",
     "LinkTrace", "TraceSegment", "TRACES",
     "BatchingPolicy", "LaneStats", "LaneSaturated",

@@ -13,10 +13,15 @@ policy objects of the reference (``QuantPolicy``, ``BatchingPolicy``,
 ``FaultPolicy``, ``RoutingPolicy``; a section given as its JSON dict is
 read with the policy's ``from_json``). Sections whose machinery is not
 ported yet (``adaptive``, ``energy``, ``fleet``) are held as their JSON
-dicts: they fold into the digest and round-trip through ``save``/``load``
-unchanged, and ``serving.connect`` and ``serving.serve`` refuse a plan
-that carries one (``NotImplementedError``). Each optional section folds
-into the digest only when set, as in the reference.
+dicts: they fold into the digest, round-trip through ``save``/``load``
+unchanged and show in ``describe`` as the reference shows them, and
+``serving.connect`` and ``serving.serve`` refuse a plan that carries one
+(``NotImplementedError``). Each optional section folds into the digest
+only when set, as in the reference.
+
+``DeploymentPlan.from_pipeline(result)`` packages what
+``core.pipeline.run_paper_pipeline`` produced (fine-tuned params, masks,
+the re-priced deploy split, codec, hardware profile).
 """
 from __future__ import annotations
 
@@ -174,6 +179,23 @@ class DeploymentPlan:
                    compact=compact, codec=codec, pack=pack, profile=profile,
                    **transport)
 
+    @classmethod
+    def from_pipeline(cls, result, *, compact: bool = True,
+                      codec: Optional[str] = None,
+                      **transport) -> "DeploymentPlan":
+        """Package a ``PaperPipelineResult``: fine-tuned params + masks,
+        the stage-6 re-priced deploy split (falling back to the stage-5
+        split for a non-compact deployment), and the pipeline's profile."""
+        compact = compact and bool(result.masks)
+        dec = (result.deploy_split
+               if compact and result.deploy_split is not None
+               else result.split)
+        return cls.from_args(
+            result.params, result.cfg, dec.split_point, masks=result.masks,
+            compact=compact, codec=codec or result.deploy_codec,
+            pack=not compact and bool(result.masks),
+            profile=result.profile, **transport)
+
     # -- contract digest ----------------------------------------------------
     def contract(self) -> Dict[str, Any]:
         """What both peers must agree on for frames to decode correctly;
@@ -273,3 +295,39 @@ class DeploymentPlan:
                 f"reconstructed {plan.digest} — the artifact was edited or "
                 f"written by an incompatible plan version")
         return plan
+
+    # -- convenience --------------------------------------------------------
+    def describe(self) -> str:
+        """One-line human summary of the deployment contract (digest,
+        split, pruning, wire encoding, link endpoint, armed sections), the
+        reference's string for the same plan."""
+        n = len(self.cfg.layers)
+        prune = (f"{len(self.masks)} masked layers" if self.masks
+                 else "dense")
+        adapt = (f", adaptive over {list(self.adaptive['candidates'])}"
+                 if self.adaptive else "")
+        batch = (f", batched<= {self.batching.max_batch}"
+                 f"@{self.batching.max_wait_ms}ms"
+                 if self.batching else "")
+        joule = ""
+        if self.energy is not None:
+            joule = (f", energy={self.energy['profile']['name']}"
+                     f"@{self.energy['energy_weight_s_per_j']:g}s/J")
+            if self.energy.get("battery_j") is not None:
+                joule += f" battery={self.energy['battery_j']:g}J"
+        tol = (f", faults: retries<={self.faults.max_retries}"
+               f" fallback={self.faults.fallback}"
+               if self.faults else "")
+        flt = (f", fleet={self.fleet['name']}"
+               f"({self.fleet['n_edges']}x{self.fleet['n_cloudlets']})"
+               if self.fleet else "")
+        rte = (f", routed over {len(self.routing.ports)} servers"
+               if self.routing else "")
+        qnt = (f", quant={self.quant.describe()}" if self.quant else "")
+        return (f"DeploymentPlan[{self.digest}] {self.cfg.name}: "
+                f"split c={self.split}/{n}, {prune}, "
+                f"compact={self.compact}, codec={self.codec}"
+                f"{'+packed' if self.pack and not self.compact else ''}, "
+                f"link={self.host}:{self.port} "
+                f"({self.profile.link.name})"
+                f"{adapt}{batch}{joule}{tol}{flt}{rte}{qnt}")

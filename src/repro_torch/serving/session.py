@@ -11,13 +11,15 @@ backends the port serves, all constructed from the same ``DeploymentPlan``
     frames and the HELLO handshake are the reference's, so both peers
     must present the same plan digest or the session fails fast with
     ``PlanMismatchError``.
+  * ``connect(plan, backend="streaming")`` — the 3-stage pipelined
+    in-process runtime (``StreamingCollabRunner``) for overlapped
+    service of request streams.
 
 Every entry point (``connect``, ``serve``, ``CloudServer``,
 ``CloudFleet``) runs on the CUDA card unless the caller passes
-``device="cpu"``, and raises without a card. The ``streaming`` backend and
-plans with an ``adaptive``, ``energy`` or ``fleet`` section come with the
-next slice of the port: ``connect`` and ``serve`` raise
-``NotImplementedError`` for them.
+``device="cpu"``, and raises without a card. Plans with an ``adaptive``,
+``energy`` or ``fleet`` section come with a later slice of the port:
+``connect`` and ``serve`` raise ``NotImplementedError`` for them.
 
 Every backend returns the same result shape from ``infer`` /
 ``infer_many``::
@@ -28,10 +30,14 @@ Every backend returns the same result shape from ``infer`` /
                "fallback": bool}}
 
 ``t_*`` are seconds, ``tx_bytes`` is the transmitted frame payload in
-bytes (identical across backends for the same plan), ``e_edge_j`` stays
-None (no energy section is served yet) and ``fault`` is the uniform
-per-request fault accounting. The local backend adds the measured
-``wallclock`` seconds of its edge and cloud halves.
+bytes (identical across backends for the same plan; on the streaming
+backend a frame's bytes shared by the requests fused into it),
+``e_edge_j`` stays None (no energy section is served yet) and ``fault``
+is the uniform per-request fault accounting. The local backend adds the
+measured ``wallclock`` seconds of its edge and cloud halves; the
+streaming backend's ``t_*`` are None (a pipelined request's own time is
+not observable) and its ``last_report`` holds the stream's stage
+occupancy and throughput.
 
 **Fault-tolerant plans** (``plan.faults`` set): the socket session's
 ``EdgeClient`` retries transient failures (reconnect + re-HELLO +
@@ -60,14 +66,17 @@ from repro_torch.core.collab.faults import fault_record
 from repro_torch.core.collab.protocol import PlanMismatchError  # noqa: F401
 from repro_torch.core.collab.runtime import (CollabRunner, EdgeClient,
                                              serve_cloud)
+from repro_torch.core.collab.streaming import (StreamingCollabRunner,
+                                               StreamReport)
 from repro_torch.core.partition.profiles import LinkTrace
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.plan import DeploymentPlan
 
 BACKENDS = ("local", "socket", "streaming")
-#: what the next slice of the port brings
-NEXT_SLICE = ("the streaming backend and the adaptive controller come with "
-              "the next slice of the port")
+#: what the next slices of the port bring
+NEXT_SLICE = ("plans with an 'adaptive', 'energy' or 'fleet' section (the "
+              "adaptive controller, the energy model, the fleet simulator) "
+              "come with the next slices of the port")
 
 
 def _refuse_unported(plan: DeploymentPlan) -> None:
@@ -264,6 +273,42 @@ class SocketSession(InferenceSession):
         self._client.close()
 
 
+class StreamingSession(InferenceSession):
+    """3-stage pipelined in-process backend (edge ∥ link ∥ cloud) on one
+    device. ``infer_many`` is the native call; the full ``StreamReport``
+    of the last run (occupancy, throughput, wire bytes, each request's
+    ``frame_n``) is on ``last_report``."""
+
+    backend = "streaming"
+
+    def __init__(self, plan: DeploymentPlan, *, device: DeviceLike = None,
+                 queue_depth: int = 4, microbatch: int = 1,
+                 realtime_channel: bool = True,
+                 trace: Optional[LinkTrace] = None):
+        super().__init__(plan)
+        self.device = resolve_device(device)
+        self._runner = StreamingCollabRunner(
+            plan.params, plan.cfg, plan.split, plan.profile,
+            masks=plan.masks, compact=plan.compact, codec=plan.codec,
+            pack=plan.pack, queue_depth=queue_depth, microbatch=microbatch,
+            realtime_channel=realtime_channel, trace=trace,
+            quant=plan.quant, device=self.device)
+        self.last_report: Optional[StreamReport] = None
+
+    def infer(self, image: np.ndarray) -> Dict:
+        """Serve one request through the pipeline (prefer ``infer_many``
+        — a single request cannot overlap anything)."""
+        return self.infer_many([image])[0]
+
+    def infer_many(self, images: Sequence[np.ndarray]) -> List[Dict]:
+        """Stream the requests through the three stages; results in
+        submission order."""
+        rep = self._runner.run(list(images))
+        self.last_report = rep
+        return [_result(r["logits"], None, None, int(r["tx_bytes"]))
+                for r in rep.results]
+
+
 def connect(plan: DeploymentPlan, backend: str = "local",
             device: DeviceLike = None, **opts) -> InferenceSession:
     """Open a session on ``plan``. ``device=None`` means the CUDA card (and
@@ -274,9 +319,7 @@ def connect(plan: DeploymentPlan, backend: str = "local",
     if backend == "socket":
         return SocketSession(plan, device=device, **opts)
     if backend == "streaming":
-        raise NotImplementedError(
-            f"backend 'streaming' is not ported yet: {NEXT_SLICE} (use "
-            f"'local' or 'socket')")
+        return StreamingSession(plan, device=device, **opts)
     raise ValueError(f"unknown backend {backend!r} (use {BACKENDS})")
 
 

@@ -94,3 +94,57 @@ def test_transformer_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert tr.init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_pipeline_and_streaming_entry_points_default_to_cuda(monkeypatch):
+    """The paper's pipeline (``run_paper_pipeline``, ``train_cnn``,
+    ``evaluate_topk``, the stage-2 reward), the pruning search
+    (``search_pruning_policy``, ``init_agent``, replay draws) and the
+    streaming backend run on the card unless given ``device="cpu"``, and
+    raise without one before doing any work."""
+    import numpy as np
+    from repro_torch import serving
+    from repro_torch.core import pipeline
+    from repro_torch.core.collab.streaming import StreamingCollabRunner
+    from repro_torch.core.partition.profiles import PAPER_PROFILE
+    from repro_torch.core.pruning import ddpg
+    from repro_torch.core.pruning.amc_env import PruningEnv, cnn_layer_descs
+    from repro_torch.core.pruning.policy import search_pruning_policy
+    from repro_torch.data.synthetic import PlantVillageSynthetic
+    from repro_torch.models.cnn import init_cnn_params, tiny_cnn_config
+    cfg = tiny_cnn_config(num_classes=38, width=0.2, hw=32)
+    params = init_cnn_params(0, cfg)
+    data = PlantVillageSynthetic(n_per_class=2, hw=32)
+    plan = serving.DeploymentPlan.from_args(params, cfg, 6)
+    env = PruningEnv(cnn_layer_descs(cfg), lambda a: 0.0)
+    buf = ddpg.ReplayBuffer(11)
+    buf.add(np.zeros(11), 0.5, 0.0, np.zeros(11), 1.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "run_paper_pipeline": lambda d: pipeline.run_paper_pipeline(
+            cfg, data, device=d),
+        "train_cnn": lambda d: pipeline.train_cnn(params, cfg, data,
+                                                  device=d),
+        "evaluate_topk": lambda d: pipeline.evaluate_topk(params, cfg, data,
+                                                          device=d),
+        "reward_evaluator": lambda d: pipeline.reward_evaluator(
+            params, cfg, data, device=d),
+        "make_train_step": lambda d: pipeline.make_train_step(
+            cfg, None, device=d),
+        "search_pruning_policy": lambda d: search_pruning_policy(
+            env, episodes=1, device=d),
+        "init_agent": lambda d: ddpg.init_agent(0, 11, device=d),
+        "ReplayBuffer.sample": lambda d: buf.sample(
+            np.random.RandomState(0), 2, device=d),
+        "StreamingCollabRunner": lambda d: StreamingCollabRunner(
+            params, cfg, 6, PAPER_PROFILE, device=d),
+        "connect streaming": lambda d: serving.connect(
+            plan, backend="streaming", device=d)}
+    for name, call in calls.items():
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call(device)
+    with serving.connect(plan, backend="streaming", device="cpu") as sess:
+        assert sess.device == torch.device("cpu")
+    assert ddpg.init_agent(0, 11, device="cpu").actor[0]["w"].device.type \
+        == "cpu"

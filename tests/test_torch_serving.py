@@ -11,9 +11,8 @@ import torch
 from repro import serving as rserving
 from repro.core.collab.adaptive import AdaptivePolicy
 from repro_torch import serving as tserving
-from repro_torch.core.collab.protocol import affine_qparams
-from repro_torch.models.cnn import cnn_abs_bound
-from torch_parity import fp32_tol, port_params, ref_tree, tiny_setup
+from torch_parity import (codec_bound, fp32_tol, port_params, ref_tree,
+                          tiny_setup)
 
 SPLITS = (0, 3, 10, 13)          # 13 = N: every layer on the edge
 
@@ -41,24 +40,6 @@ def _images(n=2):
             for _ in range(n)]
 
 
-def _codec_bound(sess, split, image):
-    """Elementwise bound on the logit gap one int8 codec step at the
-    split can cause: the two packages' edge outputs differ by fp32
-    rounding, so a code may land one step apart (step = the frame's
-    scale); ``cnn_abs_bound`` carries a one-step perturbation of every
-    element through the cloud half."""
-    bank = sess._runner._bank
-    edge, _, _ = bank.get(split)
-    with torch.no_grad():
-        feat = edge(torch.from_numpy(image)) if edge else \
-            torch.from_numpy(image)
-    scale, _ = affine_qparams(float(feat.min()), float(feat.max()), 255)
-    delta = torch.full_like(feat, scale)
-    with torch.no_grad():
-        return cnn_abs_bound(bank._tparams, bank.deploy_cfg, delta,
-                             masks=bank._masks, start_layer=split).numpy()
-
-
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32edge", "int8edge"])
 @pytest.mark.parametrize("codec", ["fp32", "int8"])
 def test_local_session_matches_reference(codec, quant):
@@ -81,7 +62,7 @@ def test_local_session_matches_reference(codec, quant):
                     np.testing.assert_allclose(lg, lw, rtol=0,
                                                atol=fp32_tol(lw))
                 else:
-                    bound = _codec_bound(t_sess, split, img)
+                    bound = codec_bound(t_sess._runner._bank, split, img)
                     assert (np.abs(lg - lw)
                             <= bound + fp32_tol(lw)).all(), split
                     assert lg.argmax(-1).tolist() == \
@@ -112,8 +93,12 @@ def test_unported_section_and_backend_raise():
     with pytest.raises(NotImplementedError, match="adaptive"):
         tserving.connect(plan, backend="local", device="cpu")
     plain = tserving.DeploymentPlan.from_args(port_params(params), cfg_t, 6)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tserving.connect(plain, backend="streaming", device="cpu")
+    fleet = tserving.DeploymentPlan.from_args(
+        port_params(params), cfg_t, 6, fleet={"name": "orchard",
+                                               "n_edges": 4,
+                                               "n_cloudlets": 1})
+    with pytest.raises(NotImplementedError, match="fleet"):
+        tserving.connect(fleet, backend="streaming", device="cpu")
     with pytest.raises(ValueError):
         tserving.connect(plain, backend="carrier-pigeon", device="cpu")
     with pytest.raises(NotImplementedError, match="energy"):

@@ -260,8 +260,8 @@ def test_digest_mismatch_raises_plan_mismatch(edge):
 @pytest.mark.parametrize("section", ["adaptive", "energy", "fleet"])
 def test_unported_sections_are_refused_by_every_entry_point(section):
     """A plan with a section the port does not serve yet is refused by
-    ``connect`` (either backend), ``serve`` and ``CloudServer``, before
-    any socket opens; ``streaming`` likewise."""
+    ``connect`` (every backend, ``streaming`` included), ``serve`` and
+    ``CloudServer``, before any socket opens."""
     _, p_t = _plans(6)
     doc = {"adaptive": {"candidates": [3, 6]}, "energy": {"profile": "mcu"},
            "fleet": {"name": "f"}}[section]
@@ -270,9 +270,8 @@ def test_unported_sections_are_refused_by_every_entry_point(section):
         **{section: doc})
     for call in (lambda: tserving.connect(plan, "local", device="cpu"),
                  lambda: tserving.connect(plan, "socket", device="cpu"),
+                 lambda: tserving.connect(plan, "streaming", device="cpu"),
                  lambda: tserving.serve(plan, device="cpu"),
                  lambda: tserving.CloudServer(plan, device="cpu")):
         with pytest.raises(NotImplementedError, match="next slice"):
             call()
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tserving.connect(p_t, "streaming", device="cpu")

@@ -82,6 +82,28 @@ def fp32_tol(ref: np.ndarray) -> float:
     return 64 * EPS32 * max(1.0, float(np.max(np.abs(ref))))
 
 
+def codec_bound(bank, split: int, image: np.ndarray) -> np.ndarray:
+    """Elementwise bound on the logit gap one int8 codec step at the
+    split can cause, for a port ``SplitFnBank``: the two packages' edge
+    outputs differ by fp32 rounding, so a code may land one step apart
+    (step = the frame's scale); ``cnn_abs_bound`` carries a one-step
+    perturbation of every element through the cloud half. ``image`` is
+    one request (1, H, W, C) or the requests of one fused frame (n, H, W,
+    C), whose rows share the frame's scale."""
+    from repro_torch.core.collab.protocol import affine_qparams
+    edge, _, _ = bank.get(split)
+    with torch.no_grad():
+        feats = [edge(torch.from_numpy(row[None])) if edge else
+                 torch.from_numpy(row[None]) for row in image]
+    scale, _ = affine_qparams(min(float(f.min()) for f in feats),
+                              max(float(f.max()) for f in feats), 255)
+    delta = torch.full_like(feats[0], scale)
+    with torch.no_grad():
+        return tcnn.cnn_abs_bound(bank._tparams, bank.deploy_cfg, delta,
+                                  masks=bank._masks,
+                                  start_layer=split).numpy()
+
+
 def transformer_params_np(cfg, seed: int = 0):
     """A parameter tree of numpy arrays in the reference transformer's
     layout for ``cfg`` (shapes and dtypes from ``jax.eval_shape`` of its
