@@ -141,10 +141,39 @@ Phases, each printing its own lines:
    ``microbatch``, each held to the same bits. One ``streaming`` line per
    plan and microbatch: the timed streams' req/s beside the local
    backend's over the same requests in the same round (requests over the
-   host clock around the whole run), frame sizes, stage occupancy.
+   host clock around the whole run), frame sizes, stage occupancy;
+14. adaptive and energy (AlexNet) — ``calibrate_quant_edge`` over the c=19
+   plan's int8 bank (``CALIBRATION_REPEATS`` timed calls a layer, CUDA
+   events around each call with the card idle before it: one request's
+   cost of the layer, host enqueue included), its launches = (1 +
+   repeats) x 8 edge GEMMs on their routes, and ``measure_cnn_layer_times``
+   over its float32 layers (a ``calibrate`` line beside phase 4's edge
+   wall ms); the Eq. 5 sweep on PAPER_PROFILE over the measured times
+   (N + 1 rows, the argmin) beside the analytic pick; the energy-aware
+   picks and Pareto fronts of a phone-class edge (``PHONE_EDGE``,
+   ``PHONE_ENERGY``) at 50 and 10 Mbps over the calibrated and the
+   analytic costs (``energy`` lines; weight 0 picks the greedy split, T
+   ascending and E strictly descending along the front). Then phase 4's
+   c=13 plan re-cut for a phone-class edge with ``adaptive`` (candidates
+   0, 3, 6, 13, 19) and ``energy`` (2 J battery) sections, starting at
+   c=3: ``connect(plan, "local", trace=...)`` over ``ADAPTIVE_REQUESTS``
+   requests on a link that falls from 50 to 2 Mbps (``ADAPTIVE_TRACE``),
+   the switch list equal to the same session's on ``device="cpu"`` and
+   non-empty, each request bit-equal to a fixed-split session at the
+   split it ran at, its ``e_edge_j`` the profile's price of its timing,
+   ``masked_matmul`` launches the sum of its splits' edge GEMMs (the
+   candidates' warm-up counted apart), and the host cost of the control
+   loop (per-request wall ms beside the fixed-split sessions', a sweep's
+   host us); the same plan over the socket (no link shaper: the loopback
+   is fast, so the edge's controller offloads by a RESPLIT on the live
+   connection, then a manual ``resplit`` to c=19 that the controller
+   adopts), every row and ``tx_bytes`` bit-equal to the local backend's at
+   its split; the energy plan at c=13 streamed at ``microbatch`` 1 and 4,
+   every ``e_edge_j`` > 0 and equal to its formula (the RTT split over a
+   frame's requests).
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
-phases 4, 11, 12 and 13, counted where one thread launches), the
+phases 4, 11, 12, 13 and 14, counted where one thread launches), the
 nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero without that line; so does a machine without a CUDA device.
@@ -152,6 +181,7 @@ exits non-zero without that line; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import re
@@ -1152,15 +1182,18 @@ def serve_path(label, plan, images, edge_gemms):
     return row
 
 
-def edge_gemm_count(plan) -> int:
-    return sum(1 for s in plan.cfg.layers[:plan.split]
+def edge_gemm_count(plan, split=None) -> int:
+    """Conv and dense layers on the edge at ``split`` (the plan's)."""
+    split = plan.split if split is None else split
+    return sum(1 for s in plan.cfg.layers[:split]
                if s.kind in ("conv", "dense"))
 
 
-def edge_routes(plan):
+def edge_routes(plan, split=None):
     """``masked_matmul`` launches of one request by entry: each edge conv
     and dense layer of the deployed (compacted or masked) network on the
-    route its shape picks, from codes where the plan quantizes."""
+    route its shape picks, from codes where the plan quantizes; at
+    ``split`` (the plan's when None)."""
     import collections
     import torch
     from repro_torch.core.collab.runtime import deploy_submodels
@@ -1170,7 +1203,7 @@ def edge_routes(plan):
     dtype = torch.float32 if plan.quant.weight_bits is None else torch.uint8
     return collections.Counter(
         _route(dtype, M, K, N)
-        for _, M, K, N in gemm_shapes(dcfg)[:edge_gemm_count(plan)])
+        for _, M, K, N in gemm_shapes(dcfg)[:edge_gemm_count(plan, split)])
 
 
 #: device kernels grouped by a substring of their name: the port's own
@@ -1694,7 +1727,6 @@ def socket_phase(plans, images):
     ``batching`` section (4 clients at once); c=13 with a ``faults``
     section and a server that drops one response and corrupts another,
     each recovered by replay. Returns the routes of the counted runs."""
-    import dataclasses
     import numpy as np
     from repro_torch.core.collab.channel import FaultInjector
     from repro_torch.core.partition.profiles import FaultEvent, FaultSchedule
@@ -2119,6 +2151,427 @@ def streaming_phase(plans, images):
     return routes
 
 
+# ---------------------------------------------------------------------------
+# phase 14: calibration, energy and the adaptive split controller (AlexNet)
+# ---------------------------------------------------------------------------
+#: timed calls a layer in the calibration (after one untimed call)
+CALIBRATION_REPEATS = 10
+#: requests the adaptive local session serves
+ADAPTIVE_REQUESTS = 24
+#: the adaptive phase's link: the paper's 50 Mbps Wi-Fi (4 ms RTT) for the
+#: first 150 ms of the trace's virtual clock, then 2 Mbps
+ADAPTIVE_TRACE = ((0.15, 50.0), (float("inf"), 2.0))
+
+
+def adaptive_plans(plans):
+    """Phase 4's int8 compacted c=13 plan re-cut for phase 14: a
+    phone-class edge (``PHONE_EDGE``, the paper's server, 50 Mbps Wi-Fi)
+    where the greedy split is c=3 on a healthy link and c=19 on a weak
+    one; (energy plan, adaptive + energy plan). The energy section prices
+    a phone's draw (``PHONE_ENERGY``) with a 2 J battery that drains."""
+    from repro_torch.core.partition.profiles import (PAPER_SERVER,
+                                                     PAPER_WIFI, PHONE_EDGE,
+                                                     TwoTierProfile)
+    from repro_torch.core.partition.energy_model import (PHONE_ENERGY,
+                                                         EnergyPolicy)
+    from repro_torch.serving import AdaptivePolicy
+    n = len(plans["c13"].cfg.layers)
+    energy = dataclasses.replace(
+        plans["c13"], split=3,
+        profile=TwoTierProfile(PHONE_EDGE, PAPER_SERVER, PAPER_WIFI),
+        energy=EnergyPolicy(profile=PHONE_ENERGY, energy_weight_s_per_j=0.1,
+                            battery_j=2.0))
+    adaptive = dataclasses.replace(energy, adaptive=AdaptivePolicy(
+        candidates=(0, 3, 6, 13, n), ewma_alpha=0.5, min_samples=2,
+        hysteresis=0.1, dwell=2))
+    return energy, adaptive
+
+
+def ran_at(switches, initial: int, n: int):
+    """The split each of ``n`` requests ran at (a switch decided after
+    request k applies from request k + 1)."""
+    out, split, pending = [], initial, list(switches)
+    for i in range(n):
+        while pending and pending[0].request_index <= i:
+            split = pending.pop(0).new_split
+        out.append(split)
+    return out
+
+
+def calibration(plans, images, alex_rows):
+    """Phase 14.1-2: ``calibrate_quant_edge`` over the c=19 plan's int8
+    bank and ``measure_cnn_layer_times`` over its float32 layers on the
+    card, the sweeps they feed (PAPER_PROFILE: measured pick beside the
+    analytic one) and the energy-aware picks and Pareto fronts of a
+    phone-class edge over the calibrated costs. Returns the routes of the
+    calibration's launches."""
+    import torch
+    from repro_torch.core.collab.quant import (calibrate_quant_edge,
+                                               quantize_params)
+    from repro_torch.core.collab.runtime import deploy_submodels
+    from repro_torch.core.partition.latency_model import (
+        cnn_input_bytes, measure_cnn_layer_times, quantized_cnn_layer_costs,
+        wire_tx_scale)
+    from repro_torch.core.partition.profiles import (PAPER_PROFILE,
+                                                     PAPER_SERVER,
+                                                     PAPER_WIFI, PHONE_EDGE,
+                                                     LinkProfile,
+                                                     TwoTierProfile)
+    from repro_torch.core.partition.splitter import (energy_aware_split,
+                                                     greedy_split,
+                                                     pareto_front,
+                                                     sweep_splits)
+    from repro_torch.core.partition.energy_model import (PHONE_ENERGY,
+                                                         EnergyPolicy)
+    plan = plans["cN"]
+    n = len(plan.cfg.layers)
+    dparams, dcfg, dmasks = deploy_submodels(plan.params, plan.cfg,
+                                             plan.masks, plan.compact)
+    bank = quantize_params(dparams, dcfg, plan.quant)
+    want = {k: v * (1 + CALIBRATION_REPEATS)
+            for k, v in edge_routes(plan).items()}
+    # the two calibrations in turns (int8, fp32, fp32, int8), so that the
+    # card's clocks after an idle spell weigh on neither alone
+    q8_rounds, fp32_rounds, routes = [], [], collections.Counter()
+    for kind in ("int8", "fp32", "fp32", "int8"):
+        if kind == "fp32":
+            fp32_rounds.append(measure_cnn_layer_times(
+                dparams, dcfg, images[0], masks=dmasks,
+                repeats=CALIBRATION_REPEATS))
+            continue
+        zero_counts()
+        q8_rounds.append(calibrate_quant_edge(
+            bank, dcfg, images[0], masks=dmasks,
+            repeats=CALIBRATION_REPEATS))
+        launches, counted = read_counts()
+        if counted != want or launches != \
+                edge_gemm_count(plan) * (1 + CALIBRATION_REPEATS):
+            raise AssertionError(f"calibrate: masked_matmul {launches} "
+                                 f"launches {counted}, expected {want}")
+        routes.update(counted)
+    for name, ts in ([("int8 kernel", c.layer_s) for c in q8_rounds]
+                     + [("fp32", t) for t in fp32_rounds]):
+        if len(ts) != n or not all(0 < t < float("inf") for t in ts):
+            raise AssertionError(f"calibrate: {name} layer times {ts}")
+    torch.cuda.synchronize()
+    cal, fp32_s = q8_rounds[-1], fp32_rounds[-1]
+    costs = quantized_cnn_layer_costs(plan.cfg, plan.masks, 8)
+    kw = dict(tx_scale=lambda c: wire_tx_scale(
+        plan.cfg, plan.masks, c, codec=plan.codec, compact=True))
+    inp = cnn_input_bytes(plan.cfg)
+    measured = sweep_splits(costs, PAPER_PROFILE, inp,
+                            measured_device_s=cal.layer_s, **kw)
+    analytic = greedy_split(costs, PAPER_PROFILE, inp, **kw)
+    pick = greedy_split(costs, PAPER_PROFILE, inp,
+                        measured_device_s=cal.layer_s, **kw)
+    if len(measured) != n + 1 or pick.latency["T"] != \
+            min(r["T"] for r in measured):
+        raise AssertionError("calibrate: the measured sweep's pick is not "
+                             "its argmin")
+    row = {"plan": "cN", "repeats": CALIBRATION_REPEATS,
+           "timer": "cuda events around each call, device idle before it",
+           "rounds": "int8, fp32, fp32, int8; layer_ms from the last of each",
+           "launches": sum(routes.values()), "routes": dict(routes),
+           "layer_ms_int8_kernel": [1e3 * t for t in cal.layer_s],
+           "layer_ms_fp32": [1e3 * t for t in fp32_s],
+           "total_ms_int8_kernel": 1e3 * cal.total_s(),
+           "total_ms_fp32": 1e3 * sum(fp32_s),
+           "total_ms_int8_kernel_rounds": [1e3 * c.total_s()
+                                           for c in q8_rounds],
+           "total_ms_fp32_rounds": [1e3 * sum(t) for t in fp32_rounds],
+           "phase4_edge_ms_median": alex_rows["cN"]["edge_ms_median"],
+           "phase4_edge_ms_first": alex_rows["cN"]["edge_ms_first"],
+           "measured_pick": pick.split_point,
+           "analytic_pick": analytic.split_point,
+           "measured_T_ms": [1e3 * r["T"] for r in measured],
+           "analytic_T_ms": [1e3 * r["T"] for r in analytic.table]}
+    print("calibrate " + json.dumps(row), flush=True)
+    # the energy objective of a phone-class edge, on the card's calibrated
+    # layer times and on the phone's analytic ones, at the paper's 50 Mbps
+    # and at 10 Mbps (where latency and joules pull apart)
+    for mbps, source, extra in (
+            (m, src, ext) for m in (50.0, 10.0)
+            for src, ext in (("calibrated",
+                              {"measured_device_s": cal.layer_s}),
+                             ("analytic", {}))):
+        phone = TwoTierProfile(PHONE_EDGE, PAPER_SERVER, LinkProfile(
+            f"{mbps:g} Mbps", mbps * 1e6 / 8, PAPER_WIFI.rtt_s))
+        greedy = greedy_split(costs, phone, inp, **kw, **extra).split_point
+        picks = {}
+        for w in (0.0, 0.1, 1.0, 10.0):
+            dec = energy_aware_split(
+                costs, phone, inp,
+                EnergyPolicy(profile=PHONE_ENERGY, energy_weight_s_per_j=w),
+                **kw, **extra)
+            picks[str(w)] = dec.split_point
+        if picks["0.0"] != greedy:
+            raise AssertionError(f"energy {source}: weight 0 picks "
+                                 f"{picks['0.0']}, greedy {greedy}")
+        front = pareto_front(dec.table)
+        ts, es = [r["T"] for r in front], [r["E_edge"] for r in front]
+        if not front or ts != sorted(ts) or \
+                not all(a > b for a, b in zip(es, es[1:])):
+            raise AssertionError(f"energy {source}: front {front}")
+        print("energy " + json.dumps({
+            "costs": source, "link_mbps": mbps,
+            "profile": "PHONE_EDGE + PHONE_ENERGY",
+            "greedy": greedy, "picks_by_weight_s_per_j": picks,
+            "front": [{"split": r["split"], "ms": 1e3 * r["T"],
+                       "mJ": 1e3 * r["E_edge"]} for r in front]}),
+            flush=True)
+    return dict(routes)
+
+
+def adaptive_local(plan, images):
+    """Phase 14.3: ``connect(plan, "local", trace=...)`` on the card over
+    ``ADAPTIVE_REQUESTS`` requests, and the same on ``device="cpu"``. The
+    switch lists must agree (``simulate_compute`` makes every decision
+    input device-independent) and hold a switch; each request bit-equal
+    to a fixed-split session at the split it ran at, its ``e_edge_j`` the
+    energy profile's price of its timing, the launches Σ edge GEMMs of
+    the splits the requests ran at (the candidates' warm-up counted
+    apart). The control loop's host cost: each request's wall ms taken in
+    turns with the same request through a session of the same plan fixed
+    at that split (same trace and energy section, no controller), and
+    the controller's ``step`` timed inside the run. Returns (row,
+    routes)."""
+    from repro_torch import serving
+    from repro_torch.core.partition.latency_model import (
+        cnn_input_bytes, compacted_cnn_layer_costs, split_latency,
+        wire_tx_scale)
+    from repro_torch.core.partition.profiles import LinkTrace
+    trace = lambda: LinkTrace.from_mbps("degrade", ADAPTIVE_TRACE,  # noqa
+                                        rtt_ms=4.0)
+    reqs = [images[i % len(images)] for i in range(ADAPTIVE_REQUESTS)]
+    zero_counts()
+    sess = serving.connect(plan, backend="local", trace=trace())
+    warm, warm_routes = read_counts()
+    want_warm = collections.Counter()
+    for c in plan.adaptive.candidates:
+        want_warm.update(edge_routes(plan, c))
+    if warm_routes != dict(want_warm):
+        raise AssertionError(f"adaptive: warm-up routes {warm_routes}, "
+                             f"expected {dict(want_warm)}")
+    ctl = sess._controller
+    step, step_us = ctl.step, []
+
+    def timed_step(*args):               # the control loop's host cost
+        t0 = time.perf_counter()
+        out = step(*args)
+        step_us.append(1e6 * (time.perf_counter() - t0))
+        return out
+    ctl.step = timed_step
+    got, wall, ran, fixed_got = [], [], [], []
+    fixed, fixed_wall = {}, []
+    launches, routes = 0, collections.Counter()
+    for img in reqs:
+        c = sess.split
+        if c not in fixed:
+            fixed[c] = serving.connect(dataclasses.replace(
+                plan, split=c, adaptive=None), backend="local",
+                trace=trace())
+            fixed[c].infer(img)                  # its first call, untimed
+        zero_counts()
+        t0 = time.perf_counter()
+        got.append(sess.infer(img))
+        wall.append(1e3 * (time.perf_counter() - t0))
+        n_l, r_l = read_counts()
+        launches += n_l
+        routes.update(r_l)
+        t0 = time.perf_counter()
+        fixed_got.append(fixed[c].infer(img))
+        fixed_wall.append(1e3 * (time.perf_counter() - t0))
+        ran.append(c)
+    routes = dict(routes)
+    switches = [(s.request_index, s.old_split, s.new_split)
+                for s in sess.switches]
+    cpu = serving.connect(plan, backend="local", device="cpu",
+                          trace=trace())
+    cpu_got = [cpu.infer(img) for img in reqs]
+    cpu_switches = [(s.request_index, s.old_split, s.new_split)
+                    for s in cpu.switches]
+    if not switches or switches != cpu_switches:
+        raise AssertionError(f"adaptive: switches {switches} on the card, "
+                             f"{cpu_switches} on the CPU")
+    if ran != ran_at(sess.switches, plan.split, len(reqs)):
+        raise AssertionError(f"adaptive: requests ran at {ran}, switches "
+                             f"{switches}")
+    want = collections.Counter()
+    for c in ran:
+        want.update(edge_routes(plan, c))
+    if routes != dict(want) or \
+            launches != sum(edge_gemm_count(plan, c) for c in ran):
+        raise AssertionError(f"adaptive: masked_matmul {launches} launches "
+                             f"{routes}, expected {dict(want)}")
+    costs = compacted_cnn_layer_costs(plan.cfg, plan.masks)
+    rtt = plan.profile.link.rtt_s
+    worst_e = 0.0
+    for i, (c, g, f, w) in enumerate(zip(ran, got, fixed_got, cpu_got)):
+        if not same_bits(g["logits"], f["logits"]) or \
+                not g["tx_bytes"] == f["tx_bytes"] == w["tx_bytes"]:
+            raise AssertionError(f"adaptive: request {i} at c={c} differs "
+                                 f"from the fixed-split session")
+        t_s = split_latency(costs, c, plan.profile,
+                            cnn_input_bytes(plan.cfg),
+                            tx_scale=wire_tx_scale(
+                                plan.cfg, plan.masks, c, codec=plan.codec,
+                                compact=True))["T_S"]
+        e = plan.energy.profile.request_energy(
+            g["t_edge"], g["t_upstream"] - t_s, t_s, rtt_s=rtt)
+        gap = abs(g["e_edge_j"] - e) / e
+        worst_e = max(worst_e, gap)
+        if not gap <= 1e-12 or g["e_edge_j"] != w["e_edge_j"]:
+            raise AssertionError(f"adaptive: request {i} e_edge_j "
+                                 f"{g['e_edge_j']} against {e} (CPU "
+                                 f"{w['e_edge_j']})")
+    bw = ctl.estimator.bandwidth
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ctl.sweep(bw)
+    sweep_us = 1e6 * (time.perf_counter() - t0) / 200
+    by_split = collections.defaultdict(list)
+    fixed_by_split = collections.defaultdict(list)
+    for c, ms, fms in zip(ran[1:], wall[1:], fixed_wall[1:]):
+        by_split[c].append(ms)
+        fixed_by_split[c].append(fms)
+    row = {"plan": "adaptive", "initial_split": plan.split,
+           "candidates": list(plan.adaptive.candidates),
+           "trace_mbps": [[t, b] for t, b in ADAPTIVE_TRACE],
+           "requests": len(reqs), "switches": switches,
+           "switches_cpu": cpu_switches,
+           "describe": [s.describe() for s in sess.switches],
+           "ran_at": ran, "bit_identical_to_fixed_split": True,
+           "warmup_launches": warm, "warmup_routes": warm_routes,
+           "launches": launches, "routes": routes,
+           "e_edge_mj": [1e3 * g["e_edge_j"] for g in got],
+           "e_edge_worst_rel_gap": worst_e,
+           "battery_j_left": ctl.battery_j,
+           "wall_ms_median_by_split": {
+               str(c): statistics.median(v) for c, v in by_split.items()},
+           "fixed_wall_ms_median_by_split": {
+               str(c): statistics.median(v)
+               for c, v in fixed_by_split.items()},
+           "wall_ms": wall, "fixed_wall_ms": fixed_wall,
+           "step_us": step_us, "step_us_median": statistics.median(step_us),
+           "sweep_us": sweep_us}
+    print("adaptive " + json.dumps(row), flush=True)
+    return row, dict(collections.Counter(warm_routes) + collections.Counter(
+        routes))
+
+
+def adaptive_socket(plan, images):
+    """Phase 14.4: ``CloudServer(plan)`` + ``connect(plan, "socket")`` on
+    127.0.0.1, no link shaper. The loopback's uplink is far faster than
+    the plan's Wi-Fi, so the edge's controller offloads (a RESPLIT on the
+    live connection, decided, not forced); then a manual ``resplit`` to
+    c=19, which the controller adopts. Every row and ``tx_bytes``
+    bit-equal to the local backend's at the split it ran at, on one
+    connection. Returns (row, routes)."""
+    from repro_torch import serving
+    plan = dataclasses.replace(plan, port=free_port(), shape_link=False)
+    n = len(plan.cfg.layers)
+    locals_ = {}
+
+    def local_at(c, img):
+        if c not in locals_:
+            locals_[c] = serving.connect(dataclasses.replace(
+                plan, split=c, adaptive=None), backend="local")
+        return locals_[c].infer(img)
+    with serving.CloudServer(plan) as server:
+        with serving.connect(plan, backend="socket") as sess:
+            sock = sess._client.sock
+            zero_counts()
+            ran, got, wall = [], [], []
+            for img in images:
+                ran.append(sess.split)
+                t0 = time.perf_counter()
+                got.append(sess.infer(img))
+                wall.append(1e3 * (time.perf_counter() - t0))
+            decided = list(sess.switches)
+            sess.resplit(n)
+            if sess._controller.split != n:
+                raise AssertionError("socket adaptive: the controller did "
+                                     "not adopt the manual resplit")
+            ran.append(sess.split)
+            got.append(sess.infer(images[0]))
+            launches, routes = read_counts()
+            if sess._client.sock is not sock:
+                raise AssertionError("socket adaptive: reconnected")
+    if not decided:
+        raise AssertionError("socket adaptive: the controller never "
+                             "switched on the live connection")
+    reqs = list(images) + [images[0]]
+    for i, (img, c, g) in enumerate(zip(reqs, ran, got)):
+        want, tx = expected_frame(dataclasses.replace(plan, split=c),
+                                  local_at(c, img))
+        if not same_bits(g["logits"], want) or g["tx_bytes"] != tx or \
+                g["fault"]["retries"] or not g["e_edge_j"] > 0:
+            raise AssertionError(f"socket adaptive: request {i} at c={c} "
+                                 f"differs from the local backend")
+    want = collections.Counter()
+    for c in ran:
+        want.update(edge_routes(plan, c))
+    if routes != dict(want):
+        raise AssertionError(f"socket adaptive: routes {routes}, expected "
+                             f"{dict(want)}")
+    row = {"plan": "adaptive socket", "initial_split": plan.split,
+           "switches": [(s.request_index, s.old_split, s.new_split)
+                        for s in decided],
+           "manual_resplit": n, "ran_at": ran, "requests": len(reqs),
+           "one_connection": True, "bit_identical_to_local": True,
+           "server_fault_stats": dict(server.fault_stats),
+           "launches": launches, "routes": routes,
+           "wall_ms": wall, "e_edge_mj": [1e3 * g["e_edge_j"] for g in got]}
+    print("adaptive " + json.dumps(row), flush=True)
+    return row, routes
+
+
+def energy_streaming(plan, images):
+    """Phase 14.5: the energy plan through ``connect(plan, "streaming",
+    realtime_channel=False)`` at ``microbatch`` 1 and 4: every result's
+    ``e_edge_j`` > 0 and the profile's price of the stream's amortized
+    stage busy time and its frame share of the modeled uplink, the RTT
+    split over the frame's requests. Returns the routes."""
+    from repro_torch import serving
+    routes = collections.Counter()
+    for mb in (1, 4):
+        sess = serving.connect(plan, backend="streaming",
+                               realtime_channel=False, microbatch=mb)
+        zero_counts()
+        got = sess.infer_many(images)
+        routes.update(read_counts()[1])
+        rep = sess.last_report
+        n = len(rep.results)
+        t_edge = rep.stages["edge"].busy_s / n
+        t_cloud = rep.stages["cloud"].busy_s / n
+        rtt = plan.profile.link.rtt_s
+        for i, (g, r) in enumerate(zip(got, rep.results)):
+            e = plan.energy.profile.request_energy(
+                t_edge, r["t_tx_model"], t_cloud, rtt_s=rtt / r["frame_n"])
+            if not (g["e_edge_j"] == e and e > 0):
+                raise AssertionError(f"streaming energy microbatch {mb}: "
+                                     f"request {i} {g['e_edge_j']} against "
+                                     f"{e}")
+        print("energy " + json.dumps({
+            "plan": "streaming", "split": plan.split, "microbatch": mb,
+            "frames": [len(f) for f in stream_frames(rep)],
+            "e_edge_mj": [1e3 * g["e_edge_j"] for g in got]}), flush=True)
+    return routes
+
+
+def adaptive_phase(plans, images, alex_rows):
+    """Phase 14: calibration, energy and the adaptive controller on phase
+    4's int8 compacted AlexNet plans. Returns the routes of every counted
+    run."""
+    routes = collections.Counter(calibration(plans, images, alex_rows))
+    energy, adaptive = adaptive_plans(plans)
+    routes.update(adaptive_local(adaptive, images)[1])
+    routes.update(adaptive_socket(adaptive, images)[1])
+    routes.update(energy_streaming(dataclasses.replace(energy, split=13),
+                                   images))
+    return routes
+
+
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                  **extra):
     """One kernel of the JSON line: times and bound summed over
@@ -2296,10 +2749,11 @@ def main() -> int:
         plans[label] = serving.DeploymentPlan.from_args(
             params, cfg, split, masks=masks, compact=compact, codec="int8",
             quant=serving.QuantPolicy(weight_bits=bits))
-    alex_routes = collections.Counter()
+    alex_routes, alex_rows = collections.Counter(), {}
     for label, plan in plans.items():
-        alex_routes.update(serve_path(label, plan, images,
-                                      edge_gemm_count(plan))["routes"])
+        alex_rows[label] = serve_path(label, plan, images,
+                                      edge_gemm_count(plan))
+        alex_routes.update(alex_rows[label]["routes"])
 
     # 5. where one full-width AlexNet request's device time goes
     profile_request(plans["greedy"], images[0])
@@ -2349,6 +2803,9 @@ def main() -> int:
 
     # 13. the streaming backend of the AlexNet plans
     alex_routes.update(streaming_phase(plans, images))
+
+    # 14. calibration, energy and the adaptive split controller
+    alex_routes.update(adaptive_phase(plans, images, alex_rows))
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan

@@ -40,10 +40,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import CNNConfig
 from repro_torch.core.collab.protocol import affine_quantize
+from repro_torch.core.partition.latency_model import KernelCalibration
 from repro_torch.kernels.masked_matmul.ops import (masked_matmul,
                                                    masked_matmul_q8)
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
-from repro_torch.models.cnn import maxpool_nhwc
+from repro_torch.models.cnn import masks_to, maxpool_nhwc
 
 #: affine code-point count per bit width (the codec uses 255 for int8)
 BITS_LEVELS: Dict[int, int] = {8: 255, 4: 15}
@@ -247,3 +249,37 @@ def quant_cnn_apply(qparams, cfg: CNNConfig, x: torch.Tensor,
         elif spec.kind == "flatten":
             x = x.reshape(x.shape[0], -1)
     return x
+
+
+# ---------------------------------------------------------------------------
+# kernel-cost calibration (feeds latency_model.KernelCalibration)
+# ---------------------------------------------------------------------------
+def calibrate_quant_edge(qparams, cfg: CNNConfig, x,
+                         masks: Optional[Dict[int, torch.Tensor]] = None,
+                         backend: str = "auto", repeats: int = 3,
+                         device: DeviceLike = None):
+    """Time the deployed quantized edge layer by layer on ``device`` (the
+    card unless the caller names another) -> a ``KernelCalibration`` whose
+    ``layer_s`` plugs into ``sweep_splits(..., measured_device_s=...)``
+    (Algorithm 1 line 22's timestamp hook, over the deployed kernels).
+
+    ``qparams`` is the ``quantize_params`` bank of the deployed network
+    ``cfg`` (moved to ``device`` here); each layer runs alone through
+    ``quant_cnn_apply(start_layer=i, stop_layer=i + 1)``, so on the card
+    every conv and dense layer launches ``masked_matmul_q8`` (the float32
+    kernel for a ``weight_bits=None`` bank) on the route its shape picks,
+    once untimed and ``repeats`` times timed. ``backend="auto"`` is the
+    kernel on the card and the plain GEMM on the CPU."""
+    dev = resolve_device(device)
+    if backend == "auto":
+        backend = "pallas" if dev.type == "cuda" else "ref"
+    qp = {k: {n: t.to(dev) for n, t in v.items()}
+          for k, v in qparams.items()}
+    tmasks = masks_to(masks, dev)
+    fns = [lambda v, s=i: quant_cnn_apply(qp, cfg, v, masks=tmasks,
+                                          start_layer=s, stop_layer=s + 1,
+                                          backend=backend)
+           for i in range(len(cfg.layers))]
+    x0 = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x)
+                         else x).to(dev)
+    return KernelCalibration.measure(fns, x0, repeats=repeats)

@@ -89,6 +89,7 @@ from repro_torch.core.collab.protocol import (CAP_CRC, PROTOCOL_VERSION,
                                               is_resplit, is_sealed)
 from repro_torch.core.collab.quant import (QuantPolicy, quant_cnn_apply,
                                            quantize_params, resolve_backend)
+from repro_torch.core.partition.energy_model import EnergyProfile
 from repro_torch.core.partition.latency_model import (
     batched_server_time, cnn_input_bytes, cnn_layer_costs,
     compacted_cnn_layer_costs, split_latency, wire_tx_scale)
@@ -103,11 +104,13 @@ from repro_torch.models.cnn import (compact_params, masks_to, oihw_params,
 @dataclass
 class RequestTiming:
     """Per-request accounting: ``t_*`` in seconds, ``tx_bytes`` the
-    transmitted frame payload in bytes."""
+    transmitted frame payload in bytes, ``e_edge_j`` the edge device's
+    energy in joules (None when no ``EnergyProfile`` is attached)."""
     t_device: float
     t_tx: float
     t_server: float
     tx_bytes: int
+    e_edge_j: Optional[float] = None
 
 
 def _frame_io(sock: socket.socket, ch: Optional[ShapedSocket]):
@@ -322,7 +325,9 @@ class CollabRunner:
     ``realtime_channel`` sleeps each send's modeled cost away (the port's
     ``SimChannel`` never sleeps itself), ``trace`` replays a time-varying
     link on the channel's virtual clock and ``faults`` charges lost
-    copies and stalls against it.
+    copies and stalls against it. ``energy`` (an ``EnergyProfile``)
+    prices every request's ``e_edge_j`` from the breakdown its timing
+    reports, the RTT peeled off the uplink term and billed as waiting.
     """
 
     def __init__(self, params, cfg: CNNConfig, split: int,
@@ -333,9 +338,11 @@ class CollabRunner:
                  pack: bool = False, trace: Optional[LinkTrace] = None,
                  faults: Optional[FaultInjector] = None,
                  quant: Optional[QuantPolicy] = None,
+                 energy: Optional[EnergyProfile] = None,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.profile = profile
+        self.energy = energy
         self.masks = masks
         self.codec = codec
         self.compact = compact
@@ -387,10 +394,15 @@ class CollabRunner:
 
     def _timing(self, t_device: float, t_tx: float, t_server: float,
                 tx_bytes: int) -> RequestTiming:
+        """One request's accounting record: the analytic device / server
+        terms when ``simulate_compute``, else the measured ones, priced in
+        joules when the runner carries an ``EnergyProfile``."""
         if self.simulate_compute:
-            return RequestTiming(self._analytic["T_D"], t_tx,
-                                 self._analytic["T_S"], tx_bytes)
-        return RequestTiming(t_device, t_tx, t_server, tx_bytes)
+            t_device, t_server = self._analytic["T_D"], self._analytic["T_S"]
+        e = (self.energy.request_energy(t_device, t_tx, t_server,
+                                        rtt_s=self.profile.link.rtt_s)
+             if self.energy is not None else None)
+        return RequestTiming(t_device, t_tx, t_server, tx_bytes, e_edge_j=e)
 
     def _advance(self, key: str, measured_s: float) -> None:
         """A trace-driven channel keeps degrading during compute, so the

@@ -8,18 +8,31 @@ server; c = N is device-only, c = 0 is server-only (the raw input is
 transmitted instead). Per-layer FLOPs and activation bytes come from the
 layer specs; pruning shrinks both. Plain Python arithmetic, identical to
 the reference's, so both packages pick the same split.
+
+Measured per-layer times (Algorithm 1 line 22, "via timestamps") replace
+the analytic device or server terms when given: ``KernelCalibration``
+times any per-layer forward (``measure_cnn_layer_times`` the fp32 layers
+on cuDNN and cuBLAS, ``core.collab.quant.calibrate_quant_edge`` the
+deployed quantized edge), and its ``layer_s`` plugs into
+``split_latency`` / ``sweep_splits`` as ``measured_device_s``. On the card
+a layer's time is what one request pays for it, host enqueue included:
+CUDA events around each call, the device idle before it.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import CNNConfig
 from repro_torch.core.collab.protocol import CODEC_TX_SCALE
 from repro_torch.core.partition.profiles import TwoTierProfile
+from repro_torch.device import DeviceLike, exact_fp32, resolve_device
 from repro_torch.models.cnn import (compact_cnn_config, layer_shapes,
+                                    masks_to, oihw_params, run_layers,
                                     split_keep_indices)
 
 
@@ -94,6 +107,130 @@ def compacted_cnn_layer_costs(cfg: CNNConfig, masks,
                            bytes_per_elem=bytes_per_elem)
 
 
+def quantized_cnn_layer_costs(cfg: CNNConfig, masks=None,
+                              weight_bits: Optional[int] = 8,
+                              bytes_per_elem: int = 4) -> List[LayerCost]:
+    """Price the *quantized* deployed network: compacted shapes with
+    ``params_bytes`` scaled to the quantized weight width (the weight
+    traffic an int8/int4 edge streams per inference). FLOPs and
+    activation bytes are unchanged (weight-only quantization keeps fp32
+    activations); ``weight_bits=None`` prices the fp32 weights."""
+    costs = compacted_cnn_layer_costs(cfg, masks, bytes_per_elem)
+    if weight_bits is None:
+        return costs
+    frac = weight_bits / (8.0 * bytes_per_elem)
+    return [LayerCost(c.index, c.name, c.flops, c.out_bytes,
+                      c.params_bytes * frac) for c in costs]
+
+
+# ---------------------------------------------------------------------------
+# measured costs (Algorithm 1, line 22: "via timestamps")
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class KernelCalibration:
+    """Measured per-layer edge seconds, the kernel-cost calibration hook of
+    the split model: ``layer_s`` plugs into ``split_latency`` /
+    ``sweep_splits`` / ``energy_aware_split`` as ``measured_device_s``, so
+    the sweep picks splits on the deployed kernels' costs instead of the
+    analytic roofline."""
+    layer_s: tuple
+
+    @classmethod
+    def measure(cls, layer_fns: Sequence, x0,
+                repeats: int = 3) -> "KernelCalibration":
+        """``layer_fns[i]`` maps layer i's input to its output; outputs
+        thread forward, so each layer is timed on its real input. Each
+        layer runs once untimed (its first call meets its shapes), then
+        ``repeats`` times, and its time is the mean. On a CUDA tensor each
+        call is timed by CUDA events with the device idle before it (a
+        synchronize ahead of the start event), which is what one request
+        pays for the layer, host enqueue included; on the CPU by the host
+        clock. Calls run in inference mode with full fp32, as the serving
+        path runs them."""
+        cuda = torch.is_tensor(x0) and x0.device.type == "cuda"
+        times = []
+        cur = x0
+        with torch.inference_mode(), exact_fp32():
+            for fn in layer_fns:
+                out = fn(cur)
+                total = 0.0
+                for _ in range(repeats):
+                    if cuda:
+                        torch.cuda.synchronize(x0.device)
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        fn(cur)
+                        end.record()
+                        end.synchronize()
+                        total += start.elapsed_time(end) / 1e3
+                    else:
+                        t0 = time.perf_counter()
+                        fn(cur)
+                        total += time.perf_counter() - t0
+                times.append(float(total / repeats))
+                cur = out
+        return cls(tuple(times))
+
+    def total_s(self, split: Optional[int] = None) -> float:
+        """Measured device seconds for layers [0, split) (all when None)."""
+        n = len(self.layer_s) if split is None else split
+        return float(sum(self.layer_s[:n]))
+
+
+def _params_on(params, device: torch.device):
+    """A params dict (numpy arrays or tensors) as float tensors on
+    ``device``."""
+    return {k: {n: torch.as_tensor(np.asarray(t) if not torch.is_tensor(t)
+                                   else t).to(device)
+                for n, t in v.items()} for k, v in params.items()}
+
+
+def measure_cnn_layer_times(params, cfg: CNNConfig, x, masks=None,
+                            repeats: int = 3,
+                            device: DeviceLike = None) -> List[float]:
+    """Seconds per layer of the fp32 network (convolutions on cuDNN,
+    dense layers on cuBLAS, TF32 off) on ``device``, the card unless the
+    caller names another, each layer timed by
+    ``KernelCalibration.measure``."""
+    dev = resolve_device(device)
+    tparams = oihw_params(_params_on(params, dev), cfg)
+    tmasks = masks_to(masks, dev)
+    fns = [lambda v, s=i: run_layers(tparams, cfg, v, masks=tmasks,
+                                     start_layer=s, stop_layer=s + 1)
+           for i in range(len(cfg.layers))]
+    x0 = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x)
+                         else x).to(dev)
+    return list(KernelCalibration.measure(fns, x0, repeats=repeats).layer_s)
+
+
+def cnn_layer_output_bytes(params, cfg: CNNConfig, x,
+                           masks=None) -> List[int]:
+    """True transmitted payload per split point: the surviving units only
+    (pruned channels are zeros under masked execution and absent after
+    compaction), per batch row. Runs ``run_layers`` where the parameters
+    lie (numpy parameters on the CPU)."""
+    leaf = next(iter(params.values()))["w"]
+    dev = leaf.device if torch.is_tensor(leaf) else torch.device("cpu")
+    tp = oihw_params(_params_on(params, dev), cfg)
+    xt = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x)
+                         else x).to(dev)
+    with torch.inference_mode(), exact_fp32():
+        _, inter = run_layers(tp, cfg, xt, masks=masks_to(masks, dev),
+                              return_intermediates=True)
+    masks = masks or {}
+    out = []
+    keep = 1.0
+    for i, a in enumerate(inter):
+        if i in masks:
+            keep = float(np.mean(np.asarray(masks[i])))
+        # relu/pool/flatten inherit the producer's surviving-channel ratio
+        nbytes = a.numel() * a.element_size()
+        out.append(int(nbytes / a.shape[0] * keep if keep < 1.0
+                       else nbytes / a.shape[0]))
+    return out
+
+
 def wire_tx_scale(cfg: CNNConfig, masks, split: int,
                   codec: Optional[str] = None, pack: bool = False,
                   compact: bool = False) -> float:
@@ -160,17 +297,27 @@ def batched_server_time(costs: Sequence[LayerCost], c: int,
 def split_latency(costs: Sequence[LayerCost], c: int,
                   profile: TwoTierProfile,
                   input_bytes: float,
+                  measured_device_s: Optional[Sequence[float]] = None,
+                  measured_server_s: Optional[Sequence[float]] = None,
                   tx_scale: float = 1.0,
                   round_trip: bool = False) -> Dict[str, float]:
     """Latency breakdown for split point c (layers [0,c) on device).
+    ``measured_device_s`` / ``measured_server_s`` (seconds per layer, e.g.
+    ``KernelCalibration.layer_s``) replace the analytic segment times.
     T_TX charges the uplink feature tensor plus one RTT (the paper's
     Eq. 5); ``round_trip=True`` adds the logits downlink and a second
     RTT. ``tx_bytes`` stays uplink-only."""
     n = len(costs)
     if not 0 <= c <= n:
         raise ValueError(f"split {c} outside [0, {n}]")
-    t_d = _segment_time(costs, range(c), profile.device)
-    t_s = _segment_time(costs, range(c, n), profile.server)
+
+    def seg_time(idx, comp, measured):
+        if measured is not None:
+            return sum(measured[i] for i in idx)
+        return _segment_time(costs, idx, comp)
+
+    t_d = seg_time(range(c), profile.device, measured_device_s)
+    t_s = seg_time(range(c, n), profile.server, measured_server_s)
     tx_bytes = (input_bytes if c == 0 else costs[c - 1].out_bytes) * tx_scale
     if c == n:
         t_tx = 0.0

@@ -11,7 +11,7 @@ Time-varying links: a ``LinkProfile`` is a point-in-time snapshot; a
 elapsed time — the wireless reality the paper's title promises, where the
 split picked at deployment time stops being optimal mid-run. The collab
 channels (``SimChannel``/``ShapedSocket``) replay a trace per transmitted
-byte (the adaptive re-planner that reads it is not ported yet).
+byte, and the adaptive controller re-plans from what they charge.
 
 Fault schedules: a ``LinkTrace`` degrades the link; a ``FaultSchedule``
 *breaks* it — deterministic, seedable sequences of frame drops, byte

@@ -21,10 +21,15 @@
 Plans are byte-compatible with ``repro.serving``'s (same digest, same
 directory layout), and the socket peers speak the reference's frames, so
 a port edge and a JAX cloud (or the reverse) serve each other. The
-``local``, ``socket`` and ``streaming`` backends are ported; the
-``adaptive``, ``energy`` and ``fleet`` plan sections come with a later
-slice.
+``local``, ``socket`` and ``streaming`` backends are ported, with the
+``adaptive`` (the split controller, RESPLIT on the live socket) and
+``energy`` (``e_edge_j`` in every result, the energy-aware split) plan
+sections; the ``fleet`` section comes with a later slice.
 """
+from repro_torch.core.collab.adaptive import (AdaptivePolicy,
+                                              AdaptiveSplitController,
+                                              BandwidthEstimator,
+                                              SplitSwitch)
 from repro_torch.core.collab.batching import (BatchingPolicy, LaneSaturated,
                                               LaneStats)
 from repro_torch.core.collab.channel import FaultInjector
@@ -36,6 +41,13 @@ from repro_torch.core.collab.faults import (FaultPolicy, RequestTimeout,
 from repro_torch.core.collab.protocol import (FrameIntegrityError,
                                               PlanMismatchError)
 from repro_torch.core.collab.quant import QuantPolicy
+from repro_torch.core.partition.energy_model import (ENERGY_PROFILES,
+                                                     MCU_ENERGY,
+                                                     PAPER_EDGE_ENERGY,
+                                                     PI_ENERGY, EnergyPolicy,
+                                                     EnergyProfile,
+                                                     RadioProfile,
+                                                     pareto_front)
 from repro_torch.core.partition.profiles import (FAULT_SCHEDULES, TRACES,
                                                  FaultEvent, FaultSchedule,
                                                  LinkTrace, TraceSegment)
@@ -50,8 +62,11 @@ __all__ = [
     "LocalSession", "SocketSession", "StreamingSession", "CloudServer",
     "CloudFleet",
     "PlanMismatchError", "connect", "serve",
-    "LinkTrace", "TraceSegment", "TRACES",
+    "AdaptivePolicy", "AdaptiveSplitController", "BandwidthEstimator",
+    "SplitSwitch", "LinkTrace", "TraceSegment", "TRACES",
     "BatchingPolicy", "LaneStats", "LaneSaturated",
+    "EnergyPolicy", "EnergyProfile", "RadioProfile", "pareto_front",
+    "ENERGY_PROFILES", "MCU_ENERGY", "PI_ENERGY", "PAPER_EDGE_ENERGY",
     "FaultPolicy", "FaultSchedule", "FaultEvent", "FaultInjector",
     "RequestTimeout", "FrameIntegrityError", "fault_record",
     "FAULT_SCHEDULES",

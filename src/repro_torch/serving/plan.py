@@ -8,14 +8,19 @@ and read the reference's directory layout (``plan.json``,
 ``params.npz``/``params.json``, ``masks.npz``), so a plan made by either
 package loads in the other with the same digest.
 
-The ``quant``, ``batching``, ``faults`` and ``routing`` sections are the
-policy objects of the reference (``QuantPolicy``, ``BatchingPolicy``,
-``FaultPolicy``, ``RoutingPolicy``; a section given as its JSON dict is
-read with the policy's ``from_json``). Sections whose machinery is not
-ported yet (``adaptive``, ``energy``, ``fleet``) are held as their JSON
-dicts: they fold into the digest, round-trip through ``save``/``load``
-unchanged and show in ``describe`` as the reference shows them, and
-``serving.connect`` and ``serving.serve`` refuse a plan that carries one
+The ``quant``, ``adaptive``, ``batching``, ``energy``, ``faults`` and
+``routing`` sections are the policy objects of the reference
+(``QuantPolicy``, ``AdaptivePolicy``, ``BatchingPolicy``,
+``EnergyPolicy``, ``FaultPolicy``, ``RoutingPolicy``; a section given as
+its JSON dict is read with the policy's ``from_json``). An ``adaptive``
+section's candidates are normalized as the reference normalizes them
+(sorted, unique, always holding the initial split); with an ``energy``
+section ``from_args(split=None)`` picks the split by the policy's
+weighted latency·energy objective. The ``fleet`` section, whose machinery
+is not ported yet, is held as its JSON dict: it folds into the digest,
+round-trips through ``save``/``load`` unchanged and shows in
+``describe`` as the reference shows it, and ``serving.connect`` and
+``serving.serve`` refuse a plan that carries one
 (``NotImplementedError``). Each optional section folds into the digest
 only when set, as in the reference.
 
@@ -37,24 +42,28 @@ import torch
 
 from repro_torch import interop
 from repro_torch.configs.base import CNNConfig, ConvLayerSpec
+from repro_torch.core.collab.adaptive import AdaptivePolicy
 from repro_torch.core.collab.batching import BatchingPolicy
 from repro_torch.core.collab.cluster import RoutingPolicy
 from repro_torch.core.collab.faults import FaultPolicy
 from repro_torch.core.collab.protocol import CODEC_TX_SCALE
 from repro_torch.core.collab.quant import QuantPolicy
+from repro_torch.core.partition.energy_model import EnergyPolicy
 from repro_torch.core.partition.latency_model import (
     cnn_input_bytes, cnn_layer_costs, compacted_cnn_layer_costs,
     wire_tx_scale)
 from repro_torch.core.partition.profiles import (ComputeProfile, LinkProfile,
                                                  PAPER_PROFILE,
                                                  TwoTierProfile)
-from repro_torch.core.partition.splitter import greedy_split
+from repro_torch.core.partition.splitter import (energy_aware_split,
+                                                 greedy_split)
 
 PLAN_VERSION = 1
 #: contract sections the port keeps as JSON and does not serve yet
-UNPORTED_SECTIONS = ("adaptive", "energy", "fleet")
+UNPORTED_SECTIONS = ("fleet",)
 #: sections held as policy objects, by the policy class
-POLICY_SECTIONS = {"batching": BatchingPolicy, "faults": FaultPolicy,
+POLICY_SECTIONS = {"adaptive": AdaptivePolicy, "batching": BatchingPolicy,
+                   "energy": EnergyPolicy, "faults": FaultPolicy,
                    "routing": RoutingPolicy}
 
 
@@ -111,9 +120,9 @@ class DeploymentPlan:
     port: int = 29500
     connect_timeout_s: float = 30.0
     shape_link: bool = True
-    adaptive: Optional[Dict[str, Any]] = None
+    adaptive: Optional[AdaptivePolicy] = None
     batching: Optional[BatchingPolicy] = None
-    energy: Optional[Dict[str, Any]] = None
+    energy: Optional[EnergyPolicy] = None
     faults: Optional[FaultPolicy] = None
     fleet: Optional[Dict[str, Any]] = None
     routing: Optional[RoutingPolicy] = None
@@ -138,15 +147,16 @@ class DeploymentPlan:
             if isinstance(sec, dict):
                 setattr(self, name, policy.from_json(sec))
         if self.adaptive is not None:
-            # the reference normalizes its candidates the same way:
-            # sorted, unique, always containing the initial split
-            cands = sorted({int(c) for c in self.adaptive["candidates"]}
+            # sorted, unique, always containing the initial split (so the
+            # controller's current point stays sweepable)
+            cands = sorted({int(c) for c in self.adaptive.candidates}
                            | {self.split})
             bad = [c for c in cands if not 0 <= c <= n]
             if bad:
                 raise ValueError(f"adaptive candidates {bad} outside "
                                  f"[0, {n}]")
-            self.adaptive = {**self.adaptive, "candidates": cands}
+            self.adaptive = dataclasses.replace(self.adaptive,
+                                                candidates=tuple(cands))
 
     # -- constructors -------------------------------------------------------
     @classmethod
@@ -158,13 +168,11 @@ class DeploymentPlan:
         """Build a plan from explicit pieces. ``split=None`` runs the
         greedy split sweep (Algorithm 1) on the deployed shapes —
         compacted when ``compact``, masked otherwise — with the wire cost
-        of each candidate priced in (``wire_tx_scale``)."""
+        of each candidate priced in (``wire_tx_scale``); with an
+        ``energy`` section it minimizes that policy's weighted
+        latency·energy objective instead (the same split at energy
+        weight 0)."""
         if split is None:
-            if transport.get("energy") is not None:
-                raise NotImplementedError(
-                    "from_args(split=None) with an 'energy' section picks "
-                    "the split by the energy objective, which is not "
-                    "ported yet; pass split= explicitly")
             deploy_compact = compact and bool(masks)
             np_masks = ({int(i): _mask_array(m) for i, m in masks.items()}
                         if masks else masks)
@@ -173,8 +181,16 @@ class DeploymentPlan:
             scale = lambda c: wire_tx_scale(    # noqa: E731
                 cfg, np_masks, c, codec=codec, pack=pack,
                 compact=deploy_compact)
-            split = greedy_split(costs, profile, cnn_input_bytes(cfg),
-                                 tx_scale=scale).split_point
+            energy = transport.get("energy")
+            if isinstance(energy, dict):
+                energy = EnergyPolicy.from_json(energy)
+            if energy is not None:
+                split = energy_aware_split(
+                    costs, profile, cnn_input_bytes(cfg), energy,
+                    tx_scale=scale).split_point
+            else:
+                split = greedy_split(costs, profile, cnn_input_bytes(cfg),
+                                     tx_scale=scale).split_point
         return cls(cfg=cfg, params=params, split=int(split), masks=masks,
                    compact=compact, codec=codec, pack=pack, profile=profile,
                    **transport)
@@ -210,11 +226,11 @@ class DeploymentPlan:
                "compact": self.compact, "codec": self.codec,
                "pack": self.pack}
         if self.adaptive is not None:
-            doc["adaptive"] = dict(self.adaptive)
+            doc["adaptive"] = self.adaptive.to_json()
         if self.batching is not None:
             doc["batching"] = self.batching.to_json()
         if self.energy is not None:
-            doc["energy"] = dict(self.energy)
+            doc["energy"] = self.energy.to_json()
         if self.faults is not None:
             doc["faults"] = self.faults.to_json()
         if self.fleet is not None:
@@ -304,17 +320,17 @@ class DeploymentPlan:
         n = len(self.cfg.layers)
         prune = (f"{len(self.masks)} masked layers" if self.masks
                  else "dense")
-        adapt = (f", adaptive over {list(self.adaptive['candidates'])}"
+        adapt = (f", adaptive over {list(self.adaptive.candidates)}"
                  if self.adaptive else "")
         batch = (f", batched<= {self.batching.max_batch}"
                  f"@{self.batching.max_wait_ms}ms"
                  if self.batching else "")
         joule = ""
         if self.energy is not None:
-            joule = (f", energy={self.energy['profile']['name']}"
-                     f"@{self.energy['energy_weight_s_per_j']:g}s/J")
-            if self.energy.get("battery_j") is not None:
-                joule += f" battery={self.energy['battery_j']:g}J"
+            joule = (f", energy={self.energy.profile.name}"
+                     f"@{self.energy.energy_weight_s_per_j:g}s/J")
+            if self.energy.battery_j is not None:
+                joule += f" battery={self.energy.battery_j:g}J"
         tol = (f", faults: retries<={self.faults.max_retries}"
                f" fallback={self.faults.fallback}"
                if self.faults else "")

@@ -17,27 +17,45 @@ backends the port serves, all constructed from the same ``DeploymentPlan``
 
 Every entry point (``connect``, ``serve``, ``CloudServer``,
 ``CloudFleet``) runs on the CUDA card unless the caller passes
-``device="cpu"``, and raises without a card. Plans with an ``adaptive``,
-``energy`` or ``fleet`` section come with a later slice of the port:
-``connect`` and ``serve`` raise ``NotImplementedError`` for them.
+``device="cpu"``, and raises without a card. Plans with a ``fleet``
+section come with a later slice of the port: ``connect`` and ``serve``
+raise ``NotImplementedError`` for them.
 
 Every backend returns the same result shape from ``infer`` /
 ``infer_many``::
 
     {"logits": np.ndarray, "t_edge": float|None, "t_upstream": float|None,
-     "t_total": float|None, "tx_bytes": int|None, "e_edge_j": None,
+     "t_total": float|None, "tx_bytes": int|None, "e_edge_j": float|None,
      "fault": {"faults": int, "retries": int, "migrations": int,
                "fallback": bool}}
 
 ``t_*`` are seconds, ``tx_bytes`` is the transmitted frame payload in
 bytes (identical across backends for the same plan; on the streaming
 backend a frame's bytes shared by the requests fused into it),
-``e_edge_j`` stays None (no energy section is served yet) and ``fault``
-is the uniform per-request fault accounting. The local backend adds the
-measured ``wallclock`` seconds of its edge and cloud halves; the
-streaming backend's ``t_*`` are None (a pipelined request's own time is
-not observable) and its ``last_report`` holds the stream's stage
-occupancy and throughput.
+``e_edge_j`` the edge device's joules for the request, priced by the
+plan's ``energy`` section (None on an un-metered plan, and on the socket
+backend's pipelined ``infer_many``, where the uplink time of one request
+is not observable), and ``fault`` the uniform per-request fault
+accounting. The local backend adds the measured ``wallclock`` seconds of
+its edge and cloud halves; the streaming backend's ``t_*`` are None (a
+pipelined request's own time is not observable; its ``e_edge_j`` prices
+the stages' busy time amortized over the stream) and its
+``last_report`` holds the stream's stage occupancy and throughput.
+
+**Adaptive plans** (``plan.adaptive`` set): the ``local`` and ``socket``
+sessions close the control loop per request — each ``infer`` feeds its
+uplink observation (and, on a metered plan, its joules) to an
+``AdaptiveSplitController``, and when the measured link (or the draining
+battery) moves the objective past the hysteresis margin the session
+switches the split in place (``CollabRunner.set_split`` locally; the
+RESPLIT control frame on the live socket, no reconnect).
+``session.split`` is the current partition and ``session.switches`` the
+decision log. On an edge-only fallback the socket session reports the
+outage (``note_outage``: the estimate collapses, the latest candidate
+wins) and adopts the split locally until the next reconnect re-RESPLITs
+it; a migration (fleet backpressure) waives the dwell (``note_congestion``).
+The cloud peer (``serve``/``CloudServer``) accepts a RESPLIT only to one
+of the plan's candidates.
 
 **Fault-tolerant plans** (``plan.faults`` set): the socket session's
 ``EdgeClient`` retries transient failures (reconnect + re-HELLO +
@@ -59,6 +77,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core.collab.adaptive import (AdaptiveSplitController,
+                                              SplitSwitch)
 from repro_torch.core.collab.batching import bucket_for
 from repro_torch.core.collab.channel import FaultInjector
 from repro_torch.core.collab.cluster import FleetRouter
@@ -73,10 +93,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.plan import DeploymentPlan
 
 BACKENDS = ("local", "socket", "streaming")
-#: what the next slices of the port bring
-NEXT_SLICE = ("plans with an 'adaptive', 'energy' or 'fleet' section (the "
-              "adaptive controller, the energy model, the fleet simulator) "
-              "come with the next slices of the port")
+#: what the next slice of the port brings
+NEXT_SLICE = ("plans with a 'fleet' section (the fleet simulator) come "
+              "with the next slice of the port")
 
 
 def _refuse_unported(plan: DeploymentPlan) -> None:
@@ -87,8 +106,21 @@ def _refuse_unported(plan: DeploymentPlan) -> None:
             f"does not serve yet: {NEXT_SLICE}")
 
 
+def _controller_for(plan: DeploymentPlan
+                    ) -> Optional[AdaptiveSplitController]:
+    """The plan's adaptive controller (None without an ``adaptive``
+    section), priced on the deployed shapes and wire encoding."""
+    if plan.adaptive is None:
+        return None
+    return AdaptiveSplitController.for_deployment(
+        plan.cfg, plan.adaptive, plan.split, plan.profile, masks=plan.masks,
+        compact=plan.compact, codec=plan.codec, pack=plan.pack,
+        energy=plan.energy)
+
+
 def _result(logits, t_edge: Optional[float], t_upstream: Optional[float],
-            tx_bytes: Optional[int], fault: Optional[Dict] = None,
+            tx_bytes: Optional[int], e_edge_j: Optional[float] = None,
+            fault: Optional[Dict] = None,
             wallclock: Optional[Dict[str, float]] = None) -> Dict:
     """The one result shape every backend returns (``wallclock`` only
     where the backend measures each half)."""
@@ -96,7 +128,7 @@ def _result(logits, t_edge: Optional[float], t_upstream: Optional[float],
              else t_edge + t_upstream)
     out = {"logits": np.asarray(logits), "t_edge": t_edge,
            "t_upstream": t_upstream, "t_total": total,
-           "tx_bytes": tx_bytes, "e_edge_j": None,
+           "tx_bytes": tx_bytes, "e_edge_j": e_edge_j,
            "fault": dict(fault) if fault else fault_record()}
     if wallclock is not None:
         out["wallclock"] = wallclock
@@ -105,7 +137,9 @@ def _result(logits, t_edge: Optional[float], t_upstream: Optional[float],
 
 class InferenceSession:
     """Base session: one deployed plan, uniform request interface.
-    ``split`` is the current partition point."""
+    ``split`` is the current partition point (it moves under an adaptive
+    plan); ``switches`` logs every ``SplitSwitch`` the adaptive controller
+    executed on this session."""
 
     backend: str = "?"
 
@@ -113,6 +147,7 @@ class InferenceSession:
         _refuse_unported(plan)
         self.plan = plan
         self.split: int = plan.split
+        self.switches: List[SplitSwitch] = []
 
     def infer(self, image: np.ndarray) -> Dict:
         """Serve one request (image ``(B, H, W, C)`` float32)."""
@@ -137,7 +172,9 @@ class LocalSession(InferenceSession):
     come from the analytic hardware profile when ``simulate_compute`` (the
     default), else from the measured wall-clock of each half; the channel
     term is always charged per transmitted byte. A ``trace`` replays a
-    time-varying link on the simulated channel, ``faults`` its ARQ."""
+    time-varying link on the simulated channel, ``faults`` its ARQ; with
+    an adaptive plan the session re-splits itself as the charged
+    per-send costs reveal the drift."""
 
     backend = "local"
 
@@ -153,26 +190,42 @@ class LocalSession(InferenceSession):
             masks=plan.masks, realtime_channel=realtime_channel,
             simulate_compute=simulate_compute, compact=plan.compact,
             codec=plan.codec, pack=plan.pack, trace=trace, faults=faults,
-            quant=plan.quant, device=self.device)
+            quant=plan.quant,
+            energy=plan.energy.profile if plan.energy else None,
+            device=self.device)
+        self._controller = _controller_for(plan)
+        if self._controller is not None:
+            # run every candidate once so a switch meets no cold shape
+            self._runner.warm(plan.adaptive.candidates)
 
     @staticmethod
     def _as_result(res: Dict) -> Dict:
         t = res["timing"]
         return _result(res["logits"], t.t_device, t.t_tx + t.t_server,
-                       t.tx_bytes, fault=res.get("fault"),
+                       t.tx_bytes, t.e_edge_j, fault=res.get("fault"),
                        wallclock=res["wallclock"])
 
     def infer(self, image: np.ndarray) -> Dict:
-        """One in-process request."""
-        return self._as_result(self._runner.infer(image))
+        """One in-process request; feeds the adaptive controller and
+        executes the switch it decides (from the next request on)."""
+        res = self._runner.infer(image)
+        t = res["timing"]
+        if self._controller is not None:
+            sw = self._controller.step(t.tx_bytes, t.t_tx, t.e_edge_j)
+            if sw is not None:
+                self._runner.set_split(sw.new_split)
+                self.split = sw.new_split
+                self.switches.append(sw)
+        return self._as_result(res)
 
     def infer_many(self, images: Sequence[np.ndarray]) -> List[Dict]:
-        """Batched fast path when the plan carries a ``batching`` section:
+        """Batched fast path when the plan carries a ``batching`` section
+        and no adaptive controller needs per-request observations:
         requests are fused up to ``max_batch`` ROWS at a time through ONE
         edge call and ONE bucketed cloud call (``CollabRunner.infer_batch``),
         with logits bit-identical to the sequential loop. A single request
         wider than ``max_batch`` rows takes the sequential path."""
-        if self.plan.batching is None:
+        if self.plan.batching is None or self._controller is not None:
             return super().infer_many(images)
         mb = self.plan.batching.max_batch
         buckets = self.plan.batching.resolved_buckets
@@ -208,6 +261,8 @@ class SocketSession(InferenceSession):
     link endpoint; ``verify=True`` (default) runs the HELLO digest
     handshake. ``resplit`` moves the partition on the live connection.
     A ``trace`` shapes the edge's uplink against a time-varying link.
+    With an adaptive plan each synchronous ``infer`` feeds the controller
+    and executes a decided switch by RESPLIT on the same connection.
 
     With a fleet-routed plan (``plan.routing`` set) the session builds a
     ``FleetRouter`` over the fleet member ports (or adopts a shared one
@@ -240,27 +295,79 @@ class SocketSession(InferenceSession):
             fault_policy=plan.faults, faults=faults, router=router,
             quant=plan.quant, device=self.device,
             **({"sleep_fn": sleep_fn} if sleep_fn is not None else {}))
+        self._controller = _controller_for(plan)
+        if self._controller is not None:
+            # the edge half of every candidate (the cloud peer warms its
+            # own halves when it arms RESPLIT)
+            self._client.warm(plan.adaptive.candidates)
         if plan.faults is not None and plan.faults.fallback == "edge":
             # run the c=N pair once so the first edge-only fallback meets
             # no cold shape in the middle of an outage
             self._client.warm([len(plan.cfg.layers)])
 
     def resplit(self, split: int) -> None:
-        """Move the partition on the live connection (RESPLIT + ack)."""
+        """Move the partition on the live connection (RESPLIT + ack). With
+        an adaptive plan the controller adopts the override and restarts
+        its dwell window, so it does not overrule it on the next request."""
         self._client.resplit(split)
         self.split = split
+        if self._controller is not None:
+            self._controller.note_external_switch(split)
+
+    def _energy(self, res: Dict) -> Optional[float]:
+        """One synchronous request's edge joules from its measured
+        breakdown: the edge's wall-clock, the uplink observation and the
+        rest of the wait (cloud and downlink)."""
+        if self.plan.energy is None:
+            return None
+        t_wait = max(res["t_net_and_cloud"] - res["t_tx"], 0.0)
+        return self.plan.energy.profile.request_energy(
+            res["t_edge"], res["t_tx"], t_wait,
+            rtt_s=self.plan.profile.link.rtt_s)
+
+    def _switch(self, sw: Optional[SplitSwitch], on_wire: bool) -> None:
+        if sw is None:
+            return
+        if on_wire:
+            self._client.resplit(sw.new_split)
+        else:
+            self._client.adopt_split(sw.new_split)
+        self.split = sw.new_split
+        self.switches.append(sw)
 
     def infer(self, image: np.ndarray) -> Dict:
         """One synchronous request/response on the live socket; measured
-        wall-clock timing (seconds)."""
+        wall-clock timing (seconds), ``e_edge_j`` joules when metered;
+        feeds the adaptive controller and executes any decided RESPLIT."""
         res = self._client.infer(image)
+        e = self._energy(res)
+        rec = res.get("fault")
+        if self._controller is not None:
+            if rec and rec["fallback"]:
+                # outage: the cloud is unreachable, so the switch is
+                # adopted locally and the client re-RESPLITs the wire on
+                # its next successful reconnect
+                self._switch(self._controller.note_outage(), on_wire=False)
+            else:
+                sw = self._controller.step(res["tx_bytes"], res["t_tx"], e)
+                if sw is None and rec and rec["migrations"]:
+                    # fleet backpressure: answer the congestion signal
+                    # without waiting out the dwell
+                    sw = self._controller.note_congestion()
+                self._switch(sw, on_wire=True)
         return _result(res["logits"], res["t_edge"],
-                       res["t_net_and_cloud"], res["tx_bytes"],
-                       fault=res.get("fault"))
+                       res["t_net_and_cloud"], res["tx_bytes"], e,
+                       fault=rec)
 
     def infer_many(self, images: Sequence[np.ndarray]) -> List[Dict]:
         """Pipelined submit/collect: edge compute of request i+1 overlaps
-        network + cloud time of request i. Results in submission order."""
+        network + cloud time of request i. Results in submission order.
+        With an adaptive plan the requests go one after another instead:
+        the control loop needs each request's uplink observation and a
+        quiet connection to switch on (a RESPLIT cannot interleave with
+        frames in flight)."""
+        if self._controller is not None:
+            return [self.infer(img) for img in images]
         for img in images:
             self._client.submit(img)
         out = self._client.collect(len(images))
@@ -302,11 +409,27 @@ class StreamingSession(InferenceSession):
 
     def infer_many(self, images: Sequence[np.ndarray]) -> List[Dict]:
         """Stream the requests through the three stages; results in
-        submission order."""
+        submission order. On a metered plan each request's ``e_edge_j``
+        prices the edge and cloud stages' busy time amortized over the
+        stream and the channel's modeled uplink cost of its frame share."""
         rep = self._runner.run(list(images))
         self.last_report = rep
-        return [_result(r["logits"], None, None, int(r["tx_bytes"]))
-                for r in rep.results]
+        energy = self.plan.energy.profile if self.plan.energy else None
+        n = max(len(rep.results), 1)
+        t_edge = rep.stages["edge"].busy_s / n
+        t_cloud = rep.stages["cloud"].busy_s / n
+        out = []
+        for r in rep.results:
+            # a fused frame pays ONE RTT shared by its requests, as its
+            # modeled cost t_tx_model is shared: the RTT peeled off in the
+            # energy formula is split the same way
+            e = (energy.request_energy(
+                    t_edge, r["t_tx_model"], t_cloud,
+                    rtt_s=self.plan.profile.link.rtt_s / r["frame_n"])
+                 if energy is not None else None)
+            out.append(_result(r["logits"], None, None, int(r["tx_bytes"]),
+                               e))
+        return out
 
 
 def connect(plan: DeploymentPlan, backend: str = "local",
@@ -340,8 +463,10 @@ def serve(plan: DeploymentPlan, *, port: Optional[int] = None,
     """Cloud-side entry point: serve ``plan`` on its link endpoint
     (blocking), the cloud half on ``device`` (the card by default).
     ``max_clients=None`` + a ``stop`` event serves many edges until told
-    to quit; ``verify`` arms the HELLO digest check. RESPLIT is answered
-    for any split valid on the deployed network. A plan with a
+    to quit; ``verify`` arms the HELLO digest check. An adaptive plan
+    arms RESPLIT restricted to its candidate splits (warmed at start); a
+    plan without one answers RESPLIT for any split valid on the deployed
+    network (a manual ``resplit``). A plan with a
     ``batching`` section serves through the dynamic batching engine
     (``batch_stats`` receives its per-lane accounting on shutdown); a
     plan with a ``faults`` section arms sealed frames, idle-client
@@ -357,6 +482,8 @@ def serve(plan: DeploymentPlan, *, port: Optional[int] = None,
                 compact=plan.compact, host=host or plan.host,
                 max_clients=max_clients, stop=stop,
                 plan_digest=plan.digest if verify else None,
+                resplit_candidates=(plan.adaptive.candidates
+                                    if plan.adaptive else None),
                 trace=trace, batching=plan.batching,
                 batch_stats=batch_stats, simulate_server=simulate_server,
                 fault_policy=plan.faults, faults=faults,

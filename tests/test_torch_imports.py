@@ -148,3 +148,32 @@ def test_pipeline_and_streaming_entry_points_default_to_cuda(monkeypatch):
         assert sess.device == torch.device("cpu")
     assert ddpg.init_agent(0, 11, device="cpu").actor[0]["w"].device.type \
         == "cpu"
+
+
+def test_calibration_entry_points_default_to_cuda(monkeypatch):
+    """``calibrate_quant_edge`` and ``measure_cnn_layer_times`` time the
+    layers on the card unless given ``device="cpu"``, and raise without
+    one before timing anything."""
+    import numpy as np
+    from repro_torch.core.collab.quant import (QuantPolicy,
+                                               calibrate_quant_edge,
+                                               quantize_params)
+    from repro_torch.core.partition.latency_model import (
+        measure_cnn_layer_times)
+    from repro_torch.models.cnn import init_cnn_params, tiny_cnn_config
+    cfg = tiny_cnn_config(num_classes=7, hw=32)
+    params = init_cnn_params(0, cfg)
+    bank = quantize_params(params, cfg, QuantPolicy(8))
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {"calibrate_quant_edge": lambda d: calibrate_quant_edge(
+                 bank, cfg, x, repeats=1, device=d),
+             "measure_cnn_layer_times": lambda d: measure_cnn_layer_times(
+                 params, cfg, x, repeats=1, device=d)}
+    for call in calls.values():
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call(device)
+    n = len(cfg.layers)
+    assert len(calls["measure_cnn_layer_times"]("cpu")) == n
+    assert len(calls["calibrate_quant_edge"]("cpu").layer_s) == n

@@ -270,9 +270,10 @@ def test_from_pipeline_and_describe_match_reference():
 
 
 def test_describe_shows_the_unported_sections_as_the_reference():
-    """The port holds the ``adaptive``, ``energy`` and ``fleet`` sections
-    as JSON; ``describe`` reads them as the reference reads its policy
-    objects."""
+    """The ``adaptive`` and ``energy`` sections handed to the port as
+    JSON become its policy objects, and the ``fleet`` section, not served
+    yet, stays JSON; ``describe`` reads each as the reference reads its
+    policy objects."""
     res_r, res_t = _results("fp32")
     sections = {"adaptive": AdaptivePolicy(candidates=(3, 9)),
                 "energy": EnergyPolicy(profile=MCU_ENERGY,

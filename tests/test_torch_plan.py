@@ -1,6 +1,10 @@
 """The port's ``DeploymentPlan`` and split sweep against the reference's:
-equal digests, plan directories that load across the two packages in
-both directions, and identical Eq. 5 sweep rows and greedy splits."""
+equal digests and ``describe`` lines, plan directories that load across
+the two packages in both directions, identical Eq. 5 sweep rows and
+greedy splits, and the energy-aware pick of ``from_args(split=None)``.
+The ``adaptive`` and ``energy`` sections are policy objects in both
+packages; the ``fleet`` section, not served by the port yet, is handed to
+it as the reference's JSON."""
 from __future__ import annotations
 
 import json
@@ -12,10 +16,13 @@ import pytest
 from repro import serving as rserving
 from repro.core.collab.adaptive import AdaptivePolicy
 from repro.core.collab.faults import FaultPolicy
+from repro.core.fleet.scenario import FleetScenario
+from repro.core.partition import energy_model as rem
 from repro.core.partition import latency_model as rlat
 from repro.core.partition import splitter as rsplit
 from repro.core.partition.profiles import PAPER_PROFILE as R_PAPER
 from repro_torch import serving as tserving
+from repro_torch.core.partition import energy_model as tem
 from repro_torch.core.partition import latency_model as tlat
 from repro_torch.core.partition import splitter as tsplit
 from repro_torch.core.partition.profiles import PAPER_PROFILE as T_PAPER
@@ -24,13 +31,15 @@ from torch_parity import port_params, ref_tree, tiny_setup
 VARIANTS = {
     "plain": {},
     "quant": {"quant": "int8"},
-    "unported_sections": {"adaptive": True, "faults": True},
+    "adaptive": {"adaptive": True},
+    "energy": {"energy": True, "adaptive": True},
+    "unported_sections": {"fleet": True, "faults": True},
 }
 
 
 def _plans(split, variant, **kw):
-    """The same contract built by both packages (sections the port keeps
-    as JSON are handed over as the reference's ``to_json()``)."""
+    """The same contract built by both packages (the section the port
+    keeps as JSON is handed over as the reference's ``to_json()``)."""
     cfg_r, cfg_t, params, masks, _ = tiny_setup()
     opts = VARIANTS[variant]
     r_extra, t_extra = {}, {}
@@ -38,8 +47,19 @@ def _plans(split, variant, **kw):
         r_extra["quant"] = rserving.QuantPolicy(weight_bits=8)
         t_extra["quant"] = tserving.QuantPolicy(weight_bits=8)
     if "adaptive" in opts:
-        pol = AdaptivePolicy(candidates=(10, 3, 13))
-        r_extra["adaptive"], t_extra["adaptive"] = pol, pol.to_json()
+        r_extra["adaptive"] = AdaptivePolicy(candidates=(10, 3, 13),
+                                             dwell=4)
+        t_extra["adaptive"] = tserving.AdaptivePolicy(candidates=(10, 3, 13),
+                                                      dwell=4)
+    if "energy" in opts:
+        kw_e = dict(energy_weight_s_per_j=0.5, battery_j=7.5)
+        r_extra["energy"] = rem.EnergyPolicy(profile=rem.PHONE_ENERGY,
+                                             **kw_e)
+        t_extra["energy"] = tem.EnergyPolicy(profile=tem.PHONE_ENERGY,
+                                             **kw_e)
+    if "fleet" in opts:
+        fleet = FleetScenario(name="orchard", n_edges=40, n_cloudlets=2)
+        r_extra["fleet"], t_extra["fleet"] = fleet, fleet.to_json()
     if "faults" in opts:
         pol = FaultPolicy(max_retries=2)
         r_extra["faults"], t_extra["faults"] = pol, pol.to_json()
@@ -60,6 +80,7 @@ def test_digest_equals_reference(variant, split):
         as_json = lambda doc: json.loads(json.dumps(doc))  # noqa: E731
         assert as_json(p_t.contract()) == as_json(p_r.contract())
         assert p_t.digest == p_r.digest
+        assert p_t.describe() == p_r.describe()
 
 
 def _assert_same_plan(p_t, p_r):
@@ -87,8 +108,10 @@ def test_plan_directory_loads_across_packages(variant, tmp_path):
             want = json.load(f)
         with open(tmp_path / "port" / fname) as f:
             assert json.load(f) == want, fname
-    _assert_same_plan(tserving.DeploymentPlan.load(str(tmp_path / "ref")),
-                      p_r)
+    loaded = tserving.DeploymentPlan.load(str(tmp_path / "ref"))
+    _assert_same_plan(loaded, p_r)
+    for name in ("adaptive", "energy"):       # back as policy objects
+        assert getattr(loaded, name) == getattr(p_t, name)
     back = rserving.DeploymentPlan.load(str(tmp_path / "port"))
     _assert_same_plan(p_t, back)
 
@@ -120,6 +143,42 @@ def test_split_sweep_identical_to_reference(deploy):
                                   tx_scale=s_t)
         assert d_t.table == d_r.table
         assert d_t.split_point == d_r.split_point
+
+
+@pytest.mark.parametrize("energy", ["mcu", "pi", "phone"])
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "packed"])
+def test_energy_section_picks_the_reference_split(compact, energy):
+    """``from_args(split=None)`` with an ``energy`` section picks by the
+    policy's weighted latency·energy objective: the reference's pick at
+    every weight, the greedy split at weight 0."""
+    cfg_r, cfg_t, params, masks, _ = tiny_setup()
+    edge = {"mcu": "MCU_EDGE", "pi": "PI_EDGE", "phone": "PHONE_EDGE"}
+    from repro.core.partition import profiles as rprof
+    from repro_torch.core.partition import profiles as tprof
+    prof_r = rprof.TwoTierProfile(getattr(rprof, edge[energy]),
+                                  rprof.PAPER_SERVER, rprof.PAPER_WIFI)
+    prof_t = tprof.TwoTierProfile(getattr(tprof, edge[energy]),
+                                  tprof.PAPER_SERVER, tprof.PAPER_WIFI)
+    kw = dict(masks=masks, compact=compact, pack=not compact, codec="int8")
+    for w in (0.0, 0.1, 1.0, 10.0):
+        e_r = rem.EnergyPolicy(profile=rem.ENERGY_PROFILES[energy],
+                               energy_weight_s_per_j=w)
+        e_t = tem.EnergyPolicy(profile=tem.ENERGY_PROFILES[energy],
+                               energy_weight_s_per_j=w)
+        p_r = rserving.DeploymentPlan.from_args(
+            ref_tree(params), cfg_r, None, profile=prof_r, energy=e_r, **kw)
+        p_t = tserving.DeploymentPlan.from_args(
+            port_params(params), cfg_t, None, profile=prof_t, energy=e_t,
+            **kw)
+        assert p_t.split == p_r.split and p_t.digest == p_r.digest
+        # the section as JSON picks the same split
+        assert tserving.DeploymentPlan.from_args(
+            port_params(params), cfg_t, None, profile=prof_t,
+            energy=e_t.to_json(), **kw).digest == p_r.digest
+        if w == 0.0:
+            assert p_t.split == tserving.DeploymentPlan.from_args(
+                port_params(params), cfg_t, None, profile=prof_t,
+                **kw).split
 
 
 def test_params_round_trip_exact():

@@ -86,12 +86,17 @@ def test_masked_packed_plan_matches_reference():
 
 
 def test_unported_section_and_backend_raise():
+    """Only the ``fleet`` section is refused now; an ``adaptive`` plan
+    connects, an unknown backend raises, and ``from_args(split=None)``
+    with an ``energy`` section picks by the energy objective (the
+    reference's split)."""
     cfg_r, cfg_t, params, masks, _ = tiny_setup()
     plan = tserving.DeploymentPlan.from_args(
         port_params(params), cfg_t, 6, masks=masks, compact=True,
         adaptive=AdaptivePolicy(candidates=(3, 6)).to_json())
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        tserving.connect(plan, backend="local", device="cpu")
+    assert isinstance(plan.adaptive, tserving.AdaptivePolicy)
+    with tserving.connect(plan, backend="local", device="cpu") as sess:
+        assert sess.infer(_images(1)[0])["logits"].shape == (1, 7)
     plain = tserving.DeploymentPlan.from_args(port_params(params), cfg_t, 6)
     fleet = tserving.DeploymentPlan.from_args(
         port_params(params), cfg_t, 6, fleet={"name": "orchard",
@@ -101,9 +106,15 @@ def test_unported_section_and_backend_raise():
         tserving.connect(fleet, backend="streaming", device="cpu")
     with pytest.raises(ValueError):
         tserving.connect(plain, backend="carrier-pigeon", device="cpu")
-    with pytest.raises(NotImplementedError, match="energy"):
-        tserving.DeploymentPlan.from_args(port_params(params), cfg_t, None,
-                                          energy={"profile": "mcu"})
+    energy = tserving.EnergyPolicy(profile=tserving.MCU_ENERGY,
+                                   energy_weight_s_per_j=0.5)
+    got = tserving.DeploymentPlan.from_args(port_params(params), cfg_t,
+                                            None, masks=masks, compact=True,
+                                            energy=energy)
+    want = rserving.DeploymentPlan.from_args(
+        ref_tree(params), cfg_r, None, masks=masks, compact=True,
+        energy=rserving.EnergyPolicy.from_json(energy.to_json()))
+    assert got.split == want.split and got.digest == want.digest
 
 
 def test_measured_timing_reports_the_wallclock():

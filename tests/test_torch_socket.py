@@ -257,14 +257,13 @@ def test_digest_mismatch_raises_plan_mismatch(edge):
                 rserving.connect(p_r3, backend="socket")
 
 
-@pytest.mark.parametrize("section", ["adaptive", "energy", "fleet"])
+@pytest.mark.parametrize("section", ["fleet"])
 def test_unported_sections_are_refused_by_every_entry_point(section):
     """A plan with a section the port does not serve yet is refused by
     ``connect`` (every backend, ``streaming`` included), ``serve`` and
     ``CloudServer``, before any socket opens."""
     _, p_t = _plans(6)
-    doc = {"adaptive": {"candidates": [3, 6]}, "energy": {"profile": "mcu"},
-           "fleet": {"name": "f"}}[section]
+    doc = {"fleet": {"name": "f"}}[section]
     plan = tserving.DeploymentPlan.from_args(
         p_t.params, p_t.cfg, 6, masks=p_t.masks, compact=True,
         **{section: doc})
@@ -275,3 +274,44 @@ def test_unported_sections_are_refused_by_every_entry_point(section):
                  lambda: tserving.CloudServer(plan, device="cpu")):
         with pytest.raises(NotImplementedError, match="next slice"):
             call()
+
+
+@pytest.mark.parametrize("section", ["adaptive", "energy"])
+def test_adaptive_and_energy_sections_are_served_by_every_entry_point(
+        section):
+    """``connect`` (every backend), ``serve`` and ``CloudServer`` serve a
+    plan with an ``adaptive`` or ``energy`` section: the socket pair
+    answers a request, ``serve`` returns after its one client, and each
+    result carries joules exactly when the plan is metered."""
+    port = free_port()
+    _, p_t = _plans(6, port=port)
+    doc = {"adaptive": tserving.AdaptivePolicy(
+               candidates=(3, 6, N_LAYERS)).to_json(),
+           "energy": tserving.EnergyPolicy(
+               profile=tserving.PI_ENERGY,
+               energy_weight_s_per_j=0.2).to_json()}[section]
+    plan = tserving.DeploymentPlan.from_args(
+        p_t.params, p_t.cfg, 6, masks=p_t.masks, compact=True,
+        shape_link=False, port=port, **{section: doc})
+    image = _images(1)[0]
+    metered = section == "energy"
+    for backend in ("local", "streaming"):
+        with tserving.connect(plan, backend, device="cpu",
+                              **({"realtime_channel": False}
+                                 if backend == "streaming" else {})) as s:
+            res = s.infer(image)
+            assert (res["e_edge_j"] is not None) == metered, backend
+    with tserving.CloudServer(plan, device="cpu"):
+        with tserving.connect(plan, "socket", device="cpu") as sess:
+            res = sess.infer(image)
+            assert (res["e_edge_j"] is not None) == metered
+    ready = threading.Event()
+    th = threading.Thread(target=tserving.serve, args=(plan,),
+                          kwargs=dict(device="cpu", max_clients=1,
+                                      ready=ready), daemon=True)
+    th.start()
+    assert ready.wait(60)
+    with tserving.connect(plan, "socket", device="cpu") as sess:
+        assert sess.infer(image)["tx_bytes"] == res["tx_bytes"]
+    th.join(30)
+    assert not th.is_alive()

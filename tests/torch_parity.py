@@ -56,6 +56,25 @@ def tiny_setup(seed: int = 0, batch: int = 2):
     return cfg_r, cfg_t, params, masks, x
 
 
+def cnn_configs(name: str, seed: int = 3):
+    """(cfg_ref, cfg_port, masks_np) of ``"tiny"`` (``tiny_setup``'s) or
+    ``"alexnet"`` (``alexnet_config(38)`` at full width, masks keeping a
+    random half of each prunable layer's channels), for tests where only
+    arithmetic runs at full width."""
+    if name == "tiny":
+        cfg_r, cfg_t, _, masks, _ = tiny_setup()
+        return cfg_r, cfg_t, masks
+    cfg_t = tcnn.alexnet_config(38)
+    rng = np.random.default_rng(seed)
+    masks = {}
+    for i in tcnn.prunable_layers(cfg_t):
+        n = tcnn.param_shapes(cfg_t)[f"l{i}"]["b"][0]
+        m = np.zeros(n, np.float32)
+        m[rng.permutation(n)[:n // 2]] = 1.0
+        masks[i] = m
+    return rcnn.alexnet_config(38), cfg_t, masks
+
+
 def ref_tree(params_np):
     """numpy params -> the reference's tree of JAX arrays."""
     return {k: {n: jnp.asarray(a) for n, a in v.items()}
