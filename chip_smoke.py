@@ -170,10 +170,34 @@ Phases, each printing its own lines:
    adopts), every row and ``tx_bytes`` bit-equal to the local backend's at
    its split; the energy plan at c=13 streamed at ``microbatch`` 1 and 4,
    every ``e_edge_j`` > 0 and equal to its formula (the RTT split over a
-   frame's requests).
+   frame's requests);
+15. the device model, the roofline and the fleet — the card's name, SM
+   count and memory beside ``repro_torch.roofline.hw``'s, a 1 GiB
+   device-to-device copy (bytes read plus written over CUDA-event time)
+   as a share of ``hw.HBM_BW`` and a cuBLAS bf16 GEMM at 8192^3 as a share
+   of ``hw.PEAK_FLOPS_BF16``, each share at most 1 (a ``device_model``
+   line); ``quant_edge_roofline`` of the c=19 int8 plan on ``H100_CARD``,
+   each conv and fc row beside phase 14's calibrated time of that layer
+   and their ratio (at least 1: no time beats its bound), and
+   ``check_quant_edge_roofline`` on ``MCU_EDGE`` and ``PI_EDGE`` (a
+   ``roofline`` line); ``simulate_fleet`` over ``benchmarks/fleet_sim.py``'s
+   cells (``FLEET_CELLS``: the two fast cells, then the five-cell grid up
+   to 10,000 edges x 60 s), every cell conserving arrivals (served + shed),
+   the headline held to ``experiments/bench/BENCH_fleet.json`` (integers
+   exactly, floats within ``FLEET_RECORD_RTOL``; the record predates the
+   rollup's ``chaos_reroutes_count``) and to a same-seed rerun with ``==``,
+   the strict cell to the record's ``strict_*`` keys, with p50/p99
+   latency, J a request, deadlines met, the share shed and the host's wall
+   seconds (``fleet`` lines); and phase 4's c=13 plan with a ``fleet``
+   section, saved and loaded (the digest through the files, unlike the
+   bare plan's), served through ``connect`` on ``local``, ``socket`` and
+   ``streaming`` (``microbatch`` 1), ``REQUESTS`` images each, every logit
+   row and ``tx_bytes`` bit-equal to the bare plan's on the same backend,
+   ``masked_matmul`` launches = edge GEMMs x requests on their routes (a
+   ``fleet_plan`` line).
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
-phases 4, 11, 12, 13 and 14, counted where one thread launches), the
+phases 4 and 11-15, counted where one thread launches), the
 nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero without that line; so does a machine without a CUDA device.
@@ -181,6 +205,7 @@ exits non-zero without that line; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -188,10 +213,13 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.roofline import hw  # noqa: E402
 
 SEED = 0
 REQUESTS = 8
@@ -200,15 +228,16 @@ REQUESTS = 8
 #: part of its window) and rounds of local backend, then streams
 STREAM_REQUESTS = 256
 STREAM_ROUNDS = 2
-#: H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): HBM3
-#: bandwidth, the fp32 rate of the CUDA cores and the dense bf16 rate of
-#: the tensor cores; a bound takes the peak of its inputs' type
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_FLOP_S = 67e12
-PEAK_BF16_FLOP_S = 989e12
+#: H100 SXM peaks from the port's device model (``repro_torch.roofline.hw``:
+#: NVIDIA's data sheet at the 700 W power limit): HBM3 bandwidth, the fp32
+#: rate of the CUDA cores and the dense bf16 rate of the tensor cores; a
+#: bound takes the peak of its inputs' type
+PEAK_BYTES_S = hw.HBM_BW
+PEAK_FP32_FLOP_S = hw.PEAK_FLOPS_FP32
+PEAK_BF16_FLOP_S = hw.PEAK_FLOPS_BF16
 #: the card's L2 cache (50 MB on an H100 SXM), and the most operand copies
 #: ``graph_ms`` rotates through to read past it
-L2_BYTES = 50 * 2 ** 20
+L2_BYTES = hw.L2_BYTES
 GRAPH_COPIES = 256
 #: the TPU kernel each CUDA kernel replaces; the rmsnorm kernel's gated
 #: entry replaces an XLA fusion of the reference (no Pallas kernel)
@@ -2319,7 +2348,7 @@ def calibration(plans, images, alex_rows):
             "front": [{"split": r["split"], "ms": 1e3 * r["T"],
                        "mJ": 1e3 * r["E_edge"]} for r in front]}),
             flush=True)
-    return dict(routes)
+    return dict(routes), cal
 
 
 def adaptive_local(plan, images):
@@ -2562,13 +2591,269 @@ def energy_streaming(plan, images):
 def adaptive_phase(plans, images, alex_rows):
     """Phase 14: calibration, energy and the adaptive controller on phase
     4's int8 compacted AlexNet plans. Returns the routes of every counted
-    run."""
-    routes = collections.Counter(calibration(plans, images, alex_rows))
+    run and the c=19 plan's calibration."""
+    counted, cal = calibration(plans, images, alex_rows)
+    routes = collections.Counter(counted)
     energy, adaptive = adaptive_plans(plans)
     routes.update(adaptive_local(adaptive, images)[1])
     routes.update(adaptive_socket(adaptive, images)[1])
     routes.update(energy_streaming(dataclasses.replace(energy, split=13),
                                    images))
+    return routes, cal
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the device model, the roofline and the fleet simulator
+# ---------------------------------------------------------------------------
+#: the copy's size (bytes) and the GEMM's side
+COPY_BYTES = 2 ** 30
+GEMM_SIDE = 8192
+#: ``benchmarks/fleet_sim.py``'s cells at seed 7: its two fast cells (the
+#: first the headline of ``BENCH_fleet.json``), then its five-cell grid
+FLEET_CELLS = (("default", 1000, 8, 30.0), ("strict", 1000, 2, 30.0),
+               ("default", 1000, 8, 60.0), ("default", 2000, 4, 60.0),
+               ("default", 5000, 8, 60.0), ("default", 10000, 16, 60.0),
+               ("strict", 10000, 4, 60.0))
+FLEET_SEED = 7
+#: the record is older than the reference's current arithmetic: two of its
+#: float keys differ from today's rollup in the last bits (~1e-15)
+FLEET_RECORD_RTOL = 1e-12
+FLEET_RECORD = os.path.join(ROOT, "experiments", "bench", "BENCH_fleet.json")
+
+
+def device_model_phase(smi: str):
+    """Phase 15.1: ``roofline.hw`` against the card. The copy moves its
+    bytes twice (read, write); the GEMM does 2 x 8192^3 operations. A share
+    above 1 is a reading no card can give, and fails."""
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    src.random_(0, 255)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src))
+    if not torch.equal(src[-4096:], dst[-4096:]):
+        raise AssertionError("device_model: the copy did not copy")
+    del src, dst
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a = torch.randn(GEMM_SIDE, GEMM_SIDE, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    b = torch.randn(GEMM_SIDE, GEMM_SIDE, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    c = torch.empty_like(a)
+    gemm_ms = time_ms(lambda: torch.matmul(a, b, out=c))
+    if not torch.isfinite(c).all():
+        raise AssertionError("device_model: the GEMM gave non-finite values")
+    del a, b, c
+    torch.cuda.empty_cache()
+    copy_bytes_s = 2 * COPY_BYTES / (1e-3 * copy_ms)
+    gemm_flop_s = 2 * GEMM_SIDE ** 3 / (1e-3 * gemm_ms)
+    row = {"card": props.name, "nvidia_smi": smi,
+           "sm_count": props.multi_processor_count, "hw_sm_count":
+           hw.SM_COUNT, "memory_bytes": props.total_memory,
+           "hw_hbm_bytes": hw.HBM_BYTES,
+           "l2_bytes": getattr(props, "L2_cache_size", None),
+           "hw_l2_bytes": hw.L2_BYTES,
+           "copy_bytes": COPY_BYTES, "copy_ms": copy_ms,
+           "copy_gb_s": copy_bytes_s / 1e9,
+           "copy_share_of_hbm_bw": copy_bytes_s / hw.HBM_BW,
+           "gemm": f"bf16 {GEMM_SIDE}^3, torch.matmul (cuBLAS)",
+           "gemm_ms": gemm_ms, "gemm_tflop_s": gemm_flop_s / 1e12,
+           "gemm_share_of_peak_bf16": gemm_flop_s / hw.PEAK_FLOPS_BF16}
+    print("device_model " + json.dumps(row), flush=True)
+    for key in ("copy_share_of_hbm_bw", "gemm_share_of_peak_bf16"):
+        if not 0.0 < row[key] <= 1.0:
+            raise AssertionError(f"device_model: {key} {row[key]} is "
+                                 f"outside (0, 1]")
+    return row
+
+
+def roofline_phase(plan, cal):
+    """Phase 15.2: the c=19 int8 plan's conv and fc layers on
+    ``H100_CARD`` (``quant_edge_roofline``), each beside its calibrated
+    time from phase 14 (``cal.layer_s``, one request's cost of the layer
+    from an idle card); the unpruned network's total for scale; the edge
+    classes' memory-bound check of ``benchmarks/kernel_edge.py``."""
+    from repro_torch.core.partition.profiles import (H100_CARD, MCU_EDGE,
+                                                     PI_EDGE)
+    from repro_torch.roofline.analysis import (check_quant_edge_roofline,
+                                               quant_edge_roofline)
+    layers = []
+    for r in quant_edge_roofline(plan.cfg, plan.masks, H100_CARD):
+        bound_s = max(r["t_compute_s"], r["t_memory_s"])
+        got_s = cal.layer_s[r["index"]]
+        layers.append({"index": r["index"], "name": r["name"],
+                       "t_compute_us": 1e6 * r["t_compute_s"],
+                       "t_memory_us": 1e6 * r["t_memory_s"],
+                       "memory_bound": r["memory_bound"],
+                       "roofline_us": 1e6 * bound_s,
+                       "calibrated_us": 1e6 * got_s,
+                       "calibrated_over_roofline": got_s / bound_s})
+    unpruned = quant_edge_roofline(plan.cfg, None, H100_CARD)
+    edges = {p.name: min(r["memory_share"] for r in
+                         check_quant_edge_roofline(plan.cfg, plan.masks, p)
+                         if r["name"].startswith("fc"))
+             for p in (MCU_EDGE, PI_EDGE)}
+    row = {"plan": "cN", "profile": H100_CARD.name,
+           "int8_ops_s": H100_CARD.int8_ops_per_s,
+           "mem_bw_bytes_s": H100_CARD.mem_bw, "layers": layers,
+           "roofline_us_total": sum(r["roofline_us"] for r in layers),
+           "calibrated_us_total": sum(r["calibrated_us"] for r in layers),
+           "unpruned_roofline_us_total": 1e6 * sum(
+               max(r["t_compute_s"], r["t_memory_s"]) for r in unpruned),
+           "edge_fc_min_memory_share": edges}
+    print("roofline " + json.dumps(row), flush=True)
+    low = [r["name"] for r in layers if r["calibrated_over_roofline"] < 1]
+    if low or len(layers) != edge_gemm_count(plan):
+        raise AssertionError(f"roofline: layers {low} beat their bound, or "
+                             f"{len(layers)} rows for "
+                             f"{edge_gemm_count(plan)} GEMM layers")
+    return row
+
+
+def fleet_scenario(mix: str, n_edges: int, n_cloudlets: int,
+                   duration_s: float):
+    """One cell of ``benchmarks/fleet_sim.py`` (``_scenario``), its strict
+    mix (``STRICT_SLO_CLASSES``) written out here."""
+    from repro_torch.core.collab.faults import FaultPolicy
+    from repro_torch.core.fleet import (DEFAULT_SLO_CLASSES, FleetScenario,
+                                        SLOClass)
+    strict = (SLOClass("interactive", 0.50,
+                       FaultPolicy(request_deadline_s=0.15, fallback="edge",
+                                   max_retries=0)),
+              SLOClass("standard", 0.50,
+                       FaultPolicy(request_deadline_s=0.5, fallback="edge")))
+    return FleetScenario(
+        name=f"{mix}-{n_edges}x{n_cloudlets}", seed=FLEET_SEED,
+        n_edges=n_edges, n_cloudlets=n_cloudlets, duration_s=duration_s,
+        slo_classes={"default": DEFAULT_SLO_CLASSES, "strict": strict}[mix])
+
+
+def hold_to_record(label, got, want, keys):
+    """``got[k]`` against the record's ``want[k]`` for each of ``keys``:
+    integers exactly, floats within ``FLEET_RECORD_RTOL`` relative. Returns
+    the largest relative gap of a float."""
+    worst = 0.0
+    for k in keys:
+        g, w = got[k], want[k]
+        if isinstance(g, int):
+            ok = isinstance(w, int) and g == w
+        else:
+            gap = abs(g - w) / max(abs(g), abs(w)) if g != w else 0.0
+            worst = max(worst, gap)
+            ok = gap <= FLEET_RECORD_RTOL
+        if not ok:
+            raise AssertionError(f"fleet {label}: {k} {g!r}, the record "
+                                 f"{w!r}")
+    return worst
+
+
+def fleet_phase():
+    """Phase 15.3: the fleet simulator over ``FLEET_CELLS`` on this
+    machine's host (virtual clock; the wall seconds are the host's)."""
+    from repro_torch.core.fleet import simulate_fleet
+    with open(FLEET_RECORD) as f:
+        record = json.load(f)
+    rows = []
+    for i, cell in enumerate(FLEET_CELLS):
+        sc = fleet_scenario(*cell)
+        t0 = time.perf_counter()
+        got = simulate_fleet(sc)
+        wall = time.perf_counter() - t0
+        if got["arrivals"] != got["served"] + got["shed"]:
+            raise AssertionError(f"fleet {sc.name}: arrivals not conserved")
+        row = {"cell": sc.name, "duration_s": sc.duration_s,
+               "arrivals": got["arrivals"], "served": got["served"],
+               "shed": got["shed"], "latency_p50_s": got["latency_p50_s"],
+               "latency_p99_s": got["latency_p99_s"],
+               "edge_joules_per_request": got["edge_joules_per_request"],
+               "deadline_met_frac": got["deadline_met_frac"],
+               "shed_frac": got["shed_frac"],
+               "cloudlet_util": got["cloudlet_util"],
+               "cloud_util": got["cloud_util"],
+               "chaos_reroutes_count": got["chaos_reroutes_count"],
+               "wall_s_host": wall}
+        if i == 0:              # the headline: the record and a rerun
+            extra = set(got) - set(record)
+            if extra != {"chaos_reroutes_count"}:
+                raise AssertionError(f"fleet: keys {extra} not in the "
+                                     f"record")
+            row["record_max_rel_gap"] = hold_to_record(
+                sc.name, got, record, sorted(set(got) & set(record)))
+            for k in ("deadline_met_frac", "shed_frac", "latency_p99_s",
+                      "cloud_util"):
+                hold_to_record(sc.name, got, {
+                    k: record[f"default_1000edges_8cl_{k}"]}, [k])
+            if simulate_fleet(fleet_scenario(*cell)) != got:
+                raise AssertionError("fleet: a same-seed rerun differs")
+            row["rerun_equal"] = True
+        if i == 1:              # the record's strict cell
+            row["record_max_rel_gap"] = hold_to_record(
+                sc.name, got, {k: record[f"strict_1000edges_2cl_{k}"]
+                               for k in ("deadline_met_frac", "shed_frac",
+                                         "latency_p99_s", "cloud_util")},
+                ["deadline_met_frac", "shed_frac", "latency_p99_s",
+                 "cloud_util"])
+        print("fleet " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def fleet_plan_phase(plan, images):
+    """Phase 15.4: ``plan`` with a ``fleet`` section, saved and loaded,
+    served on each backend beside the bare plan. Returns the routes of the
+    fleet plan's runs."""
+    from repro_torch import serving
+    sc = serving.FleetScenario(name="orchard", seed=FLEET_SEED,
+                               n_edges=1000, n_cloudlets=8, duration_s=30.0)
+    # the loopback unshaped, as in phase 11; a port each for the two
+    # plans' servers (the port is transport, not contract)
+    plan = dataclasses.replace(plan, port=free_port(), shape_link=False)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        made = dataclasses.replace(plan, fleet=sc, port=free_port())
+        fleet = serving.DeploymentPlan.load(made.save(d))
+        with open(os.path.join(d, "plan.json")) as f:
+            stored = json.load(f)
+    if not (fleet.digest == made.digest == stored["digest"]
+            != plan.digest) or fleet.fleet != sc:
+        raise AssertionError(f"fleet_plan: digests {fleet.digest}, "
+                             f"{made.digest}, {stored['digest']}, bare "
+                             f"{plan.digest}")
+    want_routes = {k: v * len(images) for k, v in edge_routes(plan).items()}
+    routes, row = collections.Counter(), {
+        "plan": "c13", "split": plan.split, "describe": fleet.describe(),
+        "digest": fleet.digest, "bare_digest": plan.digest,
+        "requests": len(images)}
+
+    def run(p, backend):
+        """The requests through ``connect(p, backend)``, counted."""
+        extra = ({"realtime_channel": False, "microbatch": 1}
+                 if backend == "streaming" else {})
+        server = (serving.CloudServer(p) if backend == "socket"
+                  else contextlib.nullcontext())
+        with server, serving.connect(p, backend=backend, **extra) as sess:
+            zero_counts()
+            got = ([sess.infer(x) for x in images] if backend == "socket"
+                   else sess.infer_many(images))
+            return got, read_counts()
+
+    for backend in ("local", "socket", "streaming"):
+        bare, _ = run(plan, backend)
+        got, (launches, counted) = run(fleet, backend)
+        for i, (g, w) in enumerate(zip(got, bare)):
+            if not same_bits(g["logits"], w["logits"]) or \
+                    g["tx_bytes"] != w["tx_bytes"]:
+                raise AssertionError(f"fleet_plan {backend}: request {i} "
+                                     f"differs from the bare plan's")
+        if len(got) != len(images) or counted != want_routes or \
+                launches != edge_gemm_count(plan) * len(images):
+            raise AssertionError(f"fleet_plan {backend}: masked_matmul "
+                                 f"{launches} launches {counted}, expected "
+                                 f"{want_routes}")
+        routes.update(counted)
+        row[backend] = {"bit_identical_to_bare": True, "launches": launches,
+                        "routes": counted, "tx_bytes": got[0]["tx_bytes"]}
+    print("fleet_plan " + json.dumps(row), flush=True)
     return routes
 
 
@@ -2805,7 +3090,14 @@ def main() -> int:
     alex_routes.update(streaming_phase(plans, images))
 
     # 14. calibration, energy and the adaptive split controller
-    alex_routes.update(adaptive_phase(plans, images, alex_rows))
+    routes14, cal = adaptive_phase(plans, images, alex_rows)
+    alex_routes.update(routes14)
+
+    # 15. the device model, the roofline and the fleet simulator
+    device_model_phase(smi)
+    roofline_phase(plans["cN"], cal)
+    fleet_phase()
+    alex_routes.update(fleet_plan_phase(plans["c13"], images))
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan

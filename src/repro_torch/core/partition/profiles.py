@@ -19,15 +19,21 @@ corruption, stalls, mid-stream disconnects, and cloud-process death,
 indexed by transmission-attempt number so every failure mode is exactly
 reproducible in tests and benchmarks. The collab channels replay a
 schedule through a ``FaultInjector`` (``repro_torch.core.collab.channel``);
-the recovery machinery that survives one comes with the socket slice.
-The canned traces and schedules, and the batched-server and cloudlet
-profiles, come with the slices that use them.
+the recovery machinery that survives one lives in
+``repro_torch.core.collab.faults``.
+
+The batched 3090 and the Jetson-class cloudlet are the fleet simulator's
+modelled tiers (``repro_torch.core.fleet``). ``H100_CARD`` is the one card
+this port runs on, priced from ``repro_torch.roofline.hw``'s data-sheet
+peaks; the reference's TPU profiles have no counterpart here.
 """
 from __future__ import annotations
 
 import random
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+from repro_torch.roofline import hw
 
 
 @dataclass(frozen=True)
@@ -156,10 +162,23 @@ PAPER_SERVER = ComputeProfile("RTX 3090 (small-batch CNN)",
 PAPER_WIFI = LinkProfile("Wi-Fi ~50 Mbps", bandwidth=50e6 / 8, rtt_s=4e-3)
 PAPER_PROFILE = TwoTierProfile(PAPER_EDGE, PAPER_SERVER, PAPER_WIFI)
 
+# Batched serving: the same 3090 sustains a much larger fraction of peak
+# once cross-client dynamic batching keeps its SMs fed — batch-1 AlexNet
+# layers are launch-latency-bound (hence the low small-batch calibration
+# above), and ``overhead_s`` is amortized across the fused batch (see
+# ``latency_model.batched_server_time``). The calibrated sustained
+# throughput for bucket-8 CNN batches:
+PAPER_SERVER_BATCHED = ComputeProfile("RTX 3090 (batched CNN, bucket 8)",
+                                      flops_per_s=24e12, mem_bw=936e9,
+                                      overhead_s=3e-4)
+#: the heavy-traffic deployment: many edges, one batched cloud GPU
+PAPER_FARM_PROFILE = TwoTierProfile(PAPER_EDGE, PAPER_SERVER_BATCHED,
+                                    PAPER_WIFI)
+
 # --- battery-constrained edge classes ---------------------------------------
 # The embedded devices the paper's motivation names ("resource-limited
 # embedded devices", high energy consumption). Their per-state power
-# draws live in the JAX package's ``energy_model``, not ported yet
+# draws live next door in ``repro_torch.core.partition.energy_model``
 # (MCU_ENERGY / PI_ENERGY); these are the matching compute throughputs.
 #: MCU-class edge (Cortex-M/ESP32 class): reproduces the paper's
 #: AlexNet@224-vs-i7 regime — a split optimum that genuinely moves with
@@ -183,6 +202,28 @@ PI_EDGE = ComputeProfile("Pi-class edge", flops_per_s=6e9,
 #: third heterogeneous class the fleet simulator mixes.
 PHONE_EDGE = ComputeProfile("phone-class edge", flops_per_s=25e9,
                             mem_bw=12e9, overhead_s=2e-4)
+#: Jetson-class cloudlet: the aggregation box the hierarchical-FL plant
+#: disease deployments park between the field and the datacenter (an
+#: Orin-class module on a pole, not a 3090 in a rack). Calibration:
+#: ~1.2 TFLOP/s sustained dense fp32 (ampere-generation embedded GPU,
+#: thermally capped), ~60 GB/s LPDDR5, sub-ms launch overhead. Fast
+#: enough to absorb a village of edges, slow enough that an
+#: under-provisioned fleet genuinely queues — which is what the fleet
+#: simulator's cloudlet tier is for.
+CLOUDLET_SERVER = ComputeProfile("Jetson-class cloudlet",
+                                 flops_per_s=1.2e12, mem_bw=60e9,
+                                 overhead_s=1e-4)
+
+# --- the port's card: one NVIDIA H100 SXM -----------------------------------
+#: Data-sheet peaks, not a calibration. The port's edge runs in fp32 with
+#: TF32 off (``device.exact_fp32``), so ``flops_per_s`` is the CUDA cores'
+#: fp32 rate. ``int8_flops_per_s`` is that same fp32 rate, not the int8
+#: tensor-core rate: ``masked_matmul_q8`` dequantizes the int8 codes in its
+#: load and multiplies in fp32 FMAs (``csrc/masked_matmul.cu``, the
+#: ``_q8_*`` entries).
+H100_CARD = ComputeProfile("NVIDIA H100 SXM (data sheet)",
+                           flops_per_s=hw.PEAK_FLOPS_FP32, mem_bw=hw.HBM_BW,
+                           int8_flops_per_s=hw.PEAK_FLOPS_FP32)
 
 
 # --- canned time-varying link traces ----------------------------------------
@@ -206,6 +247,11 @@ TRACES = {
     "wifi_degrading": WIFI_DEGRADING,
     "lte_handover": LTE_HANDOVER,
     "congested_sawtooth": CONGESTED_SAWTOOTH,
+}
+
+PROFILES = {
+    "paper": PAPER_PROFILE,
+    "paper_farm": PAPER_FARM_PROFILE,
 }
 
 

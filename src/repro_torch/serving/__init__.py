@@ -21,10 +21,22 @@
 Plans are byte-compatible with ``repro.serving``'s (same digest, same
 directory layout), and the socket peers speak the reference's frames, so
 a port edge and a JAX cloud (or the reverse) serve each other. The
-``local``, ``socket`` and ``streaming`` backends are ported, with the
-``adaptive`` (the split controller, RESPLIT on the live socket) and
-``energy`` (``e_edge_j`` in every result, the energy-aware split) plan
-sections; the ``fleet`` section comes with a later slice.
+``local``, ``socket`` and ``streaming`` backends are ported, with every
+plan section of the reference: ``adaptive`` (the split controller,
+RESPLIT on the live socket), ``energy`` (``e_edge_j`` in every result,
+the energy-aware split), ``batching``, ``faults``, ``routing``, ``quant``
+and ``fleet``.
+
+Fleet studies: attach ``FleetScenario(...)`` as the plan's ``fleet``
+section to pin the simulated deployment context (fleet size, device and
+trace mixes, SLO classes, battery budgets, the diurnal
+``ArrivalPattern``, the cloudlet tier's shape) and run it on the host's
+virtual clock with ``simulate_fleet``; the rollup equals the JAX
+package's for the same scenario and seed::
+
+    sc = serving.FleetScenario(name="orchard", seed=7, n_edges=1000,
+                               n_cloudlets=8, duration_s=30.0)
+    rollup = serving.simulate_fleet(sc)  # p50/p99 latency, J per request
 """
 from repro_torch.core.collab.adaptive import (AdaptivePolicy,
                                               AdaptiveSplitController,
@@ -41,6 +53,9 @@ from repro_torch.core.collab.faults import (FaultPolicy, RequestTimeout,
 from repro_torch.core.collab.protocol import (FrameIntegrityError,
                                               PlanMismatchError)
 from repro_torch.core.collab.quant import QuantPolicy
+from repro_torch.core.fleet import (ArrivalPattern, FleetScenario,
+                                    FleetSimulator, SLOClass,
+                                    simulate_fleet)
 from repro_torch.core.partition.energy_model import (ENERGY_PROFILES,
                                                      MCU_ENERGY,
                                                      PAPER_EDGE_ENERGY,
@@ -72,4 +87,6 @@ __all__ = [
     "FAULT_SCHEDULES",
     "RoutingPolicy", "FleetRouter", "FleetExhaustedError",
     "ServerDraining", "ServerBusy", "QuantPolicy",
+    "ArrivalPattern", "FleetScenario", "FleetSimulator", "SLOClass",
+    "simulate_fleet",
 ]

@@ -8,21 +8,20 @@ and read the reference's directory layout (``plan.json``,
 ``params.npz``/``params.json``, ``masks.npz``), so a plan made by either
 package loads in the other with the same digest.
 
-The ``quant``, ``adaptive``, ``batching``, ``energy``, ``faults`` and
-``routing`` sections are the policy objects of the reference
-(``QuantPolicy``, ``AdaptivePolicy``, ``BatchingPolicy``,
-``EnergyPolicy``, ``FaultPolicy``, ``RoutingPolicy``; a section given as
-its JSON dict is read with the policy's ``from_json``). An ``adaptive``
-section's candidates are normalized as the reference normalizes them
-(sorted, unique, always holding the initial split); with an ``energy``
-section ``from_args(split=None)`` picks the split by the policy's
-weighted latency·energy objective. The ``fleet`` section, whose machinery
-is not ported yet, is held as its JSON dict: it folds into the digest,
-round-trips through ``save``/``load`` unchanged and shows in
-``describe`` as the reference shows it, and ``serving.connect`` and
-``serving.serve`` refuse a plan that carries one
-(``NotImplementedError``). Each optional section folds into the digest
-only when set, as in the reference.
+The ``quant``, ``adaptive``, ``batching``, ``energy``, ``faults``,
+``fleet`` and ``routing`` sections are the policy objects of the
+reference (``QuantPolicy``, ``AdaptivePolicy``, ``BatchingPolicy``,
+``EnergyPolicy``, ``FaultPolicy``, ``FleetScenario``, ``RoutingPolicy``;
+a section given as its JSON dict is read with the policy's
+``from_json``). An ``adaptive`` section's candidates are normalized as
+the reference normalizes them (sorted, unique, always holding the
+initial split); with an ``energy`` section ``from_args(split=None)``
+picks the split by the policy's weighted latency·energy objective. The
+``fleet`` section is descriptive: it pins the simulated deployment a plan
+is studied for (``core.fleet``, run by ``simulate_fleet``) and configures
+neither peer, so a fleet plan serves exactly as the same plan without
+it. Each optional section folds into the digest only when set, as in the
+reference.
 
 ``DeploymentPlan.from_pipeline(result)`` packages what
 ``core.pipeline.run_paper_pipeline`` produced (fine-tuned params, masks,
@@ -48,6 +47,7 @@ from repro_torch.core.collab.cluster import RoutingPolicy
 from repro_torch.core.collab.faults import FaultPolicy
 from repro_torch.core.collab.protocol import CODEC_TX_SCALE
 from repro_torch.core.collab.quant import QuantPolicy
+from repro_torch.core.fleet.scenario import FleetScenario
 from repro_torch.core.partition.energy_model import EnergyPolicy
 from repro_torch.core.partition.latency_model import (
     cnn_input_bytes, cnn_layer_costs, compacted_cnn_layer_costs,
@@ -59,12 +59,10 @@ from repro_torch.core.partition.splitter import (energy_aware_split,
                                                  greedy_split)
 
 PLAN_VERSION = 1
-#: contract sections the port keeps as JSON and does not serve yet
-UNPORTED_SECTIONS = ("fleet",)
 #: sections held as policy objects, by the policy class
 POLICY_SECTIONS = {"adaptive": AdaptivePolicy, "batching": BatchingPolicy,
                    "energy": EnergyPolicy, "faults": FaultPolicy,
-                   "routing": RoutingPolicy}
+                   "fleet": FleetScenario, "routing": RoutingPolicy}
 
 
 def _cfg_to_json(cfg: CNNConfig) -> Dict[str, Any]:
@@ -124,7 +122,7 @@ class DeploymentPlan:
     batching: Optional[BatchingPolicy] = None
     energy: Optional[EnergyPolicy] = None
     faults: Optional[FaultPolicy] = None
-    fleet: Optional[Dict[str, Any]] = None
+    fleet: Optional[FleetScenario] = None
     routing: Optional[RoutingPolicy] = None
     quant: Optional[QuantPolicy] = None
     version: int = PLAN_VERSION
@@ -234,7 +232,7 @@ class DeploymentPlan:
         if self.faults is not None:
             doc["faults"] = self.faults.to_json()
         if self.fleet is not None:
-            doc["fleet"] = dict(self.fleet)
+            doc["fleet"] = self.fleet.to_json()
         if self.routing is not None:
             doc["routing"] = self.routing.to_json()
         if self.quant is not None:
@@ -245,10 +243,6 @@ class DeploymentPlan:
     def digest(self) -> str:
         blob = json.dumps(self.contract(), sort_keys=True).encode()
         return hashlib.sha256(blob).hexdigest()[:16]
-
-    def unported_sections(self):
-        """Names of the set sections the port cannot serve yet."""
-        return [s for s in UNPORTED_SECTIONS if getattr(self, s) is not None]
 
     # -- persistence --------------------------------------------------------
     def save(self, path: str) -> str:
@@ -270,9 +264,6 @@ class DeploymentPlan:
                         "shape_link": self.shape_link},
                "quant": self.quant.to_json() if self.quant else None,
                "has_masks": bool(self.masks)}
-        for name in UNPORTED_SECTIONS:
-            sec = getattr(self, name)
-            doc[name] = dict(sec) if sec else None
         for name in POLICY_SECTIONS:
             sec = getattr(self, name)
             doc[name] = sec.to_json() if sec else None
@@ -294,7 +285,7 @@ class DeploymentPlan:
                 masks = {int(k): data[k] for k in data.files}
         link = doc["link"]
         sections = {name: doc.get(name) or None
-                    for name in (*UNPORTED_SECTIONS, *POLICY_SECTIONS)}
+                    for name in POLICY_SECTIONS}
         quant = (QuantPolicy.from_json(doc["quant"])
                  if doc.get("quant") else None)
         plan = cls(cfg=cfg, params=params, split=doc["split"], masks=masks,
@@ -334,8 +325,8 @@ class DeploymentPlan:
         tol = (f", faults: retries<={self.faults.max_retries}"
                f" fallback={self.faults.fallback}"
                if self.faults else "")
-        flt = (f", fleet={self.fleet['name']}"
-               f"({self.fleet['n_edges']}x{self.fleet['n_cloudlets']})"
+        flt = (f", fleet={self.fleet.name}"
+               f"({self.fleet.n_edges}x{self.fleet.n_cloudlets})"
                if self.fleet else "")
         rte = (f", routed over {len(self.routing.ports)} servers"
                if self.routing else "")

@@ -17,9 +17,9 @@ backends the port serves, all constructed from the same ``DeploymentPlan``
 
 Every entry point (``connect``, ``serve``, ``CloudServer``,
 ``CloudFleet``) runs on the CUDA card unless the caller passes
-``device="cpu"``, and raises without a card. Plans with a ``fleet``
-section come with a later slice of the port: ``connect`` and ``serve``
-raise ``NotImplementedError`` for them.
+``device="cpu"``, and raises without a card. A plan's ``fleet`` section
+describes the simulated deployment it is studied for and changes nothing
+here: a fleet plan serves as the same plan without the section.
 
 Every backend returns the same result shape from ``infer`` /
 ``infer_many``::
@@ -93,17 +93,6 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.plan import DeploymentPlan
 
 BACKENDS = ("local", "socket", "streaming")
-#: what the next slice of the port brings
-NEXT_SLICE = ("plans with a 'fleet' section (the fleet simulator) come "
-              "with the next slice of the port")
-
-
-def _refuse_unported(plan: DeploymentPlan) -> None:
-    unported = plan.unported_sections()
-    if unported:
-        raise NotImplementedError(
-            f"the plan carries section(s) {unported} that the PyTorch port "
-            f"does not serve yet: {NEXT_SLICE}")
 
 
 def _controller_for(plan: DeploymentPlan
@@ -144,7 +133,6 @@ class InferenceSession:
     backend: str = "?"
 
     def __init__(self, plan: DeploymentPlan):
-        _refuse_unported(plan)
         self.plan = plan
         self.split: int = plan.split
         self.switches: List[SplitSwitch] = []
@@ -474,7 +462,6 @@ def serve(plan: DeploymentPlan, *, port: Optional[int] = None,
     injects the schedule into the server's responses, ``fault_stats``
     receives classified error counts, ``die`` is the crash switch and
     ``drain`` the rolling-restart switch (see ``serve_cloud``)."""
-    _refuse_unported(plan)
     serve_cloud(plan.params, plan.cfg, plan.split, port or plan.port,
                 masks=plan.masks,
                 link=plan.profile.link if plan.shape_link else None,
@@ -510,7 +497,6 @@ class CloudServer:
                  simulate_server=None,
                  faults: Optional[FaultInjector] = None,
                  device: DeviceLike = None):
-        _refuse_unported(plan)
         self.plan = plan
         self.device = resolve_device(device)
         #: per-lane dynamic-batching accounting (filled on shutdown when

@@ -270,10 +270,12 @@ def test_from_pipeline_and_describe_match_reference():
 
 
 def test_describe_shows_the_unported_sections_as_the_reference():
-    """The ``adaptive`` and ``energy`` sections handed to the port as
-    JSON become its policy objects, and the ``fleet`` section, not served
-    yet, stays JSON; ``describe`` reads each as the reference reads its
-    policy objects."""
+    """The ``adaptive`` and ``energy`` sections handed to the port as JSON
+    become its policy objects, and the ``fleet`` section, once held as
+    JSON and refused (the test keeps that name), is the port's
+    ``FleetScenario``, given as the object or as its JSON; ``describe``
+    and the digest of each are the reference's, and the fleet plan from
+    the pipeline serves with the bare plan's bits."""
     res_r, res_t = _results("fp32")
     sections = {"adaptive": AdaptivePolicy(candidates=(3, 9)),
                 "energy": EnergyPolicy(profile=MCU_ENERGY,
@@ -283,10 +285,28 @@ def test_describe_shows_the_unported_sections_as_the_reference():
                                        n_cloudlets=2)}
     for name, sec in sections.items():
         want = rserving.DeploymentPlan.from_pipeline(res_r, **{name: sec})
-        got = tserving.DeploymentPlan.from_pipeline(res_t,
-                                                    **{name: sec.to_json()})
-        assert got.digest == want.digest
-        assert got.describe() == want.describe(), name
+        for given in (sec.to_json(), _port_section(name, sec)):
+            got = tserving.DeploymentPlan.from_pipeline(res_t,
+                                                        **{name: given})
+            assert got.digest == want.digest
+            assert got.describe() == want.describe(), name
+    assert isinstance(got.fleet, tserving.FleetScenario)
+    bare = tserving.DeploymentPlan.from_pipeline(res_t)
+    image = np.random.default_rng(3).standard_normal(
+        (1, *res_t.cfg.input_hw, 3), dtype=np.float32)
+    with tserving.connect(bare, "local", device="cpu") as b, \
+            tserving.connect(got, "local", device="cpu") as f:
+        w, g = b.infer(image), f.infer(image)
+    assert np.array_equal(g["logits"], w["logits"])
+    assert g["tx_bytes"] == w["tx_bytes"]
+
+
+def _port_section(name, sec):
+    """The port's policy object for the reference's ``sec``."""
+    cls = {"adaptive": tserving.AdaptivePolicy,
+           "energy": tserving.EnergyPolicy,
+           "fleet": tserving.FleetScenario}[name]
+    return cls.from_json(sec.to_json())
 
 
 @pytest.fixture(scope="module")

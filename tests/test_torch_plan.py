@@ -2,9 +2,11 @@
 equal digests and ``describe`` lines, plan directories that load across
 the two packages in both directions, identical Eq. 5 sweep rows and
 greedy splits, and the energy-aware pick of ``from_args(split=None)``.
-The ``adaptive`` and ``energy`` sections are policy objects in both
-packages; the ``fleet`` section, not served by the port yet, is handed to
-it as the reference's JSON."""
+Every section is a policy object in both packages (the ``fleet`` section
+a ``FleetScenario``); the ``faults`` section is also handed to the port
+as the reference's JSON, which the port reads with ``from_json``. The
+``unported_sections`` variant keeps its name from when the port held the
+``fleet`` section as JSON and refused to serve it."""
 from __future__ import annotations
 
 import json
@@ -17,6 +19,7 @@ from repro import serving as rserving
 from repro.core.collab.adaptive import AdaptivePolicy
 from repro.core.collab.faults import FaultPolicy
 from repro.core.fleet.scenario import FleetScenario
+from repro_torch.core.fleet.scenario import FleetScenario as TFleetScenario
 from repro.core.partition import energy_model as rem
 from repro.core.partition import latency_model as rlat
 from repro.core.partition import splitter as rsplit
@@ -38,8 +41,8 @@ VARIANTS = {
 
 
 def _plans(split, variant, **kw):
-    """The same contract built by both packages (the section the port
-    keeps as JSON is handed over as the reference's ``to_json()``)."""
+    """The same contract built by both packages (the ``faults`` section is
+    handed to the port as the reference's ``to_json()``)."""
     cfg_r, cfg_t, params, masks, _ = tiny_setup()
     opts = VARIANTS[variant]
     r_extra, t_extra = {}, {}
@@ -58,8 +61,9 @@ def _plans(split, variant, **kw):
         t_extra["energy"] = tem.EnergyPolicy(profile=tem.PHONE_ENERGY,
                                              **kw_e)
     if "fleet" in opts:
-        fleet = FleetScenario(name="orchard", n_edges=40, n_cloudlets=2)
-        r_extra["fleet"], t_extra["fleet"] = fleet, fleet.to_json()
+        kw_f = dict(name="orchard", seed=7, n_edges=40, n_cloudlets=2)
+        r_extra["fleet"] = FleetScenario(**kw_f)
+        t_extra["fleet"] = TFleetScenario(**kw_f)
     if "faults" in opts:
         pol = FaultPolicy(max_retries=2)
         r_extra["faults"], t_extra["faults"] = pol, pol.to_json()
@@ -110,10 +114,13 @@ def test_plan_directory_loads_across_packages(variant, tmp_path):
             assert json.load(f) == want, fname
     loaded = tserving.DeploymentPlan.load(str(tmp_path / "ref"))
     _assert_same_plan(loaded, p_r)
-    for name in ("adaptive", "energy"):       # back as policy objects
-        assert getattr(loaded, name) == getattr(p_t, name)
+    for name in ("adaptive", "energy", "faults", "fleet"):
+        assert getattr(loaded, name) == getattr(p_t, name)  # policy objects
     back = rserving.DeploymentPlan.load(str(tmp_path / "port"))
     _assert_same_plan(p_t, back)
+    if p_t.fleet is not None:
+        assert isinstance(loaded.fleet, TFleetScenario)
+        assert back.fleet == p_r.fleet
 
 
 @pytest.mark.parametrize("deploy", ["dense", "masked", "packed",

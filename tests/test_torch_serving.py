@@ -86,10 +86,13 @@ def test_masked_packed_plan_matches_reference():
 
 
 def test_unported_section_and_backend_raise():
-    """Only the ``fleet`` section is refused now; an ``adaptive`` plan
-    connects, an unknown backend raises, and ``from_args(split=None)``
-    with an ``energy`` section picks by the energy objective (the
-    reference's split)."""
+    """No plan section is refused any more (the test keeps the name of the
+    refusal it replaced): an ``adaptive`` plan connects; a ``fleet`` plan
+    has the reference's digest and ``describe`` line and serves on the
+    local and streaming backends with the bare plan's logits and
+    ``tx_bytes``, bit for bit; an unknown backend raises; and
+    ``from_args(split=None)`` with an ``energy`` section picks by the
+    energy objective (the reference's split)."""
     cfg_r, cfg_t, params, masks, _ = tiny_setup()
     plan = tserving.DeploymentPlan.from_args(
         port_params(params), cfg_t, 6, masks=masks, compact=True,
@@ -98,12 +101,27 @@ def test_unported_section_and_backend_raise():
     with tserving.connect(plan, backend="local", device="cpu") as sess:
         assert sess.infer(_images(1)[0])["logits"].shape == (1, 7)
     plain = tserving.DeploymentPlan.from_args(port_params(params), cfg_t, 6)
-    fleet = tserving.DeploymentPlan.from_args(
-        port_params(params), cfg_t, 6, fleet={"name": "orchard",
-                                               "n_edges": 4,
-                                               "n_cloudlets": 1})
-    with pytest.raises(NotImplementedError, match="fleet"):
-        tserving.connect(fleet, backend="streaming", device="cpu")
+    sc = tserving.FleetScenario(name="orchard", seed=7, n_edges=4,
+                                n_cloudlets=1)
+    kw = dict(masks=masks, compact=True, codec="int8")
+    bare = tserving.DeploymentPlan.from_args(port_params(params), cfg_t, 6,
+                                             **kw)
+    fleet = tserving.DeploymentPlan.from_args(port_params(params), cfg_t, 6,
+                                              fleet=sc, **kw)
+    want = rserving.DeploymentPlan.from_args(
+        ref_tree(params), cfg_r, 6, fleet=rserving.FleetScenario.from_json(
+            sc.to_json()), **kw)
+    assert fleet.digest == want.digest != bare.digest
+    assert fleet.describe() == want.describe()
+    images = _images(3)
+    for backend, extra in (("local", {}),
+                           ("streaming", {"realtime_channel": False})):
+        with tserving.connect(bare, backend, device="cpu", **extra) as b, \
+                tserving.connect(fleet, backend, device="cpu",
+                                 **extra) as f:
+            for w, g in zip(b.infer_many(images), f.infer_many(images)):
+                assert np.array_equal(g["logits"], w["logits"]), backend
+                assert g["tx_bytes"] == w["tx_bytes"], backend
     with pytest.raises(ValueError):
         tserving.connect(plain, backend="carrier-pigeon", device="cpu")
     energy = tserving.EnergyPolicy(profile=tserving.MCU_ENERGY,

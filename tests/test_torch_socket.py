@@ -259,21 +259,68 @@ def test_digest_mismatch_raises_plan_mismatch(edge):
 
 @pytest.mark.parametrize("section", ["fleet"])
 def test_unported_sections_are_refused_by_every_entry_point(section):
-    """A plan with a section the port does not serve yet is refused by
-    ``connect`` (every backend, ``streaming`` included), ``serve`` and
-    ``CloudServer``, before any socket opens."""
-    _, p_t = _plans(6)
-    doc = {"fleet": {"name": "f"}}[section]
-    plan = tserving.DeploymentPlan.from_args(
-        p_t.params, p_t.cfg, 6, masks=p_t.masks, compact=True,
-        **{section: doc})
-    for call in (lambda: tserving.connect(plan, "local", device="cpu"),
-                 lambda: tserving.connect(plan, "socket", device="cpu"),
-                 lambda: tserving.connect(plan, "streaming", device="cpu"),
-                 lambda: tserving.serve(plan, device="cpu"),
-                 lambda: tserving.CloudServer(plan, device="cpu")):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
+    """A plan with a ``fleet`` section, once refused (the test keeps the
+    name of that refusal), is served by every entry point: ``connect``
+    (``local``, ``socket``, ``streaming``), ``serve``, ``CloudServer``,
+    ``CloudFleet``, and a JAX ``CloudServer`` across the digest
+    handshake. Every request's logits and ``tx_bytes`` are the bare
+    plan's local results, bit for bit: the section changes nothing a peer
+    computes."""
+    port = free_port()
+    p_r, p_t = _plans(6, "quant", port=port)
+    sc = tserving.FleetScenario(name="orchard", seed=7, n_edges=1000,
+                                n_cloudlets=8, duration_s=30.0)
+    kw = dict(masks=p_t.masks, compact=True, codec=p_t.codec,
+              quant=p_t.quant, shape_link=False, port=port)
+    plan = tserving.DeploymentPlan.from_args(p_t.params, p_t.cfg, 6,
+                                             **{section: sc}, **kw)
+    assert plan.digest != p_t.digest
+    images = _images(3)
+    with tserving.connect(p_t, "local", device="cpu") as sess:
+        want = sess.infer_many(images)
+
+    def same(got, label):
+        assert len(got) == len(want), label
+        for g, w in zip(got, want):
+            assert np.array_equal(g["logits"], w["logits"]), label
+            assert g["tx_bytes"] == w["tx_bytes"], label
+
+    with tserving.connect(plan, "local", device="cpu") as sess:
+        same(sess.infer_many(images), "local")
+    with tserving.connect(plan, "streaming", device="cpu",
+                          realtime_channel=False) as sess:
+        same(sess.infer_many(images), "streaming")
+    with tserving.CloudServer(plan, device="cpu"):
+        with tserving.connect(plan, "socket", device="cpu") as sess:
+            same([sess.infer(x) for x in images], "socket")
+    ready = threading.Event()
+    th = threading.Thread(target=tserving.serve, args=(plan,),
+                          kwargs=dict(device="cpu", max_clients=1,
+                                      ready=ready), daemon=True)
+    th.start()
+    assert ready.wait(60)
+    with tserving.connect(plan, "socket", device="cpu") as sess:
+        same(sess.infer_many(images), "serve")
+    th.join(30)
+    assert not th.is_alive()
+    routed = tserving.DeploymentPlan.from_args(
+        p_t.params, p_t.cfg, 6, **{section: sc},
+        routing=tserving.RoutingPolicy(ports=(free_port(), free_port())),
+        **kw)
+    with tserving.CloudFleet(routed, device="cpu"):
+        with tserving.connect(routed, "socket", device="cpu") as sess:
+            same([sess.infer(x) for x in images], "CloudFleet")
+    # a JAX cloud peer on the same fleet plan: equal digests
+    r_plan = rserving.DeploymentPlan.from_args(
+        p_r.params, p_r.cfg, 6, masks=p_r.masks, compact=True,
+        codec=p_r.codec, quant=p_r.quant, shape_link=False, port=port,
+        **{section: rserving.FleetScenario.from_json(sc.to_json())})
+    assert r_plan.digest == plan.digest
+    with rserving.CloudServer(r_plan, max_clients=None):
+        with tserving.connect(plan, "socket", device="cpu") as sess:
+            got = [sess.infer(x) for x in images]
+    for image, res in zip(images, got):
+        _check(_Want(p_r, p_t), 6, image, res["logits"], res["tx_bytes"])
 
 
 @pytest.mark.parametrize("section", ["adaptive", "energy"])
