@@ -37,8 +37,9 @@ Phases, each printing its own lines:
    with one call's host time (the bf16, float32 and codes GEMV wrappers,
    ``matmul * mask``); ``rmsnorm`` at
    2048 and 2000 rows of 3584 (R1's and R2's prefill) and 1000, bf16 and
-   fp32, offsets 0 and 1, and at 1 and 2 rows (decode), with its and
-   ``F.rms_norm``'s device time, each row naming its launch plan; its gated
+   fp32, offsets 0 and 1, and at 1 and 2 rows (decode), Mixtral-8x7B's
+   2048, 8192 and 1 rows of 4096 (R1's and R3's prefill, decode), with its
+   and ``F.rms_norm``'s device time, each row naming its launch plan; its gated
    entry (Mamba2's norm-then-gate) at Mamba2's R1 and R2 (2048 and 2000
    rows of 5120, z a slice of the (rows, 10576) input projection), decode
    (1 and 2 rows), Zamba2's R1 (2048 rows of 4096 in a 8384-wide
@@ -50,7 +51,10 @@ Phases, each printing its own lines:
    non-causal, fp32, head-dim 64 and ragged (S=77) cases, Zamba2's
    shared attention (32/32 heads of 64, S=2048), gemma-7b's R1 (16/16 heads
    of 256, S=2048) and nemotron-4-340b's heads (96/8 of 192, S=2048), each
-   of the two head dims also ragged (S=77) and in fp32; ``ssd_scan`` at
+   of the two head dims also ragged (S=77) and in fp32, and Mixtral-8x7B's
+   R1 and R3 (32/8 heads of 128, causal, window 4096, S=2048 and 8192: at
+   8192 whole KV blocks behind the window are skipped), each row with the
+   kernel's device time from a CUDA graph, held to the bound; ``ssd_scan`` at
    Mamba2's R1 (B=1, S=2048, 80 heads of 64, d_state 128) and R2 (B=2, S=1000,
    ragged), Zamba2's R1 (64 heads, d_state 64), with half the heads masked,
    x, B and C as slices of one conv output as the block hands them in, plus
@@ -194,10 +198,30 @@ Phases, each printing its own lines:
    ``streaming`` (``microbatch`` 1), ``REQUESTS`` images each, every logit
    row and ``tx_bytes`` bit-equal to the bare plan's on the same backend,
    ``masked_matmul`` launches = edge GEMMs x requests on their routes (a
-   ``fleet_plan`` line).
+   ``fleet_plan`` line);
+16. slice (Mixtral-8x7B) — the pruned MoE stack at full width
+   (``configs/mixtral_8x7b.CONFIG``: d_model 4096, 32/8 heads of 128, 8
+   experts of d_expert 14336, top-2, capacity factor 1.25, window 4096,
+   vocab 32000, bf16) with its depth cut to 16 of 32 layers (32 do not fit
+   the card; the ``slice`` line says ``layers 16 of 32``); masks at ratio
+   0.5 keep 4 of 8 experts and 4 of 8 KV groups a layer. R1 (B=1, S=2048)
+   and R3 (B=1, S=8192, past the window: the decode cache is the rolling
+   4096-slot buffer), each a prefill and 16 greedy decode steps through
+   the serving steps: 33 rmsnorm launches a forward step, 16
+   flash_attention a prefill, no masked_matmul. The same requests through
+   the bf16 plain versions, teacher-forced; a ``moe_routing`` line a
+   request with each prefill layer's drop_frac and the share of (token, k)
+   routes on which the two runs pick the same expert (reported: routing
+   is discontinuous). ``profile`` lines of one R1 and one R3 prefill,
+   each followed by a decode step. Then phase 6's logit yardstick on the
+   first 4 layers of the same weights (the 16-layer model released
+   first), steps whose own tokens the kernel path and the bf16 plain run
+   routed apart reported and not held; a ``phase16`` line with the
+   phase's seconds and the most memory it allocated on the card.
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
-phases 4 and 11-15, counted where one thread launches), the
+phases 4 and 11-15, counted where one thread launches; the transformer
+kernels' of phases 6, 8, 9 and 16), the
 nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero without that line; so does a machine without a CUDA device.
@@ -886,7 +910,8 @@ def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 def check_flash(cases):
     """Phase 3: the flash kernel against its plain version at each (name,
-    B, S, H, Hkv, D, causal, window, dtype)."""
+    B, S, H, Hkv, D, causal, window, dtype); its device time from a CUDA
+    graph (``graph_ms``) held to the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.device import exact_fp32
@@ -945,7 +970,10 @@ def check_flash(cases):
                        q, k, v, causal=causal, window=window)),
                    "plain_ms": time_ms(lambda: attention_ref(
                        q, k, v, causal=causal, window=window)),
-                   "library_ms": time_ms(library)}
+                   "library_ms": time_ms(library),
+                   "device_ms": graph_ms(
+                       lambda q, k, v: flash_attention(
+                           q, k, v, causal=causal, window=window), q, k, v)}
             # q, k, v read and the output written once; Q K^T and P V at 2
             # operations a multiply-add over the pairs the mask lets through
             pairs = attention_pairs(S, S, causal, window)
@@ -953,6 +981,7 @@ def check_flash(cases):
                       4 * B * H * D * pairs,
                       PEAK_FP32_FLOP_S if dtype == "float32"
                       else PEAK_BF16_FLOP_S)
+            row["ok"] = ok = ok and hold_to_bound(row)
             rows.append(check_row("flash_attention", row, ok))
             del q, k, v, got, want, tol, err
     return rows
@@ -1236,8 +1265,10 @@ def edge_routes(plan, split=None):
 
 
 #: device kernels grouped by a substring of their name: the port's own
-#: kernels, cuBLAS's products, PyTorch's im2col, pooling, elementwise and
-#: reduction kernels
+#: kernels, cuBLAS's products, PyTorch's im2col, pooling, the MoE
+#: dispatch's sort, top-k, histogram, scan, indexing (the gather and
+#: scatter of rows; also a decode step's KV-cache writes) and softmax, and
+#: elementwise and reduction kernels
 KINDS = (("masked_matmul tiles", "masked_matmul_wgmma"),
          ("masked_matmul splitk", "masked_matmul_splitk"),
          ("masked_matmul gemv f32", "masked_matmul_gemv_f32"),
@@ -1250,6 +1281,10 @@ KINDS = (("masked_matmul tiles", "masked_matmul_wgmma"),
          ("ssd_scan outputs", "ssd_chunk_out"), ("ssd_scan", "ssd_kernel"),
          ("cublas", "nvjet"), ("cublas", "gemm"), ("cublas", "gemv"),
          ("im2col", "im2col"), ("maxpool", "max_pool"),
+         ("sort", "RadixSort"), ("sort", "radixSort"), ("topk", "TopK"),
+         ("topk", "topk"), ("sort", "Sort"), ("histogram", "Histogram"), ("scan", "Scan"),
+         ("scan", "scan"), ("index", "index"), ("index", "gather"),
+         ("index", "scatter"), ("softmax", "softmax"), ("softmax", "SoftMax"),
          ("elementwise", "elementwise"), ("reduce", "reduce"),
          ("copy", "Memcpy"), ("copy", "copy"), ("cat", "Cat"))
 
@@ -1306,8 +1341,8 @@ def model_setup(cfg, seed: int):
     and SSD skip weights ``D`` (the reference initialises them to ones and
     zeros, which would leave the scale, bias and skip paths untested), and
     masks from ``transformer_masks_from_ratios`` at ratio 0.5 on every unit:
-    half the KV groups and FFN channels of every attention layer, half the
-    SSD heads of every Mamba2 layer."""
+    half the KV groups and FFN channels (or experts) of every attention
+    (or MoE) layer, half the SSD heads of every Mamba2 layer."""
     import torch
     from repro_torch.core.pruning.masks import (transformer_masks_from_ratios,
                                                 transformer_prunable_units)
@@ -1321,7 +1356,8 @@ def model_setup(cfg, seed: int):
     for rp in params["runs"]:
         if "attn" in rp:
             for name in ("bq", "bk", "bv"):
-                fill(rp["attn"][name], 0.0, 0.1)
+                if name in rp["attn"]:
+                    fill(rp["attn"][name], 0.0, 0.1)
             fill(rp["ln1"], 1.0, 0.1)
             fill(rp["ln2"], 1.0, 0.1)
         else:
@@ -1338,13 +1374,16 @@ def model_setup(cfg, seed: int):
     return params, masks
 
 
-def describe(cfg, params, masks) -> None:
-    """The ``slice`` line naming the model being served."""
+def describe(cfg, params, masks, of_layers=None) -> None:
+    """The ``slice`` line naming the model being served; ``of_layers``,
+    where depth was cut, the config's own layer count."""
     from repro_torch.models.transformer import param_count
     row = {"model": cfg.name, "arch_type": cfg.arch_type,
            "num_layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab_size": cfg.vocab_size, "dtype": cfg.dtype,
            "params": param_count(params)}
+    if of_layers is not None:
+        row["layers"] = f"{cfg.num_layers} of {of_layers}"
     if cfg.ssm is not None:
         row.update(ssm_heads=cfg.ssm_heads, ssm_head_dim=cfg.ssm.head_dim,
                    d_state=cfg.ssm.d_state, chunk_size=cfg.ssm.chunk_size,
@@ -1354,9 +1393,17 @@ def describe(cfg, params, masks) -> None:
         row.update(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                    head_dim=cfg.head_dim, d_ff=cfg.d_ff,
                    shared_attn_period=cfg.shared_attn_period)
-    if masks[0] is not None and "head_mask" in masks[0]:
-        row.update(kept_heads_per_layer=float(masks[0]["head_mask"].sum(1)[0]),
-                   kept_ffn_per_layer=float(masks[0]["ffn_mask"].sum(1)[0]))
+    if cfg.moe is not None:
+        row.update(num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                   d_expert=cfg.moe.d_expert,
+                   capacity_factor=cfg.moe.capacity_factor,
+                   sliding_window=cfg.sliding_window)
+    kept = {"head_mask": "kept_heads_per_layer",
+            "ffn_mask": "kept_ffn_per_layer",
+            "expert_mask": "kept_experts_per_layer"}
+    if masks[0] is not None:
+        row.update({kept[axis]: float(m.sum(1)[0])
+                    for axis, m in masks[0].items() if axis in kept})
     print("slice " + json.dumps(row), flush=True)
 
 
@@ -1416,45 +1463,47 @@ def transformer_wrappers():
 
 def expected_launches(cfg):
     """Kernel launches of one request (a prefill and DECODE_STEPS decode
-    steps) of ``cfg``'s pruned stack: an attention layer has two pre-norms,
-    the masked FFN's up and gate products and (prefill only) one attention;
-    a Mamba2 layer one pre-norm, one gated norm and (prefill only) one
-    scan; each invocation of a hybrid's shared block two norms and
-    (prefill only) one attention, its MLP unmasked; the final norm once a
-    step. The FFN products, by
-    ``masked_matmul`` entry: the prefill's (M = B*S rows) on the wgmma
-    tiles, the decode steps' (M = B) on the GEMV."""
+    steps) of ``cfg``'s pruned stack: an attention or MoE layer has two
+    pre-norms and (prefill only) one attention, an attention layer also the
+    masked FFN's up and gate products (an MoE layer's experts are plain
+    batched products); a Mamba2 layer one pre-norm, one gated norm and
+    (prefill only) one scan; each invocation of a hybrid's shared block two
+    norms and (prefill only) one attention, its MLP unmasked; the final
+    norm once a step. The FFN products, by ``masked_matmul`` entry: the
+    prefill's (M = B*S rows) on the wgmma tiles, the decode steps' (M = B)
+    on the GEMV."""
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.models.transformer import hybrid_split, layer_runs
     steps = 1 + DECODE_STEPS
     attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
+    ffn = sum(r.count for r in layer_runs(cfg) if r.kind == "attn")
     ssm = cfg.num_layers - attn
     shared = (hybrid_split(cfg, ssm)[0] if cfg.shared_attn_period else 0)
     return {"rmsnorm": (2 * attn + ssm + 2 * shared + 1) * steps,
             "rmsnorm_gated": ssm * steps,
-            "masked_matmul": 2 * attn * steps,
+            "masked_matmul": 2 * ffn * steps,
             "flash_attention": attn + shared, "ssd_scan": ssm,
             **dict.fromkeys(masked_matmul.route_launches, 0),
-            "masked_matmul_bf16_tiles": 2 * attn,
-            "masked_matmul_bf16_gemv": 2 * attn * DECODE_STEPS}
+            "masked_matmul_bf16_tiles": 2 * ffn,
+            "masked_matmul_bf16_gemv": 2 * ffn * DECODE_STEPS}
 
 
-def transformer_slice(cfg, params, masks, requests):
-    """Phases 6, 8, 9: each request (label, B, S) through the kernel path
-    with the launch counters zeroed just before and read just after; the
-    same requests through the plain versions in bf16 and in fp32, teacher-
-    forced with the kernel path's tokens; every logit row held to the
-    tolerance. Returns the per-request rows and the launch totals."""
+def request_tokens(cfg, requests):
+    """[(label, tokens (B, S))] drawn from SEED for each (label, B, S)."""
     import numpy as np
-    import torch
-    from repro_torch.device import exact_fp32
-    from repro_torch.models import transformer as tr
+    rng = np.random.default_rng(SEED)
+    return [(label, rng.integers(0, cfg.vocab_size, (B, S)))
+            for label, B, S in requests]
+
+
+def kernel_path(cfg, params, masks, requests):
+    """Each (label, tokens) through the kernel path with the launch
+    counters zeroed just before and read just after, held to
+    ``expected_launches``. Returns ``serve_tokens``' result a request,
+    with its launches, and the launch totals."""
     wrappers = transformer_wrappers()
     mm = wrappers["masked_matmul"]
     per_request = expected_launches(cfg)
-    rng = np.random.default_rng(SEED)
-    requests = [(label, rng.integers(0, cfg.vocab_size, (B, S)))
-                for label, B, S in requests]
     kern, totals = {}, dict.fromkeys(per_request, 0)
     for label, tok in requests:
         for w in wrappers.values():
@@ -1469,9 +1518,35 @@ def transformer_slice(cfg, params, masks, requests):
         kern[label]["launches"] = counts
         for name in totals:
             totals[name] += counts[name]
-    plain = {label: serve_tokens(cfg, params, masks, tok, plain=True,
-                                 forced=kern[label]["tokens"])
-             for label, tok in requests}
+    return kern, totals
+
+
+def transformer_slice(cfg, params, masks, requests):
+    """Phases 6, 8, 9 and 16: each request (label, B, S) through the
+    kernel path (``kernel_path``); the same requests through the plain
+    versions in bf16 and in fp32, teacher-forced with the kernel path's
+    tokens; every logit row held to the tolerance. In an MoE stack a step
+    whose own tokens the kernel path and the bf16 plain run routed to
+    different experts in some layer (``flipped_steps``) is reported and
+    not held: routing is discontinuous, and one bf16 rounding in a norm
+    or an attention can move a token past the top-k boundary. Returns the
+    per-request rows and the launch totals."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.models import transformer as tr
+    requests = request_tokens(cfg, requests)
+    with watch_moe() as kcalls:
+        kern, totals = kernel_path(cfg, params, masks, requests)
+    kroutes = routes_of(kcalls, len(requests))
+    with watch_moe() as pcalls:
+        plain = {label: serve_tokens(cfg, params, masks, tok, plain=True,
+                                     forced=kern[label]["tokens"])
+                 for label, tok in requests}
+    proutes = routes_of(pcalls, len(requests))
+    flipped = {}
+    if cfg.moe is not None:
+        for (label, tok), kr, pr in zip(requests, kroutes, proutes):
+            flipped[label] = flipped_steps(cfg, tok.shape, kr, pr)
     params32 = tr.cast_params(params, torch.float32)
     cfg32 = cfg.replace(dtype="float32")
     with exact_fp32():
@@ -1485,8 +1560,10 @@ def transformer_slice(cfg, params, masks, requests):
     for label, tok in requests:
         B, S = tok.shape
         worst, gaps_k, gaps_p, gaps_kp = 0.0, [], [], []
-        for g, p, f in zip(kern[label]["logits"], plain[label]["logits"],
-                           fp32[label]["logits"]):
+        skip = flipped.get(label, [False] * (1 + DECODE_STEPS))
+        for g, p, f, flip in zip(kern[label]["logits"],
+                                 plain[label]["logits"],
+                                 fp32[label]["logits"], skip):
             if g.shape != (B, cfg.padded_vocab) or not bool(
                     torch.isfinite(g).all()):
                 raise AssertionError(f"{label}: bad logits {tuple(g.shape)}")
@@ -1496,12 +1573,14 @@ def transformer_slice(cfg, params, masks, requests):
             # run than twice the bf16 plain run is, plus one bf16 spacing
             # of the largest logit
             tol = 2 * gap_p + BF16_SPACING * float(f.abs().max())
-            worst = max(worst, gap_k / tol)
+            if not flip:
+                worst = max(worst, gap_k / tol)
             gaps_k.append(gap_k)
             gaps_p.append(gap_p)
             gaps_kp.append(float((g - p).abs().max()))
         med = statistics.median(kern[label]["decode_ms"])
-        row = {"model": cfg.name, "request": label, "batch": B, "prompt": S,
+        row = {"model": cfg.name, "num_layers": cfg.num_layers,
+               "request": label, "batch": B, "prompt": S,
                "decode_steps": DECODE_STEPS,
                "prefill_ms": kern[label]["prefill_ms"],
                "prefill_tokens_per_s": B * S / kern[label]["prefill_ms"] * 1e3,
@@ -1517,6 +1596,8 @@ def transformer_slice(cfg, params, masks, requests):
                "max_gap_kernel_vs_bf16_plain": max(gaps_kp),
                "max_gap_over_tol": worst,
                "tokens": kern[label]["tokens"].tolist()}
+        if label in flipped:
+            row["flipped_steps"] = [i for i, f in enumerate(skip) if f]
         print("slice " + json.dumps(row), flush=True)
         if worst > 1.0:
             raise AssertionError(f"{cfg.name} {label}: kernel-path logits "
@@ -1525,13 +1606,70 @@ def transformer_slice(cfg, params, masks, requests):
     return rows, totals
 
 
-def profile_transformer(cfg, params, masks):
-    """Phases 7 and 10: device time of one R1 prefill and one decode step of
-    the kernel path, against their unprofiled wall-clock."""
+@contextlib.contextmanager
+def watch_moe():
+    """Record each MoE layer call of the stack made while the block runs:
+    yields a list that gains, a call, (params, MoEConfig, input, expert
+    mask, drop_frac). Storing references costs the timed run nothing;
+    ``routes_of`` recomputes the routes afterwards (``moe.route`` is
+    deterministic). The stack looks ``moe_forward`` up in its module at
+    each call, so the block wraps it there."""
+    from repro_torch.models import transformer as tr
+    calls, inner = [], tr.moe_forward
+
+    def watched(params, moe, x, activation, *, expert_mask=None):
+        out, metrics = inner(params, moe, x, activation,
+                             expert_mask=expert_mask)
+        calls.append((params, moe, x, expert_mask, metrics.drop_frac))
+        return out, metrics
+    tr.moe_forward = watched
+    try:
+        yield calls
+    finally:
+        tr.moe_forward = inner
+
+
+def routes_of(calls, n_requests: int):
+    """The recorded MoE calls of ``n_requests`` requests served one after
+    the other (each makes as many), as a list a request of (experts (T,
+    k) each token was routed to, drop_frac) a call, in call order.
+    Empties ``calls``, releasing the layer inputs it held."""
+    from repro_torch.models.layers.moe import route
+    out = [(route(p, moe, x.reshape(-1, x.shape[-1]), mask)[1], float(drop))
+           for p, moe, x, mask, drop in calls]
+    calls.clear()
+    per = len(out) // max(n_requests, 1)
+    return [out[i * per:(i + 1) * per] for i in range(n_requests)]
+
+
+def flipped_steps(cfg, shape, kroutes, proutes):
+    """For one request of ``shape`` (B, S) served by the kernel path and by
+    the bf16 plain run (``routes_of`` of each): a flag a step (the
+    prefill, then each decode step) set where, in some layer, the two
+    routed one of that step's own tokens (the prefill's last token of each
+    sequence, a decode step's B tokens) to different experts."""
+    B, S = shape
+    L = cfg.num_layers
+    flags = []
+    kr = [r for r, _ in kroutes]
+    pr = [r for r, _ in proutes]
+    for step in range(1 + DECODE_STEPS):
+        rows = ([b * S + S - 1 for b in range(B)] if step == 0
+                else list(range(B)))
+        flags.append(any(bool((kr[step * L + j][rows]
+                               != pr[step * L + j][rows]).any())
+                         for j in range(L)))
+    return flags
+
+
+def profile_transformer(cfg, params, masks, request=TRANSFORMER_REQUESTS[0]):
+    """Phases 7, 10 and 16: device time of one prefill of ``request``
+    (label, B, S), R1 unless given, and one decode step of the kernel
+    path, against their unprofiled wall-clock."""
     import numpy as np
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    _, B, S = TRANSFORMER_REQUESTS[0]
+    label, B, S = request
     tok = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, S))
     prefill = make_prefill_step(cfg, max_len=S + DECODE_STEPS, masks=masks)
     decode = make_decode_step(cfg, masks=masks)
@@ -1546,7 +1684,7 @@ def profile_transformer(cfg, params, masks):
         state["lg"], state["cache"] = decode(params, state["cache"], nxt)
         torch.cuda.synchronize()
     for step, fn in (("prefill", prefill_once), ("decode", decode_once)):
-        print("profile " + json.dumps({"model": cfg.name, "request": "R1",
+        print("profile " + json.dumps({"model": cfg.name, "request": label,
                                        "step": step, **device_profile(fn)}),
               flush=True)
 
@@ -2857,6 +2995,136 @@ def fleet_plan_phase(plan, images):
     return routes
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the pruned Mixtral-8x7B (MoE) at full width, its depth cut
+# ---------------------------------------------------------------------------
+#: Mixtral-8x7B's depth on one card: a layer holds 1.45 G parameters (2.90
+#: GB in bf16), so its 32 layers (92.9 GB) do not fit the card's 85 GB;
+#: 16 take 46.9 GB with the embedding and the head
+MIXTRAL_LAYERS = 16
+#: the layers of the three-way logit yardstick (an fp32 copy of 16 does not
+#: fit; 4 fp32 layers are 23.2 GB, copied once the 16-layer model is gone)
+MIXTRAL_YARDSTICK_LAYERS = 4
+#: R1, and R3: 8192 tokens, twice the 4096-token window, so the prefill
+#: skips KV blocks behind the window and the decode cache is the rolling
+#: 4096-slot buffer
+MIXTRAL_REQUESTS = (("R1", 1, 2048), ("R3", 1, 8192))
+
+
+def first_layers(params, masks, n: int):
+    """Copies of the first ``n`` layers of each run and of their masks,
+    beside the same embedding, final norm and head."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n].clone()
+    return ({**params, "runs": [cut(rp) for rp in params["runs"]]},
+            [None if m is None else cut(m) for m in masks])
+
+
+def moe_routing(cfg, requests, kern, kroutes, plain, proutes, of_layers):
+    """One ``moe_routing`` line a request served by the kernel path
+    (``kern``, its routes ``kroutes`` from ``routes_of``) and the bf16
+    plain run (``plain``, ``proutes``): each prefill layer's capacity and
+    drop_frac (the decode steps' largest drop_frac), the share of (token,
+    k) routes on which the two pick the same expert (prefill, each prefill
+    layer, decode; one bf16 rounding can move a token past the top-k
+    boundary, and a token routed apart differs in every later layer, so
+    the share is reported, not held to 1), how many experts a decode
+    step's layer sends tokens to, and the two runs' times and logit gap."""
+    import torch
+    from repro_torch.models.layers.moe import capacity
+    L = cfg.num_layers
+    for (label, tok), kc, pc in zip(requests, kroutes, proutes):
+        B, S = tok.shape
+        kr = [r for r, _ in kc]
+        same = [a == b for a, (b, _) in zip(kr, pc)]
+
+        def share(xs):
+            return sum(int(x.sum()) for x in xs) / sum(x.numel() for x in xs)
+        drop = [d for _, d in kc]
+        gap = max(float((g - p).abs().max()) for g, p in zip(
+            kern[label]["logits"], plain[label]["logits"]))
+        for g in kern[label]["logits"]:
+            if g.shape != (B, cfg.padded_vocab) or not bool(
+                    torch.isfinite(g).all()):
+                raise AssertionError(f"{label}: bad logits {tuple(g.shape)}")
+        row = {"model": cfg.name, "layers": f"{L} of {of_layers}",
+               "request": label, "batch": B, "prompt": S,
+               "prefill_capacity": capacity(B * S, cfg.moe),
+               "prefill_drop_frac": drop[:L],
+               "prefill_drop_frac_mean": statistics.mean(drop[:L]),
+               "decode_drop_frac_max": max(drop[L:]),
+               "route_agreement_prefill": share(same[:L]),
+               "route_agreement_prefill_by_layer": [share([x])
+                                                    for x in same[:L]],
+               "route_agreement_decode": share(same[L:]),
+               "decode_experts_used_per_layer": statistics.mean(
+                   len(torch.unique(r)) for r in kr[L:]),
+               "prefill_ms": kern[label]["prefill_ms"],
+               "decode_ms_median": statistics.median(
+                   kern[label]["decode_ms"]),
+               "plain_prefill_ms": plain[label]["prefill_ms"],
+               "plain_decode_ms_median": statistics.median(
+                   plain[label]["decode_ms"]),
+               "max_gap_kernel_vs_bf16_plain": gap,
+               "launches": kern[label]["launches"],
+               "tokens": kern[label]["tokens"].tolist()}
+        print("moe_routing " + json.dumps(row), flush=True)
+
+
+def mixtral_phase():
+    """Phase 16: pruned Mixtral-8x7B at full width, its depth cut to
+    MIXTRAL_LAYERS, serving MIXTRAL_REQUESTS through the serving steps
+    (the launch counters zeroed just before each request and read just
+    after) and through the bf16 plain versions, teacher-forced (a
+    ``moe_routing`` line a request); where one R1 prefill's and one decode
+    step's device time goes; then the logit yardstick of phases 6-9 on the
+    first MIXTRAL_YARDSTICK_LAYERS layers of the same weights; a
+    ``phase16`` line with its seconds and the most memory allocated on the
+    card by each part. Each model's weights and caches are released before
+    the next run. Returns the main path's launch totals."""
+    import torch
+    from repro_torch.configs import mixtral_8x7b
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = mixtral_8x7b.CONFIG
+    cfg = full.replace(num_layers=MIXTRAL_LAYERS)
+    params, masks = model_setup(cfg, SEED)
+    describe(cfg, params, masks, of_layers=full.num_layers)
+    requests = request_tokens(cfg, MIXTRAL_REQUESTS)
+    with watch_moe() as kcalls:
+        kern, totals = kernel_path(cfg, params, masks, requests)
+    kroutes = routes_of(kcalls, len(requests))
+    torch.cuda.empty_cache()
+    with watch_moe() as pcalls:
+        plain = {label: serve_tokens(cfg, params, masks, tok, plain=True,
+                                     forced=kern[label]["tokens"])
+                 for label, tok in requests}
+    moe_routing(cfg, requests, kern, kroutes, plain,
+                routes_of(pcalls, len(requests)), full.num_layers)
+    del kern, kroutes, plain
+    torch.cuda.empty_cache()
+    for request in MIXTRAL_REQUESTS:
+        profile_transformer(cfg, params, masks, request)
+    cut_params, cut_masks = first_layers(params, masks,
+                                         MIXTRAL_YARDSTICK_LAYERS)
+    del params, masks
+    torch.cuda.empty_cache()
+    peak = {"served_layers": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    transformer_slice(cfg.replace(num_layers=MIXTRAL_YARDSTICK_LAYERS),
+                      cut_params, cut_masks, MIXTRAL_REQUESTS)
+    peak["yardstick"] = torch.cuda.max_memory_allocated() / 1e9
+    del cut_params, cut_masks
+    torch.cuda.empty_cache()
+    print("phase16 " + json.dumps({
+        "seconds": time.perf_counter() - t0, "peak_allocated_gb": peak,
+        "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9}),
+        flush=True)
+    return totals
+
+
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                  **extra):
     """One kernel of the JSON line: times and bound summed over
@@ -2967,7 +3235,8 @@ def main() -> int:
         # decode rows of R1 and R2
         + [(f"{name} {r} rows bfloat16 +0", r, w, "bfloat16", 0.0)
            for name, w, rs in (("mamba2", 2560, (2048, 2000, 1, 2)),
-                               ("zamba2", 2048, (2048, 1)))
+                               ("zamba2", 2048, (2048, 1)),
+                               ("mixtral", 4096, (2048, 8192, 1)))
            for r in rs])
     # Mamba2-2.7B (d_inner 5120, projection 10576 wide) and Zamba2-1.2B
     # (4096 of 8384): z a slice of the projection, as the block hands it in
@@ -3003,7 +3272,12 @@ def main() -> int:
          ("ragged 77 D256", 1, 77, 16, 16, 256, True, None, "bfloat16"),
          ("ragged 77 D192", 1, 77, 96, 8, 192, True, None, "bfloat16"),
          ("fp32 D256", 1, 512, 16, 16, 256, True, None, "float32"),
-         ("fp32 D192", 1, 512, 96, 8, 192, True, None, "float32")])
+         ("fp32 D192", 1, 512, 96, 8, 192, True, None, "float32"),
+         # Mixtral-8x7B's R1 and R3 (32/8 heads of 128, window 4096): at
+         # 8192 tokens whole KV blocks fall behind the window and are
+         # skipped
+         ("mixtral R1", 1, 2048, 32, 8, 128, True, 4096, "bfloat16"),
+         ("mixtral R3", 1, 8192, 32, 8, 128, True, 4096, "bfloat16")])
     # Mamba2-2.7B: 80 heads of 64, d_state 128; Zamba2-1.2B: 64 heads of
     # 64, d_state 64; one B/C group each
     ssd_rows = check_ssd(
@@ -3098,6 +3372,11 @@ def main() -> int:
     roofline_phase(plans["cN"], cal)
     fleet_phase()
     alex_routes.update(fleet_plan_phase(plans["c13"], images))
+
+    # 16. the pruned Mixtral-8x7B at full width, 16 of its 32 layers
+    xtotals = mixtral_phase()
+    for name in totals:
+        totals[name] += xtotals[name]
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan

@@ -42,6 +42,16 @@ DEVICE_CLASS_NAMES = ("mcu", "pi", "phone")
 CHAOS_KINDS = ("kill", "drain", "revive")
 
 
+def _coerce_floats(obj, *names: str) -> None:
+    """Store each named field of the frozen dataclass ``obj`` as a
+    ``float``. ``to_json`` folds the field into the plan's digest and
+    ``from_json`` reads it back as a float, so an int given here (``30``)
+    would save as ``30`` and reload as ``30.0``, and the saved plan would
+    fail ``load``'s digest check."""
+    for name in names:
+        object.__setattr__(obj, name, float(getattr(obj, name)))
+
+
 @dataclass(frozen=True)
 class ChaosEvent:
     """One scheduled cloudlet-tier chaos event on the virtual clock —
@@ -58,6 +68,7 @@ class ChaosEvent:
     cloudlet: int = 0
 
     def __post_init__(self) -> None:
+        _coerce_floats(self, "t_s")
         if self.t_s < 0:
             raise ValueError("chaos event t_s must be >= 0")
         if self.kind not in CHAOS_KINDS:
@@ -94,6 +105,7 @@ class SLOClass:
     policy: FaultPolicy
 
     def __post_init__(self) -> None:
+        _coerce_floats(self, "share")
         if not 0.0 < self.share <= 1.0:
             raise ValueError("SLO class share must be in (0, 1]")
 
@@ -147,6 +159,7 @@ class ArrivalPattern:
     period_s: float = 60.0
 
     def __post_init__(self) -> None:
+        _coerce_floats(self, "base_rate_hz", "diurnal_amplitude", "period_s")
         if self.base_rate_hz <= 0:
             raise ValueError("base_rate_hz must be > 0")
         if not 0.0 <= self.diurnal_amplitude < 1.0:
@@ -232,6 +245,11 @@ class FleetScenario:
     chaos: Tuple[ChaosEvent, ...] = ()
 
     def __post_init__(self) -> None:
+        _coerce_floats(self, "duration_s", "energy_weight_s_per_j",
+                       "backhaul_mbps", "backhaul_rtt_ms")
+        for name in ("device_mix", "trace_mix", "battery_j"):
+            object.__setattr__(self, name, tuple(
+                (key, float(value)) for key, value in getattr(self, name)))
         if self.n_edges < 1 or self.n_cloudlets < 1:
             raise ValueError("n_edges and n_cloudlets must be >= 1")
         if self.duration_s <= 0:

@@ -2,10 +2,12 @@
 
 The paper prunes conv channels of AlexNet. The reference generalizes the
 action "keep fraction a of layer i's structured units" to every family;
-the port has the CNN case, the dense transformer's axes and the SSD heads:
+the port has the CNN case, the dense and MoE transformers' axes and the SSD
+heads:
 
   CNN         conv out-channels / dense units        (the paper's case)
   dense attn  attention heads (whole GQA groups) + FFN inner channels
+  MoE         attention heads (whole GQA groups) + whole experts
   SSD         ssm heads
 
 Importance ranking is L1 weight magnitude (as in AMC): the kept units are
@@ -81,8 +83,13 @@ def transformer_prunable_units(cfg: ModelConfig) -> List[Dict]:
                 continue
             units.append(dict(run=r_idx, layer_in_run=j, layer=layer,
                               axis="head_mask", n_units=cfg.num_heads))
-            units.append(dict(run=r_idx, layer_in_run=j, layer=layer,
-                              axis="ffn_mask", n_units=cfg.d_ff))
+            if run.kind == "moe":
+                units.append(dict(run=r_idx, layer_in_run=j, layer=layer,
+                                  axis="expert_mask",
+                                  n_units=cfg.moe.num_experts))
+            else:
+                units.append(dict(run=r_idx, layer_in_run=j, layer=layer,
+                                  axis="ffn_mask", n_units=cfg.d_ff))
     return units
 
 
@@ -95,6 +102,8 @@ def _axis_importance(params, cfg: ModelConfig, unit: Dict) -> np.ndarray:
         return _l1(w.reshape(cfg.num_heads, -1), 1)
     if axis == "ffn_mask":
         return _l1(rp["mlp"]["w_down"][j], 1)         # (dff, d)
+    if axis == "expert_mask":
+        return _l1(rp["moe"]["w_down"][j], (1, 2))    # (E, de, d)
     if axis == "ssm_head_mask":
         w = rp["ssm"]["w_out"][j]                     # (d_in, d)
         return _l1(w.reshape(cfg.ssm_heads, cfg.ssm.head_dim, -1), (1, 2))
@@ -111,7 +120,8 @@ def transformer_masks_from_ratios(params, cfg: ModelConfig,
     a list (one per run) of dicts axis -> (count, n_units) stacked float32
     masks on the parameters' device. GQA head masks keep whole KV groups
     intact (kv-head multiples) so the grouped attention layout survives
-    pruning."""
+    pruning. An expert mask keeps at least ``top_k + num_shared`` experts
+    unless ``min_keep`` says otherwise, as the reference's does."""
     units = transformer_prunable_units(cfg)
     assert len(ratios) == len(units), (len(ratios), len(units))
     min_keep = min_keep or {}
@@ -131,7 +141,10 @@ def transformer_masks_from_ratios(params, cfg: ModelConfig,
                 gm = _topk_mask(gi, float(a), min_keep.get("head_mask", 1))
                 m = np.repeat(gm, g)
             else:
-                m = _topk_mask(imp, float(a), min_keep.get(unit["axis"], 1))
+                floor = (cfg.moe.top_k + cfg.moe.num_shared
+                         if unit["axis"] == "expert_mask" else 1)
+                m = _topk_mask(imp, float(a),
+                               min_keep.get(unit["axis"], floor))
             axes.setdefault(unit["axis"],
                             np.zeros((run.count, unit["n_units"]),
                                      np.float32))[unit["layer_in_run"]] = m

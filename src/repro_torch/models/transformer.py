@@ -1,6 +1,7 @@
 """Decoder stack of the transformer families the port serves:
 
   dense   — pre-norm GQA + (gated / non-gated) FFN      [gemma, qwen, nemotron]
+  moe     — pre-norm GQA + sort-dispatch MoE FFN        [mixtral]
   ssm     — Mamba2 (SSD) blocks, attention-free         [mamba2]
   hybrid  — Mamba2 backbone + one SHARED attention block
             applied every ``shared_attn_period`` layers  [zamba2]
@@ -10,9 +11,11 @@ The reference (``models/transformer.py``) groups layers into homogeneous
 weights; the port keeps the same stacked parameter layout (so trees cross
 between the packages unchanged) and walks each run with a Python loop over
 views of its stacked tensors. A hybrid run walks groups of ``period`` ssm
-layers, each followed by the shared block, then the ungrouped tail. MoE,
-MLA, audio, VLM and MTP configs raise ``NotImplementedError`` naming the
-slice that brings them.
+layers, each followed by the shared block, then the ungrouped tail. An
+MoE run sums its layers' router losses (``moe_aux``, ``moe_z``) as the
+reference's scan carries them. MLA, MTP, dense layers before the MoE layers
+(DeepSeek-V3's ``attn_dense`` run), audio and VLM configs raise
+``NotImplementedError`` naming the slice that brings them.
 
 Three entry points, cache-consistent with each other:
   forward      — full sequence, logits for every position
@@ -21,14 +24,17 @@ Three entry points, cache-consistent with each other:
 
 Pruning integration: ``masks`` mirrors the runs structure with per-layer
 structured masks — attention ``head_mask`` (num_heads,), FFN ``ffn_mask``
-(d_ff,) and SSD ``ssm_head_mask`` (ssm_heads,), stacked per run as
-``(count, n_units)``. The shared block of a hybrid is not pruned.
+(d_ff,), MoE ``expert_mask`` (num_experts,) and SSD ``ssm_head_mask``
+(ssm_heads,), stacked per run as ``(count, n_units)``. The shared block of
+a hybrid is not pruned.
 
 ``backend="auto"`` runs every kernel of the path (``rmsnorm`` and its gated
 entry, ``flash_attention``, ``masked_matmul``, ``ssd_scan``) through its
 wrapper, which launches the CUDA kernel for a tensor on the card and the
 plain version for one on the CPU; ``backend="ref"`` runs the plain
-versions wherever the tensors are (the yardstick on the card).
+versions wherever the tensors are (the yardstick on the card). The MoE
+dispatch and expert products are plain PyTorch on both backends, as the
+reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from repro_torch.models.layers.attention import (KVCache, gqa_decode,
                                                  gqa_forward, init_gqa_params)
 from repro_torch.models.layers import ssm as ssm_lib
 from repro_torch.models.layers.mlp import init_mlp_params, mlp_forward
+from repro_torch.models.layers.moe import init_moe_params, moe_forward
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rope import positions_for, rope_angles
 
@@ -79,23 +86,27 @@ def hybrid_split(cfg: ModelConfig, count: int) -> Tuple[int, int]:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose blocks the port
     does not have yet, naming the slice that brings them."""
-    if cfg.arch_type == "moe" or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks come with the MoE/MLA slice")
     if cfg.attention != "gqa" and cfg.arch_type != "ssm":
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention!r} attention comes with the "
-            f"MoE/MLA slice")
-    if cfg.arch_type == "audio" or cfg.embeds_input:
+            f"{cfg.name}: {cfg.attention!r} attention comes with the MLA "
+            f"slice (ROADMAP A7b)")
+    if cfg.arch_type == "moe" and cfg.num_dense_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the audio encoder comes with the audio slice")
-    if cfg.arch_type == "vlm" or cfg.vision_tokens or cfg.rope_mode == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: vision tokens and M-RoPE come with the VLM slice")
+            f"{cfg.name}: dense layers before the MoE layers come with the "
+            f"DeepSeek-V3 slice (ROADMAP A7b)")
     if cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: multi-token-prediction blocks are not ported")
-    if cfg.arch_type not in ("dense", "ssm", "hybrid"):
+            f"{cfg.name}: multi-token-prediction blocks come with the MLA "
+            f"slice (ROADMAP A7b)")
+    if cfg.arch_type == "audio" or cfg.embeds_input:
+        raise NotImplementedError(
+            f"{cfg.name}: the audio encoder comes with the vision and audio "
+            f"slice (ROADMAP A7c)")
+    if cfg.arch_type == "vlm" or cfg.vision_tokens or cfg.rope_mode == "mrope":
+        raise NotImplementedError(
+            f"{cfg.name}: vision tokens and M-RoPE come with the vision and "
+            f"audio slice (ROADMAP A7c)")
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: arch {cfg.arch_type!r}")
 
 
@@ -127,6 +138,17 @@ def _init_attn_layer(cfg: ModelConfig, gen: torch.Generator,
     }
 
 
+def _init_moe_layer(cfg: ModelConfig, gen: torch.Generator,
+                    dtype: torch.dtype, device: torch.device):
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "attn": init_gqa_params(gen, cfg, dtype, device),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "moe": init_moe_params(gen, cfg.d_model, cfg.moe, cfg.activation,
+                               dtype, device),
+    }
+
+
 def _init_ssm_layer(cfg: ModelConfig, gen: torch.Generator,
                     dtype: torch.dtype, device: torch.device):
     return {
@@ -135,7 +157,8 @@ def _init_ssm_layer(cfg: ModelConfig, gen: torch.Generator,
     }
 
 
-_RUN_INIT = {"attn": _init_attn_layer, "ssm": _init_ssm_layer}
+_RUN_INIT = {"attn": _init_attn_layer, "moe": _init_moe_layer,
+             "ssm": _init_ssm_layer}
 
 
 def _stack_into(dst, src, i: int, count: int):
@@ -252,16 +275,22 @@ def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # stack walker (shared by forward & prefill)
 # ---------------------------------------------------------------------------
 def _attn_block(cfg, lp, x, angles, mask, backend):
-    head_mask = None if mask is None else mask.get("head_mask")
-    ffn_mask = None if mask is None else mask.get("ffn_mask")
+    """An attention block with an FFN or an MoE layer (the reference's
+    ``_attn_block`` and ``_moe_block``): (x, (k, v), MoEMetrics or
+    None)."""
+    mask = mask or {}
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
-    a, kv = gqa_forward(lp["attn"], cfg, h, angles, head_mask=head_mask,
-                        backend=backend)
+    a, kv = gqa_forward(lp["attn"], cfg, h, angles,
+                        head_mask=mask.get("head_mask"), backend=backend)
     x = x + a
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
-    x = x + mlp_forward(lp["mlp"], h, cfg.activation, ffn_mask=ffn_mask,
-                        backend=backend)
-    return x, kv
+    if "moe" in lp:
+        m, metrics = moe_forward(lp["moe"], cfg.moe, h, cfg.activation,
+                                 expert_mask=mask.get("expert_mask"))
+        return x + m, kv, metrics
+    return x + mlp_forward(lp["mlp"], h, cfg.activation,
+                           ffn_mask=mask.get("ffn_mask"),
+                           backend=backend), kv, None
 
 
 def _ssm_block(cfg, lp, x, mask, backend, collect_state: bool):
@@ -288,18 +317,26 @@ def _shared_after(cfg: ModelConfig, count: int, j: int) -> Optional[int]:
 
 def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
                backend: str, on_kv=None, on_state=None, on_shared_kv=None):
-    """Run every layer over x. Each callback, when given, receives what
-    prefill keeps: ``on_kv(run, layer_in_run, k, v)`` each attention
-    layer's keys and values, ``on_state(run, layer_in_run, SSMCache)`` each
-    Mamba2 layer's conv tail and final state, ``on_shared_kv(g, k, v)`` the
-    keys and values of the shared block's invocation ``g``."""
+    """Run every layer over x; returns (x, {"moe_aux", "moe_z"}), the MoE
+    layers' router losses summed (zeros without MoE layers). Each callback,
+    when given, receives what prefill keeps: ``on_kv(run, layer_in_run, k,
+    v)`` each attention or MoE layer's keys and values, ``on_state(run,
+    layer_in_run, SSMCache)`` each Mamba2 layer's conv tail and final
+    state, ``on_shared_kv(g, k, v)`` the keys and values of the shared
+    block's invocation ``g``."""
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    zl = torch.zeros((), dtype=torch.float32, device=x.device)
     for r, (run, rp, rmask) in enumerate(zip(runs, params["runs"], masks)):
         for j in range(run.count):
             lp, mk = _index(rp, j), _index(rmask, j)
             if run.kind != "ssm":
-                x, (k, v) = _attn_block(cfg, lp, x, angles, mk, backend)
+                x, (k, v), metrics = _attn_block(cfg, lp, x, angles, mk,
+                                                 backend)
+                if metrics is not None:
+                    aux = aux + metrics.aux_loss
+                    zl = zl + metrics.z_loss
                 if on_kv is not None:
                     on_kv(r, j, k, v)
                 continue
@@ -309,11 +346,11 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
                 on_state(r, j, st)
             g = _shared_after(cfg, run.count, j)
             if g is not None:      # the shared block: unpruned
-                x, (k, v) = _attn_block(cfg, params["shared"], x, angles,
-                                        None, backend)
+                x, (k, v), _ = _attn_block(cfg, params["shared"], x,
+                                           angles, None, backend)
                 if on_shared_kv is not None:
                     on_shared_kv(g, k, v)
-    return x
+    return x, {"moe_aux": aux, "moe_z": zl}
 
 
 # ---------------------------------------------------------------------------
@@ -326,11 +363,9 @@ def forward(params, cfg: ModelConfig, batch, masks: Masks = None,
     _check_backend(backend)
     x, B, S = embed_inputs(params, cfg, batch)
     angles = _angles_for(cfg, B, S, 0, x.device)
-    x = _run_stack(params, cfg, x, angles, masks, backend)
+    x, aux = _run_stack(params, cfg, x, angles, masks, backend)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _lm_logits(params, cfg, x), {"moe_aux": zero, "moe_z": zero,
-                                        "hidden": x}
+    return _lm_logits(params, cfg, x), dict(aux, hidden=x)
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +474,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
             caches["shared"].v[g, :, :S] = v
         callbacks = dict(on_kv=on_kv, on_state=on_state,
                          on_shared_kv=on_shared_kv)
-    x = _run_stack(params, cfg, x, angles, masks, backend, **callbacks)
+    x, _ = _run_stack(params, cfg, x, angles, masks, backend, **callbacks)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
     if not cfg.causal:
         return _lm_logits(params, cfg, x), None
@@ -496,13 +531,19 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
 
 
 def _attn_decode(cfg, lp, x, angles, kv: KVCache, pos, mask, backend):
-    """One token through an attention block; its key and value go into
-    slot ``pos`` of ``kv``, in place."""
-    hm = None if mask is None else mask.get("head_mask")
-    fm = None if mask is None else mask.get("ffn_mask")
+    """One token through an attention or MoE block; its key and value go
+    into slot ``pos`` of ``kv``, in place. An MoE block dispatches the
+    step's B tokens as one ``moe_forward`` (capacity ``capacity(B)``, at
+    least 8 slots an expert)."""
+    mask = mask or {}
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
-    a, _ = gqa_decode(lp["attn"], cfg, h, angles, kv, pos, head_mask=hm)
+    a, _ = gqa_decode(lp["attn"], cfg, h, angles, kv, pos,
+                      head_mask=mask.get("head_mask"))
     x = x + a
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
-    return x + mlp_forward(lp["mlp"], h, cfg.activation, ffn_mask=fm,
-                           backend=backend)
+    if "moe" in lp:
+        m, _ = moe_forward(lp["moe"], cfg.moe, h, cfg.activation,
+                           expert_mask=mask.get("expert_mask"))
+        return x + m
+    return x + mlp_forward(lp["mlp"], h, cfg.activation,
+                           ffn_mask=mask.get("ffn_mask"), backend=backend)

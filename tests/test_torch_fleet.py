@@ -5,6 +5,7 @@ packages run one scenario and their rollups are compared key by key with
 ``random.Random`` streams give the same bits, so no tolerance is stated.
 Populations are compared draw for draw, scenario JSON byte for byte."""
 import json
+import os
 import random
 
 import numpy as np
@@ -520,3 +521,85 @@ def test_percentile_and_tier_server_equal_reference():
         q.run_until()
         out.append((done, admitted, vars(srv.stats), q.now))
     assert out[1] == out[0]
+
+
+# ---------------------------------------------------------------------------
+# numbers given as ints: coerced to float, so saved plans load in both
+# ---------------------------------------------------------------------------
+#: every float field of the four scenario types, given as an int
+_INT_BUILT = dict(
+    name="ints", seed=4, n_edges=60, n_cloudlets=2, duration_s=30,
+    device_mix=(("mcu", 1),), trace_mix=(("wifi_steady", 1),),
+    battery_j=(("mcu", 40),), energy_weight_s_per_j=0,
+    backhaul_mbps=1000, backhaul_rtt_ms=10)
+
+
+def _int_built(ns, policy):
+    return ns.FleetScenario(
+        **_INT_BUILT, chaos=(ns.ChaosEvent(t_s=5, kind="kill"),),
+        slo_classes=(ns.SLOClass("all", 1, policy(request_deadline_s=1.0)),),
+        arrival=ns.ArrivalPattern(base_rate_hz=1, diurnal_amplitude=0,
+                                  period_s=60))
+
+
+def _tiny_plans(r_fleet, t_fleet):
+    from repro import serving as rserving
+    from repro_torch import serving as tserving
+    from torch_parity import port_params, ref_tree, tiny_setup
+    cfg_r, cfg_t, params, masks, _ = tiny_setup()
+    return (rserving.DeploymentPlan.from_args(
+                ref_tree(params), cfg_r, 6, masks=masks, fleet=r_fleet),
+            tserving.DeploymentPlan.from_args(
+                port_params(params), cfg_t, 6, masks=masks, fleet=t_fleet))
+
+
+def test_int_built_scenario_saves_as_floats_and_loads_in_both(tmp_path):
+    """A scenario built with ints (``duration_s=30``) stores floats, so
+    its plan saves ``30.0`` and passes ``load``'s digest check in the
+    port and in the reference. The cost that remains: the reference keeps
+    the int, so the same int-built scenario has another in-memory digest
+    there (its own saved plan fails its own ``load``)."""
+    from repro import serving as rserving
+    from repro_torch import serving as tserving
+    sc = _int_built(tfleet, FaultPolicy)
+    assert sc == _float_built_twin(sc)
+    for value in (sc.duration_s, sc.energy_weight_s_per_j, sc.backhaul_mbps,
+                  sc.backhaul_rtt_ms, sc.chaos[0].t_s, sc.slo_classes[0].share,
+                  sc.arrival.base_rate_hz, sc.arrival.diurnal_amplitude,
+                  sc.arrival.period_s, sc.device_mix[0][1],
+                  sc.trace_mix[0][1], sc.battery_j[0][1]):
+        assert type(value) is float
+    r_sc = _int_built(rfleet, RFaultPolicy)
+    p_r, p_t = _tiny_plans(r_sc, sc)
+    path = p_t.save(str(tmp_path / "port"))
+    with open(os.path.join(path, "plan.json")) as f:
+        assert '"duration_s": 30.0' in f.read()
+    loaded = tserving.DeploymentPlan.load(path)
+    assert loaded.digest == p_t.digest and loaded.fleet == sc
+    back = rserving.DeploymentPlan.load(path)
+    assert back.digest == p_t.digest
+    assert back.fleet == rfleet.FleetScenario.from_json(sc.to_json())
+    # the remaining cost: the reference's int-built digest is its own
+    assert p_r.digest != p_t.digest
+    with pytest.raises(ValueError, match="digest"):
+        rserving.DeploymentPlan.load(p_r.save(str(tmp_path / "ref")))
+
+
+def _float_built_twin(sc):
+    return FleetScenario.from_json(json.loads(json.dumps(sc.to_json())))
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_float_built_digests_still_equal_the_reference(i):
+    """Coercing changes nothing a float-built scenario folds in: its
+    plan's digest equals the reference's, as before."""
+    scs = list(_scenarios_for_json())
+    if i == len(scs):
+        sc = _float_built_twin(_int_built(tfleet, FaultPolicy))
+    else:
+        sc = scs[i]
+    r_sc = rfleet.FleetScenario.from_json(json.loads(json.dumps(
+        sc.to_json())))
+    p_r, p_t = _tiny_plans(r_sc, sc)
+    assert json.dumps(sc.to_json()) == json.dumps(r_sc.to_json())
+    assert p_t.digest == p_r.digest

@@ -123,5 +123,18 @@ def test_ssm_half_ratio_and_min_keep_match_reference():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError):
-        tmasks.transformer_prunable_units(treg.get_smoke_config(arch))
+    """The MoE family, refused here until its slice, now has the
+    reference's units and masks (a head and an expert unit a layer, both
+    dtypes); an MoE stack with a dense first layer (DeepSeek-V3's
+    ``attn_dense`` run) is still refused."""
+    for dtype in ("float32", "bfloat16"):
+        cr, ct, pj, pt = _setup(arch, dtype, seed=6)
+        units = rmasks.transformer_prunable_units(cr)
+        assert tmasks.transformer_prunable_units(ct) == units
+        ratios = list(np.random.default_rng(7).uniform(0.1, 1.0, len(units)))
+        _assert_same_masks(
+            rmasks.transformer_masks_from_ratios(pj, cr, ratios),
+            tmasks.transformer_masks_from_ratios(pt, ct, ratios))
+    with pytest.raises(NotImplementedError, match="dense layers"):
+        tmasks.transformer_prunable_units(
+            treg.get_smoke_config(arch).replace(num_dense_layers=1))

@@ -49,10 +49,12 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as ttr
 from torch_parity import BF16_SPACING, EPS32, to_f32, transformer_params_np
 
-#: configs whose blocks later slices bring: the registry's MoE family,
-#: and the other kinds built from the dense smoke config
+#: configs whose blocks later slices bring, built from the dense and MoE
+#: smoke configs (an MoE stack whose first layer is dense: DeepSeek-V3's
+#: ``attn_dense`` run)
 UNPORTED = {
-    "mixtral-8x7b": lambda: treg.get_smoke_config("mixtral-8x7b"),
+    "moe_dense_layers": lambda: treg.get_smoke_config(
+        "mixtral-8x7b").replace(num_dense_layers=1),
     "mla": lambda: treg.get_smoke_config("qwen2-7b").replace(
         attention="mla"),
     "audio": lambda: treg.get_smoke_config("qwen2-7b").replace(
@@ -276,8 +278,46 @@ def test_configs_equal_reference(arch):
                 == dataclasses.asdict(getattr(rreg, get)(arch)))
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
+#: registry configs a refusal case once pinned, served since: each keeps
+#: its case and holds the entry points against the reference
+SERVED = ("mixtral-8x7b",)
+
+
+def _served_config_matches_reference(arch):
+    """The four entry points the refusal case called: ``init_params`` has
+    the reference's layout, ``init_cache`` the layout ``prefill`` fills,
+    and the steps serve a prefill and two decode steps with the
+    reference's logits (its XLA path; ``tests/test_torch_moe.py`` holds
+    both paths)."""
+    cr, ct, pj, pt, mj, mt = _setup(arch)
+    ref = jax.eval_shape(lambda: rtr.init_params(cr, jax.random.PRNGKey(0)))
+    got = ttr.init_params(ct, seed=0, device="cpu")
+    assert (jax.tree_util.tree_structure(ref)
+            == jax.tree_util.tree_structure(got))
+    tok = _tokens(cr, 2, 10, seed=6)
+    prefill = make_prefill_step(ct, max_len=12, masks=mt, device="cpu")
+    decode = make_decode_step(ct, masks=mt, device="cpu")
+    lg, cache = prefill(pt, {"tokens": tok[:, :8]})
+    empty = ttr.init_cache(ct, 2, 12, device="cpu")
+    assert [tuple(t.shape) for t in empty["runs"][0]] == \
+        [tuple(t.shape) for t in cache["runs"][0]]
+    rlg, rcache = rtr.prefill(pj, cr, {"tokens": jnp.asarray(tok[:, :8])},
+                              max_len=12, masks=mj)
+    for t in (8, 9):
+        want = to_f32(rlg)
+        assert np.abs(to_f32(lg) - want).max() <= _tol(want, "float32")
+        lg, cache = decode(pt, cache, tok[:, t:t + 1])
+        rlg, rcache = rtr.decode_step(pj, cr, rcache,
+                                      jnp.asarray(tok[:, t:t + 1]), mj)
+    want = to_f32(rlg)
+    assert np.abs(to_f32(lg) - want).max() <= _tol(want, "float32")
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED) + list(SERVED))
 def test_unported_configs_raise(arch):
+    if arch in SERVED:
+        _served_config_matches_reference(arch)
+        return
     cfg = UNPORTED[arch]()
     for call in (lambda: ttr.init_params(cfg, device="cpu"),
                  lambda: ttr.init_cache(cfg, 1, 8, device="cpu"),
