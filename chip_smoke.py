@@ -30,7 +30,8 @@ Phases, each printing its own lines:
    against the split-K tiles at dense14's shape; the bf16 ``masked_matmul`` at
    Qwen2-7B's FFN up/gate shapes (M = 2048 and 2000 in prefill, 1 and 2 in
    decode, and 3, 8, 9, 16, 64; K = 3584; N = 18944; half the columns
-   masked) and at ragged and all-zero-mask shapes, each row naming the
+   masked), at DeepSeek-V3's dense FFN (M = 2048 and 1, K = 7168, N =
+   18432) and at ragged and all-zero-mask shapes, each row naming the
    entry its route picks (the decode GEMV, the wgmma/TMA tiles, the
    CUDA-core tiles), then one ``crossover`` line per M of 1, 2, 3, 4, 8, 16, 64
    timing the GEMV and the tiles on the same operands, and a ``host`` line
@@ -38,7 +39,9 @@ Phases, each printing its own lines:
    ``matmul * mask``); ``rmsnorm`` at
    2048 and 2000 rows of 3584 (R1's and R2's prefill) and 1000, bf16 and
    fp32, offsets 0 and 1, and at 1 and 2 rows (decode), Mixtral-8x7B's
-   2048, 8192 and 1 rows of 4096 (R1's and R3's prefill, decode), with its
+   2048, 8192 and 1 rows of 4096 (R1's and R3's prefill, decode),
+   DeepSeek-V3's 2048 and 1 rows of 7168 and 2048 rows of MLA's latent
+   widths (``q_norm`` 1536, ``kv_norm`` 512), with its
    and ``F.rms_norm``'s device time, each row naming its launch plan; its gated
    entry (Mamba2's norm-then-gate) at Mamba2's R1 and R2 (2048 and 2000
    rows of 5120, z a slice of the (rows, 10576) input projection), decode
@@ -214,14 +217,34 @@ Phases, each printing its own lines:
    routes on which the two runs pick the same expert (reported: routing
    is discontinuous). ``profile`` lines of one R1 and one R3 prefill,
    each followed by a decode step. Then phase 6's logit yardstick on the
-   first 4 layers of the same weights (the 16-layer model released
-   first), steps whose own tokens the kernel path and the bf16 plain run
+   first 4 layers of the same weights (views of the served tensors, made
+   float32 tensor by tensor, never a bf16 and a float32 tree whole at
+   once), steps whose own tokens the kernel path and the bf16 plain run
    routed apart reported and not held; a ``phase16`` line with the
-   phase's seconds and the most memory it allocated on the card.
+   phase's seconds and the most memory it allocated on the card;
+17. slice (DeepSeek-V3) — the pruned MLA + MoE stack at full width
+   (``configs/deepseek_v3_671b.CONFIG``: d_model 7168, 128 heads, MLA
+   ranks 1536/512, nope/rope/v head dims 128/64/128, 3 dense layers of
+   d_ff 18432 first, then 256 experts of 2048 + 1 shared, top-8, sigmoid
+   scores, capacity factor 1.0, vocab 129280, bf16, an MTP block built
+   and never run) with its depth cut to 5 of 61 layers (3 dense + 2 MoE:
+   55.2 GB; ``layers 5 of 61``); masks at ratio 0.5 keep 64 of 128 heads,
+   9216 of 18432 FFN channels and 128 of 256 experts a layer. R1 (B=1,
+   S=2048: MLA's naive attention) and R3 (B=1, S=8192: past
+   ``naive_attn_max``, its chunked attention), each a prefill and 16
+   greedy decode steps through the serving steps: 21 rmsnorm launches a
+   forward step (4 a layer: the two pre-norms, ``q_norm`` and
+   ``kv_norm``, and the final norm), 6 masked_matmul a step (the dense
+   layers' up and gate products: wgmma tiles at prefill, the GEMV in
+   decode), no flash_attention (MLA's attention is plain PyTorch, as the
+   reference's). Then, as phase 16, the bf16 plain run, a ``moe_routing``
+   line a request and ``profile`` lines; then the yardstick at R1 on
+   the first 4 layers (3 dense + 1 MoE; the MTP block released), as in
+   phase 16, and a ``phase17`` line.
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
 phases 4 and 11-15, counted where one thread launches; the transformer
-kernels' of phases 6, 8, 9 and 16), the
+kernels' of phases 6, 8, 9, 16 and 17), the
 nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero without that line; so does a machine without a CUDA device.
@@ -1342,7 +1365,9 @@ def model_setup(cfg, seed: int):
     zeros, which would leave the scale, bias and skip paths untested), and
     masks from ``transformer_masks_from_ratios`` at ratio 0.5 on every unit:
     half the KV groups and FFN channels (or experts) of every attention
-    (or MoE) layer, half the SSD heads of every Mamba2 layer."""
+    (or MoE) layer, half the SSD heads of every Mamba2 layer. An MLA
+    stack's latent norm scales (``q_norm``, ``kv_norm``) are drawn near 1
+    too."""
     import torch
     from repro_torch.core.pruning.masks import (transformer_masks_from_ratios,
                                                 transformer_prunable_units)
@@ -1358,6 +1383,9 @@ def model_setup(cfg, seed: int):
             for name in ("bq", "bk", "bv"):
                 if name in rp["attn"]:
                     fill(rp["attn"][name], 0.0, 0.1)
+            for name in ("q_norm", "kv_norm"):        # MLA's latent norms
+                if name in rp["attn"]:
+                    fill(rp["attn"][name], 1.0, 0.1)
             fill(rp["ln1"], 1.0, 0.1)
             fill(rp["ln2"], 1.0, 0.1)
         else:
@@ -1397,13 +1425,19 @@ def describe(cfg, params, masks, of_layers=None) -> None:
         row.update(num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
                    d_expert=cfg.moe.d_expert,
                    capacity_factor=cfg.moe.capacity_factor,
-                   sliding_window=cfg.sliding_window)
+                   sliding_window=cfg.sliding_window,
+                   num_shared=cfg.moe.num_shared, score_fn=cfg.moe.score_fn,
+                   num_dense_layers=cfg.num_dense_layers)
+    if cfg.mla is not None:
+        row.update(attention="mla", mtp_depth=cfg.mtp_depth,
+                   **dataclasses.asdict(cfg.mla))
     kept = {"head_mask": "kept_heads_per_layer",
             "ffn_mask": "kept_ffn_per_layer",
             "expert_mask": "kept_experts_per_layer"}
-    if masks[0] is not None:
+    for run_masks in masks:
         row.update({kept[axis]: float(m.sum(1)[0])
-                    for axis, m in masks[0].items() if axis in kept})
+                    for axis, m in (run_masks or {}).items()
+                    if axis in kept})
     print("slice " + json.dumps(row), flush=True)
 
 
@@ -1464,25 +1498,29 @@ def transformer_wrappers():
 def expected_launches(cfg):
     """Kernel launches of one request (a prefill and DECODE_STEPS decode
     steps) of ``cfg``'s pruned stack: an attention or MoE layer has two
-    pre-norms and (prefill only) one attention, an attention layer also the
-    masked FFN's up and gate products (an MoE layer's experts are plain
-    batched products); a Mamba2 layer one pre-norm, one gated norm and
-    (prefill only) one scan; each invocation of a hybrid's shared block two
-    norms and (prefill only) one attention, its MLP unmasked; the final
-    norm once a step. The FFN products, by ``masked_matmul`` entry: the
-    prefill's (M = B*S rows) on the wgmma tiles, the decode steps' (M = B)
-    on the GEMV."""
+    pre-norms and (prefill only) one flash attention, or, with MLA, two
+    more norms (``q_norm``, ``kv_norm``) every step and no flash
+    attention (MLA's is plain PyTorch); an attention layer (``attn``, or
+    an MoE stack's dense ``attn_dense``) also the masked FFN's up and gate
+    products (an MoE layer's experts are plain batched products); a
+    Mamba2 layer one pre-norm, one gated norm and (prefill only) one scan;
+    each invocation of a hybrid's shared block two norms and (prefill
+    only) one attention, its MLP unmasked; the final norm once a step. The
+    FFN products, by ``masked_matmul`` entry: the prefill's (M = B*S rows)
+    on the wgmma tiles, the decode steps' (M = B) on the GEMV."""
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.models.transformer import hybrid_split, layer_runs
     steps = 1 + DECODE_STEPS
     attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
-    ffn = sum(r.count for r in layer_runs(cfg) if r.kind == "attn")
+    ffn = sum(r.count for r in layer_runs(cfg)
+              if r.kind in ("attn", "attn_dense"))
+    mla = attn if cfg.attention == "mla" else 0
     ssm = cfg.num_layers - attn
     shared = (hybrid_split(cfg, ssm)[0] if cfg.shared_attn_period else 0)
-    return {"rmsnorm": (2 * attn + ssm + 2 * shared + 1) * steps,
+    return {"rmsnorm": (2 * attn + 2 * mla + ssm + 2 * shared + 1) * steps,
             "rmsnorm_gated": ssm * steps,
             "masked_matmul": 2 * ffn * steps,
-            "flash_attention": attn + shared, "ssd_scan": ssm,
+            "flash_attention": attn - mla + shared, "ssd_scan": ssm,
             **dict.fromkeys(masked_matmul.route_launches, 0),
             "masked_matmul_bf16_tiles": 2 * ffn,
             "masked_matmul_bf16_gemv": 2 * ffn * DECODE_STEPS}
@@ -1521,15 +1559,17 @@ def kernel_path(cfg, params, masks, requests):
     return kern, totals
 
 
-def transformer_slice(cfg, params, masks, requests):
-    """Phases 6, 8, 9 and 16: each request (label, B, S) through the
+def transformer_slice(cfg, params, masks, requests, to_fp32=None):
+    """Phases 6, 8, 9, 16 and 17: each request (label, B, S) through the
     kernel path (``kernel_path``); the same requests through the plain
     versions in bf16 and in fp32, teacher-forced with the kernel path's
     tokens; every logit row held to the tolerance. In an MoE stack a step
     whose own tokens the kernel path and the bf16 plain run routed to
     different experts in some layer (``flipped_steps``) is reported and
     not held: routing is discontinuous, and one bf16 rounding in a norm
-    or an attention can move a token past the top-k boundary. Returns the
+    or an attention can move a token past the top-k boundary. The fp32
+    run's parameters are ``to_fp32(params)`` (default: a float32 copy
+    beside the bf16 tree), made after both bf16 runs. Returns the
     per-request rows and the launch totals."""
     import torch
     from repro_torch.device import exact_fp32
@@ -1547,7 +1587,8 @@ def transformer_slice(cfg, params, masks, requests):
     if cfg.moe is not None:
         for (label, tok), kr, pr in zip(requests, kroutes, proutes):
             flipped[label] = flipped_steps(cfg, tok.shape, kr, pr)
-    params32 = tr.cast_params(params, torch.float32)
+    params32 = (to_fp32 or (lambda p: tr.cast_params(p, torch.float32)))(
+        params)
     cfg32 = cfg.replace(dtype="float32")
     with exact_fp32():
         fp32 = {label: serve_tokens(cfg32, params32, masks, tok, plain=True,
@@ -1642,14 +1683,21 @@ def routes_of(calls, n_requests: int):
     return [out[i * per:(i + 1) * per] for i in range(n_requests)]
 
 
+def moe_layer_count(cfg) -> int:
+    """The MoE layers of ``cfg``'s stack (each makes one recorded call a
+    step)."""
+    from repro_torch.models.transformer import layer_runs
+    return sum(r.count for r in layer_runs(cfg) if r.kind == "moe")
+
+
 def flipped_steps(cfg, shape, kroutes, proutes):
     """For one request of ``shape`` (B, S) served by the kernel path and by
     the bf16 plain run (``routes_of`` of each): a flag a step (the
-    prefill, then each decode step) set where, in some layer, the two
+    prefill, then each decode step) set where, in some MoE layer, the two
     routed one of that step's own tokens (the prefill's last token of each
     sequence, a decode step's B tokens) to different experts."""
     B, S = shape
-    L = cfg.num_layers
+    L = moe_layer_count(cfg)
     flags = []
     kr = [r for r, _ in kroutes]
     pr = [r for r, _ in proutes]
@@ -3003,7 +3051,7 @@ def fleet_plan_phase(plan, images):
 #: 16 take 46.9 GB with the embedding and the head
 MIXTRAL_LAYERS = 16
 #: the layers of the three-way logit yardstick (an fp32 copy of 16 does not
-#: fit; 4 fp32 layers are 23.2 GB, copied once the 16-layer model is gone)
+#: fit; 4 fp32 layers are 23.2 GB, made from the bf16 ones in place)
 MIXTRAL_YARDSTICK_LAYERS = 4
 #: R1, and R3: 8192 tokens, twice the 4096-token window, so the prefill
 #: skips KV blocks behind the window and the decode cache is the rolling
@@ -3012,21 +3060,32 @@ MIXTRAL_REQUESTS = (("R1", 1, 2048), ("R3", 1, 8192))
 
 
 def first_layers(params, masks, n: int):
-    """Copies of the first ``n`` layers of each run and of their masks,
-    beside the same embedding, final norm and head."""
-    def cut(tree):
+    """The first ``n`` layers of the stack (taken from its runs in order)
+    and their masks, as views of the stacked tensors, beside the same
+    embedding, final norm and head."""
+    def leading(tree):
+        return (leading(next(iter(tree.values()))) if isinstance(tree, dict)
+                else tree.shape[0])
+
+    def cut(tree, take):
         if isinstance(tree, dict):
-            return {k: cut(v) for k, v in tree.items()}
-        return tree[:n].clone()
-    return ({**params, "runs": [cut(rp) for rp in params["runs"]]},
-            [None if m is None else cut(m) for m in masks])
+            return {k: cut(v, take) for k, v in tree.items()}
+        return tree[:take]
+    runs, cut_masks = [], []
+    for rp, rm in zip(params["runs"], masks):
+        take = min(n - sum(leading(r) for r in runs), leading(rp))
+        if take <= 0:
+            break
+        runs.append(cut(rp, take))
+        cut_masks.append(None if rm is None else cut(rm, take))
+    return {**params, "runs": runs}, cut_masks
 
 
 def moe_routing(cfg, requests, kern, kroutes, plain, proutes, of_layers):
     """One ``moe_routing`` line a request served by the kernel path
     (``kern``, its routes ``kroutes`` from ``routes_of``) and the bf16
-    plain run (``plain``, ``proutes``): each prefill layer's capacity and
-    drop_frac (the decode steps' largest drop_frac), the share of (token,
+    plain run (``plain``, ``proutes``): each prefill MoE layer's capacity
+    and drop_frac (the decode steps' largest drop_frac), the share of (token,
     k) routes on which the two pick the same expert (prefill, each prefill
     layer, decode; one bf16 rounding can move a token past the top-k
     boundary, and a token routed apart differs in every later layer, so
@@ -3034,7 +3093,7 @@ def moe_routing(cfg, requests, kern, kroutes, plain, proutes, of_layers):
     step's layer sends tokens to, and the two runs' times and logit gap."""
     import torch
     from repro_torch.models.layers.moe import capacity
-    L = cfg.num_layers
+    L = moe_layer_count(cfg)
     for (label, tok), kc, pc in zip(requests, kroutes, proutes):
         B, S = tok.shape
         kr = [r for r, _ in kc]
@@ -3049,7 +3108,9 @@ def moe_routing(cfg, requests, kern, kroutes, plain, proutes, of_layers):
             if g.shape != (B, cfg.padded_vocab) or not bool(
                     torch.isfinite(g).all()):
                 raise AssertionError(f"{label}: bad logits {tuple(g.shape)}")
-        row = {"model": cfg.name, "layers": f"{L} of {of_layers}",
+        row = {"model": cfg.name,
+               "layers": f"{cfg.num_layers} of {of_layers}",
+               "moe_layers": L,
                "request": label, "batch": B, "prompt": S,
                "prefill_capacity": capacity(B * S, cfg.moe),
                "prefill_drop_frac": drop[:L],
@@ -3073,56 +3134,124 @@ def moe_routing(cfg, requests, kern, kroutes, plain, proutes, of_layers):
         print("moe_routing " + json.dumps(row), flush=True)
 
 
-def mixtral_phase():
-    """Phase 16: pruned Mixtral-8x7B at full width, its depth cut to
-    MIXTRAL_LAYERS, serving MIXTRAL_REQUESTS through the serving steps
-    (the launch counters zeroed just before each request and read just
-    after) and through the bf16 plain versions, teacher-forced (a
-    ``moe_routing`` line a request); where one R1 prefill's and one decode
-    step's device time goes; then the logit yardstick of phases 6-9 on the
-    first MIXTRAL_YARDSTICK_LAYERS layers of the same weights; a
-    ``phase16`` line with its seconds and the most memory allocated on the
-    card by each part. Each model's weights and caches are released before
-    the next run. Returns the main path's launch totals."""
+def _leaf_slots(tree):
+    """(container, key) of every tensor of nested dicts and lists."""
+    for k, v in (tree.items() if isinstance(tree, dict)
+                 else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            yield from _leaf_slots(v)
+        elif v is not None:
+            yield tree, k
+
+
+def float32_in_place(tree):
+    """``tree``'s tensors replaced, one at a time and the largest first, by
+    float32 copies, each bf16 tensor dropped as its copy is made. Where
+    the tree's tensors are views of a served model's stacked tensors
+    (``first_layers``), the card never holds a bf16 and a float32 tree
+    whole: the peak is the bf16 storage plus the largest float32 tensor.
+    Returns ``tree``. (No closure holds the tree: a recursive inner
+    function would keep it alive in a reference cycle until the garbage
+    collector ran, past the phase.)"""
     import torch
-    from repro_torch.configs import mixtral_8x7b
+    for t, k in sorted(_leaf_slots(tree),
+                       key=lambda tk: -tk[0][tk[1]].numel()):
+        t[k] = t[k].to(torch.float32)
+        torch.cuda.empty_cache()
+    return tree
+
+
+def moe_phase(phase: str, full, layers: int, yardstick_layers: int,
+              requests, yardstick_requests):
+    """Phases 16 and 17: the pruned MoE config ``full`` at full width, its
+    depth cut to ``layers``, serving ``requests`` through the serving
+    steps (the launch counters zeroed just before each request and read
+    just after) and through the bf16 plain versions, teacher-forced (a
+    ``moe_routing`` line a request); where one prefill of each request and
+    one decode step's device time goes; then the logit yardstick of phases
+    6-9 on the first ``yardstick_layers`` layers of the same weights at
+    ``yardstick_requests``, the MTP block released first (it is never
+    run): the yardstick's layers are views of the served model's tensors,
+    their float32 copy made tensor by tensor from them
+    (``float32_in_place``). A ``<phase>`` line with the phase's seconds
+    and the most memory allocated on the card by each part. Returns the
+    main path's launch totals."""
+    import torch
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    full = mixtral_8x7b.CONFIG
-    cfg = full.replace(num_layers=MIXTRAL_LAYERS)
+    cfg = full.replace(num_layers=layers)
     params, masks = model_setup(cfg, SEED)
     describe(cfg, params, masks, of_layers=full.num_layers)
-    requests = request_tokens(cfg, MIXTRAL_REQUESTS)
+    served = request_tokens(cfg, requests)
     with watch_moe() as kcalls:
-        kern, totals = kernel_path(cfg, params, masks, requests)
-    kroutes = routes_of(kcalls, len(requests))
+        kern, totals = kernel_path(cfg, params, masks, served)
+    kroutes = routes_of(kcalls, len(served))
     torch.cuda.empty_cache()
     with watch_moe() as pcalls:
         plain = {label: serve_tokens(cfg, params, masks, tok, plain=True,
                                      forced=kern[label]["tokens"])
-                 for label, tok in requests}
-    moe_routing(cfg, requests, kern, kroutes, plain,
-                routes_of(pcalls, len(requests)), full.num_layers)
+                 for label, tok in served}
+    moe_routing(cfg, served, kern, kroutes, plain,
+                routes_of(pcalls, len(served)), full.num_layers)
     del kern, kroutes, plain
     torch.cuda.empty_cache()
-    for request in MIXTRAL_REQUESTS:
+    for request in requests:
         profile_transformer(cfg, params, masks, request)
-    cut_params, cut_masks = first_layers(params, masks,
-                                         MIXTRAL_YARDSTICK_LAYERS)
+    params.pop("mtp", None)
+    cut_params, cut_masks = first_layers(params, masks, yardstick_layers)
     del params, masks
     torch.cuda.empty_cache()
     peak = {"served_layers": torch.cuda.max_memory_allocated() / 1e9}
     torch.cuda.reset_peak_memory_stats()
-    transformer_slice(cfg.replace(num_layers=MIXTRAL_YARDSTICK_LAYERS),
-                      cut_params, cut_masks, MIXTRAL_REQUESTS)
+    transformer_slice(cfg.replace(num_layers=yardstick_layers), cut_params,
+                      cut_masks, yardstick_requests,
+                      to_fp32=float32_in_place)
     peak["yardstick"] = torch.cuda.max_memory_allocated() / 1e9
     del cut_params, cut_masks
     torch.cuda.empty_cache()
-    print("phase16 " + json.dumps({
+    print(f"{phase} " + json.dumps({
         "seconds": time.perf_counter() - t0, "peak_allocated_gb": peak,
         "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9}),
         flush=True)
     return totals
+
+
+def mixtral_phase():
+    """Phase 16: pruned Mixtral-8x7B, MIXTRAL_LAYERS of its 32 layers,
+    through ``moe_phase``, the yardstick at R1 and R3."""
+    from repro_torch.configs import mixtral_8x7b
+    return moe_phase("phase16", mixtral_8x7b.CONFIG, MIXTRAL_LAYERS,
+                     MIXTRAL_YARDSTICK_LAYERS, MIXTRAL_REQUESTS,
+                     MIXTRAL_REQUESTS)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the pruned DeepSeek-V3 (MLA, dense layers, then MoE) at full
+# width, its depth cut
+# ---------------------------------------------------------------------------
+#: DeepSeek-V3's depth on one card, in bf16: a dense layer holds 1.17 GB
+#: (MLA 0.37, the masked FFN 0.79), an MoE layer 23.0 GB (256 experts of
+#: 2048: 22.5), the embedding and head 3.71, the MTP block 1.94. Its 3
+#: dense layers and 2 MoE layers take 55.2 GB of the card's 85, and keep an
+#: MoE run of more than one layer behind the dense run; a third MoE layer
+#: (78.2 GB) would leave no room for R3's activations
+DEEPSEEK_LAYERS = 5
+#: the yardstick's layers, 3 dense + 1 MoE: their float32 copy (without
+#: the MTP block) is 60.5 GB, made tensor by tensor from the bf16 weights
+DEEPSEEK_YARDSTICK_LAYERS = 4
+#: R1 (2048 tokens: MLA's naive attention, up to naive_attn_max = 4096)
+#: and R3 (8192: its chunked attention, 8 KV blocks of 1024)
+DEEPSEEK_REQUESTS = (("R1", 1, 2048), ("R3", 1, 8192))
+
+
+def deepseek_phase():
+    """Phase 17: pruned DeepSeek-V3, DEEPSEEK_LAYERS of its 61 layers,
+    through ``moe_phase``, the yardstick at R1."""
+    from repro_torch.configs import deepseek_v3_671b
+    return moe_phase("phase17", deepseek_v3_671b.CONFIG, DEEPSEEK_LAYERS,
+                     DEEPSEEK_YARDSTICK_LAYERS, DEEPSEEK_REQUESTS,
+                     DEEPSEEK_REQUESTS[:1])
 
 
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
@@ -3217,6 +3346,9 @@ def main() -> int:
          ("ffn decode R1", 1, d, dff, "half"),
          ("ffn decode R2", 2, d, dff, "half")]
         + [(f"ffn M={M}", M, d, dff, "half") for M in (3, 8, 9, 16, 64)]
+        # DeepSeek-V3's dense layers: K = 7168, N = 18432
+        + [("deepseek ffn prefill R1", 2048, 7168, 18432, "half"),
+           ("deepseek ffn decode R1", 1, 7168, 18432, "half")]
         + [("tiles ragged", 200, 3576, 1000, "partial"),
            ("gemv ragged", 2, 1000, 1000, "partial"),
            ("all_zero_mask tiles", 256, 512, 1024, "zeros"),
@@ -3236,7 +3368,12 @@ def main() -> int:
         + [(f"{name} {r} rows bfloat16 +0", r, w, "bfloat16", 0.0)
            for name, w, rs in (("mamba2", 2560, (2048, 2000, 1, 2)),
                                ("zamba2", 2048, (2048, 1)),
-                               ("mixtral", 4096, (2048, 8192, 1)))
+                               ("mixtral", 4096, (2048, 8192, 1)),
+                               # DeepSeek-V3: ln1/ln2 at d_model, MLA's
+                               # q_norm and kv_norm at its two ranks
+                               ("deepseek", 7168, (2048, 1)),
+                               ("deepseek q_norm", 1536, (2048,)),
+                               ("deepseek kv_norm", 512, (2048,)))
            for r in rs])
     # Mamba2-2.7B (d_inner 5120, projection 10576 wide) and Zamba2-1.2B
     # (4096 of 8384): z a slice of the projection, as the block hands it in
@@ -3375,8 +3512,10 @@ def main() -> int:
 
     # 16. the pruned Mixtral-8x7B at full width, 16 of its 32 layers
     xtotals = mixtral_phase()
+    # 17. the pruned DeepSeek-V3 at full width, 5 of its 61 layers
+    dtotals = deepseek_phase()
     for name in totals:
-        totals[name] += xtotals[name]
+        totals[name] += xtotals[name] + dtotals[name]
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan

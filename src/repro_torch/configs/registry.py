@@ -2,10 +2,10 @@
 
 Each module in this package exports CONFIG (exact published shape, citation
 in brackets) and smoke_config() (reduced same-family variant). It holds the
-families the port serves (dense, Mamba2 SSM and the Zamba2 hybrid), plus
-one MoE config whose blocks come with a later slice (the stack refuses
-it); the other families of the JAX package come with the slice that runs
-them.
+families the port serves (dense, Mamba2 SSM, the Zamba2 hybrid, and MoE:
+Mixtral's GQA stack and DeepSeek-V3's MLA stack with dense first layers);
+the audio and vision families of the JAX package come with the slice that
+runs them.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ ARCH_IDS = [
     "qwen2-7b",
     "nemotron-4-340b",
     "zamba2-1.2b",
+    "deepseek-v3-671b",
     "mixtral-8x7b",
 ]
 
@@ -31,6 +32,7 @@ _MODULES = {
     "qwen2-7b": "qwen2_7b",
     "nemotron-4-340b": "nemotron4_340b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "mixtral-8x7b": "mixtral_8x7b",
 }
 

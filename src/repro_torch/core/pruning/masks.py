@@ -8,6 +8,8 @@ heads:
   CNN         conv out-channels / dense units        (the paper's case)
   dense attn  attention heads (whole GQA groups) + FFN inner channels
   MoE         attention heads (whole GQA groups) + whole experts
+  MLA         single heads (no KV groups), by |w_uv|; dense layers' FFN
+              channels, MoE layers' experts
   SSD         ssm heads
 
 Importance ranking is L1 weight magnitude (as in AMC): the kept units are
@@ -40,8 +42,10 @@ def _topk_mask(importance: np.ndarray, keep_ratio: float,
 
 def _l1(w: torch.Tensor, dims) -> np.ndarray:
     """float32 L1 magnitude of ``w`` summed over ``dims``, on w's device,
-    returned to the host."""
-    return w.to(torch.float32).abs().sum(dims).cpu().numpy()
+    returned to the host. The magnitudes stay in w's dtype (exact) and are
+    summed in float32, so a bf16 tensor gets no float32 copy (DeepSeek-V3's
+    ``w_down`` of one MoE layer would take 15 GB)."""
+    return w.abs().sum(dims, dtype=torch.float32).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +102,9 @@ def _axis_importance(params, cfg: ModelConfig, unit: Dict) -> np.ndarray:
     j = unit["layer_in_run"]
     axis = unit["axis"]
     if axis == "head_mask":
+        if cfg.attention == "mla":
+            w = rp["attn"]["w_uv"][j]                 # (rank, H*vd)
+            return _l1(w.reshape(w.shape[0], cfg.num_heads, -1), (0, 2))
         w = rp["attn"]["wo"][j]                       # (H*D, d)
         return _l1(w.reshape(cfg.num_heads, -1), 1)
     if axis == "ffn_mask":
@@ -120,7 +127,8 @@ def transformer_masks_from_ratios(params, cfg: ModelConfig,
     a list (one per run) of dicts axis -> (count, n_units) stacked float32
     masks on the parameters' device. GQA head masks keep whole KV groups
     intact (kv-head multiples) so the grouped attention layout survives
-    pruning. An expert mask keeps at least ``top_k + num_shared`` experts
+    pruning; MLA's heads share no KV group and are kept one by one. An
+    expert mask keeps at least ``top_k + num_shared`` experts
     unless ``min_keep`` says otherwise, as the reference's does."""
     units = transformer_prunable_units(cfg)
     assert len(ratios) == len(units), (len(ratios), len(units))
@@ -133,7 +141,7 @@ def transformer_masks_from_ratios(params, cfg: ModelConfig,
             if unit["run"] != r_idx:
                 continue
             imp = _axis_importance(params, cfg, unit)
-            if unit["axis"] == "head_mask":
+            if unit["axis"] == "head_mask" and cfg.attention != "mla":
                 # prune whole GQA groups: average importance per group,
                 # then expand back to heads
                 g = cfg.num_heads // cfg.num_kv_heads

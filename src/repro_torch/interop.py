@@ -6,7 +6,8 @@ becomes the port's dict of CPU tensors in the same layout, and back, with
 no change to a single value. The transformer's tree (``{"embed",
 "final_norm", "lm_head", "runs": [stacked per-run dicts]}``) and its
 per-run pruning masks cross the same way (``transformer_params_*``,
-``transformer_masks_from_reference``). A bfloat16 leaf arrives from JAX as
+``transformer_masks_from_reference``), and so do decode caches, whose
+named tuples keep their fields. A bfloat16 leaf arrives from JAX as
 numpy's ``bfloat16`` extension type, which ``torch.from_numpy`` refuses: it
 crosses as its 16-bit pattern (a ``uint16`` view), bit for bit.
 
@@ -29,6 +30,8 @@ import torch
 
 from repro_torch.configs.base import CNNConfig
 from repro_torch.models.cnn import param_shapes
+from repro_torch.models.layers.attention import KVCache, MLACache
+from repro_torch.models.layers.ssm import SSMCache
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -68,23 +71,37 @@ def _tensor_to_reference(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.uint16).numpy().view(bf16)
 
 
-def _map_tree(fn, tree):
+#: the port's cache tuples, by name: a reference cache (``KVCache``,
+#: ``MLACache``, ``SSMCache`` of its own modules) arrives as the port's
+_CACHES = {c.__name__: c for c in (KVCache, MLACache, SSMCache)}
+
+
+def _map_tree(fn, tree, caches=None):
+    """``fn`` over every leaf of nested dicts, lists and tuples. A named
+    tuple keeps its fields: it becomes ``caches``' class of its name where
+    given, else stays its own class (the reference reads a cache by field,
+    so the port's ``MLACache`` serves it as its own does)."""
     if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
+        return {k: _map_tree(fn, v, caches) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        cls = (caches or {}).get(type(tree).__name__, type(tree))
+        return cls(*(_map_tree(fn, v, caches) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return [_map_tree(fn, v) for v in tree]
+        return [_map_tree(fn, v, caches) for v in tree]
     return None if tree is None else fn(tree)
 
 
 def transformer_params_from_reference(tree) -> Dict[str, Any]:
     """Reference transformer tree (numpy or JAX arrays, any dtype incl.
-    bfloat16) -> the same tree of CPU tensors, bit for bit."""
-    return _map_tree(_tensor_from_reference, tree)
+    bfloat16) -> the same tree of CPU tensors, bit for bit. A decode cache
+    (``{"runs": [cache tuples], "pos"}``) crosses the same way, each cache
+    tuple as the port's class of its name."""
+    return _map_tree(_tensor_from_reference, tree, _CACHES)
 
 
 def transformer_params_to_reference(params) -> Dict[str, Any]:
-    """The port's transformer tree -> the same tree of numpy arrays
-    (bfloat16 as numpy's ``bfloat16`` type), bit for bit."""
+    """The port's transformer tree (or decode cache) -> the same tree of
+    numpy arrays (bfloat16 as numpy's ``bfloat16`` type), bit for bit."""
     return _map_tree(_tensor_to_reference, params)
 
 

@@ -17,14 +17,17 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) with H % Hkv == 0 -> (B,Sq,H,D).
 
     Positions are 0..S-1 on both sides (self-attention; Sq == Sk assumed
-    for the masked cases). fp32 math, output in q's dtype."""
+    for the masked cases). fp32 math, output in q's dtype. The (B, H, Sq,
+    Sk) scores are scaled and masked in place and released once the
+    softmax is taken (the same numbers as out-of-place ops give): at 8192
+    tokens they are 8.6 GB a layer at 32 heads."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     qg = q.to(torch.float32).reshape(B, Sq, Hkv, group, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
-                          k.to(torch.float32)) * scale
+                          k.to(torch.float32)).mul_(scale)
     d = (torch.arange(Sq, device=q.device)[:, None]
          - torch.arange(Sk, device=q.device)[None, :])
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -32,7 +35,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ok &= d >= 0
     if window is not None:
         ok &= d < window
-    logits = torch.where(ok, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(logits.masked_fill_(~ok, NEG_INF), dim=-1)
+    del logits
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
     return out.reshape(B, Sq, H, D).to(q.dtype)

@@ -25,11 +25,13 @@ def _on(device: torch.device, tokens) -> torch.Tensor:
 def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
                       masks=None, device: DeviceLike = None):
     """-> ``prefill_step(params, batch) -> (last_logits (B,V), cache)``.
-    On the card a config whose attention head dim the flash kernel has no
-    instance of is refused here, not in its first attention layer."""
+    On the card a config whose attention goes through the flash kernel
+    (GQA) but whose head dim the kernel has no instance of is refused
+    here, not in its first attention layer; MLA's attention never reaches
+    that kernel."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
-    if dev.type == "cuda" and cfg.num_heads:
+    if dev.type == "cuda" and cfg.num_heads and cfg.attention == "gqa":
         check_head_dim(cfg.head_dim)
 
     def prefill_step(params, batch):
@@ -41,8 +43,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
 def make_decode_step(cfg: ModelConfig, masks=None,
                      device: DeviceLike = None):
     """-> ``decode_step(params, cache, tokens (B,1)) -> (logits (B,V),
-    cache)``; the cache's tensors (KV slots, SSD states and conv windows)
-    are updated in place."""
+    cache)``; the cache's tensors (KV or MLA latent slots, SSD states and
+    conv windows) are updated in place."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
 

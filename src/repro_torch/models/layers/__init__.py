@@ -1,3 +1,4 @@
-"""Transformer layers: norms, rotary embeddings, GQA attention, the
-feed-forward block and the Mamba2 (SSD) block (the reference's
-``models/layers``, without MoE and MLA)."""
+"""Transformer layers: norms, rotary embeddings, GQA and MLA attention,
+the feed-forward block, the MoE layer and the Mamba2 (SSD) block (the
+reference's ``models/layers``), and ``init``, the weight draw they
+share."""

@@ -1,13 +1,20 @@
 """Attention blocks: GQA (with optional QKV bias / sliding window /
-bidirectional). MLA and the head-atomic chunked path come with the MoE
-slice.
+bidirectional), and DeepSeek-style MLA with its compressed latent KV
+cache.
 
-Prefill (``gqa_forward``) goes through the flash-attention wrapper
+GQA prefill (``gqa_forward``) goes through the flash-attention wrapper
 (``kernels.flash_attention``: the CUDA kernel on the card, its plain
-version on the CPU or with ``backend="ref"``). Decode (``gqa_decode``)
-takes one new token per sequence against the KV cache; the reference has
-no kernel there, so it is plain PyTorch. Pruning hook: an optional
-``head_mask`` (num_heads,) multiplies the attention output per head.
+version on the CPU or with ``backend="ref"``). MLA prefill
+(``mla_forward``) never reaches that kernel, as in the reference: it runs
+the materialising ``naive_attention`` up to ``cfg.naive_attn_max`` tokens
+and ``chunked_attention`` (an online-softmax loop over KV blocks) above
+it, both plain PyTorch; its two latent norms (``q_norm``, ``kv_norm``) go
+through the rmsnorm wrapper. Decode (``gqa_decode``, ``mla_decode``)
+takes one new token per sequence against the cache; the reference has no
+kernel there, so it is plain PyTorch. The head-atomic chunked path
+(``chunked_attention_ha``), a sharding lever, comes with the mesh.
+Pruning hook: an optional ``head_mask`` (num_heads,) multiplies the
+attention output per head.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.layers.init import normal, slot
+from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rope import apply_rope
 
 NEG_INF = -2.0 ** 30
@@ -27,25 +36,57 @@ NEG_INF = -2.0 ** 30
 # parameter init
 # ---------------------------------------------------------------------------
 def _dense_init(gen: torch.Generator, shape, dtype, device,
-                scale: Optional[float] = None) -> torch.Tensor:
+                scale: Optional[float] = None, out=None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    return normal(gen, shape, dtype, device, mul=scale, out=out)
 
 
 def init_gqa_params(gen: torch.Generator, cfg, dtype: torch.dtype,
-                    device: torch.device):
+                    device: torch.device, out=None):
+    """Weights normal x 1/sqrt(fan_in) from ``gen``, each into its slot
+    of ``out`` where given (``layers.init``); zero QKV biases."""
+    def draw(name, shape):
+        return _dense_init(gen, shape, dtype, device, out=slot(out, name))
     p = {
-        "wq": _dense_init(gen, (cfg.d_model, cfg.q_dim), dtype, device),
-        "wk": _dense_init(gen, (cfg.d_model, cfg.kv_dim), dtype, device),
-        "wv": _dense_init(gen, (cfg.d_model, cfg.kv_dim), dtype, device),
-        "wo": _dense_init(gen, (cfg.q_dim, cfg.d_model), dtype, device),
+        "wq": draw("wq", (cfg.d_model, cfg.q_dim)),
+        "wk": draw("wk", (cfg.d_model, cfg.kv_dim)),
+        "wv": draw("wv", (cfg.d_model, cfg.kv_dim)),
+        "wo": draw("wo", (cfg.q_dim, cfg.d_model)),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((cfg.q_dim,), dtype=dtype, device=device)
         p["bk"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=device)
     return p
+
+
+def init_mla_params(gen: torch.Generator, cfg, dtype: torch.dtype,
+                    device: torch.device, out=None):
+    """The reference's MLA tree, drawn in its order: the query's low-rank
+    down- and up-projections around ``q_norm``, the joint KV
+    down-projection (latent plus the shared rope key) and ``kv_norm``, the
+    latent's per-head key and value up-projections, and ``wo``; weights
+    normal x 1/sqrt(fan_in), unit norm scales."""
+    m = cfg.mla
+    H = cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def draw(name, shape):
+        return _dense_init(gen, shape, dtype, device, out=slot(out, name))
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+    return {
+        "w_dq": draw("w_dq", (cfg.d_model, m.q_lora_rank)),
+        "q_norm": ones(m.q_lora_rank),
+        "w_uq": draw("w_uq", (m.q_lora_rank, H * qk_head)),
+        "w_dkv": draw("w_dkv", (cfg.d_model,
+                                m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": ones(m.kv_lora_rank),
+        "w_uk": draw("w_uk", (m.kv_lora_rank, H * m.qk_nope_head_dim)),
+        "w_uv": draw("w_uv", (m.kv_lora_rank, H * m.v_head_dim)),
+        "wo": draw("wo", (H * m.v_head_dim, cfg.d_model)),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +140,53 @@ def decode_attention(q, k_cache, v_cache, valid_len, q_pos, window, scale):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.to(torch.float32))
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, causal: bool,
+                      window: Optional[int], scale: float,
+                      block_kv: int = 1024):
+    """Flash-style attention in plain PyTorch: a loop over KV blocks with
+    an online softmax, the reference's ``chunked_attention``.
+
+    q (B,Sq,H,D); k (B,Sk,Hkv,D), v (B,Sk,Hkv,Dv); q_pos (B,Sq), k_pos
+    (B,Sk). K and V are padded to whole blocks of ``block_kv``, the padded
+    positions marked with the 2**30 sentinel that ``_band_mask`` excludes.
+    The running max, denominator and accumulator are float32; every block
+    is computed, masked or not, as in the reference. Memory: one block's
+    (B, H, Sq, block_kv) float32 logits at a time, masked and
+    exponentiated in place."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    group = H // Hkv
+    f32 = torch.float32
+    nblk = -(-Sk // block_kv)
+    pad = nblk * block_kv - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=2 ** 30)
+    qg = (q.to(f32) * scale).reshape(B, Sq, Hkv, group, D)
+    m = torch.full((B, Hkv, group, Sq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, Hkv, group, Sq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Hkv, group, Sq, Dv), dtype=f32, device=q.device)
+    for i in range(nblk):
+        blk = slice(i * block_kv, (i + 1) * block_kv)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, blk].to(f32))
+        ok = _band_mask(q_pos[:, None, None], k_pos[:, None, None, blk],
+                        causal, window)                 # (B,1,1,Sq,block)
+        logits = logits.masked_fill_(~ok, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = logits.sub_(m_new[..., None]).exp_()
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p, v[:, blk].to(f32))
+        m = m_new
+        del logits, p       # free the block's logits before the next one's
+    out = acc / l.clamp_min(1e-37)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -177,4 +265,118 @@ def gqa_decode(params, cfg, x, angles, cache: KVCache, pos, *,
     if head_mask is not None:
         out = out * head_mask[None, None, :, None].to(out.dtype)
     out = out.reshape(B, 1, cfg.q_dim) @ params["wo"]
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V3). Prefill materialises per-head K/V; decode uses
+# the weight-absorbed latent form, so the cache stays (kv_lora_rank +
+# rope_dim) values a token whatever the head count.
+# ---------------------------------------------------------------------------
+class MLACache(NamedTuple):
+    ckv: torch.Tensor        # (B, Smax, kv_lora_rank)
+    krope: torch.Tensor      # (B, Smax, qk_rope_head_dim)
+
+
+def init_mla_cache(batch: int, max_len: int, mla, dtype: torch.dtype,
+                   device: torch.device) -> MLACache:
+    return MLACache(
+        torch.zeros((batch, max_len, mla.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, max_len, mla.qk_rope_head_dim), dtype=dtype,
+                    device=device))
+
+
+def _mla_qkv(params, cfg, x, angles, backend: str):
+    """(q_nope, q_rope, ckv, k_rope): the query's heads split into their
+    position-free and rotary parts, the normed KV latent and the one
+    rotary key all heads share. ``kv_norm`` normalises a strided slice of
+    the joint down-projection, which the rmsnorm wrapper makes
+    contiguous."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_lat = rmsnorm(x @ params["w_dq"], params["q_norm"], cfg.norm_eps,
+                    backend=backend)
+    q = (q_lat @ params["w_uq"]).reshape(
+        B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, angles)
+    dkv = x @ params["w_dkv"]
+    ckv = rmsnorm(dkv[..., :m.kv_lora_rank], params["kv_norm"],
+                  cfg.norm_eps, backend=backend)
+    k_rope = apply_rope(dkv[..., None, m.kv_lora_rank:], angles)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_forward(params, cfg, x, angles, *, head_mask=None,
+                backend: str = "auto"):
+    """Prefill path: per-head K/V materialised from the latent, the one
+    rotary key broadcast to all H heads; naive attention up to
+    ``cfg.naive_attn_max`` tokens, chunked above. Returns (out, (ckv,
+    k_rope)), what the cache keeps."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, cfg, x, angles, backend)
+    k_nope = (ckv @ params["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
+    vv = (ckv @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        B, S, H, m.qk_rope_head_dim)], -1)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    pos = torch.arange(S, device=x.device)
+    if S > cfg.naive_attn_max:
+        bpos = pos[None].expand(B, S)
+        out = chunked_attention(q, k, vv, bpos, bpos, cfg.causal, None,
+                                scale)
+    else:
+        mask = _band_mask(pos, pos, cfg.causal, None)
+        out = naive_attention(q, k, vv, mask, scale)
+    if head_mask is not None:
+        out = out * head_mask[None, None, :, None].to(out.dtype)
+    out = out.reshape(B, S, H * m.v_head_dim) @ params["wo"]
+    return out, (ckv, k_rope)
+
+
+def mla_decode(params, cfg, x, angles, cache: MLACache, pos, *,
+               head_mask=None, backend: str = "auto"):
+    """Absorbed decode: scores and values in the latent space, per head,
+
+        scores = (q_nope W_uk^T) . ckv + q_rope . k_rope
+        out    = (softmax(scores) @ ckv) W_uv,
+
+    in float32 (``w_uk`` absorbed and ``w_uv`` applied in float32, the head
+    mask on the float32 output), cast to x's dtype only before ``wo``. The
+    new latent and rotary key are written into ``cache``'s tensors in
+    place at slot ``pos % cache_len``, as ``gqa_decode`` does; the valid
+    slots are ``0..pos`` (MLA has no window)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    f32 = torch.float32
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv(params, cfg, x, angles,
+                                                  backend)
+    wuk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32), wuk.to(f32))
+    cache_len = cache.ckv.shape[1]
+    at = (pos % cache_len).long()
+    rows = torch.arange(B, device=x.device)
+    cache.ckv[rows, at] = ckv_new[:, 0]
+    cache.krope[rows, at] = krope_new[:, 0]
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    ckv = cache.ckv.to(f32)
+    s_lat = torch.einsum("bhr,bkr->bhk", q_lat, ckv)
+    s_rope = torch.einsum("bhd,bkd->bhk", q_rope[:, 0].to(f32),
+                          cache.krope.to(f32))
+    logits = (s_lat + s_rope) * scale
+    ok = torch.arange(cache_len, device=x.device)[None] < (pos[:, None] + 1)
+    logits = torch.where(ok[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    o_lat = torch.einsum("bhk,bkr->bhr", probs, ckv)
+    wuv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bhr,rhd->bhd", o_lat, wuv.to(f32))
+    if head_mask is not None:
+        out = out * head_mask[None, :, None]
+    out = out.reshape(B, 1, H * m.v_head_dim).to(x.dtype) @ params["wo"]
     return out, cache

@@ -18,24 +18,31 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.masked_matmul.ops import masked_matmul
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
+from repro_torch.models.layers.init import normal, slot
 
 GATED = {"silu_glu", "geglu"}
 
 
-def _init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w / math.sqrt(shape[0])).to(dtype)
+def _init(gen: torch.Generator, shape, dtype, device,
+          out=None) -> torch.Tensor:
+    return normal(gen, shape, dtype, device, div=math.sqrt(shape[0]),
+                  out=out)
 
 
 def init_mlp_params(gen: torch.Generator, d_model: int, d_ff: int,
                     activation: str, dtype: torch.dtype,
-                    device: torch.device) -> Dict[str, torch.Tensor]:
+                    device: torch.device,
+                    out=None) -> Dict[str, torch.Tensor]:
     """Normal weights scaled by 1/sqrt(fan_in), as the reference draws
-    them (from ``gen``, so the numbers are the port's own)."""
-    p = {"w_up": _init(gen, (d_model, d_ff), dtype, device),
-         "w_down": _init(gen, (d_ff, d_model), dtype, device)}
+    them (from ``gen``, so the numbers are the port's own), each into its
+    slot of ``out`` where given (``layers.init``)."""
+    p = {"w_up": _init(gen, (d_model, d_ff), dtype, device,
+                       slot(out, "w_up")),
+         "w_down": _init(gen, (d_ff, d_model), dtype, device,
+                         slot(out, "w_down"))}
     if activation in GATED:
-        p["w_gate"] = _init(gen, (d_model, d_ff), dtype, device)
+        p["w_gate"] = _init(gen, (d_model, d_ff), dtype, device,
+                            slot(out, "w_gate"))
     return p
 
 

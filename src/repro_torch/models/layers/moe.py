@@ -26,6 +26,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.mlp import GATED, _act
 
 
@@ -35,29 +36,34 @@ class MoEMetrics(NamedTuple):
     drop_frac: torch.Tensor     # fraction of assignments dropped
 
 
-def _init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w / math.sqrt(shape[-2])).to(dtype)
+def _init(gen: torch.Generator, shape, dtype, device,
+          out=None) -> torch.Tensor:
+    return normal(gen, shape, dtype, device, div=math.sqrt(shape[-2]),
+                  out=out)
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, moe, activation: str,
-                    dtype: torch.dtype,
-                    device: torch.device) -> Dict[str, torch.Tensor]:
+                    dtype: torch.dtype, device: torch.device,
+                    out=None) -> Dict[str, torch.Tensor]:
     """The reference's tree and distributions (a float32 router scaled by
     1/sqrt(d_model); expert and shared-expert weights normal over
-    sqrt(fan_in)), drawn from ``gen``, so the numbers are the port's own."""
+    sqrt(fan_in)), drawn from ``gen``, so the numbers are the port's own;
+    each into its slot of ``out`` where given (``layers.init``)."""
     E, de = moe.num_experts, moe.d_expert
-    p = {"w_router": _init(gen, (d_model, E), torch.float32, device),
-         "w_up": _init(gen, (E, d_model, de), dtype, device),
-         "w_down": _init(gen, (E, de, d_model), dtype, device)}
+
+    def draw(name, shape, dt=dtype):
+        return _init(gen, shape, dt, device, slot(out, name))
+    p = {"w_router": draw("w_router", (d_model, E), torch.float32),
+         "w_up": draw("w_up", (E, d_model, de)),
+         "w_down": draw("w_down", (E, de, d_model))}
     if activation in GATED:
-        p["w_gate"] = _init(gen, (E, d_model, de), dtype, device)
+        p["w_gate"] = draw("w_gate", (E, d_model, de))
     if moe.num_shared:
         ds = de * moe.num_shared
-        p["w_up_sh"] = _init(gen, (d_model, ds), dtype, device)
-        p["w_down_sh"] = _init(gen, (ds, d_model), dtype, device)
+        p["w_up_sh"] = draw("w_up_sh", (d_model, ds))
+        p["w_down_sh"] = draw("w_down_sh", (ds, d_model))
         if activation in GATED:
-            p["w_gate_sh"] = _init(gen, (d_model, ds), dtype, device)
+            p["w_gate_sh"] = draw("w_gate_sh", (d_model, ds))
     return p
 
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.norms import gated_rmsnorm
 
 
@@ -40,13 +41,14 @@ def conv_dim(cfg) -> int:
 
 
 def init_ssm_params(gen: torch.Generator, cfg, dtype: torch.dtype,
-                    device: torch.device):
+                    device: torch.device, out=None):
     """The reference's distributions, drawn from ``gen``: ``w_in``/``w_out``
     normal / sqrt(fan_in), ``conv_w`` normal / sqrt(d_conv), zero
     ``conv_b``, ``A_log = log(linspace(1, 16, H))``, ``dt_bias`` the inverse
     softplus of a log-uniform dt in [1e-3, 1e-1], ``D`` ones, unit
     ``norm_scale``. ``A_log``, ``dt_bias`` and ``D`` stay float32 whatever
-    ``dtype`` is."""
+    ``dtype`` is. The weights go into their slots of ``out`` where given
+    (``layers.init``)."""
     s = cfg.ssm
     H = cfg.ssm_heads
     d_in = cfg.d_inner
@@ -54,12 +56,12 @@ def init_ssm_params(gen: torch.Generator, cfg, dtype: torch.dtype,
     proj_out = 2 * d_in + 2 * s.n_groups * s.d_state + H
     f32 = torch.float32
 
-    def normal(shape, scale):
-        w = torch.randn(shape, generator=gen, dtype=f32, device=device)
-        return (w * scale).to(dtype)
+    def draw(name, shape, scale):
+        return normal(gen, shape, dtype, device, mul=scale,
+                      out=slot(out, name))
 
-    w_in = normal((cfg.d_model, proj_out), 1.0 / math.sqrt(cfg.d_model))
-    conv_w = normal((s.d_conv, cdim), 1.0 / math.sqrt(s.d_conv))
+    w_in = draw("w_in", (cfg.d_model, proj_out), 1.0 / math.sqrt(cfg.d_model))
+    conv_w = draw("conv_w", (s.d_conv, cdim), 1.0 / math.sqrt(s.d_conv))
     u = torch.rand((H,), generator=gen, dtype=f32, device=device)
     dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
     return {
@@ -71,7 +73,7 @@ def init_ssm_params(gen: torch.Generator, cfg, dtype: torch.dtype,
         "dt_bias": dt + torch.log(-torch.expm1(-dt)),
         "D": torch.ones((H,), dtype=f32, device=device),
         "norm_scale": torch.ones((d_in,), dtype=dtype, device=device),
-        "w_out": normal((d_in, cfg.d_model), 1.0 / math.sqrt(d_in)),
+        "w_out": draw("w_out", (d_in, cfg.d_model), 1.0 / math.sqrt(d_in)),
     }
 
 

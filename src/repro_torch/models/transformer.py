@@ -1,7 +1,9 @@
 """Decoder stack of the transformer families the port serves:
 
   dense   — pre-norm GQA + (gated / non-gated) FFN      [gemma, qwen, nemotron]
-  moe     — pre-norm GQA + sort-dispatch MoE FFN        [mixtral]
+  moe     — GQA or MLA attention + sort-dispatch MoE FFN,
+            optionally after dense (``attn_dense``) layers [mixtral,
+                                                            deepseek-v3]
   ssm     — Mamba2 (SSD) blocks, attention-free         [mamba2]
   hybrid  — Mamba2 backbone + one SHARED attention block
             applied every ``shared_attn_period`` layers  [zamba2]
@@ -13,9 +15,13 @@ between the packages unchanged) and walks each run with a Python loop over
 views of its stacked tensors. A hybrid run walks groups of ``period`` ssm
 layers, each followed by the shared block, then the ungrouped tail. An
 MoE run sums its layers' router losses (``moe_aux``, ``moe_z``) as the
-reference's scan carries them. MLA, MTP, dense layers before the MoE layers
-(DeepSeek-V3's ``attn_dense`` run), audio and VLM configs raise
-``NotImplementedError`` naming the slice that brings them.
+reference's scan carries them. An MLA stack (DeepSeek-V3) caches each
+layer's KV latent and shared rotary key (``MLACache``) at ``max_len``, and
+its rotary angles span ``qk_rope_head_dim``. A config with ``mtp_depth``
+gets the reference's ``mtp`` subtree (its GQA block, projection and norm);
+serving never runs it, and its loss comes with the training slice. Audio
+and VLM configs raise ``NotImplementedError`` naming the slice that brings
+them.
 
 Three entry points, cache-consistent with each other:
   forward      — full sequence, logits for every position
@@ -33,8 +39,8 @@ entry, ``flash_attention``, ``masked_matmul``, ``ssd_scan``) through its
 wrapper, which launches the CUDA kernel for a tensor on the card and the
 plain version for one on the CPU; ``backend="ref"`` runs the plain
 versions wherever the tensors are (the yardstick on the card). The MoE
-dispatch and expert products are plain PyTorch on both backends, as the
-reference leaves them to XLA.
+dispatch and expert products, and MLA's attention (naive or chunked), are
+plain PyTorch on both backends, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -45,9 +51,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.layers.attention import (KVCache, gqa_decode,
-                                                 gqa_forward, init_gqa_params)
+from repro_torch.models.layers.attention import (KVCache, MLACache,
+                                                 gqa_decode, gqa_forward,
+                                                 init_gqa_params,
+                                                 init_mla_params, mla_decode,
+                                                 mla_forward)
 from repro_torch.models.layers import ssm as ssm_lib
+from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.mlp import init_mlp_params, mlp_forward
 from repro_torch.models.layers.moe import init_moe_params, moe_forward
 from repro_torch.models.layers.norms import rmsnorm
@@ -86,18 +96,6 @@ def hybrid_split(cfg: ModelConfig, count: int) -> Tuple[int, int]:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose blocks the port
     does not have yet, naming the slice that brings them."""
-    if cfg.attention != "gqa" and cfg.arch_type != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention!r} attention comes with the MLA "
-            f"slice (ROADMAP A7b)")
-    if cfg.arch_type == "moe" and cfg.num_dense_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: dense layers before the MoE layers come with the "
-            f"DeepSeek-V3 slice (ROADMAP A7b)")
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token-prediction blocks come with the MLA "
-            f"slice (ROADMAP A7b)")
     if cfg.arch_type == "audio" or cfg.embeds_input:
         raise NotImplementedError(
             f"{cfg.name}: the audio encoder comes with the vision and audio "
@@ -127,53 +125,75 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_attn_layer(cfg: ModelConfig, gen: torch.Generator,
-                     dtype: torch.dtype, device: torch.device):
+def _init_attention(cfg: ModelConfig, gen, dtype, device, out):
+    init = init_mla_params if cfg.attention == "mla" else init_gqa_params
+    return init(gen, cfg, dtype, device, out=out)
+
+
+def _init_attn_layer(cfg: ModelConfig, gen: Optional[torch.Generator],
+                     dtype: torch.dtype, device: torch.device, out=None):
     return {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "attn": init_gqa_params(gen, cfg, dtype, device),
+        "attn": _init_attention(cfg, gen, dtype, device, slot(out, "attn")),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "mlp": init_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                               dtype, device),
+                               dtype, device, out=slot(out, "mlp")),
     }
 
 
-def _init_moe_layer(cfg: ModelConfig, gen: torch.Generator,
-                    dtype: torch.dtype, device: torch.device):
+def _init_moe_layer(cfg: ModelConfig, gen: Optional[torch.Generator],
+                    dtype: torch.dtype, device: torch.device, out=None):
     return {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "attn": init_gqa_params(gen, cfg, dtype, device),
+        "attn": _init_attention(cfg, gen, dtype, device, slot(out, "attn")),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "moe": init_moe_params(gen, cfg.d_model, cfg.moe, cfg.activation,
-                               dtype, device),
+                               dtype, device, out=slot(out, "moe")),
     }
 
 
-def _init_ssm_layer(cfg: ModelConfig, gen: torch.Generator,
-                    dtype: torch.dtype, device: torch.device):
+def _init_ssm_layer(cfg: ModelConfig, gen: Optional[torch.Generator],
+                    dtype: torch.dtype, device: torch.device, out=None):
     return {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "ssm": ssm_lib.init_ssm_params(gen, cfg, dtype, device),
+        "ssm": ssm_lib.init_ssm_params(gen, cfg, dtype, device,
+                                       out=slot(out, "ssm")),
     }
 
 
-_RUN_INIT = {"attn": _init_attn_layer, "moe": _init_moe_layer,
-             "ssm": _init_ssm_layer}
+_RUN_INIT = {"attn": _init_attn_layer, "attn_dense": _init_attn_layer,
+             "moe": _init_moe_layer, "ssm": _init_ssm_layer}
 
 
-def _stack_into(dst, src, i: int, count: int):
-    """Write layer ``i``'s tree into the stacked tree ``dst`` (allocated
-    from the first layer's shapes); returns ``dst``."""
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _fill(dst, src) -> None:
+    """Copy each leaf of ``src`` into ``dst``'s, unless it was drawn there
+    already."""
     if isinstance(src, dict):
-        dst = {} if dst is None else dst
         for k, v in src.items():
-            dst[k] = _stack_into(dst.get(k), v, i, count)
-        return dst
-    if dst is None:
-        dst = torch.empty((count,) + tuple(src.shape), dtype=src.dtype,
-                          device=src.device)
-    dst[i] = src
-    return dst
+            _fill(dst[k], v)
+    elif src.data_ptr() != dst.data_ptr():
+        dst.copy_(src)
+
+
+def _init_run(run: Run, cfg: ModelConfig, gen: torch.Generator,
+              dtype: torch.dtype, device: torch.device):
+    """A run's stacked tree: its (count, ...) tensors allocated from one
+    pass of the layer's init on the ``meta`` device, then each layer drawn
+    into its slots (``layers.init``), in layer order."""
+    init = _RUN_INIT[run.kind]
+    stacked = _map(lambda t: torch.empty((run.count,) + tuple(t.shape),
+                                         dtype=t.dtype, device=device),
+                   init(cfg, None, dtype, torch.device("meta")))
+    for i in range(run.count):
+        slots = _index(stacked, i)
+        _fill(slots, init(cfg, gen, dtype, device, out=slots))
+    return stacked
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -183,37 +203,38 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     scales, zero QKV biases; the Mamba2 block's own in
     ``ssm.init_ssm_params``), drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the card unless the caller asks for the CPU).
-    Each tensor is drawn in float32 and cast on its own, one layer at a
-    time, so no float32 copy of the model is ever held."""
+    Each tensor is drawn in float32, scaled in place and cast into its
+    slot of the stacked run tensor, so the peak is the tree plus the
+    largest float32 tensor. A config with ``mtp_depth`` also gets the
+    reference's ``mtp`` subtree: the projection of [hidden; next
+    embedding], a GQA attention block (an MLA config's block is GQA, as in
+    the reference) and its norm."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     V = cfg.padded_vocab
-
-    def normal(shape, scale):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=dev)
-        return (w * scale).to(dtype)
-
     params: Dict[str, Any] = {
-        "embed": normal((V, cfg.d_model), 0.02),
+        "embed": normal(gen, (V, cfg.d_model), dtype, dev, mul=0.02),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((cfg.d_model, V),
-                                   1.0 / math.sqrt(cfg.d_model))
-    params["runs"] = []
-    for run in layer_runs(cfg):
-        stacked = None
-        for i in range(run.count):
-            stacked = _stack_into(stacked,
-                                  _RUN_INIT[run.kind](cfg, gen, dtype, dev),
-                                  i, run.count)
-        params["runs"].append(stacked)
+        params["lm_head"] = normal(gen, (cfg.d_model, V), dtype, dev,
+                                   mul=1.0 / math.sqrt(cfg.d_model))
+    params["runs"] = [_init_run(run, cfg, gen, dtype, dev)
+                      for run in layer_runs(cfg)]
     if cfg.shared_attn_period:
         params["shared"] = _init_attn_layer(
             cfg.replace(d_ff=cfg.d_ff or 4 * cfg.d_model), gen, dtype, dev)
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        params["mtp"] = {
+            "proj": normal(gen, (2 * d, d), dtype, dev,
+                           div=math.sqrt(2 * d)),
+            "block": _init_attn_layer(cfg.replace(attention="gqa"), gen,
+                                      dtype, dev),
+            "ln": torch.ones((d,), dtype=dtype, device=dev),
+        }
     return params
 
 
@@ -255,11 +276,18 @@ def embed_inputs(params, cfg: ModelConfig,
     return x, B, S
 
 
+def _rope_dim(cfg: ModelConfig) -> int:
+    """The width the rotary angles span: MLA's rotary head part, else the
+    head dim."""
+    return (cfg.mla.qk_rope_head_dim if cfg.attention == "mla"
+            else cfg.head_dim)
+
+
 def _angles_for(cfg: ModelConfig, B: int, S: int, offset, device):
     if cfg.rope_mode == "none":
         return None
     pos = positions_for(B, S, offset, device).expand(B, S)
-    return rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    return rope_angles(pos, _rope_dim(cfg), cfg.rope_theta)
 
 
 def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -275,13 +303,14 @@ def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # stack walker (shared by forward & prefill)
 # ---------------------------------------------------------------------------
 def _attn_block(cfg, lp, x, angles, mask, backend):
-    """An attention block with an FFN or an MoE layer (the reference's
-    ``_attn_block`` and ``_moe_block``): (x, (k, v), MoEMetrics or
-    None)."""
+    """An attention block (GQA or MLA) with an FFN or an MoE layer (the
+    reference's ``_attn_block`` and ``_moe_block``): (x, what the cache
+    keeps — (k, v), or MLA's (ckv, k_rope) —, MoEMetrics or None)."""
     mask = mask or {}
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
-    a, kv = gqa_forward(lp["attn"], cfg, h, angles,
-                        head_mask=mask.get("head_mask"), backend=backend)
+    attend = mla_forward if cfg.attention == "mla" else gqa_forward
+    a, kv = attend(lp["attn"], cfg, h, angles,
+                   head_mask=mask.get("head_mask"), backend=backend)
     x = x + a
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
     if "moe" in lp:
@@ -319,11 +348,11 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
                backend: str, on_kv=None, on_state=None, on_shared_kv=None):
     """Run every layer over x; returns (x, {"moe_aux", "moe_z"}), the MoE
     layers' router losses summed (zeros without MoE layers). Each callback,
-    when given, receives what prefill keeps: ``on_kv(run, layer_in_run, k,
-    v)`` each attention or MoE layer's keys and values, ``on_state(run,
-    layer_in_run, SSMCache)`` each Mamba2 layer's conv tail and final
-    state, ``on_shared_kv(g, k, v)`` the keys and values of the shared
-    block's invocation ``g``."""
+    when given, receives what prefill keeps: ``on_kv(run, layer_in_run,
+    kv)`` each attention or MoE layer's (keys, values), or MLA's (latent,
+    rotary key); ``on_state(run, layer_in_run, SSMCache)`` each Mamba2
+    layer's conv tail and final state; ``on_shared_kv(g, k, v)`` the keys
+    and values of the shared block's invocation ``g``."""
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -332,13 +361,12 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
         for j in range(run.count):
             lp, mk = _index(rp, j), _index(rmask, j)
             if run.kind != "ssm":
-                x, (k, v), metrics = _attn_block(cfg, lp, x, angles, mk,
-                                                 backend)
+                x, kv, metrics = _attn_block(cfg, lp, x, angles, mk, backend)
                 if metrics is not None:
                     aux = aux + metrics.aux_loss
                     zl = zl + metrics.z_loss
                 if on_kv is not None:
-                    on_kv(r, j, k, v)
+                    on_kv(r, j, kv)
                 continue
             x, st = _ssm_block(cfg, lp, x, mk, backend,
                                collect_state=on_state is not None)
@@ -380,11 +408,13 @@ def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
 def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
                  device: torch.device) -> Dict[str, Any]:
     """{"runs": [KVCache((count, B, clen, Hkv, D) x2) for an attention run,
-    SSMCache(conv (count, B, d_conv-1, conv_dim), state (count, B, H, P, N)
-    float32) for an ssm run]} and, for a hybrid, "shared": KVCache((ninv,
-    B, max_len, Hkv, D) x2), one slot per invocation of the shared block.
-    A hybrid's ssm layers are stacked flat, in layer order (the reference
-    splits them into (groups, period) and a tail)."""
+    MLACache(ckv (count, B, max_len, kv_lora_rank), krope (count, B,
+    max_len, rope_dim)) for an MLA stack's, SSMCache(conv (count, B,
+    d_conv-1, conv_dim), state (count, B, H, P, N) float32) for an ssm
+    run]} and, for a hybrid, "shared": KVCache((ninv, B, max_len, Hkv, D)
+    x2), one slot per invocation of the shared block. A hybrid's ssm
+    layers are stacked flat, in layer order (the reference splits them
+    into (groups, period) and a tail)."""
     dtype = getattr(torch, cfg.dtype)
     clen = cache_len_for(cfg, max_len)
 
@@ -399,6 +429,11 @@ def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
             base = ssm_lib.init_ssm_cache(cfg, batch_size, dtype, device)
             caches.append(ssm_lib.SSMCache(*(
                 t.new_zeros((run.count,) + tuple(t.shape)) for t in base)))
+        elif cfg.attention == "mla":
+            caches.append(MLACache(*(torch.zeros(
+                (run.count, batch_size, max_len, width), dtype=dtype,
+                device=device) for width in (cfg.mla.kv_lora_rank,
+                                             cfg.mla.qk_rope_head_dim))))
         else:
             caches.append(kv(run.count, clen))
     out: Dict[str, Any] = {"runs": caches}
@@ -460,10 +495,15 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
                 f"prefill max_len={max_len} < prefill length {S}")
         caches = _zero_caches(cfg, B, max_len, x.device)
 
-        def on_kv(r, j, k, v):
-            kc, vc = _kv_to_cache(cfg, k, v, max_len)
-            caches["runs"][r].k[j] = kc
-            caches["runs"][r].v[j] = vc
+        def on_kv(r, j, kv):
+            dst = caches["runs"][r]
+            if cfg.attention == "mla":        # (ckv, k_rope) at max_len
+                dst.ckv[j, :, :S] = kv[0]
+                dst.krope[j, :, :S] = kv[1]
+                return
+            kc, vc = _kv_to_cache(cfg, *kv, max_len)
+            dst.k[j] = kc
+            dst.v[j] = vc
 
         def on_state(r, j, st):
             caches["runs"][r].conv[j] = st.conv
@@ -489,9 +529,9 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 masks: Masks = None, backend: str = "auto"):
     """tokens (B,1) -> (logits (B,V), new cache). The tensors of ``cache``
-    are updated in place (KV slots by ``gqa_decode``, each Mamba2 layer's
-    conv window and state copied over); the returned cache holds them and
-    the advanced positions."""
+    are updated in place (KV slots by ``gqa_decode``, latent slots by
+    ``mla_decode``, each Mamba2 layer's conv window and state copied over);
+    the returned cache holds them and the advanced positions."""
     check_supported(cfg)
     _check_backend(backend)
     pos = cache["pos"]
@@ -499,7 +539,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     angles = (None if cfg.rope_mode == "none" else
-              rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta))
+              rope_angles(pos[:, None], _rope_dim(cfg), cfg.rope_theta))
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
     for run, rp, rc, rmask in zip(runs, params["runs"], cache["runs"],
@@ -523,22 +563,27 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                                      KVCache(shared.k[g], shared.v[g]), pos,
                                      None, backend)
                 continue
-            x = _attn_decode(cfg, lp, x, angles, KVCache(rc.k[j], rc.v[j]),
-                             pos, mk, backend)
+            x = _attn_decode(cfg, lp, x, angles,
+                             type(rc)(*(t[j] for t in rc)), pos, mk, backend)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
     logits = _lm_logits(params, cfg, x[:, 0])
     return logits, dict(cache, pos=pos + 1)
 
 
-def _attn_decode(cfg, lp, x, angles, kv: KVCache, pos, mask, backend):
-    """One token through an attention or MoE block; its key and value go
-    into slot ``pos`` of ``kv``, in place. An MoE block dispatches the
-    step's B tokens as one ``moe_forward`` (capacity ``capacity(B)``, at
-    least 8 slots an expert)."""
+def _attn_decode(cfg, lp, x, angles, kv, pos, mask, backend):
+    """One token through an attention or MoE block; its key and value (a
+    ``KVCache``), or its latent and rotary key (an ``MLACache``), go into
+    slot ``pos`` of ``kv``, in place. An MoE block dispatches the step's B
+    tokens as one ``moe_forward`` (capacity ``capacity(B)``, at least 8
+    slots an expert)."""
     mask = mask or {}
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
-    a, _ = gqa_decode(lp["attn"], cfg, h, angles, kv, pos,
-                      head_mask=mask.get("head_mask"))
+    if cfg.attention == "mla":
+        a, _ = mla_decode(lp["attn"], cfg, h, angles, kv, pos,
+                          head_mask=mask.get("head_mask"), backend=backend)
+    else:
+        a, _ = gqa_decode(lp["attn"], cfg, h, angles, kv, pos,
+                          head_mask=mask.get("head_mask"))
     x = x + a
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
     if "moe" in lp:

@@ -1,7 +1,8 @@
 """The port's structured pruning masks (``repro_torch.core.pruning
 .masks``) against the reference's on the same parameters: the kept units
 must be identical, bit for bit — attention heads and FFN channels of the
-dense families, SSD heads of Mamba2 and Zamba2, and the CNN's channels."""
+dense families, SSD heads of Mamba2 and Zamba2, and the CNN's channels
+(the MoE and MLA axes: ``test_torch_moe.py``, ``test_torch_mla.py``)."""
 from __future__ import annotations
 
 import jax
@@ -21,9 +22,9 @@ from torch_parity import (port_params, ref_tree, tiny_setup,
 DENSE = ["qwen2-7b", "qwen1.5-4b", "gemma-7b", "nemotron-4-340b"]
 
 
-def _setup(arch, dtype, seed=0):
-    cr = rreg.get_smoke_config(arch).replace(dtype=dtype)
-    ct = treg.get_smoke_config(arch).replace(dtype=dtype)
+def _setup(arch, dtype, seed=0, **overrides):
+    cr = rreg.get_smoke_config(arch).replace(dtype=dtype, **overrides)
+    ct = treg.get_smoke_config(arch).replace(dtype=dtype, **overrides)
     pn = transformer_params_np(cr, seed)
     return (cr, ct, jax.tree_util.tree_map(jnp.asarray, pn),
             transformer_params_from_reference(pn))
@@ -125,16 +126,18 @@ def test_ssm_half_ratio_and_min_keep_match_reference():
 def test_unported_families_raise(arch):
     """The MoE family, refused here until its slice, now has the
     reference's units and masks (a head and an expert unit a layer, both
-    dtypes); an MoE stack with a dense first layer (DeepSeek-V3's
-    ``attn_dense`` run) is still refused."""
-    for dtype in ("float32", "bfloat16"):
-        cr, ct, pj, pt = _setup(arch, dtype, seed=6)
-        units = rmasks.transformer_prunable_units(cr)
-        assert tmasks.transformer_prunable_units(ct) == units
-        ratios = list(np.random.default_rng(7).uniform(0.1, 1.0, len(units)))
-        _assert_same_masks(
-            rmasks.transformer_masks_from_ratios(pj, cr, ratios),
-            tmasks.transformer_masks_from_ratios(pt, ct, ratios))
-    with pytest.raises(NotImplementedError, match="dense layers"):
-        tmasks.transformer_prunable_units(
-            treg.get_smoke_config(arch).replace(num_dense_layers=1))
+    dtypes); so, since the MLA slice, has an MoE stack with a dense first
+    layer (DeepSeek-V3's ``attn_dense`` run: a head and an FFN unit for
+    it, then the MoE layer's), once refused here."""
+    for overrides in ({}, {"num_dense_layers": 1}):
+        for dtype in ("float32", "bfloat16"):
+            cr, ct, pj, pt = _setup(arch, dtype, seed=6, **overrides)
+            units = rmasks.transformer_prunable_units(cr)
+            assert tmasks.transformer_prunable_units(ct) == units
+            ratios = list(np.random.default_rng(7).uniform(
+                0.1, 1.0, len(units)))
+            _assert_same_masks(
+                rmasks.transformer_masks_from_ratios(pj, cr, ratios),
+                tmasks.transformer_masks_from_ratios(pt, ct, ratios))
+    assert [u["axis"] for u in units] == ["head_mask", "ffn_mask",
+                                          "head_mask", "expert_mask"]

@@ -20,7 +20,7 @@ experts each token picks) and ``drop_frac`` must be equal exactly: a layer
 given the same input picks the same experts, since no two of its scores
 tie (``moe.route``'s docstring says where a tie could arise). Through the
 bf16 stack a logit row may also differ by twice the reference's own two
-paths' gap on that row (``_assert_rows_close``: a route flip).
+paths' gap on that row (``assert_rows_close``: a route flip).
 """
 from __future__ import annotations
 
@@ -35,7 +35,6 @@ import torch
 from repro.configs import registry as rreg
 from repro.configs.base import MoEConfig as RMoEConfig
 from repro.core.pruning import masks as rmasks
-from repro.kernels import dispatch
 from repro.models import transformer as rtr
 from repro.models.layers import moe as rmoe
 from repro_torch.configs import registry as treg
@@ -48,7 +47,8 @@ from repro_torch.kernels.flash_attention.ops import check_head_dim
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as ttr
 from repro_torch.models.layers import moe as tmoe
-from torch_parity import BF16_SPACING, EPS32, to_f32, transformer_params_np
+from torch_parity import (assert_rows_close, both_reference_paths,
+                          stack_tol, to_f32, transformer_params_np)
 
 ARCH = "mixtral-8x7b"
 #: the lone layer's routing options: MoEConfig overrides
@@ -60,18 +60,6 @@ LAYER_VARIANTS = {
     "dropping": {"capacity_factor": 0.25},
 }
 D_LAYER, E_LAYER, DE_LAYER = 128, 4, 96
-
-
-def _tol(want: np.ndarray, dtype: str) -> float:
-    big = max(1.0, float(np.abs(want).max()))
-    return (64 * EPS32 if dtype == "float32" else 4 * BF16_SPACING) * big
-
-
-def _both_reference_paths(fn):
-    """fn() with the reference's Pallas kernels (interpret) and without."""
-    with dispatch.use_pallas(interpret=True):
-        on = fn()
-    return on, fn()
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +117,7 @@ def test_route_matches_reference(variant, dtype, masked):
     for g, w in zip((got[0], got[2], got[3]), (want[0], want[2], want[3])):
         assert g.dtype == torch.float32
         w = to_f32(w)
-        assert np.abs(to_f32(g) - w).max() <= _tol(w, "float32")
+        assert np.abs(to_f32(g) - w).max() <= stack_tol(w, "float32")
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -143,9 +131,9 @@ def test_moe_forward_matches_reference(variant, dtype, masked):
     got, gm = tmoe.moe_forward(pt, mt, xt, "silu_glu", expert_mask=mk)
     assert got.shape == xt.shape and got.dtype == xt.dtype
     want = to_f32(want)
-    assert np.abs(to_f32(got) - want).max() <= _tol(want, dtype)
+    assert np.abs(to_f32(got) - want).max() <= stack_tol(want, dtype)
     for g, w in ((gm.aux_loss, wm.aux_loss), (gm.z_loss, wm.z_loss)):
-        assert abs(float(g) - float(w)) <= _tol(np.asarray(w), "float32")
+        assert abs(float(g) - float(w)) <= stack_tol(np.asarray(w), "float32")
     assert float(gm.drop_frac) == float(wm.drop_frac)
     if variant == "dropping":
         assert float(gm.drop_frac) > 0.5
@@ -164,7 +152,7 @@ def test_dropped_assignments_follow_token_order():
     assert float(metrics.drop_frac) == float(wm.drop_frac)
     assert float(metrics.drop_frac) == pytest.approx(1 - 32 / 40)
     np.testing.assert_allclose(out.numpy(), np.asarray(want),
-                               rtol=0, atol=_tol(np.asarray(want),
+                               rtol=0, atol=stack_tol(np.asarray(want),
                                                  "float32"))
     assert (out[0, 16:] == 0).all() and (out[0, :16] != 0).any()
 
@@ -191,22 +179,6 @@ def _tokens(cfg, B, S, seed=2):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
 
 
-def _assert_rows_close(got, on, off, dtype):
-    """``got`` within the tolerance of each reference path (``on``: its
-    Pallas kernels in interpret mode, ``off``: its XLA path), row by row (a
-    row is one position's logits). In bf16 a row may also differ by twice
-    the reference's own two paths' gap on that row: rounding at other
-    points can move a token's router scores across the top-k boundary,
-    which routes it to another expert, and the reference's two paths do so
-    themselves (the unmasked smoke forward: a gap of 1.82 between them at
-    2 of its 160 rows, where the port's largest gap to the Pallas path is
-    0.047)."""
-    spread = (0.0 if dtype == "float32"
-              else 2 * np.abs(on - off).max(-1, keepdims=True))
-    for want in (on, off):
-        assert (np.abs(got - want) <= _tol(want, dtype) + spread).all()
-
-
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mixtral_forward_matches_reference(dtype, masked):
@@ -217,15 +189,15 @@ def test_mixtral_forward_matches_reference(dtype, masked):
     got, aux = ttr.forward(pt, ct, {"tokens": torch.from_numpy(tok)}, mt)
     assert got.shape == (2, 80, ct.vocab_size)
     assert got.dtype == getattr(torch, dtype)
-    refs = _both_reference_paths(lambda: rtr.forward(
+    refs = both_reference_paths(lambda: rtr.forward(
         pj, cr, {"tokens": jnp.asarray(tok)}, mj))
-    _assert_rows_close(to_f32(got), *(to_f32(lg) for lg, _ in refs), dtype)
+    assert_rows_close(to_f32(got), *(to_f32(lg) for lg, _ in refs), dtype)
     for _, raux in refs:
         for key in ("moe_aux", "moe_z"):
             assert aux[key].dtype == torch.float32
             w = to_f32(raux[key])
             assert float(w) > 0
-            assert abs(float(aux[key]) - float(w)) <= _tol(w, dtype)
+            assert abs(float(aux[key]) - float(w)) <= stack_tol(w, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -266,9 +238,9 @@ def test_mixtral_prefill_then_decode_matches_reference(dtype):
         outs.append(to_f32(lg))
     got = np.stack(outs, 1)
     assert cache["pos"].tolist() == [S] * B
-    _assert_rows_close(got, *_both_reference_paths(reference), dtype)
+    assert_rows_close(got, *both_reference_paths(reference), dtype)
     for snap in snaps:
-        assert np.abs(k_prefill - snap).max() <= _tol(snap, dtype)
+        assert np.abs(k_prefill - snap).max() <= stack_tol(snap, dtype)
 
     roomy = ct.replace(moe=dataclasses.replace(
         ct.moe, capacity_factor=ct.moe.num_experts / ct.moe.top_k))
@@ -281,7 +253,7 @@ def test_mixtral_prefill_then_decode_matches_reference(dtype):
         outs.append(to_f32(lg))
     full = to_f32(ttr.forward(pt, roomy, {"tokens": torch.from_numpy(tok)},
                               mt)[0])[:, S - n_dec - 1:]
-    assert np.abs(np.stack(outs, 1) - full).max() <= _tol(full, dtype)
+    assert np.abs(np.stack(outs, 1) - full).max() <= stack_tol(full, dtype)
 
 
 def test_mixtral_masks_from_ratios_match_reference():
@@ -344,15 +316,18 @@ def test_mixtral_trees_cross_interop_both_ways():
 
 def test_mixtral_full_config_is_served_and_the_rest_refused():
     """``make_prefill_step`` takes the full Mixtral config (its head dim
-    128 has a flash kernel instance); a smoke MoE config with a dense
-    first layer (DeepSeek-V3's ``attn_dense`` run) is still refused,
+    128 has a flash kernel instance) and a smoke MoE config with a dense
+    first layer (DeepSeek-V3's ``attn_dense`` run, served since the MLA
+    slice); an MoE config with audio frames for input is still refused,
     naming its slice."""
     cfg = treg.get_config(ARCH)
     check_head_dim(cfg.head_dim)
     assert callable(make_prefill_step(cfg, device="cpu"))
     assert callable(make_decode_step(cfg, device="cpu"))
     dense_first = treg.get_smoke_config(ARCH).replace(num_dense_layers=1)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        make_prefill_step(dense_first, device="cpu")
+    assert callable(make_prefill_step(dense_first, device="cpu"))
+    audio = treg.get_smoke_config(ARCH).replace(embeds_input=True)
+    with pytest.raises(NotImplementedError, match="A7c"):
+        make_prefill_step(audio, device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         rreg.get_config(ARCH))

@@ -25,6 +25,7 @@ state also gets twice the spread between the reference's own two paths
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -49,19 +50,22 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as ttr
 from torch_parity import BF16_SPACING, EPS32, to_f32, transformer_params_np
 
-#: configs whose blocks later slices bring, built from the dense and MoE
-#: smoke configs (an MoE stack whose first layer is dense: DeepSeek-V3's
-#: ``attn_dense`` run)
+#: configs a refusal case pinned, each built from a registry module's smoke
+#: configs (``reg``: the reference's or the port's): an MoE stack whose
+#: first layer is dense (DeepSeek-V3's ``attn_dense`` run), a dense stack
+#: with MLA attention (DeepSeek-V3's MLA shape), one with an MTP head, and
+#: the audio and vision families later slices bring
 UNPORTED = {
-    "moe_dense_layers": lambda: treg.get_smoke_config(
+    "moe_dense_layers": lambda reg: reg.get_smoke_config(
         "mixtral-8x7b").replace(num_dense_layers=1),
-    "mla": lambda: treg.get_smoke_config("qwen2-7b").replace(
-        attention="mla"),
-    "audio": lambda: treg.get_smoke_config("qwen2-7b").replace(
+    "mla": lambda reg: reg.get_smoke_config("qwen2-7b").replace(
+        attention="mla",
+        mla=reg.get_smoke_config("deepseek-v3-671b").mla),
+    "audio": lambda reg: reg.get_smoke_config("qwen2-7b").replace(
         arch_type="audio", embeds_input=True, causal=False),
-    "vlm": lambda: treg.get_smoke_config("qwen2-7b").replace(
+    "vlm": lambda reg: reg.get_smoke_config("qwen2-7b").replace(
         arch_type="vlm", vision_tokens=16, rope_mode="mrope"),
-    "mtp": lambda: treg.get_smoke_config("qwen2-7b").replace(mtp_depth=1),
+    "mtp": lambda reg: reg.get_smoke_config("qwen2-7b").replace(mtp_depth=1),
 }
 DENSE = ["qwen2-7b", "qwen1.5-4b", "gemma-7b", "nemotron-4-340b"]
 #: the SSM and hybrid smoke configs: (registry id, overrides)
@@ -78,8 +82,13 @@ def _tol(want: np.ndarray, dtype: str) -> float:
 
 def _setup(arch="qwen2-7b", dtype="float32", seed=0, masked=True,
            **overrides):
-    cr = rreg.get_smoke_config(arch).replace(dtype=dtype, **overrides)
-    ct = treg.get_smoke_config(arch).replace(dtype=dtype, **overrides)
+    """``arch`` a registry id, or a key of ``UNPORTED``."""
+    if arch in UNPORTED:
+        cr, ct = (UNPORTED[arch](reg) for reg in (rreg, treg))
+    else:
+        cr, ct = (reg.get_smoke_config(arch) for reg in (rreg, treg))
+    cr = cr.replace(dtype=dtype, **overrides)
+    ct = ct.replace(dtype=dtype, **overrides)
     pn = transformer_params_np(cr, seed)
     pj = jax.tree_util.tree_map(jnp.asarray, pn)
     pt = transformer_params_from_reference(pn)
@@ -270,6 +279,52 @@ def test_init_params_has_the_reference_layout():
                        again["runs"][0]["mlp"]["w_up"])
 
 
+#: sha256 of the smoke trees ``init_params`` drew at seed 0 on the CPU
+#: before it drew each tensor into its slot of the stacked run tensor
+#: (``_tree_digest``): the same draws in the same order, bit for bit
+INIT_DIGESTS = {
+    "qwen2-7b":
+        "e54ea2ed3ea2da8015b1742f22b58fec7c0a73af539e3a101b0848ad7aead0b7",
+    "mixtral-8x7b":
+        "1ec6a39a462c24399f025533a5c655ebc577bfc981c58a7a5f3d4739752cec8d",
+    "mamba2-2.7b":
+        "bc4893d2cfade7262e1badbc2a8d7cbfd7097418ca46ff6287956adc20b6cdcf",
+    "zamba2-1.2b":
+        "3c511cc17013cad6d6a2d975c89a4d96311ca105df35d5d1bf05b5dd0da41b30",
+}
+
+
+def _tree_digest(tree) -> str:
+    """sha256 over every leaf's path, dtype, shape and bytes, in sorted
+    key order."""
+    h = hashlib.sha256()
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (str(i),))
+        else:
+            h.update("/".join(path).encode())
+            h.update(str(t.dtype).encode())
+            h.update(str(tuple(t.shape)).encode())
+            h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    walk(tree, ())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("arch", sorted(INIT_DIGESTS))
+def test_init_params_keeps_its_numbers(arch):
+    """Drawing each weight straight into its stacked slot (scaled in
+    place, cast on the copy) keeps every existing config's weights: the
+    smoke Qwen2, Mixtral, Mamba2 and Zamba2 trees hash as they did when
+    each layer's tree was built and then stacked."""
+    got = ttr.init_params(treg.get_smoke_config(arch), seed=0, device="cpu")
+    assert _tree_digest(got) == INIT_DIGESTS[arch]
+
+
 @pytest.mark.parametrize("arch", sorted(treg.ARCH_IDS))
 def test_configs_equal_reference(arch):
     assert treg.ARCH_IDS == [a for a in rreg.ARCH_IDS if a in treg.ARCH_IDS]
@@ -278,17 +333,18 @@ def test_configs_equal_reference(arch):
                 == dataclasses.asdict(getattr(rreg, get)(arch)))
 
 
-#: registry configs a refusal case once pinned, served since: each keeps
-#: its case and holds the entry points against the reference
-SERVED = ("mixtral-8x7b",)
+#: configs a refusal case once pinned, served since: each keeps its case
+#: and holds the entry points against the reference (the MoE family's
+#: registry config, and the three shapes the MLA slice brought)
+SERVED = ("mixtral-8x7b", "moe_dense_layers", "mla", "mtp")
 
 
 def _served_config_matches_reference(arch):
     """The four entry points the refusal case called: ``init_params`` has
     the reference's layout, ``init_cache`` the layout ``prefill`` fills,
     and the steps serve a prefill and two decode steps with the
-    reference's logits (its XLA path; ``tests/test_torch_moe.py`` holds
-    both paths)."""
+    reference's logits (its XLA path; ``tests/test_torch_moe.py`` and
+    ``tests/test_torch_mla.py`` hold both paths)."""
     cr, ct, pj, pt, mj, mt = _setup(arch)
     ref = jax.eval_shape(lambda: rtr.init_params(cr, jax.random.PRNGKey(0)))
     got = ttr.init_params(ct, seed=0, device="cpu")
@@ -299,8 +355,10 @@ def _served_config_matches_reference(arch):
     decode = make_decode_step(ct, masks=mt, device="cpu")
     lg, cache = prefill(pt, {"tokens": tok[:, :8]})
     empty = ttr.init_cache(ct, 2, 12, device="cpu")
-    assert [tuple(t.shape) for t in empty["runs"][0]] == \
-        [tuple(t.shape) for t in cache["runs"][0]]
+    for run_e, run_c in zip(empty["runs"], cache["runs"]):
+        assert type(run_e) is type(run_c)
+        assert [tuple(t.shape) for t in run_e] == \
+            [tuple(t.shape) for t in run_c]
     rlg, rcache = rtr.prefill(pj, cr, {"tokens": jnp.asarray(tok[:, :8])},
                               max_len=12, masks=mj)
     for t in (8, 9):
@@ -313,12 +371,12 @@ def _served_config_matches_reference(arch):
     assert np.abs(to_f32(lg) - want).max() <= _tol(want, "float32")
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED) + list(SERVED))
+@pytest.mark.parametrize("arch", sorted(UNPORTED) + ["mixtral-8x7b"])
 def test_unported_configs_raise(arch):
     if arch in SERVED:
         _served_config_matches_reference(arch)
         return
-    cfg = UNPORTED[arch]()
+    cfg = UNPORTED[arch](treg)
     for call in (lambda: ttr.init_params(cfg, device="cpu"),
                  lambda: ttr.init_cache(cfg, 1, 8, device="cpu"),
                  lambda: make_prefill_step(cfg, device="cpu"),

@@ -129,7 +129,8 @@ def transformer_params_np(cfg, seed: int = 0):
     ``init_params``: ``cfg.dtype``, except the Mamba2 block's float32
     ``A_log``, ``dt_bias`` and ``D``): weights normal / sqrt(fan_in),
     embeddings normal x 0.02, and — unlike the reference's zeros and ones —
-    random QKV and conv biases, norm scales near 1 and skip weights ``D``
+    random QKV and conv biases, norm scales near 1 (MLA's latent norms
+    and the MTP head's too) and skip weights ``D``
     near 1, so the bias, scale and skip paths carry real numbers. The SSD
     decay parameters are drawn in the reference's ranges, per head:
     ``A_log = log(A)`` with A uniform in [1, 16], ``dt_bias`` the inverse
@@ -142,7 +143,8 @@ def transformer_params_np(cfg, seed: int = 0):
     def leaf(path, sd):
         name = path[-1].key
         shp = sd.shape
-        if name in ("ln1", "ln2", "final_norm", "norm_scale", "D"):
+        if name in ("ln1", "ln2", "final_norm", "norm_scale", "D", "ln",
+                    "q_norm", "kv_norm"):
             a = 1.0 + 0.1 * rng.standard_normal(shp)
         elif name in ("bq", "bk", "bv", "conv_b"):
             a = 0.1 * rng.standard_normal(shp)
@@ -158,6 +160,38 @@ def transformer_params_np(cfg, seed: int = 0):
         return np.asarray(a.astype(np.float32)).astype(sd.dtype)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def stack_tol(want: np.ndarray, dtype: str) -> float:
+    """The transformer stacks' tolerance: float32 within 64 eps of the
+    largest entry (the same math in other summation orders), bf16 within
+    4 bf16 spacings of it."""
+    big = max(1.0, float(np.abs(want).max()))
+    return (64 * EPS32 if dtype == "float32" else 4 * BF16_SPACING) * big
+
+
+def both_reference_paths(fn):
+    """fn() with the reference's Pallas kernels (interpret) and without."""
+    from repro.kernels import dispatch
+    with dispatch.use_pallas(interpret=True):
+        on = fn()
+    return on, fn()
+
+
+def assert_rows_close(got, on, off, dtype):
+    """``got`` within ``stack_tol`` of each reference path (``on``: its
+    Pallas kernels in interpret mode, ``off``: its XLA path), row by row (a
+    row is one position's logits). In bf16 a row may also differ by twice
+    the reference's own two paths' gap on that row: rounding at other
+    points can move a token's router scores across the top-k boundary,
+    which routes it to another expert, and the reference's two paths do so
+    themselves (the unmasked smoke Mixtral forward: a gap of 1.82 between
+    them at 2 of its 160 rows, where the port's largest gap to the Pallas
+    path is 0.047)."""
+    spread = (0.0 if dtype == "float32"
+              else 2 * np.abs(on - off).max(-1, keepdims=True))
+    for want in (on, off):
+        assert (np.abs(got - want) <= stack_tol(want, dtype) + spread).all()
 
 
 def ssd_inputs(B, S, H, G, P, N, dtype="float32", seed=0):
