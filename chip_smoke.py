@@ -31,7 +31,8 @@ Phases, each printing its own lines:
    Qwen2-7B's FFN up/gate shapes (M = 2048 and 2000 in prefill, 1 and 2 in
    decode, and 3, 8, 9, 16, 64; K = 3584; N = 18944; half the columns
    masked), at DeepSeek-V3's dense FFN (M = 2048 and 1, K = 7168, N =
-   18432) and at ragged and all-zero-mask shapes, each row naming the
+   18432), at HuBERT-XLarge's non-gated FFN (M = 2048 and 2000, K = 1280,
+   N = 5120) and at ragged and all-zero-mask shapes, each row naming the
    entry its route picks (the decode GEMV, the wgmma/TMA tiles, the
    CUDA-core tiles), then one ``crossover`` line per M of 1, 2, 3, 4, 8, 16, 64
    timing the GEMV and the tiles on the same operands, and a ``host`` line
@@ -41,7 +42,8 @@ Phases, each printing its own lines:
    fp32, offsets 0 and 1, and at 1 and 2 rows (decode), Mixtral-8x7B's
    2048, 8192 and 1 rows of 4096 (R1's and R3's prefill, decode),
    DeepSeek-V3's 2048 and 1 rows of 7168 and 2048 rows of MLA's latent
-   widths (``q_norm`` 1536, ``kv_norm`` 512), with its
+   widths (``q_norm`` 1536, ``kv_norm`` 512), HuBERT-XLarge's 2048 and 2000
+   rows of 1280, with its
    and ``F.rms_norm``'s device time, each row naming its launch plan; its gated
    entry (Mamba2's norm-then-gate) at Mamba2's R1 and R2 (2048 and 2000
    rows of 5120, z a slice of the (rows, 10576) input projection), decode
@@ -56,7 +58,10 @@ Phases, each printing its own lines:
    of 256, S=2048) and nemotron-4-340b's heads (96/8 of 192, S=2048), each
    of the two head dims also ragged (S=77) and in fp32, and Mixtral-8x7B's
    R1 and R3 (32/8 heads of 128, causal, window 4096, S=2048 and 8192: at
-   8192 whole KV blocks behind the window are skipped), each row with the
+   8192 whole KV blocks behind the window are skipped), HuBERT-XLarge's R1
+   and R2 (16/16 heads of 80, non-causal: the D = 80 instance) with that
+   instance also ragged (S=77), in fp32, causal with 16/4 heads and
+   windowed, each row with the
    kernel's device time from a CUDA graph, held to the bound; ``ssd_scan`` at
    Mamba2's R1 (B=1, S=2048, 80 heads of 64, d_state 128) and R2 (B=2, S=1000,
    ragged), Zamba2's R1 (64 heads, d_state 64), with half the heads masked,
@@ -241,10 +246,34 @@ Phases, each printing its own lines:
    line a request and ``profile`` lines; then the yardstick at R1 on
    the first 4 layers (3 dense + 1 MoE; the MTP block released), as in
    phase 16, and a ``phase17`` line.
+18. slice (Qwen2-VL-7B) — the pruned vision-language decoder at full
+   width and depth (``configs/qwen2_vl_7b.CONFIG``: Qwen2-7B's backbone,
+   M-RoPE sections 16/24/24, 1024 vision tokens, bf16; 28 of 28 layers;
+   masks at ratio 0.5). R1 (B=1: 1024 vision embeddings, seeded normal
+   draws, then 1024 text tokens) and R2 (B=2: 1024 + 976), the vision
+   prefix's M-RoPE ids on a 32 x 32 grid and the text's after it, each a
+   prefill and 16 greedy decode steps through the serving steps (decode
+   at the sequence length, the reference's position): 57 rmsnorm a step,
+   28 flash_attention a prefill, 56 masked_matmul a step. Phase 6's logit
+   yardstick; then a ``consistency`` line: at R1 on text ids, prefill +
+   4 decode steps against one ``forward``, all the fp32 plain version,
+   within 2e-3 of the largest logit. ``profile`` lines of one R1 and one
+   R2 prefill, each with a decode step, and a ``phase18`` line (seconds,
+   peak memory);
+19. slice (HuBERT-XLarge) — the pruned audio encoder at full width and
+   depth (``configs/hubert_xlarge.CONFIG``: 48 layers, d_model 1280,
+   16/16 heads of 80, a GELU FFN of 5120, non-causal, vocab 504, bf16;
+   masks at ratio 0.5). R1 (B=1, 2048 frame embeddings) and R2 (B=2, 1000
+   frames), prefill only (an encoder has no decode step): 97 rmsnorm, 48
+   flash_attention (D = 80) and 48 masked_matmul (one up product a
+   layer: the FFN has no gate). Every position's logits (B, S, 504) held
+   to the fp32 plain run as phase 6 holds its rows; ``profile`` lines of
+   one R1 and one R2 prefill and a ``phase19`` line.
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
 phases 4 and 11-15, counted where one thread launches; the transformer
-kernels' of phases 6, 8, 9, 16 and 17), the
+kernels' of phases 6, 8, 9 and 16-19; ``flash_attention_d80``, the D = 80
+instance over one HuBERT R1 prefill with phase 19's launches), the
 nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero without that line; so does a machine without a CUDA device.
@@ -1315,10 +1344,14 @@ KINDS = (("masked_matmul tiles", "masked_matmul_wgmma"),
 def device_profile(fn):
     """Device time by kernel for one call of ``fn`` (which ends in a
     synchronize), against that call's unprofiled host wall-clock, after a
-    warm-up call; the first profiler pass, which pays the tracer's
-    start-up, is discarded. ``by_kind`` sums the device time over the
-    groups of ``KINDS`` (the first whose substring the name holds; "other"
-    for the rest)."""
+    warm-up call. The traced call is the second of one profiler session
+    whose first call is its warm-up step: a session's first kernels
+    (those launched while the tracer starts) can be missing from its
+    trace. ``by_kind`` sums the device time over the groups of ``KINDS``
+    (the first whose substring the name holds; "other" for the rest),
+    ``count_by_kind`` the traced kernels; the session's step annotation
+    (``ProfilerStep#``), which spans the call's kernels on the device
+    too, is no kernel and is left out."""
     import torch
     fn()
     t0 = time.perf_counter()
@@ -1326,21 +1359,28 @@ def device_profile(fn):
     wall_ms = 1e3 * (time.perf_counter() - t0)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(2):
-        with torch.profiler.profile(activities=acts) as prof:
+    traced = []
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(2):
             fn()
-    events = [e for e in prof.key_averages()
+            prof.step()
+    events = [e for e in traced[-1]
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.device_time_total > 0]
+              and e.device_time_total > 0
+              and not e.key.startswith("ProfilerStep")]
     device_ms = sum(e.device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.device_time_total)[:8]
-    by_kind = {}
+    by_kind, count_by_kind = {}, {}
     for e in events:
         kind = next((k for k, sub in KINDS if sub in e.key), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total / 1e3
+        count_by_kind[kind] = count_by_kind.get(kind, 0) + e.count
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
-            "by_kind": by_kind,
+            "by_kind": by_kind, "count_by_kind": count_by_kind,
             "top": [{"name": e.key[:60], "count": e.count,
                      "device_ms": e.device_time_total / 1e3} for e in top]}
 
@@ -1431,6 +1471,12 @@ def describe(cfg, params, masks, of_layers=None) -> None:
     if cfg.mla is not None:
         row.update(attention="mla", mtp_depth=cfg.mtp_depth,
                    **dataclasses.asdict(cfg.mla))
+    if cfg.vision_tokens or cfg.embeds_input:
+        row.update(causal=cfg.causal, activation=cfg.activation,
+                   rope_mode=cfg.rope_mode,
+                   mrope_sections=list(cfg.mrope_sections),
+                   vision_tokens=cfg.vision_tokens,
+                   embeds_input=cfg.embeds_input)
     kept = {"head_mask": "kept_heads_per_layer",
             "ffn_mask": "kept_ffn_per_layer",
             "expert_mask": "kept_experts_per_layer"}
@@ -1441,38 +1487,50 @@ def describe(cfg, params, masks, of_layers=None) -> None:
     print("slice " + json.dumps(row), flush=True)
 
 
-def serve_tokens(cfg, params, masks, tokens, plain: bool = False,
-                 forced=None):
-    """One request: prefill, then DECODE_STEPS greedy decode steps (or,
-    with ``forced``, the given tokens: teacher forcing). The kernel path
-    goes through the serving steps a launcher calls; ``plain`` calls the
-    stack's plain versions on the card (``backend="ref"``), the yardstick.
-    Returns every logit row (float32), the fed tokens and the host
-    wall-clock of each step, each ending in a synchronize."""
+def card_batch(cfg, batch):
+    """A request batch on the card in the types the stack reads, moved as
+    the serving step moves it."""
     import torch
+    from repro_torch.launch.steps import batch_on
+    return batch_on(torch.device("cuda"), cfg, batch)
+
+
+def serve_tokens(cfg, params, masks, batch, plain: bool = False,
+                 forced=None):
+    """One request ``batch`` (``request_batches``): prefill, then
+    DECODE_STEPS greedy decode steps (or, with ``forced``, the given
+    tokens: teacher forcing); a bidirectional encoder's prefill alone,
+    which gives every position's logits. The kernel path goes through the
+    serving steps a launcher calls; ``plain`` calls the stack's plain
+    versions on the card (``backend="ref"``), the yardstick. Returns every
+    logit row (float32), the fed tokens and the host wall-clock of each
+    step, each ending in a synchronize."""
+    import torch
+    from repro_torch.data.requests import batch_shape
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import transformer as tr
-    B, S = tokens.shape
+    B, S = batch_shape(cfg, batch)
     max_len = S + DECODE_STEPS
+    steps = DECODE_STEPS if cfg.causal else 0
     if plain:
         def prefill(p, batch):
-            tok = torch.as_tensor(batch["tokens"], device="cuda")
-            return tr.prefill(p, cfg, {"tokens": tok}, max_len=max_len,
-                              masks=masks, backend="ref")
+            return tr.prefill(p, cfg, card_batch(cfg, batch),
+                              max_len=max_len, masks=masks, backend="ref")
 
         def decode(p, cache, tok):
             return tr.decode_step(p, cfg, cache, tok, masks=masks,
                                   backend="ref")
     else:
         prefill = make_prefill_step(cfg, max_len=max_len, masks=masks)
-        decode = make_decode_step(cfg, masks=masks)
+        decode = make_decode_step(cfg, masks=masks) if steps else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg, cache = prefill(params, {"tokens": tokens})
+    lg, cache = prefill(params, batch)
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
-    logits, fed, decode_ms = [lg.float()], [], []
-    for t in range(DECODE_STEPS):
+    logits, decode_ms = [lg.float()], []
+    fed = [torch.zeros((B, 0), dtype=torch.long, device=lg.device)]
+    for t in range(steps):
         nxt = (lg.argmax(-1, keepdim=True) if forced is None
                else forced[:, t:t + 1])
         fed.append(nxt)
@@ -1507,35 +1565,43 @@ def expected_launches(cfg):
     each invocation of a hybrid's shared block two norms and (prefill
     only) one attention, its MLP unmasked; the final norm once a step. The
     FFN products, by ``masked_matmul`` entry: the prefill's (M = B*S rows)
-    on the wgmma tiles, the decode steps' (M = B) on the GEMV."""
+    on the wgmma tiles, the decode steps' (M = B) on the GEMV. A non-gated
+    FFN (HuBERT's GELU) has one masked product, the up product; a
+    bidirectional encoder serves its prefill alone."""
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.models.layers.mlp import GATED
     from repro_torch.models.transformer import hybrid_split, layer_runs
-    steps = 1 + DECODE_STEPS
+    decode = DECODE_STEPS if cfg.causal else 0
+    steps = 1 + decode
     attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
     ffn = sum(r.count for r in layer_runs(cfg)
               if r.kind in ("attn", "attn_dense"))
     mla = attn if cfg.attention == "mla" else 0
     ssm = cfg.num_layers - attn
     shared = (hybrid_split(cfg, ssm)[0] if cfg.shared_attn_period else 0)
+    prods = (2 if cfg.activation in GATED else 1) * ffn
     return {"rmsnorm": (2 * attn + 2 * mla + ssm + 2 * shared + 1) * steps,
             "rmsnorm_gated": ssm * steps,
-            "masked_matmul": 2 * ffn * steps,
+            "masked_matmul": prods * steps,
             "flash_attention": attn - mla + shared, "ssd_scan": ssm,
             **dict.fromkeys(masked_matmul.route_launches, 0),
-            "masked_matmul_bf16_tiles": 2 * ffn,
-            "masked_matmul_bf16_gemv": 2 * ffn * DECODE_STEPS}
+            "masked_matmul_bf16_tiles": prods,
+            "masked_matmul_bf16_gemv": prods * decode}
 
 
-def request_tokens(cfg, requests):
-    """[(label, tokens (B, S))] drawn from SEED for each (label, B, S)."""
+def request_batches(cfg, requests):
+    """[(label, batch)] drawn from SEED for each (label, B, S), S the
+    sequence the stack sees (``repro_torch.data.requests``): a VLM
+    config's vision prefix on a square grid of M-RoPE ids."""
     import numpy as np
+    from repro_torch.data.requests import request_batch
     rng = np.random.default_rng(SEED)
-    return [(label, rng.integers(0, cfg.vocab_size, (B, S)))
+    return [(label, request_batch(cfg, B, S, rng))
             for label, B, S in requests]
 
 
 def kernel_path(cfg, params, masks, requests):
-    """Each (label, tokens) through the kernel path with the launch
+    """Each (label, batch) through the kernel path with the launch
     counters zeroed just before and read just after, held to
     ``expected_launches``. Returns ``serve_tokens``' result a request,
     with its launches, and the launch totals."""
@@ -1543,11 +1609,11 @@ def kernel_path(cfg, params, masks, requests):
     mm = wrappers["masked_matmul"]
     per_request = expected_launches(cfg)
     kern, totals = {}, dict.fromkeys(per_request, 0)
-    for label, tok in requests:
+    for label, batch in requests:
         for w in wrappers.values():
             w.launches = 0
         mm.route_launches = dict.fromkeys(mm.route_launches, 0)
-        kern[label] = serve_tokens(cfg, params, masks, tok)
+        kern[label] = serve_tokens(cfg, params, masks, batch)
         counts = {name: w.launches for name, w in wrappers.items()}
         counts.update(mm.route_launches)
         if counts != per_request:
@@ -1560,7 +1626,7 @@ def kernel_path(cfg, params, masks, requests):
 
 
 def transformer_slice(cfg, params, masks, requests, to_fp32=None):
-    """Phases 6, 8, 9, 16 and 17: each request (label, B, S) through the
+    """Phases 6, 8, 9 and 16-19: each request (label, B, S) through the
     kernel path (``kernel_path``); the same requests through the plain
     versions in bf16 and in fp32, teacher-forced with the kernel path's
     tokens; every logit row held to the tolerance. In an MoE stack a step
@@ -1569,44 +1635,48 @@ def transformer_slice(cfg, params, masks, requests, to_fp32=None):
     not held: routing is discontinuous, and one bf16 rounding in a norm
     or an attention can move a token past the top-k boundary. The fp32
     run's parameters are ``to_fp32(params)`` (default: a float32 copy
-    beside the bf16 tree), made after both bf16 runs. Returns the
-    per-request rows and the launch totals."""
+    beside the bf16 tree), made after both bf16 runs. A bidirectional
+    encoder's one logit row a request is every position's (B, S, V).
+    Returns the per-request rows and the launch totals."""
     import torch
+    from repro_torch.data.requests import batch_shape
     from repro_torch.device import exact_fp32
     from repro_torch.models import transformer as tr
-    requests = request_tokens(cfg, requests)
+    requests = request_batches(cfg, requests)
     with watch_moe() as kcalls:
         kern, totals = kernel_path(cfg, params, masks, requests)
     kroutes = routes_of(kcalls, len(requests))
     with watch_moe() as pcalls:
-        plain = {label: serve_tokens(cfg, params, masks, tok, plain=True,
+        plain = {label: serve_tokens(cfg, params, masks, batch, plain=True,
                                      forced=kern[label]["tokens"])
-                 for label, tok in requests}
+                 for label, batch in requests}
     proutes = routes_of(pcalls, len(requests))
     flipped = {}
     if cfg.moe is not None:
-        for (label, tok), kr, pr in zip(requests, kroutes, proutes):
-            flipped[label] = flipped_steps(cfg, tok.shape, kr, pr)
+        for (label, batch), kr, pr in zip(requests, kroutes, proutes):
+            flipped[label] = flipped_steps(cfg, batch_shape(cfg, batch),
+                                           kr, pr)
     params32 = (to_fp32 or (lambda p: tr.cast_params(p, torch.float32)))(
         params)
     cfg32 = cfg.replace(dtype="float32")
     with exact_fp32():
-        fp32 = {label: serve_tokens(cfg32, params32, masks, tok, plain=True,
-                                    forced=kern[label]["tokens"])
-                for label, tok in requests}
+        fp32 = {label: serve_tokens(cfg32, params32, masks, batch,
+                                    plain=True, forced=kern[label]["tokens"])
+                for label, batch in requests}
     del params32
     torch.cuda.empty_cache()
 
     rows = []
-    for label, tok in requests:
-        B, S = tok.shape
+    for label, batch in requests:
+        B, S = batch_shape(cfg, batch)
+        shape = (B, cfg.padded_vocab) if cfg.causal else (
+            B, S, cfg.padded_vocab)
         worst, gaps_k, gaps_p, gaps_kp = 0.0, [], [], []
-        skip = flipped.get(label, [False] * (1 + DECODE_STEPS))
+        skip = flipped.get(label, [False] * len(kern[label]["logits"]))
         for g, p, f, flip in zip(kern[label]["logits"],
                                  plain[label]["logits"],
                                  fp32[label]["logits"], skip):
-            if g.shape != (B, cfg.padded_vocab) or not bool(
-                    torch.isfinite(g).all()):
+            if g.shape != shape or not bool(torch.isfinite(g).all()):
                 raise AssertionError(f"{label}: bad logits {tuple(g.shape)}")
             gap_k = float((g - f).abs().max())
             gap_p = float((p - f).abs().max())
@@ -1619,24 +1689,25 @@ def transformer_slice(cfg, params, masks, requests, to_fp32=None):
             gaps_k.append(gap_k)
             gaps_p.append(gap_p)
             gaps_kp.append(float((g - p).abs().max()))
-        med = statistics.median(kern[label]["decode_ms"])
         row = {"model": cfg.name, "num_layers": cfg.num_layers,
                "request": label, "batch": B, "prompt": S,
-               "decode_steps": DECODE_STEPS,
+               "decode_steps": len(kern[label]["decode_ms"]),
                "prefill_ms": kern[label]["prefill_ms"],
                "prefill_tokens_per_s": B * S / kern[label]["prefill_ms"] * 1e3,
-               "decode_ms": kern[label]["decode_ms"],
-               "decode_ms_median": med,
-               "decode_tokens_per_s": B / med * 1e3,
-               "plain_prefill_ms": plain[label]["prefill_ms"],
-               "plain_decode_ms_median": statistics.median(
-                   plain[label]["decode_ms"]),
-               "launches": kern[label]["launches"],
-               "max_gap_kernel_vs_fp32": max(gaps_k),
-               "max_gap_bf16_plain_vs_fp32": max(gaps_p),
-               "max_gap_kernel_vs_bf16_plain": max(gaps_kp),
-               "max_gap_over_tol": worst,
-               "tokens": kern[label]["tokens"].tolist()}
+               "plain_prefill_ms": plain[label]["prefill_ms"]}
+        if cfg.causal:
+            med = statistics.median(kern[label]["decode_ms"])
+            row.update(decode_ms=kern[label]["decode_ms"],
+                       decode_ms_median=med,
+                       decode_tokens_per_s=B / med * 1e3,
+                       plain_decode_ms_median=statistics.median(
+                           plain[label]["decode_ms"]))
+        row.update({"launches": kern[label]["launches"],
+                    "max_gap_kernel_vs_fp32": max(gaps_k),
+                    "max_gap_bf16_plain_vs_fp32": max(gaps_p),
+                    "max_gap_kernel_vs_bf16_plain": max(gaps_kp),
+                    "max_gap_over_tol": worst,
+                    "tokens": kern[label]["tokens"].tolist()})
         if label in flipped:
             row["flipped_steps"] = [i for i, f in enumerate(skip) if f]
         print("slice " + json.dumps(row), flush=True)
@@ -1711,30 +1782,49 @@ def flipped_steps(cfg, shape, kroutes, proutes):
 
 
 def profile_transformer(cfg, params, masks, request=TRANSFORMER_REQUESTS[0]):
-    """Phases 7, 10 and 16: device time of one prefill of ``request``
+    """Phases 7, 10 and 16-19: device time of one prefill of ``request``
     (label, B, S), R1 unless given, and one decode step of the kernel
     path, against their unprofiled wall-clock."""
-    import numpy as np
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     label, B, S = request
-    tok = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, S))
+    batch = request_batches(cfg, [request])[0][1]
     prefill = make_prefill_step(cfg, max_len=S + DECODE_STEPS, masks=masks)
-    decode = make_decode_step(cfg, masks=masks)
     state = {}
 
     def prefill_once():
-        state["lg"], state["cache"] = prefill(params, {"tokens": tok})
+        state["lg"], state["cache"] = prefill(params, batch)
         torch.cuda.synchronize()
 
     def decode_once():
         nxt = state["lg"].argmax(-1, keepdim=True)
         state["lg"], state["cache"] = decode(params, state["cache"], nxt)
         torch.cuda.synchronize()
-    for step, fn in (("prefill", prefill_once), ("decode", decode_once)):
+    steps = [("prefill", prefill_once)]
+    if cfg.causal:                 # an encoder has no decode step
+        decode = make_decode_step(cfg, masks=masks)
+        steps.append(("decode", decode_once))
+    for step, fn in steps:
+        prof = device_profile(fn)
         print("profile " + json.dumps({"model": cfg.name, "request": label,
-                                       "step": step, **device_profile(fn)}),
-              flush=True)
+                                       "step": step, **prof}), flush=True)
+        if step == "prefill":
+            check_traced(cfg, prof)
+
+
+def check_traced(cfg, prof):
+    """A prefill's trace holds every launch of the port's one-kernel
+    wrappers (a flash attention, an FFN product on the wgmma tiles) that
+    ``expected_launches`` counts: the device times above come from a
+    whole trace."""
+    want = expected_launches(cfg)
+    for kind, name in (("flash_attention", "flash_attention"),
+                       ("masked_matmul tiles", "masked_matmul_bf16_tiles")):
+        got = prof["count_by_kind"].get(kind, 0)
+        if got != want[name]:
+            raise AssertionError(f"{cfg.name}: the prefill's trace holds "
+                                 f"{got} {kind} kernels, {want[name]} "
+                                 f"launched")
 
 
 # ---------------------------------------------------------------------------
@@ -3092,10 +3182,11 @@ def moe_routing(cfg, requests, kern, kroutes, plain, proutes, of_layers):
     the share is reported, not held to 1), how many experts a decode
     step's layer sends tokens to, and the two runs' times and logit gap."""
     import torch
+    from repro_torch.data.requests import batch_shape
     from repro_torch.models.layers.moe import capacity
     L = moe_layer_count(cfg)
-    for (label, tok), kc, pc in zip(requests, kroutes, proutes):
-        B, S = tok.shape
+    for (label, batch), kc, pc in zip(requests, kroutes, proutes):
+        B, S = batch_shape(cfg, batch)
         kr = [r for r, _ in kc]
         same = [a == b for a, (b, _) in zip(kr, pc)]
 
@@ -3183,15 +3274,15 @@ def moe_phase(phase: str, full, layers: int, yardstick_layers: int,
     cfg = full.replace(num_layers=layers)
     params, masks = model_setup(cfg, SEED)
     describe(cfg, params, masks, of_layers=full.num_layers)
-    served = request_tokens(cfg, requests)
+    served = request_batches(cfg, requests)
     with watch_moe() as kcalls:
         kern, totals = kernel_path(cfg, params, masks, served)
     kroutes = routes_of(kcalls, len(served))
     torch.cuda.empty_cache()
     with watch_moe() as pcalls:
-        plain = {label: serve_tokens(cfg, params, masks, tok, plain=True,
+        plain = {label: serve_tokens(cfg, params, masks, batch, plain=True,
                                      forced=kern[label]["tokens"])
-                 for label, tok in served}
+                 for label, batch in served}
     moe_routing(cfg, served, kern, kroutes, plain,
                 routes_of(pcalls, len(served)), full.num_layers)
     del kern, kroutes, plain
@@ -3252,6 +3343,113 @@ def deepseek_phase():
     return moe_phase("phase17", deepseek_v3_671b.CONFIG, DEEPSEEK_LAYERS,
                      DEEPSEEK_YARDSTICK_LAYERS, DEEPSEEK_REQUESTS,
                      DEEPSEEK_REQUESTS[:1])
+
+
+# ---------------------------------------------------------------------------
+# phases 18-19: the pruned Qwen2-VL-7B (vision prefix, M-RoPE) and
+# HuBERT-XLarge (audio encoder) at full width and depth
+# ---------------------------------------------------------------------------
+#: Qwen2-VL's requests: (label, batch, sequence), the sequence counting the
+#: 1024 vision embeddings before the text (R1: 1024 text tokens; R2: 976)
+QWEN2_VL_REQUESTS = (("R1", 1, 2048), ("R2", 2, 2000))
+#: the decode steps of the cache-consistency check
+CONSISTENCY_STEPS = 4
+#: the consistency check's tolerance, relative to the largest logit: the
+#: reference's own check (tests/test_decode_consistency.py) holds its
+#: float32 smoke stacks to 2e-3
+CONSISTENCY_RTOL = 2e-3
+
+
+def cache_consistency(cfg, params, masks, request):
+    """Prefill of ``request``'s sequence but its last CONSISTENCY_STEPS
+    tokens, then those tokens by decode steps, against one ``forward``
+    over the whole sequence, every call the float32 plain version on the
+    card (on a float32 copy of ``params``): the logit rows must agree
+    within CONSISTENCY_RTOL of the largest (the same math, other
+    summation orders). The M-RoPE ids are the stack's text positions, as
+    in the reference's check: a grid prefix's ids and the decode position
+    (the sequence length) are not consistent by construction, in the
+    reference too. A ``consistency`` line."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.models import transformer as tr
+    label, B, S = request
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = tr.cast_params(params, torch.float32)
+    batch = card_batch(cfg32, request_batches(cfg32, [request])[0][1])
+    batch.pop("mrope_positions", None)
+    tok, n = batch["tokens"], CONSISTENCY_STEPS
+    with exact_fp32():
+        lg, cache = tr.prefill(params32, cfg32,
+                               dict(batch, tokens=tok[:, :-n]), max_len=S,
+                               masks=masks, backend="ref")
+        rows = [lg]
+        for t in range(tok.shape[1] - n, tok.shape[1]):
+            lg, cache = tr.decode_step(params32, cfg32, cache,
+                                       tok[:, t:t + 1], masks=masks,
+                                       backend="ref")
+            rows.append(lg)
+        del cache
+        full = tr.forward(params32, cfg32, batch, masks,
+                          backend="ref")[0][:, -n - 1:]
+    del params32
+    torch.cuda.empty_cache()
+    gap = float((torch.stack(rows, 1) - full).abs().max())
+    tol = CONSISTENCY_RTOL * max(1.0, float(full.abs().max()))
+    row = {"model": cfg.name, "request": label, "batch": B, "prompt": S,
+           "decode_steps": n, "max_gap": gap, "tol": tol,
+           "max_gap_over_tol": gap / tol}
+    print("consistency " + json.dumps(row), flush=True)
+    if gap > tol:
+        raise AssertionError(f"{cfg.name}: prefill + decode off forward "
+                             f"by {gap} > {tol}")
+
+
+def full_depth_phase(phase: str, cfg, requests):
+    """Phases 18 and 19: ``cfg`` pruned at full width and depth (masks at
+    ratio 0.5 through ``model_setup``), a ``slice`` line describing it
+    (``layers N of N``), each request through the kernel path and the
+    bf16 and fp32 plain runs (``transformer_slice``, the launch counters
+    zeroed just before each request and read just after), for a decoder
+    the cache-consistency check at the first request, ``profile`` lines
+    of one prefill (and decode step) of each request, and a ``<phase>``
+    line with the phase's seconds and the most memory it allocated.
+    Returns the main path's launch totals."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, masks = model_setup(cfg, SEED)
+    describe(cfg, params, masks, of_layers=cfg.num_layers)
+    _, totals = transformer_slice(cfg, params, masks, requests)
+    if cfg.causal:
+        cache_consistency(cfg, params, masks, requests[0])
+    for request in requests:
+        profile_transformer(cfg, params, masks, request)
+    del params, masks
+    torch.cuda.empty_cache()
+    print(f"{phase} " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9}),
+        flush=True)
+    return totals
+
+
+def qwen2_vl_phase():
+    """Phase 18: pruned Qwen2-VL-7B, its 28 layers, R1 and R2 with the
+    vision prefix on a 32 x 32 grid, the cache-consistency check at R1."""
+    from repro_torch.configs import qwen2_vl_7b
+    return full_depth_phase("phase18", qwen2_vl_7b.CONFIG,
+                            QWEN2_VL_REQUESTS)
+
+
+def hubert_phase():
+    """Phase 19: pruned HuBERT-XLarge, its 48 layers, R1 (2048 frames) and
+    R2 (2 x 1000), prefill only."""
+    from repro_torch.configs import hubert_xlarge
+    return full_depth_phase("phase19", hubert_xlarge.CONFIG,
+                            TRANSFORMER_REQUESTS)
 
 
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
@@ -3349,6 +3547,13 @@ def main() -> int:
         # DeepSeek-V3's dense layers: K = 7168, N = 18432
         + [("deepseek ffn prefill R1", 2048, 7168, 18432, "half"),
            ("deepseek ffn decode R1", 1, 7168, 18432, "half")]
+        # DeepSeek-V3's R3 (8192 tokens) through its dense layers
+        + [("deepseek ffn prefill R3", 8192, 7168, 18432, "half")]
+        # Qwen2-VL-7B's R2: 2 x (1024 vision + 976 text) = 4000 rows
+        + [("qwen2-vl ffn prefill R2", 4000, d, dff, "half")]
+        # HuBERT-XLarge's non-gated FFN up product: K = 1280, N = 5120
+        + [("hubert ffn prefill R1", 2048, 1280, 5120, "half"),
+           ("hubert ffn prefill R2", 2000, 1280, 5120, "half")]
         + [("tiles ragged", 200, 3576, 1000, "partial"),
            ("gemv ragged", 2, 1000, 1000, "partial"),
            ("all_zero_mask tiles", 256, 512, 1024, "zeros"),
@@ -3371,9 +3576,13 @@ def main() -> int:
                                ("mixtral", 4096, (2048, 8192, 1)),
                                # DeepSeek-V3: ln1/ln2 at d_model, MLA's
                                # q_norm and kv_norm at its two ranks
-                               ("deepseek", 7168, (2048, 1)),
-                               ("deepseek q_norm", 1536, (2048,)),
-                               ("deepseek kv_norm", 512, (2048,)))
+                               ("deepseek", 7168, (2048, 8192, 1)),
+                               ("deepseek q_norm", 1536, (2048, 8192)),
+                               ("deepseek kv_norm", 512, (2048, 8192)),
+                               # Qwen2-VL-7B's R2: 4000 rows
+                               ("qwen2-vl", d, (4000,)),
+                               # HuBERT-XLarge: R1's and R2's frames
+                               ("hubert", 1280, (2048, 2000)))
            for r in rs])
     # Mamba2-2.7B (d_inner 5120, projection 10576 wide) and Zamba2-1.2B
     # (4096 of 8384): z a slice of the projection, as the block hands it in
@@ -3414,7 +3623,17 @@ def main() -> int:
          # 8192 tokens whole KV blocks fall behind the window and are
          # skipped
          ("mixtral R1", 1, 2048, 32, 8, 128, True, 4096, "bfloat16"),
-         ("mixtral R3", 1, 8192, 32, 8, 128, True, 4096, "bfloat16")])
+         ("mixtral R3", 1, 8192, 32, 8, 128, True, 4096, "bfloat16"),
+         # Qwen2-VL-7B's R2 (its R1 is Qwen2-7B's "prefill R1")
+         ("qwen2-vl R2", 2, 2000, 28, 4, 128, True, None, "bfloat16"),
+         # HuBERT-XLarge's R1 and R2 (16/16 heads of 80, non-causal), the
+         # D = 80 instance ragged, in fp32, causal with GQA and windowed
+         ("hubert R1 D80", 1, 2048, 16, 16, 80, False, None, "bfloat16"),
+         ("hubert R2 D80", 2, 1000, 16, 16, 80, False, None, "bfloat16"),
+         ("ragged 77 D80", 1, 77, 16, 16, 80, False, None, "bfloat16"),
+         ("fp32 D80", 1, 512, 16, 16, 80, False, None, "float32"),
+         ("causal D80", 1, 1000, 16, 4, 80, True, None, "bfloat16"),
+         ("window D80", 1, 300, 16, 4, 80, True, 40, "bfloat16")])
     # Mamba2-2.7B: 80 heads of 64, d_state 128; Zamba2-1.2B: 64 heads of
     # 64, d_state 64; one B/C group each
     ssd_rows = check_ssd(
@@ -3514,8 +3733,13 @@ def main() -> int:
     xtotals = mixtral_phase()
     # 17. the pruned DeepSeek-V3 at full width, 5 of its 61 layers
     dtotals = deepseek_phase()
+    # 18. the pruned Qwen2-VL-7B at full width and depth
+    vtotals = qwen2_vl_phase()
+    # 19. the pruned HuBERT-XLarge at full width and depth
+    htotals = hubert_phase()
     for name in totals:
-        totals[name] += xtotals[name] + dtotals[name]
+        totals[name] += (xtotals[name] + dtotals[name] + vtotals[name]
+                         + htotals[name])
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan
@@ -3524,7 +3748,10 @@ def main() -> int:
     # decode step (56 products); the other kernels over one R1 prefill of
     # the model that launches them most (Qwen2-7B: 56 FFN products on the
     # wgmma tiles, 57 norms, 28 attentions; Mamba2-2.7B: 64 scans, 64 gated
-    # norms) at the prefill's shapes
+    # norms) at the prefill's shapes; the flash kernel's D = 80 instance
+    # over one HuBERT-XLarge R1 prefill (48 attentions), with phase 19's
+    # launches
+    from repro_torch.configs import hubert_xlarge
     L = qcfg.num_layers
 
     def case(rs, name):
@@ -3559,6 +3786,11 @@ def main() -> int:
         kernel_entry("flash_attention", flash_rows,
                      case(flash_rows, "prefill R1"), L,
                      totals["flash_attention"]),
+        kernel_entry("flash_attention_d80",
+                     [r for r in flash_rows if r["D"] == 80],
+                     case(flash_rows, "hubert R1 D80"),
+                     hubert_xlarge.CONFIG.num_layers,
+                     htotals["flash_attention"]),
         kernel_entry("ssd_scan", ssd_rows, case(ssd_rows, "mamba2 R1"),
                      mcfg.num_layers, totals["ssd_scan"],
                      passes=case(ssd_rows, "mamba2 R1")[0]["passes_ms"])]

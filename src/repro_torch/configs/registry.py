@@ -1,11 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution for every launcher.
 
 Each module in this package exports CONFIG (exact published shape, citation
-in brackets) and smoke_config() (reduced same-family variant). It holds the
-families the port serves (dense, Mamba2 SSM, the Zamba2 hybrid, and MoE:
-Mixtral's GQA stack and DeepSeek-V3's MLA stack with dense first layers);
-the audio and vision families of the JAX package come with the slice that
-runs them.
+in brackets) and smoke_config() (reduced same-family variant). It holds
+every config of the JAX package's registry, in its order: dense, Mamba2
+SSM, the Zamba2 hybrid, MoE (Mixtral's GQA stack and DeepSeek-V3's MLA
+stack with dense first layers), the HuBERT audio encoder and the Qwen2-VL
+vision-language decoder with M-RoPE.
 """
 from __future__ import annotations
 
@@ -19,7 +19,9 @@ ARCH_IDS = [
     "gemma-7b",
     "qwen1.5-4b",
     "qwen2-7b",
+    "hubert-xlarge",
     "nemotron-4-340b",
+    "qwen2-vl-7b",
     "zamba2-1.2b",
     "deepseek-v3-671b",
     "mixtral-8x7b",
@@ -30,7 +32,9 @@ _MODULES = {
     "gemma-7b": "gemma_7b",
     "qwen1.5-4b": "qwen1p5_4b",
     "qwen2-7b": "qwen2_7b",
+    "hubert-xlarge": "hubert_xlarge",
     "nemotron-4-340b": "nemotron4_340b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "zamba2-1.2b": "zamba2_1p2b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "mixtral-8x7b": "mixtral_8x7b",

@@ -2,8 +2,9 @@
 // and sliding-window masks and grouped KV heads (GQA), in the model layout
 //     q, out (B, Sq, H, D)     k, v (B, Sk, Hkv, D)      row-major,
 // all float32 (flash_attention_f32) or all bfloat16 (flash_attention_bf16),
-// D = 64, 128, 192 or 256. Query head h reads KV head h / (H / Hkv). Scores,
-// softmax and the output accumulator are float32; the output is rounded once.
+// D = 64, 80, 128, 192 or 256. Query head h reads KV head h / (H / Hkv).
+// Scores, softmax and the output accumulator are float32; the output is
+// rounded once.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
 // _flash_kernel (flash_attention_pallas). That kernel ran a grid (B, H, nq,
@@ -33,26 +34,33 @@
 //
 // flash_attention_bf16 (flash_kernel_mma) is a FlashAttention-2 design on the
 // tensor cores: 64-query blocks of 4 warps, two blocks an SM, 16 query rows a
-// warp, Q's fragments held in registers; 64-key K and V tiles double-buffered in shared
-// memory by cp.async (XOR-swizzled rows, so ldmatrix is free of bank
-// conflicts); S = Q K^T and O += P V by mma.sync m16n8k16 (bf16 in, fp32
-// accumulators); the scale applied to the fp32 scores, as the reference
-// applies it in fp32; the online softmax across each row's quad of lanes by
-// shuffles; P rounded to bf16 in registers to feed P V, while l sums the fp32
-// P. That rounding is the one numeric change from the reference, which keeps
-// P in fp32 (kernel.py:81-87): each P entry moves by at most 2^-8 of itself,
-// so each output by at most 2^-8 * max|v|. At D = 192 and 256 a warp's
-// accumulator alone is 96 or 128 registers a thread and Q, K and V take
-// 120 or 160 KB of shared memory, so those head dims run one block an SM and
-// reload Q's fragments from shared memory by ldmatrix at each 16-deep step
+// warp, Q's fragments held in registers; 64-key K and V tiles double-buffered
+// in shared memory by cp.async (XOR-swizzled rows, or at D = 80 rows padded to
+// 11 chunks, so ldmatrix is free of bank conflicts); S = Q K^T and O += P V by
+// mma.sync m16n8k16 (bf16 in, fp32 accumulators); the scale applied to the fp32
+// scores, as the reference applies it in fp32; the online softmax across each
+// row's quad of lanes by shuffles; P rounded to bf16 in registers to feed P V,
+// while l sums the fp32 P. That rounding is the one numeric change from the
+// reference, which keeps P in fp32 (kernel.py:81-87): each P entry moves by at
+// most 2^-8 of itself, so each output by at most 2^-8 * max|v|. At D = 192 and
+// 256 a warp's accumulator alone is 96 or 128 registers a thread and Q, K and V
+// take 120 or 160 KB of shared memory, so those head dims run one block an SM
+// and reload Q's fragments from shared memory by ldmatrix at each 16-deep step
 // instead of holding them in registers (64 more at D = 256, which would spill).
+// At D = 80 (HuBERT) a row is 10 16-byte chunks: the XOR swizzle, which
+// permutes 8 chunks, would send chunks 8 and 9 into the next row, so those
+// tiles keep their chunks in place and pad each row to 11 chunks instead
+// (row_elems): 8 consecutive rows at one chunk then start 3 chunks apart
+// mod 8, on 8 distinct bank groups. D / 16 = 5 steps of 16 and D / 8 = 10
+// accumulator tiles of 8, as the mma.sync loops take them.
 //
 // flash_attention_f32 (flash_kernel) keeps the reference's fp32 numerics on
 // the CUDA cores: 64-query tiles and 32-key tiles, 128 threads in an 8 x 16
 // layout (thread (ty, tx) owns query rows 8*ty .. 8*ty+7, score columns
 // tx + 16*j and output columns tx + 16*j), q pre-scaled and K, V, P staged in
-// 73 KB of shared memory at D = 128 (141 KB at D = 256, one block an SM),
-// row maxima and sums across the 16 threads of a row group by warp shuffles.
+// 73 KB of shared memory at D = 128 (49.9 KB at D = 80; 141 KB at D = 256,
+// one block an SM), row maxima and sums across the 16 threads of a row
+// group by warp shuffles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -242,6 +250,9 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
   if (D == 64)
     return launch_d<T, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
                            causal, has_window, window, stream);
+  if (D == 80)
+    return launch_d<T, 80>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
+                           causal, has_window, window, stream);
   if (D == 128)
     return launch_d<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
                             causal, has_window, window, stream);
@@ -263,10 +274,17 @@ constexpr int WARPS = 4;
 constexpr int BQ = 16 * WARPS;   // query rows a block: 16 a warp
 constexpr int BKV = 64;          // keys a KV tile
 constexpr int THREADS = 32 * WARPS;
-// Q [BQ][D], then K and V [2 buffers][BKV][D], bf16
+// elements a tile row takes in shared memory: D where a row is a multiple
+// of 8 chunks (swizzled in place), else one spare 16-byte chunk a row,
+// which must leave an odd number of chunks (conflict-free ldmatrix)
+template <int D>
+__host__ __device__ constexpr int row_elems() {
+  return D % 64 == 0 ? D : D + 8;
+}
+// Q [BQ][row], then K and V [2 buffers][BKV][row], bf16
 template <int D>
 constexpr size_t smem_bytes() {
-  return 2 * (size_t)(BQ * D + 2 * 2 * BKV * D);
+  return 2 * (size_t)(BQ * row_elems<D>() + 2 * 2 * BKV * row_elems<D>());
 }
 // up to D = 128 Q's fragments stay in registers and two blocks share an SM;
 // above, Q is reread from shared memory and a block has the SM to itself
@@ -325,11 +343,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Offset (in elements) of 16-byte chunk `chunk` of row `row` in a tile of
-// rows of D bf16: the chunk index is XORed with row % 8, so the 8 rows an
-// ldmatrix reads at one column fall on 8 different bank groups.
+// rows of D bf16: where a row is a multiple of 8 chunks, the chunk index is
+// XORed with row % 8; otherwise the chunk stays in place in a row padded to
+// an odd number of chunks. Either way the 8 rows an ldmatrix reads at one
+// column fall on 8 different bank groups.
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
+  if constexpr (D % 64 == 0) {
+    return row * D + ((chunk ^ (row & 7)) << 3);
+  } else {
+    static_assert((mma_tiles::row_elems<D>() / 8) % 2 == 1,
+                  "a padded row holds an odd number of chunks");
+    return row * mma_tiles::row_elems<D>() + (chunk << 3);
+  }
 }
 
 // One block owns 64 query rows of one (batch, head); warp w owns rows
@@ -356,10 +382,11 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   // block-scope names hide the fp32 kernel's BQ and THREADS
   using mma_tiles::BQ; using mma_tiles::BKV; using mma_tiles::THREADS;
   constexpr int CH = D / 8;        // 16-byte chunks a row
+  constexpr int RS = mma_tiles::row_elems<D>();   // row stride of the tiles
   extern __shared__ __align__(128) unsigned char fa_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
-  __nv_bfloat16* Ks = Qs + BQ * D;
-  __nv_bfloat16* Vs = Ks + 2 * BKV * D;
+  __nv_bfloat16* Ks = Qs + BQ * RS;
+  __nv_bfloat16* Vs = Ks + 2 * BKV * RS;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // blocks start in the order x, y, z: query tiles on z, last tile first,
@@ -389,8 +416,8 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                s < Sq ? 16 : 0);
   }
   auto load_kv = [&](int kt, int buf) {
-    __nv_bfloat16* kd = Ks + buf * BKV * D;
-    __nv_bfloat16* vd = Vs + buf * BKV * D;
+    __nv_bfloat16* kd = Ks + buf * BKV * RS;
+    __nv_bfloat16* vd = Vs + buf * BKV * RS;
     for (int i = tid; i < BKV * CH; i += THREADS) {
       const int r = i / CH, c = i % CH, key = kt * BKV + r;
       const bool in = key < seq_k;              // past seq_k: zeros
@@ -430,8 +457,8 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const __nv_bfloat16* Kt = Ks + buf * BKV * D;
-    const __nv_bfloat16* Vt = Vs + buf * BKV * D;
+    const __nv_bfloat16* Kt = Ks + buf * BKV * RS;
+    const __nv_bfloat16* Vt = Vs + buf * BKV * RS;
 
     float s[BKV / 8][4];
 #pragma unroll
@@ -570,6 +597,9 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (D == 64)
     return launch_mma_d<64>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
                             causal, has_window, window, stream);
+  if (D == 80)
+    return launch_mma_d<80>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
+                            causal, has_window, window, stream);
   if (D == 128)
     return launch_mma_d<128>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
                              causal, has_window, window, stream);
@@ -586,7 +616,7 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream` and
 // returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for a head
-// size other than 64, 128, 192 or 256, which the wrapper refuses first).
+// size other than 64, 80, 128, 192 or 256, which the wrapper refuses first).
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int B, int Sq,
                                    int Sk, int H, int Hkv, int D, int seq_k,

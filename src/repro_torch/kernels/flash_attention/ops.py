@@ -23,7 +23,7 @@ _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_int] * 3)
-HEAD_DIMS = (64, 128, 192, 256)
+HEAD_DIMS = (64, 80, 128, 192, 256)
 
 
 def check_head_dim(D: int) -> None:

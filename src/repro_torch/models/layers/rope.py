@@ -1,18 +1,26 @@
-"""Rotary position embeddings (standard RoPE). M-RoPE (Qwen2-VL) comes
-with the VLM configs."""
+"""Rotary position embeddings: standard RoPE and Qwen2-VL M-RoPE.
+
+M-RoPE [arXiv:2409.12191] splits the head_dim/2 frequency bands into
+(temporal, height, width) sections; text tokens use identical t/h/w
+position ids, vision tokens their 3-D grid coordinates.
+"""
 from __future__ import annotations
 
-from typing import Union
+import functools
+from typing import Tuple, Union
 
 import torch
 
 
 def rope_freqs(head_dim: int, theta: float,
                device: Union[str, torch.device, None] = None) -> torch.Tensor:
-    """(head_dim//2,) inverse frequencies."""
+    """(head_dim//2,) inverse frequencies. The float32 power is taken in
+    float64 and rounded once: the reference's float32 power is correctly
+    rounded, and PyTorch's is not everywhere (one unit in the last place
+    off at head_dim 128, band 37)."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / (theta ** exps)
+    return 1.0 / (theta ** exps.to(torch.float64)).to(torch.float32)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
@@ -20,6 +28,43 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     """positions (..., S) -> angles (..., S, head_dim//2)."""
     inv = rope_freqs(head_dim, theta, positions.device)
     return positions.to(torch.float32)[..., None] * inv
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, ...]) -> torch.Tensor:
+    """positions (3, B, S) with (t, h, w) ids -> angles (B, S, head_dim//2).
+
+    ``sections`` gives how many frequency bands each of t/h/w owns;
+    sum(sections) == head_dim // 2. Each axis's angles are computed as
+    ``rope_angles`` computes them, then each band takes its section's
+    axis by a gather (the reference's one-hot float32 einsum adds exact
+    zeros to the same products: the same bits, and no matrix product
+    that TF32 could round on the card)."""
+    if positions.shape[0] != 3:
+        raise ValueError(f"mrope positions {tuple(positions.shape)}: the "
+                         f"leading axis holds (t, h, w)")
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {sections} do not sum to "
+                         f"head_dim // 2 = {head_dim // 2}")
+    ang = rope_angles(positions, head_dim, theta)       # (3, B, S, half)
+    return _select_sections(ang, _section_ids(tuple(sections),
+                                              positions.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: Tuple[int, ...],
+                 device: torch.device) -> torch.Tensor:
+    """(half,) axis of each band, built on the host and moved once a
+    device: a constant of the config, not of the step."""
+    return torch.repeat_interleave(torch.arange(3),
+                                   torch.tensor(sections)).to(device)
+
+
+def _select_sections(ang: torch.Tensor, sec_id: torch.Tensor) -> torch.Tensor:
+    """ang (3, B, S, half), sec_id (half,) in {0,1,2} -> (B, S, half):
+    band h from axis sec_id[h]."""
+    idx = sec_id.view(1, 1, 1, -1).expand(1, *ang.shape[1:])
+    return ang.gather(0, idx)[0]
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -41,3 +86,11 @@ def positions_for(batch: int, seq: int, offset=0,
     off = torch.as_tensor(offset, dtype=torch.int32, device=device)
     return (torch.arange(seq, dtype=torch.int32, device=off.device)[None, :]
             + off.reshape(-1, 1))
+
+
+def text_mrope_positions(batch: int, seq: int, offset=0,
+                         device: Union[str, torch.device, None] = None
+                         ) -> torch.Tensor:
+    """Text-only M-RoPE ids: t == h == w == position. (3, B, S) int32."""
+    p = positions_for(batch, seq, offset, device).expand(batch, seq)
+    return p[None].expand(3, batch, seq)

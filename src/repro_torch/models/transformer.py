@@ -1,4 +1,4 @@
-"""Decoder stack of the transformer families the port serves:
+"""Decoder / encoder stack of every transformer family of the registry:
 
   dense   — pre-norm GQA + (gated / non-gated) FFN      [gemma, qwen, nemotron]
   moe     — GQA or MLA attention + sort-dispatch MoE FFN,
@@ -7,6 +7,10 @@
   ssm     — Mamba2 (SSD) blocks, attention-free         [mamba2]
   hybrid  — Mamba2 backbone + one SHARED attention block
             applied every ``shared_attn_period`` layers  [zamba2]
+  audio   — bidirectional encoder over precomputed frame
+            embeddings (stubbed conv frontend)          [hubert]
+  vlm     — dense decoder with M-RoPE; vision patch
+            embeddings (stubbed ViT) prefix the text    [qwen2-vl]
 
 The reference (``models/transformer.py``) groups layers into homogeneous
 *runs* and scans each run with ``lax.scan`` over stacked per-layer
@@ -19,9 +23,12 @@ reference's scan carries them. An MLA stack (DeepSeek-V3) caches each
 layer's KV latent and shared rotary key (``MLACache``) at ``max_len``, and
 its rotary angles span ``qk_rope_head_dim``. A config with ``mtp_depth``
 gets the reference's ``mtp`` subtree (its GQA block, projection and norm);
-serving never runs it, and its loss comes with the training slice. Audio
-and VLM configs raise ``NotImplementedError`` naming the slice that brings
-them.
+serving never runs it, and its loss comes with the training slice. An audio
+config reads ``batch["embeds"]`` (B, S, d_model) in place of tokens; a VLM
+config puts ``batch["vision_embeds"]`` (B, V, d_model) before the text
+tokens' embeddings, and its M-RoPE angles come from
+``batch["mrope_positions"]`` (3, B, S), or text positions where the batch
+has none. The prefix counts toward ``max_len`` and the decode position.
 
 Three entry points, cache-consistent with each other:
   forward      — full sequence, logits for every position
@@ -61,7 +68,9 @@ from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.mlp import init_mlp_params, mlp_forward
 from repro_torch.models.layers.moe import init_moe_params, moe_forward
 from repro_torch.models.layers.norms import rmsnorm
-from repro_torch.models.layers.rope import positions_for, rope_angles
+from repro_torch.models.layers.rope import (mrope_angles, positions_for,
+                                            rope_angles,
+                                            text_mrope_positions)
 
 BACKENDS = ("auto", "ref")
 Masks = Optional[List[Optional[Dict[str, torch.Tensor]]]]
@@ -94,17 +103,10 @@ def hybrid_split(cfg: ModelConfig, count: int) -> Tuple[int, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose blocks the port
-    does not have yet, naming the slice that brings them."""
-    if cfg.arch_type == "audio" or cfg.embeds_input:
-        raise NotImplementedError(
-            f"{cfg.name}: the audio encoder comes with the vision and audio "
-            f"slice (ROADMAP A7c)")
-    if cfg.arch_type == "vlm" or cfg.vision_tokens or cfg.rope_mode == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: vision tokens and M-RoPE come with the vision and "
-            f"audio slice (ROADMAP A7c)")
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
+    """Raise ``NotImplementedError`` for an architecture type the stack
+    does not know."""
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio",
+                             "vlm"):
         raise NotImplementedError(f"{cfg.name}: arch {cfg.arch_type!r}")
 
 
@@ -268,9 +270,19 @@ def cast_params(params, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 def embed_inputs(params, cfg: ModelConfig,
                  batch) -> Tuple[torch.Tensor, int, int]:
-    tok = batch["tokens"]
-    B, S = tok.shape
-    x = params["embed"][tok]
+    """(x (B, S, d_model), B, S): an audio config's frame embeddings in
+    ``cfg.dtype``; a VLM config's vision embeddings, cast to the embedding
+    table's dtype first, then its text tokens' embeddings (S counts
+    both); else the tokens' embeddings."""
+    if cfg.embeds_input:                   # audio: stubbed conv frontend
+        x = batch["embeds"].to(getattr(torch, cfg.dtype))
+    elif cfg.vision_tokens:                # vlm: vision prefix + text
+        emb = params["embed"][batch["tokens"]]
+        vis = batch["vision_embeds"].to(emb.dtype)        # (B, V, d)
+        x = torch.cat([vis, emb], dim=1)
+    else:
+        x = params["embed"][batch["tokens"]]
+    B, S = x.shape[:2]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x, B, S
@@ -283,9 +295,18 @@ def _rope_dim(cfg: ModelConfig) -> int:
             else cfg.head_dim)
 
 
-def _angles_for(cfg: ModelConfig, B: int, S: int, offset, device):
+def _angles_for(cfg: ModelConfig, batch, B: int, S: int, offset, device):
+    """Rotary angles (B, S, rope_dim // 2) of positions ``offset`` ..
+    ``offset + S - 1``; M-RoPE's from ``batch["mrope_positions"]`` where
+    the batch has them."""
     if cfg.rope_mode == "none":
         return None
+    if cfg.rope_mode == "mrope":
+        pos = batch.get("mrope_positions")
+        if pos is None:
+            pos = text_mrope_positions(B, S, offset, device)
+        return mrope_angles(pos, _rope_dim(cfg), cfg.rope_theta,
+                            cfg.mrope_sections)
     pos = positions_for(B, S, offset, device).expand(B, S)
     return rope_angles(pos, _rope_dim(cfg), cfg.rope_theta)
 
@@ -390,7 +411,7 @@ def forward(params, cfg: ModelConfig, batch, masks: Masks = None,
     check_supported(cfg)
     _check_backend(backend)
     x, B, S = embed_inputs(params, cfg, batch)
-    angles = _angles_for(cfg, B, S, 0, x.device)
+    angles = _angles_for(cfg, batch, B, S, 0, x.device)
     x, aux = _run_stack(params, cfg, x, angles, masks, backend)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
     return _lm_logits(params, cfg, x), dict(aux, hidden=x)
@@ -462,7 +483,8 @@ def _kv_to_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
         return k, v
     if clen < S and cfg.sliding_window is None:
         raise ValueError(
-            f"prefill max_len={max_len} < prefill length {S}")
+            f"prefill max_len={max_len} < prefill length {S} "
+            "(vision or audio prefix tokens count toward max_len)")
     if clen < S:     # sliding window rolling buffer: slot = pos % clen
         k = torch.roll(k[..., S - clen:, :, :], S % clen, dims=-3)
         v = torch.roll(v[..., S - clen:, :, :], S % clen, dims=-3)
@@ -484,7 +506,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
     check_supported(cfg)
     _check_backend(backend)
     x, B, S = embed_inputs(params, cfg, batch)
-    angles = _angles_for(cfg, B, S, 0, x.device)
+    angles = _angles_for(cfg, batch, B, S, 0, x.device)
     max_len = max_len or S
     callbacks = {}
     if cfg.causal:
@@ -492,7 +514,8 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
             run.kind != "ssm" for run in layer_runs(cfg))
         if has_kv and max_len < S and cfg.sliding_window is None:
             raise ValueError(
-                f"prefill max_len={max_len} < prefill length {S}")
+                f"prefill max_len={max_len} < prefill length {S} "
+                "(vision or audio prefix tokens count toward max_len)")
         caches = _zero_caches(cfg, B, max_len, x.device)
 
         def on_kv(r, j, kv):
@@ -538,8 +561,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     x = params["embed"][tokens[:, 0]][:, None]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    angles = (None if cfg.rope_mode == "none" else
-              rope_angles(pos[:, None], _rope_dim(cfg), cfg.rope_theta))
+    if cfg.rope_mode == "mrope":     # t == h == w == pos, prefix counted
+        p3 = pos[None, :, None].expand(3, pos.shape[0], 1)
+        angles = mrope_angles(p3, _rope_dim(cfg), cfg.rope_theta,
+                              cfg.mrope_sections)
+    elif cfg.rope_mode == "none":
+        angles = None
+    else:
+        angles = rope_angles(pos[:, None], _rope_dim(cfg), cfg.rope_theta)
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
     for run, rp, rc, rmask in zip(runs, params["runs"], cache["runs"],

@@ -1,8 +1,8 @@
-"""``flash_attention`` at the large head dims (192 and 256): the bf16
-entry's numerics held against the reference's Pallas kernel, the CUDA
-kernel's head-dim instances, and every registry config either building
-its prefill step for the card or being refused when the step is built,
-never deep in a layer."""
+"""``flash_attention`` at the head dims beside 64 and 128 (HuBERT's 80,
+and the large 192 and 256): the bf16 entry's numerics held against the
+reference's Pallas kernel, the CUDA kernel's head-dim instances, and every
+registry config either building its prefill step for the card or being
+refused when the step is built, never deep in a layer."""
 from __future__ import annotations
 
 import re
@@ -21,9 +21,13 @@ from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models.transformer import check_supported
 from torch_parity import flash_bf16_tolerance, p_in_bf16_attention, to_f32
 
-# (B, S, H, Hkv, D, causal, window): gemma-7b's 16/16 heads of 256 and
-# nemotron-4-340b's 96/8 heads of 192, cut in width to the CPU's size
+# (B, S, H, Hkv, D, causal, window): gemma-7b's 16/16 heads of 256,
+# nemotron-4-340b's 96/8 heads of 192 and hubert-xlarge's non-causal 16/16
+# heads of 80, cut in width to the CPU's size
 HEAD_CASES = {
+    "d80_noncausal": (1, 40, 16, 16, 80, False, None),
+    "d80_ragged": (2, 33, 4, 4, 80, False, None),
+    "d80_gqa": (1, 77, 8, 2, 80, True, None),
     "d256_mha": (1, 40, 2, 2, 256, True, None),
     "d256_ragged": (2, 33, 4, 2, 256, True, None),
     "d256_window": (1, 48, 2, 1, 256, True, 9),
@@ -54,7 +58,9 @@ def test_bf16_numerics_hold_the_reference_at_large_head_dims(case):
 
 def test_every_head_dim_has_an_instance_in_both_entries():
     """Each launcher of ``csrc/flash_attention.cu`` (fp32 ``launch``, bf16
-    ``launch_mma``) dispatches exactly the wrapper's ``HEAD_DIMS``."""
+    ``launch_mma``) dispatches exactly the wrapper's ``HEAD_DIMS``, 80
+    among them."""
+    assert 80 in ops.HEAD_DIMS
     src = (CSRC_DIR / "flash_attention.cu").read_text()
     for launcher in ("int launch(", "int launch_mma("):
         body = src[src.index(launcher):]
@@ -63,7 +69,7 @@ def test_every_head_dim_has_an_instance_in_both_entries():
         assert dims == ops.HEAD_DIMS, launcher
 
 
-@pytest.mark.parametrize("D", [64, 128, 192, 256, 96])
+@pytest.mark.parametrize("D", [64, 80, 128, 192, 256, 96])
 def test_operand_check_takes_exactly_the_kernel_head_dims(D):
     q = torch.zeros(1, 4, 2, D, dtype=torch.bfloat16)
     k = torch.zeros(1, 4, 1, D, dtype=torch.bfloat16)
@@ -78,17 +84,13 @@ def test_operand_check_takes_exactly_the_kernel_head_dims(D):
 def test_registry_config_builds_its_card_step_or_is_refused_there(
         arch, monkeypatch):
     """On the card path (``torch.cuda.is_available`` patched true: building
-    a step touches no device) every registry config either builds its
-    prefill step, its attention head dim being one the kernel has, or is
-    refused by ``make_prefill_step`` itself."""
+    a step touches no device) every registry config builds its prefill
+    step: the stack serves every family, and every GQA head dim of the
+    registry (HuBERT's 80 among them) is one the kernel has. None is
+    refused any more."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cfg = registry.get_config(arch)
-    try:
-        check_supported(cfg)
-    except NotImplementedError:
-        with pytest.raises(NotImplementedError):
-            make_prefill_step(cfg)
-        return
+    check_supported(cfg)
     assert callable(make_prefill_step(cfg))
     if cfg.num_heads:
         assert cfg.head_dim in ops.HEAD_DIMS

@@ -318,16 +318,29 @@ def test_mixtral_full_config_is_served_and_the_rest_refused():
     """``make_prefill_step`` takes the full Mixtral config (its head dim
     128 has a flash kernel instance) and a smoke MoE config with a dense
     first layer (DeepSeek-V3's ``attn_dense`` run, served since the MLA
-    slice); an MoE config with audio frames for input is still refused,
-    naming its slice."""
+    slice); an MoE config with audio frames for input, once refused here,
+    is served since the audio slice: its prefill over 12 frame embeddings
+    and a decode step match both reference paths (``assert_rows_close``)."""
     cfg = treg.get_config(ARCH)
     check_head_dim(cfg.head_dim)
     assert callable(make_prefill_step(cfg, device="cpu"))
     assert callable(make_decode_step(cfg, device="cpu"))
     dense_first = treg.get_smoke_config(ARCH).replace(num_dense_layers=1)
     assert callable(make_prefill_step(dense_first, device="cpu"))
-    audio = treg.get_smoke_config(ARCH).replace(embeds_input=True)
-    with pytest.raises(NotImplementedError, match="A7c"):
-        make_prefill_step(audio, device="cpu")
+    cr, ct, pj, pt, mj, mt = _setup(embeds_input=True)
+    frames = np.random.default_rng(8).standard_normal(
+        (2, 12, ct.d_model)).astype(np.float32)
+    tok = _tokens(cr, 2, 1, seed=9)
+    lg, cache = make_prefill_step(ct, max_len=13, masks=mt, device="cpu")(
+        pt, {"embeds": frames})
+    lg2, _ = make_decode_step(ct, masks=mt, device="cpu")(pt, cache, tok)
+
+    def reference():
+        rlg, rcache = rtr.prefill(pj, cr, {"embeds": jnp.asarray(frames)},
+                                  max_len=13, masks=mj)
+        rlg2, _ = rtr.decode_step(pj, cr, rcache, jnp.asarray(tok), mj)
+        return np.stack([to_f32(rlg), to_f32(rlg2)], 1)
+    assert_rows_close(np.stack([to_f32(lg), to_f32(lg2)], 1),
+                      *both_reference_paths(reference), "float32")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         rreg.get_config(ARCH))

@@ -48,13 +48,15 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as ttr
-from torch_parity import BF16_SPACING, EPS32, to_f32, transformer_params_np
+from torch_parity import (BF16_SPACING, EPS32, model_batch_np, to_f32,
+                          transformer_params_np)
 
 #: configs a refusal case pinned, each built from a registry module's smoke
 #: configs (``reg``: the reference's or the port's): an MoE stack whose
 #: first layer is dense (DeepSeek-V3's ``attn_dense`` run), a dense stack
-#: with MLA attention (DeepSeek-V3's MLA shape), one with an MTP head, and
-#: the audio and vision families later slices bring
+#: with MLA attention (DeepSeek-V3's MLA shape), one with an MTP head, a
+#: bidirectional stack over frame embeddings (audio) and one with a vision
+#: prefix and M-RoPE (vlm, its sections those of the smoke Qwen2-VL)
 UNPORTED = {
     "moe_dense_layers": lambda reg: reg.get_smoke_config(
         "mixtral-8x7b").replace(num_dense_layers=1),
@@ -64,7 +66,8 @@ UNPORTED = {
     "audio": lambda reg: reg.get_smoke_config("qwen2-7b").replace(
         arch_type="audio", embeds_input=True, causal=False),
     "vlm": lambda reg: reg.get_smoke_config("qwen2-7b").replace(
-        arch_type="vlm", vision_tokens=16, rope_mode="mrope"),
+        arch_type="vlm", vision_tokens=16, rope_mode="mrope",
+        mrope_sections=(8, 12, 12)),
     "mtp": lambda reg: reg.get_smoke_config("qwen2-7b").replace(mtp_depth=1),
 }
 DENSE = ["qwen2-7b", "qwen1.5-4b", "gemma-7b", "nemotron-4-340b"]
@@ -327,7 +330,7 @@ def test_init_params_keeps_its_numbers(arch):
 
 @pytest.mark.parametrize("arch", sorted(treg.ARCH_IDS))
 def test_configs_equal_reference(arch):
-    assert treg.ARCH_IDS == [a for a in rreg.ARCH_IDS if a in treg.ARCH_IDS]
+    assert treg.ARCH_IDS == rreg.ARCH_IDS
     for get in ("get_config", "get_smoke_config"):
         assert (dataclasses.asdict(getattr(treg, get)(arch))
                 == dataclasses.asdict(getattr(rreg, get)(arch)))
@@ -335,32 +338,54 @@ def test_configs_equal_reference(arch):
 
 #: configs a refusal case once pinned, served since: each keeps its case
 #: and holds the entry points against the reference (the MoE family's
-#: registry config, and the three shapes the MLA slice brought)
-SERVED = ("mixtral-8x7b", "moe_dense_layers", "mla", "mtp")
+#: registry config, the three shapes the MLA slice brought, and the audio
+#: and vision families)
+SERVED = ("mixtral-8x7b", "moe_dense_layers", "mla", "mtp", "audio", "vlm")
 
 
 def _served_config_matches_reference(arch):
     """The four entry points the refusal case called: ``init_params`` has
     the reference's layout, ``init_cache`` the layout ``prefill`` fills,
     and the steps serve a prefill and two decode steps with the
-    reference's logits (its XLA path; ``tests/test_torch_moe.py`` and
-    ``tests/test_torch_mla.py`` hold both paths)."""
+    reference's logits (its XLA path; ``tests/test_torch_moe.py``,
+    ``tests/test_torch_mla.py``, ``tests/test_torch_audio.py`` and
+    ``tests/test_torch_vlm.py`` hold both paths). A VLM config's prefill
+    puts its vision embeddings before the 8 tokens (and its cache holds
+    them too). A bidirectional config's prefill gives every position's
+    logits and no cache, its ``init_cache`` has the reference's layout,
+    and ``make_decode_step`` refuses it."""
     cr, ct, pj, pt, mj, mt = _setup(arch)
     ref = jax.eval_shape(lambda: rtr.init_params(cr, jax.random.PRNGKey(0)))
     got = ttr.init_params(ct, seed=0, device="cpu")
     assert (jax.tree_util.tree_structure(ref)
             == jax.tree_util.tree_structure(got))
-    tok = _tokens(cr, 2, 10, seed=6)
-    prefill = make_prefill_step(ct, max_len=12, masks=mt, device="cpu")
+    batch = model_batch_np(cr, 2, 10, seed=6)
+    pre = {k: (v[:, :8] if k in ("tokens", "embeds") else v)
+           for k, v in batch.items()}
+    max_len = 12 + cr.vision_tokens
+    prefill = make_prefill_step(ct, max_len=max_len, masks=mt, device="cpu")
+    lg, cache = prefill(pt, pre)
+    rlg, rcache = rtr.prefill(pj, cr, {k: jnp.asarray(v)
+                                       for k, v in pre.items()},
+                              max_len=max_len, masks=mj)
+    empty = ttr.init_cache(ct, 2, max_len, device="cpu")
+    if not ct.causal:
+        assert cache is None is rcache
+        want = to_f32(rlg)
+        assert lg.shape == (2, 8, ct.vocab_size)
+        assert np.abs(to_f32(lg) - want).max() <= _tol(want, "float32")
+        rempty = jax.eval_shape(lambda: rtr.init_cache(cr, 2, max_len))
+        assert [tuple(t.shape) for run in empty["runs"] for t in run] == \
+            [tuple(t.shape) for run in rempty["runs"] for t in run]
+        with pytest.raises(ValueError, match="no decode step"):
+            make_decode_step(ct, masks=mt, device="cpu")
+        return
     decode = make_decode_step(ct, masks=mt, device="cpu")
-    lg, cache = prefill(pt, {"tokens": tok[:, :8]})
-    empty = ttr.init_cache(ct, 2, 12, device="cpu")
     for run_e, run_c in zip(empty["runs"], cache["runs"]):
         assert type(run_e) is type(run_c)
         assert [tuple(t.shape) for t in run_e] == \
             [tuple(t.shape) for t in run_c]
-    rlg, rcache = rtr.prefill(pj, cr, {"tokens": jnp.asarray(tok[:, :8])},
-                              max_len=12, masks=mj)
+    tok = batch["tokens"]
     for t in (8, 9):
         want = to_f32(rlg)
         assert np.abs(to_f32(lg) - want).max() <= _tol(want, "float32")
@@ -373,16 +398,9 @@ def _served_config_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED) + ["mixtral-8x7b"])
 def test_unported_configs_raise(arch):
-    if arch in SERVED:
-        _served_config_matches_reference(arch)
-        return
-    cfg = UNPORTED[arch](treg)
-    for call in (lambda: ttr.init_params(cfg, device="cpu"),
-                 lambda: ttr.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: make_prefill_step(cfg, device="cpu"),
-                 lambda: make_decode_step(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError):
-            call()
+    """Every config a refusal case pinned is served now (``SERVED``)."""
+    assert arch in SERVED
+    _served_config_matches_reference(arch)
 
 
 # ---------------------------------------------------------------------------

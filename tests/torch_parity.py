@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro.models import cnn as rcnn
+from repro_torch.data.requests import request_batch
 from repro_torch.interop import params_from_reference
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import cnn as tcnn
@@ -160,6 +161,15 @@ def transformer_params_np(cfg, seed: int = 0):
         return np.asarray(a.astype(np.float32)).astype(sd.dtype)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def model_batch_np(cfg, B: int, S: int, seed: int = 2):
+    """A request batch of numpy arrays for ``cfg`` from ``seed``
+    (``repro_torch.data.requests.request_batch``): an audio config's S
+    frame embeddings, else S tokens after a VLM config's vision prefix,
+    with no M-RoPE ids (the stack's text positions)."""
+    return request_batch(cfg, B, S + (cfg.vision_tokens or 0),
+                         np.random.default_rng(seed), grid=False)
 
 
 def stack_tol(want: np.ndarray, dtype: str) -> float:
