@@ -268,13 +268,38 @@ Phases, each printing its own lines:
    flash_attention (D = 80) and 48 masked_matmul (one up product a
    layer: the FFN has no gate). Every position's logits (B, S, 504) held
    to the fp32 plain run as phase 6 holds its rows; ``profile`` lines of
-   one R1 and one R2 prefill and a ``phase19`` line.
+   one R1 and one R2 prefill and a ``phase19`` line;
+20. training — ``launch.steps.make_train_step`` (``loss_fn`` by autograd,
+   the forward on the ``rmsnorm``, ``masked_matmul`` and
+   ``flash_attention`` kernels, each an autograd Function whose backward
+   is in PyTorch ops; remat on, as in the configs) with AdamW at the
+   reference's defaults and a constant learning rate, on one fixed batch
+   from ``data.tokens.MarkovTokens``, for three pruned models at full
+   width (``TRAIN_RUNS``; masks at ratio 0.5 through ``model_setup``): T1
+   Qwen2-VL-7B cut to 4 of 28 layers (1,024 seeded vision embeddings on
+   the 32 x 32 grid, then 1,024 tokens), T2 HuBERT-XLarge at 48 of 48
+   (2,048 frames, labels in [0, 504)), T3 DeepSeek-V3 cut to its first
+   (dense MLA) layer plus the MTP block (1,024 tokens, bf16 moments). A
+   ``slice`` line each (``layers 4 of 28``, ``48 of 48``, ``1 of 61 +
+   mtp``, with the cut's reason); the loss and every gradient three ways
+   (the kernel path, the bf16 plain run, the fp32 plain run on a float32
+   copy with TF32 off), each metric and each leaf's relative L2 gap to
+   the fp32 run within twice the bf16 plain run's plus one bf16 spacing,
+   no leaf skipped; every pruned unit's gradient exactly zero on the
+   kernel path; 8 steps (T3: 2) with the launch counters zeroed just
+   before and read just after, equal to ``expected_train_launches``
+   (every layer's kernels twice a step under remat), the loss falling;
+   for T1 one step at B = 2 with ``grad_accum`` 2 against 1 (the loss
+   within one bf16 spacing, both peaks reported); ``device_profile`` of
+   one step by kind, the device ms of its forward, forward and backward,
+   and AdamW update on their own, and of one ``flash_attention_backward``
+   at the run's shape. A ``train`` line each and a ``phase20`` line.
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
 phases 4 and 11-15, counted where one thread launches; the transformer
-kernels' of phases 6, 8, 9 and 16-19; ``flash_attention_d80``, the D = 80
-instance over one HuBERT R1 prefill with phase 19's launches), the
-nvidia-smi line, and as its last
+kernels' of phases 6, 8, 9 and 16-20; ``flash_attention_d80``, the D = 80
+instance over one HuBERT R1 prefill with phase 19's and T2's launches),
+the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero without that line; so does a machine without a CUDA device.
 """
@@ -1442,9 +1467,10 @@ def model_setup(cfg, seed: int):
     return params, masks
 
 
-def describe(cfg, params, masks, of_layers=None) -> None:
+def describe(cfg, params, masks, of_layers=None, **extra) -> None:
     """The ``slice`` line naming the model being served; ``of_layers``,
-    where depth was cut, the config's own layer count."""
+    where depth was cut, the config's own layer count; ``extra`` keys
+    added to the line as they are."""
     from repro_torch.models.transformer import param_count
     row = {"model": cfg.name, "arch_type": cfg.arch_type,
            "num_layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -1484,6 +1510,7 @@ def describe(cfg, params, masks, of_layers=None) -> None:
         row.update({kept[axis]: float(m.sum(1)[0])
                     for axis, m in (run_masks or {}).items()
                     if axis in kept})
+    row.update(extra)
     print("slice " + json.dumps(row), flush=True)
 
 
@@ -3452,6 +3479,405 @@ def hubert_phase():
                             TRANSFORMER_REQUESTS)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training the pruned zoo through make_train_step
+# ---------------------------------------------------------------------------
+#: the training runs: (label, registry module, layers kept, why the depth
+#: is cut, batch size, text tokens or frames, steps, AdamW moment dtype).
+#: One step holds bf16 parameters and gradients, the moments and the
+#: functional update's second copy of them (the reference's before
+#: donation): Qwen2-VL's 4 layers (2.02 B parameters) need ~44.5 GB, 8
+#: would need ~65; DeepSeek-V3's first (dense) layer and its MTP block
+#: (3.41 B) ~48 GB with bf16 moments
+TRAIN_RUNS = (
+    ("T1", "qwen2_vl_7b", 4, "a step of 8 layers needs ~65 GB of the "
+     "card's 80 (bf16 weights and grads, fp32 moments, the update's "
+     "second copy)", 1, 1024, 8, "float32"),
+    ("T2", "hubert_xlarge", 48, None, 1, 2048, 8, "float32"),
+    ("T3", "deepseek_v3_671b", 1, "one dense MLA layer and the MTP block "
+     "(3.41 B parameters) with bf16 moments: ~48 GB a step", 1, 1024, 2,
+     "bfloat16"))
+#: the constant learning rate of the training runs (AdamW, the reference's
+#: defaults otherwise: b1 0.9, b2 0.95, eps 1e-8, clip 1.0)
+TRAIN_LR = 1e-4
+
+
+def train_batch(cfg, B: int, T: int):
+    """A numpy training batch of ``cfg`` at step 0 of ``MarkovTokens``: T
+    tokens and their labels (the next tokens); a VLM's seeded vision
+    embeddings before them, their M-RoPE ids on the square grid; an audio
+    config's T seeded frame embeddings, labelled by ``MarkovTokens`` over
+    its vocabulary (frame classes)."""
+    import math
+    import numpy as np
+    from repro_torch.data.requests import grid_mrope_positions
+    from repro_torch.data.tokens import MarkovTokens
+    rng = np.random.default_rng(SEED)
+    data = MarkovTokens(cfg.vocab_size, seed=SEED).batch(B, T, 0)
+    if cfg.embeds_input:
+        return {"embeds": rng.standard_normal((B, T, cfg.d_model),
+                                              dtype=np.float32),
+                "labels": data["labels"]}
+    if cfg.vision_tokens:
+        V = cfg.vision_tokens
+        data["vision_embeds"] = rng.standard_normal((B, V, cfg.d_model),
+                                                    dtype=np.float32)
+        data["mrope_positions"] = grid_mrope_positions(B, math.isqrt(V), T)
+    return data
+
+
+def expected_train_launches(cfg, steps: int = 1):
+    """Kernel launches of ``steps`` train steps of ``cfg``'s pruned stack:
+    each layer's forward kernels (``expected_launches``' prefill counts)
+    twice under remat, once in the forward and once in the backward's
+    recompute; the final norm once; an MTP block's two pre-norms, its
+    flash attention and ``mtp.ln`` once (outside any checkpoint; its FFN
+    is unmasked). Every FFN product on the wgmma tiles (M = B * S rows).
+    No backward launches a kernel."""
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.models.layers.mlp import GATED
+    from repro_torch.models.transformer import layer_runs
+    remat = 2 if cfg.remat else 1
+    attn = sum(r.count for r in layer_runs(cfg))
+    mla = attn if cfg.attention == "mla" else 0
+    ffn = sum(r.count for r in layer_runs(cfg)
+              if r.kind in ("attn", "attn_dense"))
+    prods = remat * (2 if cfg.activation in GATED else 1) * ffn
+    mtp = 1 if cfg.mtp_depth else 0
+    per_step = {"rmsnorm": remat * (2 * attn + 2 * mla) + 1 + 3 * mtp,
+                "rmsnorm_gated": 0, "masked_matmul": prods,
+                "flash_attention": remat * (attn - mla) + mtp,
+                "ssd_scan": 0,
+                **dict.fromkeys(masked_matmul.route_launches, 0),
+                "masked_matmul_bf16_tiles": prods}
+    return {k: steps * v for k, v in per_step.items()}
+
+
+def pruned_grads(cfg, grads, masks):
+    """The gradient slices of the pruned units, each exactly zero when
+    the graph is whole: an FFN's pruned channels (``w_up``, ``w_gate``
+    columns, ``w_down`` rows); a GQA layer's pruned heads (``wq``, ``bq``
+    columns, ``wo`` rows) and the KV heads of the groups it prunes whole
+    (``wk``, ``wv``, ``bk``, ``bv`` columns); an MLA layer's pruned heads
+    (their ``w_uq``, ``w_uk``, ``w_uv`` columns, ``wo`` rows)."""
+    from repro_torch.models.transformer import layer_runs
+    out = []
+    for run, rg, rm in zip(layer_runs(cfg), grads["runs"], masks):
+        for j in range(run.count if rm else 0):
+            if "ffn_mask" in rm:
+                off = rm["ffn_mask"][j] == 0
+                mlp = rg["mlp"]
+                out += [mlp["w_up"][j][:, off], mlp["w_down"][j][off]]
+                if "w_gate" in mlp:
+                    out.append(mlp["w_gate"][j][:, off])
+            if "head_mask" not in rm:
+                continue
+            heads = rm["head_mask"][j] == 0
+            a = {k: t[j] for k, t in rg["attn"].items()}
+            H = cfg.num_heads
+            if cfg.attention == "mla":
+                out += [a[name].reshape(a[name].shape[0], H, -1)[:, heads]
+                        for name in ("w_uq", "w_uk", "w_uv")]
+                out.append(a["wo"].reshape(H, -1, cfg.d_model)[heads])
+                continue
+            cols = heads.repeat_interleave(cfg.head_dim)
+            kv = heads.reshape(cfg.num_kv_heads, -1).all(1) \
+                .repeat_interleave(cfg.head_dim)
+            out += [a["wq"][:, cols], a["wo"][cols], a["wk"][:, kv],
+                    a["wv"][:, kv]]
+            out += [a[b][m] for b, m in (("bq", cols), ("bk", kv),
+                                         ("bv", kv)) if b in a]
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted path, tensor) of every leaf of nested dicts and lists."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def train_grads(cfg, params, masks, batch, backend: str):
+    """(metrics as floats, grads) of ``loss_fn`` on the card
+    (``launch.steps.loss_and_grads``): the kernel path (``backend="auto"``)
+    or the plain versions (``"ref"``)."""
+    from repro_torch.launch.steps import loss_and_grads
+    metrics, grads = loss_and_grads(params, cfg, batch, masks, backend)
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def train_grad_check(cfg, params, masks, batch):
+    """The loss and every gradient three ways, as phase 6 holds logits:
+    the kernel path and the bf16 plain run on ``params``, then the fp32
+    plain run on a float32 copy (TF32 off). Each metric, and each leaf's
+    relative L2 gap to the fp32 run, must lie within twice the bf16 plain
+    run's plus one bf16 spacing; no leaf is skipped, the embedding
+    included (a leaf the loss never reads is zero in all three). Every
+    pruned unit's gradient on the kernel path must be exactly zero.
+    Returns the line's fields."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.models import transformer as tr
+    b = card_batch(cfg, batch)
+    mk, gk = train_grads(cfg, params, masks, b, "auto")
+    leaks = [float(t.abs().max()) for t in pruned_grads(cfg, gk, masks)
+             if t.numel()]
+    if any(leaks):
+        raise AssertionError(f"{cfg.name}: pruned units' gradients on the "
+                             f"kernel path reach {max(leaks)}")
+    mp, gp = train_grads(cfg, params, masks, b, "ref")
+    del b
+    params32 = tr.cast_params(params, torch.float32)
+    cfg32 = cfg.replace(dtype="float32")
+    with exact_fp32():
+        m32, g32 = train_grads(cfg32, params32, masks,
+                               card_batch(cfg32, batch), "ref")
+    del params32
+    torch.cuda.empty_cache()
+    metrics, worst = {}, 0.0
+    for k, f in m32.items():
+        tol = 2 * abs(mp[k] - f) + BF16_SPACING * abs(f)
+        gap = abs(mk[k] - f)
+        metrics[k] = {"kernel": mk[k], "plain_bf16": mp[k], "fp32": f,
+                      "gap": gap, "tol": tol}
+        worst = max(worst, gap / tol if tol else float(gap > 0) * 1e9)
+    leaves = {}
+    for (name, k), (_, p), (_, f) in zip(_named_leaves(gk),
+                                         _named_leaves(gp),
+                                         _named_leaves(g32)):
+        norm = float(f.norm())
+        if norm == 0.0:
+            gap_k, gap_p, tol = float(k.abs().max()), 0.0, 0.0
+            ratio = 0.0 if gap_k == 0.0 else float("inf")
+        else:
+            gap_k = float((k.float() - f).norm()) / norm
+            gap_p = float((p.float() - f).norm()) / norm
+            tol = 2 * gap_p + BF16_SPACING
+            ratio = gap_k / tol
+        leaves[name] = {"gap": gap_k, "plain_gap": gap_p, "tol": tol}
+        worst = max(worst, ratio)
+    del gk, gp, g32
+    torch.cuda.empty_cache()
+    row = {"metrics": metrics, "grad_gaps": leaves,
+           "pruned_grad_slices": len(leaks), "max_gap_over_tol": worst}
+    if worst > 1.0:
+        raise AssertionError(f"{cfg.name}: the kernel path's loss or "
+                             f"gradients off by {worst} of the tolerance: "
+                             f"{json.dumps(row)}")
+    return row
+
+
+def train_steps(cfg, model, masks, batch, optimizer, steps: int):
+    """``steps`` steps of ``make_train_step`` on one fixed batch, from and
+    into ``model["params"]`` (so that no older tree outlives a step), with
+    the launch counters zeroed just before and read just after, held to
+    ``expected_train_launches``. Returns (losses, wall ms a step,
+    launches)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    step = make_train_step(cfg, optimizer, masks)
+    state = optimizer.init(model["params"])
+    wrappers = transformer_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    mm = wrappers["masked_matmul"]
+    mm.route_launches = dict.fromkeys(mm.route_launches, 0)
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model["params"], state, metrics = step(model["params"], state,
+                                               batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+    counts = {name: w.launches for name, w in wrappers.items()}
+    counts.update(mm.route_launches)
+    want = expected_train_launches(cfg, steps)
+    if counts != want:
+        raise AssertionError(f"{cfg.name}: train launches {counts}, "
+                             f"expected {want}")
+    return losses, walls, counts
+
+
+def train_profile(cfg, params, masks, batch, optimizer):
+    """Device time of one train step by kernel kind (``device_profile``),
+    and of its parts on their own: the forward, the forward and backward
+    (``value_and_grad``) and the AdamW update. The backward's time is the
+    second less the first."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tr
+    step = make_train_step(cfg, optimizer, masks)
+    state = optimizer.init(params)
+    b = card_batch(cfg, batch)
+
+    def whole():
+        step(params, state, batch)
+        torch.cuda.synchronize()
+
+    def forward():
+        with torch.no_grad():
+            tr.loss_fn(params, cfg, b, masks)
+        torch.cuda.synchronize()
+
+    def forward_backward():
+        train_grads(cfg, params, masks, b, "auto")
+        torch.cuda.synchronize()
+
+    def update():
+        optimizer.update(held["grads"], state, params)
+        torch.cuda.synchronize()
+    prof = device_profile(whole)
+    parts = {name: device_profile(fn)["device_ms"]
+             for name, fn in (("forward_no_grad", forward),
+                              ("forward_backward", forward_backward))}
+    held = {"grads": train_grads(cfg, params, masks, b, "auto")[1]}
+    parts["adamw_update"] = device_profile(update)["device_ms"]
+    parts["backward"] = parts["forward_backward"] - parts["forward_no_grad"]
+    del held, state
+    torch.cuda.empty_cache()
+    return prof, parts
+
+
+def flash_backward_profile(B, S, H, Hkv, D, causal):
+    """Device time of one ``flash_attention_backward`` at a training run's
+    shape (bf16 operands, fp32 passes), by kind."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import \
+        flash_attention_backward
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, g = (torch.randn((B, S, H, D), device="cuda", generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), device="cuda", generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+
+    def once():
+        flash_attention_backward(q, k, v, g, causal, None, D ** -0.5, S)
+        torch.cuda.synchronize()
+    prof = device_profile(once)
+    return {"shape": [B, S, H, Hkv, D], "causal": causal,
+            "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+            "by_kind": prof["by_kind"]}
+
+
+def train_run(label, module, layers, cut, B, T, steps, moment_dtype):
+    """One training run of phase 20: ``module``'s config pruned at ratio
+    0.5 through ``model_setup``, its depth cut to ``layers`` (a ``slice``
+    line), the gradient check (``train_grad_check``), ``steps`` AdamW
+    steps through ``make_train_step`` on one fixed batch (counted), the
+    profiles, and for T1 one step at B = 2 with ``grad_accum`` 2 against
+    the same batch at 1. A ``train`` line; returns the launches."""
+    import importlib
+    import statistics
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import param_count
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+    cfg = full.replace(num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+    params, masks = model_setup(cfg, SEED)
+    note = f"{layers} of {full.num_layers}" + (
+        " + mtp" if cfg.mtp_depth else "")
+    describe(cfg, params, masks, of_layers=full.num_layers,
+             layers=note, run=label, **({"cut": cut} if cut else {}))
+    row = {"model": cfg.name, "run": label, "layers": note,
+           "params": param_count(params), "batch": B, "tokens": T,
+           "positions": T + (cfg.vision_tokens or 0), "steps": steps,
+           "lr": TRAIN_LR, "moment_dtype": moment_dtype}
+    batch = train_batch(cfg, B, T)
+    lap("setup")
+    check = train_grad_check(cfg, params, masks, batch)
+    lap("grad_check")
+    peaks = {"grad_check": torch.cuda.max_memory_allocated() / 1e9}
+    optimizer = adamw(constant(TRAIN_LR),
+                      moment_dtype=getattr(torch, moment_dtype))
+    if label == "T1":          # B = 2 at grad_accum 2 against 1
+        big = train_batch(cfg, 2 * B, T)
+        accum = {}
+        for n in (1, 2):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step = make_train_step(cfg, optimizer, masks, grad_accum=n)
+            m = step(params, optimizer.init(params), big)[2]
+            accum[n] = {"loss": float(m["loss"]),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del step, m
+        gap = abs(accum[2]["loss"] - accum[1]["loss"])
+        tol = BF16_SPACING * abs(accum[1]["loss"])
+        row["grad_accum"] = {"batch": 2 * B, "accum_1": accum[1],
+                             "accum_2": accum[2], "loss_gap": gap,
+                             "tol": tol}
+        if gap > tol:
+            raise AssertionError(f"{cfg.name}: grad_accum 2 loss off "
+                                 f"grad_accum 1 by {gap} > {tol}")
+    lap("grad_accum")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = {"params": params}
+    del params
+    losses, walls, launches = train_steps(cfg, model, masks, batch,
+                                          optimizer, steps)
+    lap("steps")
+    peaks["steps"] = torch.cuda.max_memory_allocated() / 1e9
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: loss {losses} did not fall")
+    prof, parts = train_profile(cfg, model["params"], masks, batch,
+                                optimizer)
+    del model
+    torch.cuda.empty_cache()
+    row.update({"losses": losses, "wall_ms": walls,
+                "wall_ms_median": statistics.median(walls),
+                "device_ms": prof["device_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "by_kind": prof["by_kind"],
+                "count_by_kind": prof["count_by_kind"], "top": prof["top"],
+                "parts_device_ms": parts, "peak_gb": peaks,
+                "launches_per_step": expected_train_launches(cfg),
+                "flash_backward": flash_backward_profile(
+                    B, row["positions"] - (1 if cfg.mtp_depth else 0),
+                    cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    cfg.causal),
+                **check})
+    lap("profile")
+    row["seconds"] = seconds
+    print("train " + json.dumps(row), flush=True)
+    return launches
+
+
+def training_phase():
+    """Phase 20: T1, T2 and T3 (``TRAIN_RUNS``), then a ``phase20`` line
+    with its seconds and the most memory a run allocated. Returns the
+    launches of the counted train steps, by kernel, and of T2 (flash's
+    D = 80 instance) apart."""
+    import torch
+    t0 = time.perf_counter()
+    totals, peaks, by_run = None, {}, {}
+    for run in TRAIN_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        by_run[run[0]] = train_run(*run)
+        peaks[run[0]] = torch.cuda.max_memory_allocated() / 1e9
+        totals = ({k: totals[k] + v for k, v in by_run[run[0]].items()}
+                  if totals else dict(by_run[run[0]]))
+    print("phase20 " + json.dumps({
+        "seconds": time.perf_counter() - t0, "peak_allocated_gb": peaks,
+        "launches": by_run,
+        "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9}),
+        flush=True)
+    return totals, by_run["T2"]
+
+
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                  **extra):
     """One kernel of the JSON line: times and bound summed over
@@ -3737,9 +4163,12 @@ def main() -> int:
     vtotals = qwen2_vl_phase()
     # 19. the pruned HuBERT-XLarge at full width and depth
     htotals = hubert_phase()
+    # 20. training: pruned Qwen2-VL-7B, HuBERT-XLarge and DeepSeek-V3
+    # through make_train_step
+    ttotals, t2_launches = training_phase()
     for name in totals:
         totals[name] += (xtotals[name] + dtotals[name] + vtotals[name]
-                         + htotals[name])
+                         + htotals[name] + ttotals[name])
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan
@@ -3750,7 +4179,8 @@ def main() -> int:
     # wgmma tiles, 57 norms, 28 attentions; Mamba2-2.7B: 64 scans, 64 gated
     # norms) at the prefill's shapes; the flash kernel's D = 80 instance
     # over one HuBERT-XLarge R1 prefill (48 attentions), with phase 19's
-    # launches
+    # and phase 20's T2 launches; every launch count adds phase 20's train
+    # steps
     from repro_torch.configs import hubert_xlarge
     L = qcfg.num_layers
 
@@ -3790,7 +4220,8 @@ def main() -> int:
                      [r for r in flash_rows if r["D"] == 80],
                      case(flash_rows, "hubert R1 D80"),
                      hubert_xlarge.CONFIG.num_layers,
-                     htotals["flash_attention"]),
+                     htotals["flash_attention"]
+                     + t2_launches["flash_attention"]),
         kernel_entry("ssd_scan", ssd_rows, case(ssd_rows, "mamba2 R1"),
                      mcfg.num_layers, totals["ssd_scan"],
                      passes=case(ssd_rows, "mamba2 R1")[0]["passes_ms"])]

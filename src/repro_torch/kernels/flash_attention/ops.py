@@ -8,6 +8,12 @@ fallback from one to the other. ``flash_attention.launches`` counts kernel
 launches. The kernel reads the (B, S, H, D) strides itself and
 bounds-checks ragged tiles, so unlike the reference's wrapper this one
 neither transposes nor pads.
+
+``flash_attention`` has a gradient: where autograd wants its output
+(``kernels.needs_grad`` of q, k or v) it runs as ``_FlashAttention``,
+whose forward is the same kernel (or plain version) and whose backward is
+``flash_attention_backward`` in PyTorch ops (the reference trains on XLA's
+autodiff of its plain attention and has no backward kernel).
 """
 from __future__ import annotations
 
@@ -16,8 +22,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.device import exact_fp32
+from repro_torch.kernels import build, needs_grad
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 
 _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
@@ -65,12 +72,92 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Query and key positions are 0..S-1; keys at or past ``seq_k`` (default
     Sk, the true key length) are masked. fp32 scores, softmax and
-    accumulator; output in q's dtype."""
+    accumulator; output in q's dtype. Through ``_FlashAttention`` where
+    autograd wants the output."""
     Sk = k.shape[1]
     seq_k = Sk if seq_k is None else int(seq_k)
     if not 0 <= seq_k <= Sk:
         raise ValueError(f"flash_attention: seq_k {seq_k} outside 0..{Sk}")
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, scale, seq_k)
+    return _flash_attention(q, k, v, causal, window, scale, seq_k)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, g: torch.Tensor, causal: bool,
+                             window: Optional[int], scale: float,
+                             seq_k: int):
+    """(dQ, dK, dV) of ``flash_attention`` for the output gradient ``g``,
+    one KV head at a time so that the (Sq, Sk) float32 buffers hold one
+    group's heads: P recomputed in fp32 from Q and K under the forward's
+    causal, window and ``seq_k`` masks, ``dV = Pᵀ dO``, ``dP = dO Vᵀ``,
+    ``dS = P∘(dP − rowsum(P∘dP))``, ``dQ = scale·dS K``, ``dK =
+    scale·dSᵀ Q``; a KV head's dK and dV summed over its group. Keys at or
+    past ``seq_k`` get zero. The products run in fp32 with TF32 off
+    (float64 for float64 operands); each result is cast to its operand's
+    dtype."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    f32 = torch.promote_types(q.dtype, torch.float32)
+    dq = torch.empty((B, Sq, H, D), dtype=f32, device=q.device)
+    dk = torch.zeros((B, Sk, Hkv, D), dtype=f32, device=q.device)
+    dv = torch.zeros((B, Sk, Hkv, v.shape[-1]), dtype=f32, device=q.device)
+    d = (torch.arange(Sq, device=q.device)[:, None]
+         - torch.arange(seq_k, device=q.device)[None, :])
+    ok = torch.ones((Sq, seq_k), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= d >= 0
+    if window is not None:
+        ok &= d < window
+    with exact_fp32():
+        for h in range(Hkv):
+            heads = slice(h * group, (h + 1) * group)
+            qh = q[:, :, heads].to(f32)                   # (B, Sq, G, D)
+            gh = g[:, :, heads].to(f32)
+            kh = k[:, :seq_k, h].to(f32)                  # (B, Sk', D)
+            vh = v[:, :seq_k, h].to(f32)
+            p = torch.softmax(torch.einsum("bqgd,bkd->bgqk", qh, kh)
+                              .mul_(scale).masked_fill_(~ok, NEG_INF),
+                              dim=-1)
+            dv[:, :seq_k, h] = torch.einsum("bgqk,bqgd->bkd", p, gh)
+            dp = torch.einsum("bqgd,bkd->bgqk", gh, vh)
+            ds = dp.sub_((p * dp).sum(-1, keepdim=True)).mul_(p)
+            del p, dp
+            dq[:, :, heads] = torch.einsum("bgqk,bkd->bqgd", ds,
+                                           kh).mul_(scale)
+            dk[:, :seq_k, h] = torch.einsum("bgqk,bqgd->bkd", ds,
+                                            qh).mul_(scale)
+            del ds
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` as an autograd node: the forward launches the
+    kernel (the plain version on the CPU) and keeps the caller's q, k and
+    v, not the contiguous copies the card's path makes; the backward is
+    ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, seq_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale, seq_k)
+        return _flash_attention(q, k, v, causal, window, scale, seq_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, g, *ctx.args),
+                None, None, None, None)
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, window: Optional[int], scale: float,
+                     seq_k: int) -> torch.Tensor:
+    """The serving path: the kernel on card tensors, the plain version on
+    CPU ones."""
+    Sk = k.shape[1]
     if q.device.type == "cpu":
         return attention_ref(q, k[:, :seq_k], v[:, :seq_k], causal=causal,
                              window=window, scale=scale)

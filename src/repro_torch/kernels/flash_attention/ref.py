@@ -17,7 +17,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) with H % Hkv == 0 -> (B,Sq,H,D).
 
     Positions are 0..S-1 on both sides (self-attention; Sq == Sk assumed
-    for the masked cases). fp32 math, output in q's dtype. The (B, H, Sq,
+    for the masked cases). fp32 math (float64 for float64 operands, which
+    gradient checks use), output in q's dtype. The (B, H, Sq,
     Sk) scores are scaled and masked in place and released once the
     softmax is taken (the same numbers as out-of-place ops give): at 8192
     tokens they are 8.6 GB a layer at 32 heads."""
@@ -25,9 +26,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    qg = q.to(torch.float32).reshape(B, Sq, Hkv, group, D)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
-                          k.to(torch.float32)).mul_(scale)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.to(acc).reshape(B, Sq, Hkv, group, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(acc)).mul_(scale)
     d = (torch.arange(Sq, device=q.device)[:, None]
          - torch.arange(Sk, device=q.device)[None, :])
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -37,5 +38,5 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ok &= d < window
     probs = torch.softmax(logits.masked_fill_(~ok, NEG_INF), dim=-1)
     del logits
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(acc))
     return out.reshape(B, Sq, H, D).to(q.dtype)

@@ -16,6 +16,13 @@ entry, and its launch plan, from B's dtype and the shape before the launch:
 ``masked_matmul.launches`` counts kernel launches of both wrappers, so a
 run can show that its GEMMs went through the kernels;
 ``masked_matmul.route_launches`` counts them by entry.
+
+``masked_matmul`` has a gradient: where autograd wants its output
+(``kernels.needs_grad`` of ``a`` or ``b``) it runs as ``_MaskedMatmul``,
+whose forward is the same kernel (or plain version) and whose backward is
+``masked_matmul_backward``, two matrix products in PyTorch ops (no TPU
+kernel computes them: the reference trains on XLA's autodiff). The mask
+gets no gradient.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.device import exact_fp32
+from repro_torch.kernels import build, needs_grad
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 
 #: every C entry of csrc/masked_matmul.cu, by route
@@ -183,7 +191,54 @@ def masked_matmul(a: torch.Tensor, b: torch.Tensor,
     """a (..., K) @ b (K, N) * col_mask (N,) -> (..., N), fp32 accumulation,
     pruned columns exact zeros, output in a's dtype. On the card a
     bfloat16 ``a`` takes a bfloat16 ``b``; the mask is read as float32
-    (a mask of another dtype is converted, it holds only 0s and 1s)."""
+    (a mask of another dtype is converted, it holds only 0s and 1s).
+    Through ``_MaskedMatmul`` where autograd wants the output."""
+    if needs_grad(a, b):
+        return _MaskedMatmul.apply(a, b, col_mask)
+    return _masked_matmul(a, b, col_mask)
+
+
+def masked_matmul_backward(a: torch.Tensor, b: torch.Tensor,
+                           col_mask: torch.Tensor, g: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dA, dB) of ``masked_matmul`` for the output gradient ``g``: with
+    ``gm = g·mask``, ``dA = gm @ Bᵀ`` and ``dB = Aᵀ @ gm`` (A's leading
+    dims flattened into rows), so a pruned column's dB is exactly zero.
+    The products run in the operands' dtype where A and B share it (bf16
+    on the tensor cores, fp32 with TF32 off), else in fp32; each result
+    is cast to its operand's dtype."""
+    ct = (a.dtype if a.dtype == b.dtype
+          else torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                                   torch.float32))
+    K, N = b.shape
+    gm = (g.to(ct) * col_mask.to(ct))
+    with exact_fp32():
+        da = gm @ b.to(ct).T
+        db = a.to(ct).reshape(-1, K).T @ gm.reshape(-1, N)
+    return da.to(a.dtype), db.to(b.dtype)
+
+
+class _MaskedMatmul(torch.autograd.Function):
+    """``masked_matmul`` as an autograd node: the forward launches the
+    kernel (the plain version on the CPU) and keeps the caller's
+    operands; the backward is ``masked_matmul_backward``."""
+
+    @staticmethod
+    def forward(ctx, a, b, col_mask):
+        ctx.save_for_backward(a, b, col_mask)
+        return _masked_matmul(a, b, col_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, col_mask = ctx.saved_tensors
+        da, db = masked_matmul_backward(a, b, col_mask, g)
+        return da, db, None
+
+
+def _masked_matmul(a: torch.Tensor, b: torch.Tensor,
+                   col_mask: torch.Tensor) -> torch.Tensor:
+    """The serving path: the kernel on card tensors, the plain version on
+    CPU ones."""
     lead = a.shape[:-1]
     K = a.shape[-1]
     N = b.shape[1]

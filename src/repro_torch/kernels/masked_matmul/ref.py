@@ -12,6 +12,9 @@ def masked_matmul_ref(a: torch.Tensor, b: torch.Tensor,
 
     This is the semantics of a channel-pruned layer under masked
     execution: pruned output channels are exactly zero (fp32
-    accumulation)."""
-    out = a.to(torch.float32) @ b.to(torch.float32)
-    return (out * col_mask.to(torch.float32)).to(a.dtype)
+    accumulation; float64 for float64 operands, which gradient checks
+    use)."""
+    acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                              torch.float32)
+    out = a.to(acc) @ b.to(acc)
+    return (out * col_mask.to(acc)).to(a.dtype)

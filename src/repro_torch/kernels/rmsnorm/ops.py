@@ -11,6 +11,13 @@ lane holds in registers, and the vector or the scalar route.
 ``rmsnorm.launches`` and ``gated_rmsnorm.launches`` count kernel launches.
 Unlike the reference's wrapper they pad nothing: the kernel masks the
 last rows and columns itself.
+
+``rmsnorm`` has a gradient: where autograd wants its output
+(``kernels.needs_grad``) it runs as ``_RMSNorm``, whose forward is the
+same kernel (or plain version) and whose backward is ``rmsnorm_backward``,
+the derivative in PyTorch ops (the reference trains on XLA's autodiff of
+its plain version and has no backward kernel). ``gated_rmsnorm`` has none
+yet and refuses a card operand that needs one.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, needs_grad, refuse_grad
 from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref, rmsnorm_ref
 
 #: every C entry of csrc/rmsnorm.cu, by (gated, dtype)
@@ -134,7 +141,57 @@ def _aligned(*ptrs: int) -> bool:
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
             scale_offset: float = 0.0) -> torch.Tensor:
-    """x (..., d), scale (d,) -> (..., d) in x's dtype; fp32 math."""
+    """x (..., d), scale (d,) -> (..., d) in x's dtype; fp32 math. Through
+    ``_RMSNorm`` where autograd wants the output, else straight to the
+    kernel (or, on the CPU, the plain version)."""
+    if needs_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps, scale_offset)
+    return _rmsnorm(x, scale, eps, scale_offset)
+
+
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     eps: float = 1e-6, scale_offset: float = 0.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale) of ``rmsnorm`` at (x, scale) for the output gradient
+    ``g``, in fp32 with ``w = scale + offset`` and ``r = rsqrt(mean(x²) +
+    eps)``: ``dx = r·(g·w − x·r²·mean(x·g·w))``, ``dscale = Σ_rows
+    g·x·r``; each cast to its operand's dtype (float64 operands keep
+    float64 math)."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    x32, g32 = x.to(f32), g.to(f32)
+    r = 1.0 / torch.sqrt(torch.mean(torch.square(x32), dim=-1,
+                                    keepdim=True) + eps)
+    gw = g32 * (scale.to(f32) + scale_offset)
+    dx = r * (gw - x32 * (r * r) * torch.mean(x32 * gw, dim=-1,
+                                              keepdim=True))
+    dscale = (g32 * x32 * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``rmsnorm`` as an autograd node: the forward launches the kernel
+    (the plain version on the CPU) and keeps the caller's x and scale, not
+    the contiguous copies the card's path makes; the backward is
+    ``rmsnorm_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, scale_offset):
+        ctx.save_for_backward(x, scale)
+        ctx.eps, ctx.scale_offset = eps, scale_offset
+        return _rmsnorm(x, scale, eps, scale_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, g, ctx.eps,
+                                      ctx.scale_offset)
+        return dx, dscale, None, None
+
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             scale_offset: float) -> torch.Tensor:
+    """The serving path: the kernel on a card tensor, the plain version on
+    a CPU one."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps, scale_offset)
     _check("rmsnorm", x, scale)
@@ -172,6 +229,7 @@ def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return gated_rmsnorm_ref(x, z, scale, eps)
     _check("gated_rmsnorm", x, z, scale)
+    refuse_grad("gated_rmsnorm", x, z, scale)
     d = x.shape[-1]
     rows = math.prod(x.shape[:-1])
     if z.shape != x.shape or tuple(scale.shape) != (d,):

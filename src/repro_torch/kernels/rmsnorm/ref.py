@@ -10,14 +10,16 @@ import torch
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
                 scale_offset: float = 0.0) -> torch.Tensor:
-    """x (..., d), scale (d,). fp32 math, cast back to x's dtype.
+    """x (..., d), scale (d,). fp32 math (float64 for float64 operands,
+    which gradient checks use), cast back to x's dtype.
 
     ``scale_offset=1.0`` gives the gemma convention (weights stored as
     ``scale - 1``)."""
-    x32 = x.to(torch.float32)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * (1.0 / torch.sqrt(var + eps))
-    return (y * (scale.to(torch.float32) + scale_offset)).to(x.dtype)
+    return (y * (scale.to(acc) + scale_offset)).to(x.dtype)
 
 
 def gated_rmsnorm_ref(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,

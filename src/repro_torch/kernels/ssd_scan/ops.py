@@ -13,7 +13,8 @@ chunks; the result does not depend on the chunk length in exact
 arithmetic). ``ssd_scan.launches`` counts calls. Unlike the reference's
 wrapper this one pads nothing: the kernels bound-check the ragged last
 chunk and read x, B and C through their batch and step strides, so the
-slices of the Mamba2 block's conv output go in without a copy.
+slices of the Mamba2 block's conv output go in without a copy. The kernels
+have no gradient yet: card operands that need one are refused.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 _ENTRIES = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
@@ -108,6 +109,7 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_scan_ref(xh, dt, A, Bm, Cm, head_mask, chunk)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {xh.device}")
+    refuse_grad("ssd_scan", xh, dt, A, Bm, Cm)
     B, S, H, P = xh.shape
     N = Bm.shape[3]
     if head_mask is None:

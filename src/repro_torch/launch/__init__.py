@@ -1,1 +1,1 @@
-"""Serving step functions of the transformer zoo (prefill and decode)."""
+"""Step functions of the transformer zoo (train, prefill and decode)."""

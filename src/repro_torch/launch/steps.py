@@ -1,12 +1,17 @@
-"""Step functions the launchers serve through (the reference's
-``launch/steps.py``, serving half): prefill and decode. The training step
-comes with the training slice.
+"""Step functions the launchers train and serve through (the reference's
+``launch/steps.py``): one optimizer step, prefill and decode.
 
 Each step runs on one device, the card unless the caller passes
 ``device="cpu"`` (``device.resolve_device``): the step moves its batch
-there (tokens as int64, an audio config's ``embeds`` and a VLM config's
-``vision_embeds`` in the model's dtype, ``mrope_positions`` as int32), and
-the parameters and cache must already live there.
+there (tokens and labels as int64, an audio config's ``embeds`` and a VLM
+config's ``vision_embeds`` in the model's dtype, ``mrope_positions`` as
+int32), and the parameters, optimizer state and cache must already live
+there. The train step differentiates ``loss_fn`` by autograd with the
+forward on the kernels: on the card the ``rmsnorm``, ``masked_matmul``
+and ``flash_attention`` kernels, each an autograd Function whose backward
+is in PyTorch ops. The SSD scan and the gated norm have no gradient on the
+card yet, so an ``ssm`` or ``hybrid`` config trains only on the CPU, on
+the plain versions, as the reference does (ROADMAP A7e).
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import check_head_dim
 from repro_torch.models import transformer as tr
+from repro_torch.optim.optimizers import (Optimizer, tree_map,
+                                          value_and_grad)
 
 
 def _on(device: torch.device, tokens) -> torch.Tensor:
@@ -28,10 +35,94 @@ def batch_on(device: torch.device, cfg: ModelConfig, batch):
     """``batch`` with each of its inputs on ``device`` in the type the
     stack reads it in."""
     dtype = getattr(torch, cfg.dtype)
-    types = {"tokens": torch.long, "embeds": dtype, "vision_embeds": dtype,
-             "mrope_positions": torch.int32}
+    types = {"tokens": torch.long, "labels": torch.long, "embeds": dtype,
+             "vision_embeds": dtype, "mrope_positions": torch.int32}
     return {name: (torch.as_tensor(t).to(device=device, dtype=types[name])
                    if name in types else t) for name, t in batch.items()}
+
+
+def _check_card(cfg: ModelConfig, dev: torch.device) -> None:
+    """Refuse on the card a config whose attention goes through the flash
+    kernel (GQA) at a head dim the kernel has no instance of; MLA's
+    attention never reaches that kernel."""
+    if dev.type == "cuda" and cfg.num_heads and cfg.attention == "gqa":
+        check_head_dim(cfg.head_dim)
+
+
+def _microbatches(batch, n: int):
+    """``batch`` split into ``n`` equal microbatches on the batch dim: dim
+    0, except ``mrope_positions`` (3, B, S), split on dim 1."""
+    def split(name, t):
+        dim = 1 if name == "mrope_positions" else 0
+        if t.shape[dim] % n:
+            raise ValueError(f"grad_accum {n} does not divide {name}'s "
+                             f"batch dim {t.shape[dim]}")
+        return torch.chunk(t, n, dim=dim)
+    parts = {name: split(name, t) for name, t in batch.items()}
+    return [{name: p[i] for name, p in parts.items()} for i in range(n)]
+
+
+def loss_and_grads(params, cfg: ModelConfig, batch, masks=None,
+                   backend: str = "auto"):
+    """(metrics, grads): ``loss_fn``'s metrics, detached, and its gradient
+    with respect to every leaf of ``params`` (``optim.value_and_grad``),
+    on the device the parameters and ``batch`` already live on; the
+    kernel path (``backend="auto"``) or the plain versions (``"ref"``)."""
+    out = {}
+
+    def loss(p):
+        total, out["metrics"] = tr.loss_fn(p, cfg, batch, masks, backend)
+        return total
+    _, grads = value_and_grad(loss, params)
+    return {k: v.detach() for k, v in out["metrics"].items()}, grads
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
+                    grad_accum: int = 1, device: DeviceLike = None):
+    """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradient (``optim.value_and_grad`` of
+    ``loss_fn``), then ``optimizer.update``, as the reference's step.
+    ``batch`` holds ``labels`` (B, S) beside the inputs ``prefill`` takes.
+    ``grad_accum > 1`` runs the batch as that many microbatches
+    (``_microbatches``), sums their gradients in fp32, divides by
+    ``grad_accum`` and casts each to its parameter's dtype, and averages
+    the metrics: live activations shrink by the factor. An ``ssm`` or
+    ``hybrid`` config is refused on the card: its kernels have no
+    gradient there yet (ROADMAP A7e), and nothing falls back to the plain
+    path."""
+    tr.check_supported(cfg)
+    if (torch.device("cuda" if device is None else device).type == "cuda"
+            and cfg.arch_type in ("ssm", "hybrid")):
+        raise NotImplementedError(
+            f"{cfg.name}: training an {cfg.arch_type} config on the card "
+            f"needs gradients of the ssd_scan kernel and the gated norm "
+            f"(ROADMAP A7e); pass device='cpu' to train it on the plain "
+            f"versions")
+    dev = resolve_device(device)
+    _check_card(cfg, dev)
+
+    def train_step(params, opt_state, batch):
+        batch = batch_on(dev, cfg, batch)
+        if grad_accum == 1:
+            metrics, grads = loss_and_grads(params, cfg, batch, masks)
+        else:
+            gsum = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            ms = []
+            for mb in _microbatches(batch, grad_accum):
+                m, g = loss_and_grads(params, cfg, mb, masks)
+                gsum = tree_map(lambda acc, gg: acc + gg.to(torch.float32),
+                                gsum, g)
+                del g
+                ms.append(m)
+            grads = tree_map(lambda g, p: (g / grad_accum).to(p.dtype),
+                             gsum, params)
+            del gsum
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, metrics
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
@@ -46,8 +137,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
     bidirectional config returns (all logits (B, S, V), None)."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
-    if dev.type == "cuda" and cfg.num_heads and cfg.attention == "gqa":
-        check_head_dim(cfg.head_dim)
+    _check_card(cfg, dev)
 
     def prefill_step(params, batch):
         batch = batch_on(dev, cfg, batch)

@@ -23,7 +23,7 @@ reference's scan carries them. An MLA stack (DeepSeek-V3) caches each
 layer's KV latent and shared rotary key (``MLACache``) at ``max_len``, and
 its rotary angles span ``qk_rope_head_dim``. A config with ``mtp_depth``
 gets the reference's ``mtp`` subtree (its GQA block, projection and norm);
-serving never runs it, and its loss comes with the training slice. An audio
+serving never runs it, ``loss_fn`` adds its next-next-token loss. An audio
 config reads ``batch["embeds"]`` (B, S, d_model) in place of tokens; a VLM
 config puts ``batch["vision_embeds"]`` (B, V, d_model) before the text
 tokens' embeddings, and its M-RoPE angles come from
@@ -34,6 +34,14 @@ Three entry points, cache-consistent with each other:
   forward      — full sequence, logits for every position
   prefill      — full sequence, last-position logits + decode-ready cache
   decode_step  — one token per sequence against the cache
+and the training loss, ``loss_fn`` (the reference's line for line): the
+mean token cross-entropy (``softmax_xent``; a VLM's labels padded with -1
+over its vision prefix), the MoE router losses, and DeepSeek-V3's MTP loss
+at weight 0.1. With ``cfg.remat`` and grad enabled, each layer body (and
+each invocation of a hybrid's shared block) runs under a non-reentrant
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of its
+scan bodies: its activations are recomputed in the backward, with the
+same bits. Serving, with no grad, is untouched.
 
 Pruning integration: ``masks`` mirrors the runs structure with per-layer
 structured masks — attention ``head_mask`` (num_heads,), FFN ``ffn_mask``
@@ -45,7 +53,11 @@ a hybrid is not pruned.
 entry, ``flash_attention``, ``masked_matmul``, ``ssd_scan``) through its
 wrapper, which launches the CUDA kernel for a tensor on the card and the
 plain version for one on the CPU; ``backend="ref"`` runs the plain
-versions wherever the tensors are (the yardstick on the card). The MoE
+versions wherever the tensors are (the yardstick on the card). Under
+autograd the wrappers of ``rmsnorm``, ``masked_matmul`` and
+``flash_attention`` are autograd Functions with a backward in PyTorch ops;
+the gated norm and the SSD scan have none on the card yet (ROADMAP A7e)
+and refuse. The MoE
 dispatch and expert products, and MLA's attention (naive or chunked), are
 plain PyTorch on both backends, as the reference leaves them to XLA.
 """
@@ -55,6 +67,8 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -373,30 +387,39 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
     kv)`` each attention or MoE layer's (keys, values), or MLA's (latent,
     rotary key); ``on_state(run, layer_in_run, SSMCache)`` each Mamba2
     layer's conv tail and final state; ``on_shared_kv(g, k, v)`` the keys
-    and values of the shared block's invocation ``g``."""
+    and values of the shared block's invocation ``g``. With ``cfg.remat``
+    and grad enabled each block runs under a non-reentrant checkpoint
+    (the callbacks see its outputs, outside it)."""
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def block(fn, *args):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
     for r, (run, rp, rmask) in enumerate(zip(runs, params["runs"], masks)):
         for j in range(run.count):
             lp, mk = _index(rp, j), _index(rmask, j)
             if run.kind != "ssm":
-                x, kv, metrics = _attn_block(cfg, lp, x, angles, mk, backend)
+                x, kv, metrics = block(_attn_block, cfg, lp, x, angles, mk,
+                                       backend)
                 if metrics is not None:
                     aux = aux + metrics.aux_loss
                     zl = zl + metrics.z_loss
                 if on_kv is not None:
                     on_kv(r, j, kv)
                 continue
-            x, st = _ssm_block(cfg, lp, x, mk, backend,
-                               collect_state=on_state is not None)
+            x, st = block(_ssm_block, cfg, lp, x, mk, backend,
+                          on_state is not None)
             if on_state is not None:
                 on_state(r, j, st)
             g = _shared_after(cfg, run.count, j)
             if g is not None:      # the shared block: unpruned
-                x, (k, v), _ = _attn_block(cfg, params["shared"], x,
-                                           angles, None, backend)
+                x, (k, v), _ = block(_attn_block, cfg, params["shared"], x,
+                                     angles, None, backend)
                 if on_shared_kv is not None:
                     on_shared_kv(g, k, v)
     return x, {"moe_aux": aux, "moe_z": zl}
@@ -415,6 +438,75 @@ def forward(params, cfg: ModelConfig, batch, masks: Masks = None,
     x, aux = _run_stack(params, cfg, x, angles, masks, backend)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
     return _lm_logits(params, cfg, x), dict(aux, hidden=x)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+#: weight of DeepSeek-V3's MTP loss in the total (the reference's)
+MTP_WEIGHT = 0.1
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; labels < 0 are masked out, the
+    sum divided by max(unmasked count, 1)."""
+    logits = logits.to(torch.float32)
+    mask = labels >= 0
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = (torch.logsumexp(logits, dim=-1) - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def _mtp_loss(params, cfg: ModelConfig, batch, hidden: torch.Tensor,
+              backend: str) -> torch.Tensor:
+    """DeepSeek-V3's next-next-token loss (the reference's, line for
+    line): [h_t; emb(token_{t+1})] projected by ``mtp.proj``, the GQA
+    block of the MTP config (MLA becomes GQA, M-RoPE standard rope, its
+    angles from that config's own head dim), ``mtp.ln``, the LM head, and
+    labels two ahead, -1 past the end."""
+    h = hidden
+    emb_next = params["embed"][batch["tokens"].clamp_min(0)]
+    if cfg.scale_embeddings:
+        emb_next = emb_next * torch.tensor(math.sqrt(cfg.d_model),
+                                           dtype=emb_next.dtype)
+    if cfg.vision_tokens:
+        h = h[:, cfg.vision_tokens:]
+    hcat = torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1) \
+        @ params["mtp"]["proj"]
+    B2, S2 = hcat.shape[:2]
+    mtp_cfg = cfg.replace(attention="gqa") if cfg.attention == "mla" else cfg
+    if mtp_cfg.rope_mode == "mrope":
+        mtp_cfg = mtp_cfg.replace(rope_mode="standard")
+    ang = _angles_for(mtp_cfg, {}, B2, S2, 0, hcat.device)
+    hcat = _attn_block(mtp_cfg, params["mtp"]["block"], hcat, ang, None,
+                       backend)[0]
+    hcat = rmsnorm(hcat, params["mtp"]["ln"], cfg.norm_eps, backend=backend)
+    labels = F.pad(batch["labels"][:, 2:], (0, 1), value=-1)[:, :S2]
+    return softmax_xent(_lm_logits(params, cfg, hcat), labels)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, masks: Masks = None,
+            backend: str = "auto"):
+    """-> (total, metrics): ``batch`` holds the model inputs and
+    ``labels`` (B, S), S the text length (a VLM's labels are padded with
+    -1 over its vision prefix). ``total = xent + moe_aux + moe_z``, plus
+    ``MTP_WEIGHT`` x the MTP loss for a config with ``mtp_depth`` and an
+    ``mtp`` subtree; ``metrics`` holds ``xent``, ``moe_aux``, ``moe_z``,
+    ``mtp`` (where present) and ``loss``, as the reference's."""
+    logits, aux = forward(params, cfg, batch, masks, backend)
+    labels = batch["labels"]
+    if cfg.vision_tokens:
+        labels = F.pad(labels, (cfg.vision_tokens, 0), value=-1)
+    loss = softmax_xent(logits, labels)
+    total = loss + aux["moe_aux"] + aux["moe_z"]
+    metrics = {"xent": loss, "moe_aux": aux["moe_aux"],
+               "moe_z": aux["moe_z"]}
+    if cfg.mtp_depth and "mtp" in params:
+        mtp = _mtp_loss(params, cfg, batch, aux["hidden"], backend)
+        total = total + MTP_WEIGHT * mtp
+        metrics["mtp"] = mtp
+    metrics["loss"] = total
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -44,11 +44,15 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def value_and_grad(loss_fn: Callable, tree) -> Tuple[torch.Tensor, Any]:
     """``loss_fn(tree)`` and its gradient with respect to every leaf of
     ``tree``, as a tree of the same structure (autograd on a detached
-    copy of the leaves; ``tree`` is left unchanged)."""
+    copy of the leaves; ``tree`` is left unchanged). A leaf the loss does
+    not read (an audio encoder's token embedding) gets zeros, as JAX's
+    gradient gives it."""
     with torch.enable_grad():
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), tree)
         loss = loss_fn(leaves)
-        flat = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+        flat = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                        allow_unused=True,
+                                        materialize_grads=True))
     return loss.detach(), tree_map(lambda _: next(flat), tree)
 
 

@@ -293,3 +293,95 @@ def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+# ---------------------------------------------------------------------------
+# training: loss_fn and its gradients in both packages
+# ---------------------------------------------------------------------------
+#: fp32 training tolerances: the loss within 1e-5 of the reference's,
+#: relative (the same sums in other orders: measured under 1e-6 at the
+#: smoke size), and each gradient leaf within 1e-4 of the reference leaf's
+#: largest entry (measured under 5e-6 on every family)
+LOSS_RTOL32 = 1e-5
+GRAD_RTOL32 = 1e-4
+
+
+def train_batch_np(cfg, B: int, S: int, seed: int = 2):
+    """``model_batch_np`` (S text tokens or frames; no M-RoPE ids) plus
+    ``labels`` (B, S) int32 in [0, vocab), one of them -1 (masked)."""
+    b = model_batch_np(cfg, B, S, seed)
+    labels = np.random.default_rng(seed + 7).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels[0, 1] = -1
+    b["labels"] = labels
+    return b
+
+
+def train_setup(arch: str, dtype: str = "float32", masked: bool = True,
+                seed: int = 0, **overrides):
+    """(cfg_ref, cfg_port, params_np, masks_np or None) of the registry
+    smoke config ``arch`` in ``dtype``: ``transformer_params_np``'s tree,
+    and masks from ``transformer_masks_from_ratios`` at ratios in [0.3,
+    0.8) (the reference's, on its own arrays)."""
+    import jax
+    from repro.configs import registry as rreg
+    from repro.core.pruning import masks as rmasks
+    from repro_torch.configs import registry as treg
+    cr = rreg.get_smoke_config(arch).replace(dtype=dtype, **overrides)
+    ct = treg.get_smoke_config(arch).replace(dtype=dtype, **overrides)
+    pn = transformer_params_np(cr, seed)
+    mn = None
+    if masked:
+        n = len(rmasks.transformer_prunable_units(cr))
+        ratios = list(np.random.default_rng(seed + 1).uniform(0.3, 0.8, n))
+        mn = jax.tree_util.tree_map(np.asarray, rmasks
+                                    .transformer_masks_from_ratios(
+                                        jax.tree_util.tree_map(
+                                            jnp.asarray, pn), cr, ratios))
+    return cr, ct, pn, mn
+
+
+def reference_loss_and_grads(cfg, params_np, batch_np, masks_np=None):
+    """(loss, metrics, grad leaves) of the reference's ``loss_fn`` by
+    ``jax.value_and_grad`` (its training path: Pallas dispatch off), as
+    numpy; the leaves in the tree's flattening order."""
+    import jax
+    from repro.models import transformer as rtr
+    to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    (loss, metrics), grads = jax.value_and_grad(rtr.loss_fn, has_aux=True)(
+        to_j(params_np), cfg, to_j(batch_np),
+        None if masks_np is None else to_j(masks_np))
+    return (float(loss), {k: float(v) for k, v in metrics.items()},
+            [np.asarray(g) for g in jax.tree_util.tree_leaves(grads)])
+
+
+def port_batch(batch_np):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch_np.items()}
+
+
+def port_loss_and_grads(cfg, params, batch, masks=None, backend="auto"):
+    """(loss, metrics as floats, grad tree) of the port's ``loss_fn`` on
+    CPU tensors (``launch.steps.loss_and_grads``)."""
+    from repro_torch.launch.steps import loss_and_grads
+    metrics, grads = loss_and_grads(params, cfg, batch, masks, backend)
+    return (metrics["loss"], {k: float(v) for k, v in metrics.items()},
+            grads)
+
+
+def port_grad_leaves(grads):
+    """The port's gradient tree as numpy leaves in the reference tree's
+    flattening order (``interop``: the same layout)."""
+    import jax
+    from repro_torch.interop import transformer_params_to_reference
+    return [np.asarray(g) for g in jax.tree_util.tree_leaves(
+        transformer_params_to_reference(grads))]
+
+
+def assert_grads_close32(got, want):
+    """Each port leaf within ``GRAD_RTOL32`` of the reference leaf's
+    largest entry (a leaf the loss never reads is zero in both)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        tol = GRAD_RTOL32 * float(np.abs(w).max())
+        assert np.abs(to_f32(g) - to_f32(w)).max() <= tol
