@@ -1200,6 +1200,151 @@ def check_ssd(cases, profile_cases=()):
     return rows
 
 
+def rel_gap(got, want) -> float:
+    """Relative L2 gap of ``got`` to ``want`` (the largest |got| where
+    ``want`` is all zeros)."""
+    norm = float(want.double().norm())
+    diff = got.double() - want.double()
+    return float(diff.norm()) / norm if norm else float(diff.abs().max())
+
+
+def grads_of(fn, operands, g, *rest):
+    """Gradients of ``fn(*operands, *rest)`` (its first output, if a
+    tuple) for the output gradient ``g``, by autograd."""
+    import torch
+    ins = [t.detach().requires_grad_(True) for t in operands]
+    out = fn(*ins, *rest)
+    out = out[0] if isinstance(out, tuple) else out
+    return torch.autograd.grad(out, ins, g.to(out.dtype))
+
+
+def hold_grads(kernel, plain32, plain64, names, dtypes):
+    """Each gradient's relative L2 gap to the float64 plain autograd,
+    within twice the float32 plain autograd's (rounded to the operand's
+    dtype) plus one bf16 spacing for a bf16 operand, 64 eps for a float32
+    one. Returns ({name: {gap, plain_gap, tol}}, worst gap over tol)."""
+    import torch
+    out, worst = {}, 0.0
+    for name, k, p, w, dt in zip(names, kernel, plain32, plain64, dtypes):
+        gap_k = rel_gap(k, w)
+        gap_p = rel_gap(p.to(dt), w)
+        tol = 2 * gap_p + (BF16_SPACING if dt == torch.bfloat16
+                           else 64 * EPS32)
+        out[name] = {"gap": gap_k, "plain_gap": gap_p, "tol": tol,
+                     "finite": bool(torch.isfinite(k).all())}
+        worst = max(worst, gap_k / tol if out[name]["finite"]
+                    else float("inf"))
+    return out, worst
+
+
+def check_ssd_grads(cases):
+    """Phase 3: ``ssd_scan`` as its autograd Function on the card (the
+    kernels' forward, ``ssd_scan_backward`` in PyTorch ops) against
+    autograd through the plain version, at each (name, B, S, H, G, P, N):
+    bf16 x, B and C sliced from one conv output, a random half of the
+    heads pruned, a random bf16 dy, the final state unused (as in
+    training). Yardstick: the plain version's autograd in float64 on the
+    same values (``hold_grads``); pruned heads' dx and ddt exact zeros;
+    ``backward_ms`` one ``ssd_scan_backward`` call (TF32 off)."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_backward
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = []
+    with exact_fp32():
+        for name, B, S, H, G, P, N in cases:
+            ops = ssd_inputs(B, S, H, G, P, N, "bfloat16", gen)
+            hm = (torch.randperm(H, device="cuda", generator=gen)
+                  < H // 2).float()
+            dy = torch.randn(B, S, H, P, device="cuda",
+                             generator=gen).to(torch.bfloat16)
+            got = grads_of(ssd_scan, ops, dy, hm, 256)
+            torch.cuda.synchronize()
+            p32 = grads_of(ssd_scan_ref, [t.float() for t in ops], dy, hm,
+                           256)
+            p64 = grads_of(ssd_scan_ref, [t.double() for t in ops], dy,
+                           hm.double(), 256)
+            gaps, worst = hold_grads(got, p32, p64, ("x", "dt", "A", "B",
+                                                     "C"),
+                                     [t.dtype for t in ops])
+            del p32, p64
+            pruned = hm == 0
+            exact = bool((got[0][:, :, pruned] == 0).all()
+                         and (got[1][:, :, pruned] == 0).all())
+            ok = worst <= 1.0 and exact
+            row = {"case": name, "B": B, "S": S, "H": H, "G": G, "P": P,
+                   "N": N, "dtype": "bfloat16", "kept_heads": int(hm.sum()),
+                   "grads": gaps, "max_gap_over_tol": worst,
+                   "pruned_exact_zero": exact,
+                   "tol": "relative L2 gap to the float64 plain autograd "
+                          "<= 2 x the float32 plain autograd's + 2^-7 "
+                          "(bf16 x, B, C) or 64 eps (float32 dt, A)",
+                   "backward_ms": time_ms(lambda: ssd_scan_backward(
+                       *ops, hm, dy, None, 256), reps=5, rounds=3),
+                   "ok": ok}
+            print("kernel_grad ssd_scan " + json.dumps(row), flush=True)
+            if not ok:
+                raise AssertionError(f"ssd_scan's Function at {name}: "
+                                     f"{json.dumps(row)}")
+            rows.append(row)
+            del ops, got, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_gated_grads(cases, eps: float = 1e-6):
+    """Phase 3: ``gated_rmsnorm`` as its autograd Function on the card (the
+    gated entry's forward, z read in place; ``gated_rmsnorm_backward``)
+    against autograd through the plain version at each (name, rows, d,
+    projection width): bf16 x, z the first d columns of a (rows, width)
+    projection, whose gradient autograd carries into the slice, scale near
+    1, a random bf16 g. Held as ``check_ssd_grads``; ``backward_ms`` one
+    ``gated_rmsnorm_backward`` call."""
+    import torch
+    from repro_torch.kernels.rmsnorm.ops import (gated_rmsnorm,
+                                                 gated_rmsnorm_backward)
+    from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    for name, R, d, ld in cases:
+        bf = torch.bfloat16
+        x = torch.randn(R, d, device="cuda", generator=gen).to(bf)
+        proj = (3 * torch.randn(R, ld, device="cuda", generator=gen)).to(bf)
+        scale = (1 + 0.1 * torch.randn(d, device="cuda",
+                                       generator=gen)).to(bf)
+        g = torch.randn(R, d, device="cuda", generator=gen).to(bf)
+
+        def sliced(norm):
+            return lambda x, p, s: norm(x, p[:, :d], s, eps)
+        ops = (x, proj, scale)
+        got = grads_of(sliced(gated_rmsnorm), ops, g)
+        torch.cuda.synchronize()
+        p32 = grads_of(sliced(gated_rmsnorm_ref), [t.float() for t in ops], g)
+        p64 = grads_of(sliced(gated_rmsnorm_ref), [t.double() for t in ops],
+                       g)
+        gaps, worst = hold_grads(got, p32, p64, ("x", "proj", "scale"),
+                                 [bf] * 3)
+        untouched = bool((got[1][:, d:] == 0).all())
+        ok = worst <= 1.0 and untouched
+        row = {"case": name, "rows": R, "d": d, "ldz": ld,
+               "dtype": "bfloat16", "grads": gaps,
+               "max_gap_over_tol": worst, "rest_of_proj_zero": untouched,
+               "tol": "relative L2 gap to the float64 plain autograd <= 2 x "
+                      "the float32 plain autograd's + 2^-7",
+               "backward_ms": time_ms(lambda: gated_rmsnorm_backward(
+                   x, proj[:, :d], scale, g, eps), reps=5, rounds=3),
+               "ok": ok}
+        print("kernel_grad rmsnorm_gated " + json.dumps(row), flush=True)
+        if not ok:
+            raise AssertionError(f"gated_rmsnorm's Function at {name}: "
+                                 f"{json.dumps(row)}")
+        rows.append(row)
+        del x, proj, scale, g, got, p32, p64
+    torch.cuda.empty_cache()
+    return rows
+
+
 def half_masks(cfg, params, rng):
     """Keep a random half of each prunable layer's channels."""
     import numpy as np
@@ -3488,7 +3633,11 @@ def hubert_phase():
 #: functional update's second copy of them (the reference's before
 #: donation): Qwen2-VL's 4 layers (2.02 B parameters) need ~44.5 GB, 8
 #: would need ~65; DeepSeek-V3's first (dense) layer and its MTP block
-#: (3.41 B) ~48 GB with bf16 moments
+#: (3.41 B) ~48 GB with bf16 moments. Mamba2-2.7B's 64 layers (2.70 B,
+#: bf16 moments) fit only since AdamW walks a leaf in slabs
+#: (``optim.optimizers.slabwise``): the float32 temporaries of its whole
+#: stacked ``w_in`` (1.73 B entries) ran the card out of memory; now ~45
+#: GB. Zamba2-1.2B's 38 (1.09 B), fp32 moments: under 40 GB
 TRAIN_RUNS = (
     ("T1", "qwen2_vl_7b", 4, "a step of 8 layers needs ~65 GB of the "
      "card's 80 (bf16 weights and grads, fp32 moments, the update's "
@@ -3496,7 +3645,9 @@ TRAIN_RUNS = (
     ("T2", "hubert_xlarge", 48, None, 1, 2048, 8, "float32"),
     ("T3", "deepseek_v3_671b", 1, "one dense MLA layer and the MTP block "
      "(3.41 B parameters) with bf16 moments: ~48 GB a step", 1, 1024, 2,
-     "bfloat16"))
+     "bfloat16"),
+    ("T4", "mamba2_2p7b", 64, None, 1, 2048, 4, "bfloat16"),
+    ("T5", "zamba2_1p2b", 38, None, 1, 2048, 8, "float32"))
 #: the constant learning rate of the training runs (AdamW, the reference's
 #: defaults otherwise: b1 0.9, b2 0.95, eps 1e-8, clip 1.0)
 TRAIN_LR = 1e-4
@@ -3530,24 +3681,29 @@ def expected_train_launches(cfg, steps: int = 1):
     """Kernel launches of ``steps`` train steps of ``cfg``'s pruned stack:
     each layer's forward kernels (``expected_launches``' prefill counts)
     twice under remat, once in the forward and once in the backward's
-    recompute; the final norm once; an MTP block's two pre-norms, its
-    flash attention and ``mtp.ln`` once (outside any checkpoint; its FFN
-    is unmasked). Every FFN product on the wgmma tiles (M = B * S rows).
-    No backward launches a kernel."""
+    recompute; so is each invocation of a hybrid's shared block (two
+    norms and a flash attention; its MLP unmasked); the final norm once;
+    an MTP block's two pre-norms, its flash attention and ``mtp.ln`` once
+    (outside any checkpoint; its FFN is unmasked). A Mamba2 layer's
+    pre-norm, gated norm and scan. Every FFN product on the wgmma tiles (M
+    = B * S rows). No backward launches a kernel."""
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.models.layers.mlp import GATED
-    from repro_torch.models.transformer import layer_runs
+    from repro_torch.models.transformer import hybrid_split, layer_runs
     remat = 2 if cfg.remat else 1
-    attn = sum(r.count for r in layer_runs(cfg))
+    attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
     mla = attn if cfg.attention == "mla" else 0
+    ssm = cfg.num_layers - attn
+    shared = hybrid_split(cfg, ssm)[0] if cfg.shared_attn_period else 0
     ffn = sum(r.count for r in layer_runs(cfg)
               if r.kind in ("attn", "attn_dense"))
     prods = remat * (2 if cfg.activation in GATED else 1) * ffn
     mtp = 1 if cfg.mtp_depth else 0
-    per_step = {"rmsnorm": remat * (2 * attn + 2 * mla) + 1 + 3 * mtp,
-                "rmsnorm_gated": 0, "masked_matmul": prods,
-                "flash_attention": remat * (attn - mla) + mtp,
-                "ssd_scan": 0,
+    per_step = {"rmsnorm": (remat * (2 * attn + 2 * mla + ssm + 2 * shared)
+                            + 1 + 3 * mtp),
+                "rmsnorm_gated": remat * ssm, "masked_matmul": prods,
+                "flash_attention": remat * (attn - mla + shared) + mtp,
+                "ssd_scan": remat * ssm,
                 **dict.fromkeys(masked_matmul.route_launches, 0),
                 "masked_matmul_bf16_tiles": prods}
     return {k: steps * v for k, v in per_step.items()}
@@ -3559,11 +3715,17 @@ def pruned_grads(cfg, grads, masks):
     columns, ``w_down`` rows); a GQA layer's pruned heads (``wq``, ``bq``
     columns, ``wo`` rows) and the KV heads of the groups it prunes whole
     (``wk``, ``wv``, ``bk``, ``bv`` columns); an MLA layer's pruned heads
-    (their ``w_uq``, ``w_uk``, ``w_uv`` columns, ``wo`` rows)."""
+    (their ``w_uq``, ``w_uk``, ``w_uv`` columns, ``wo`` rows); a Mamba2
+    layer's pruned SSD heads (``ssd_head_grads``)."""
     from repro_torch.models.transformer import layer_runs
     out = []
     for run, rg, rm in zip(layer_runs(cfg), grads["runs"], masks):
         for j in range(run.count if rm else 0):
+            if "ssm_head_mask" in rm:
+                out += ssd_head_grads(cfg, {k: t[j] for k, t in
+                                            rg["ssm"].items()},
+                                      rm["ssm_head_mask"][j] == 0)
+                continue
             if "ffn_mask" in rm:
                 off = rm["ffn_mask"][j] == 0
                 mlp = rg["mlp"]
@@ -3588,6 +3750,23 @@ def pruned_grads(cfg, grads, masks):
             out += [a[b][m] for b, m in (("bq", cols), ("bk", kv),
                                          ("bv", kv)) if b in a]
     return out
+
+
+def ssd_head_grads(cfg, g, heads):
+    """The gradient slices of a Mamba2 layer's pruned SSD heads (``heads``
+    a bool (H,)), from its ``ssm`` gradients ``g``: their ``w_in`` columns
+    of z (``h·P…``), x (``d_inner + h·P…``) and dt (``2·d_inner + 2·G·N +
+    h``); their ``conv_w`` and ``conv_b`` x columns; ``dt_bias``,
+    ``A_log`` and ``D`` at h; their ``norm_scale`` entries and ``w_out``
+    rows. B and C are shared by a group and are not pruned."""
+    d_in = cfg.d_inner
+    dt0 = 2 * d_in + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    cols = heads.repeat_interleave(cfg.ssm.head_dim)
+    w_in = g["w_in"]
+    return [w_in[:, :d_in][:, cols], w_in[:, d_in:2 * d_in][:, cols],
+            w_in[:, dt0:][:, heads], g["conv_w"][:, :d_in][:, cols],
+            g["conv_b"][:d_in][cols], g["dt_bias"][heads], g["A_log"][heads],
+            g["D"][heads], g["norm_scale"][cols], g["w_out"][cols]]
 
 
 def _named_leaves(tree, prefix=""):
@@ -3764,6 +3943,73 @@ def flash_backward_profile(B, S, H, Hkv, D, causal):
             "by_kind": prof["by_kind"]}
 
 
+def ssd_backward_profile(B, S, H, G, P, N, chunk):
+    """Device time of one ``ssd_scan_backward`` at a training run's shape
+    (bf16 x, B, C as slices of one conv output; a random half of the heads
+    pruned; no gradient of the final state, as in training; TF32 off), by
+    kind."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_backward
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ops = ssd_inputs(B, S, H, G, P, N, "bfloat16", gen)
+    hm = (torch.randperm(H, device="cuda", generator=gen) < H // 2).float()
+    dy = torch.randn(B, S, H, P, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+
+    def once():
+        with exact_fp32():
+            ssd_scan_backward(*ops, hm, dy, None, chunk)
+        torch.cuda.synchronize()
+    prof = device_profile(once)
+    return {"shape": [B, S, H, G, P, N], "chunk": chunk,
+            "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+            "by_kind": prof["by_kind"], "top": prof["top"]}
+
+
+def gated_backward_profile(rows, d, ld):
+    """Device time of one ``gated_rmsnorm_backward`` at a training run's
+    shape (bf16; z the first d columns of a (rows, ld) projection), by
+    kind."""
+    import torch
+    from repro_torch.kernels.rmsnorm.ops import gated_rmsnorm_backward
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf = torch.bfloat16
+    x, g = (torch.randn(rows, d, device="cuda", generator=gen).to(bf)
+            for _ in range(2))
+    z = torch.randn(rows, ld, device="cuda", generator=gen).to(bf)[:, :d]
+    scale = torch.ones(d, device="cuda", dtype=bf)
+
+    def once():
+        gated_rmsnorm_backward(x, z, scale, g)
+        torch.cuda.synchronize()
+    prof = device_profile(once)
+    return {"shape": [rows, d, ld], "device_ms": prof["device_ms"],
+            "wall_ms": prof["wall_ms"], "by_kind": prof["by_kind"]}
+
+
+def backward_profiles(cfg, B, positions):
+    """The backwards in PyTorch ops that one train step of ``cfg`` runs,
+    each profiled once at the run's shape: the flash attention's where the
+    config has attention heads (a hybrid's shared block included), the SSD
+    scan's and the gated norm's where it has Mamba2 layers."""
+    from repro_torch.models.layers.ssm import conv_dim
+    out = {}
+    if cfg.num_heads:
+        out["flash_backward"] = flash_backward_profile(
+            B, positions - (1 if cfg.mtp_depth else 0), cfg.num_heads,
+            cfg.num_kv_heads, cfg.head_dim, cfg.causal)
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        out["ssd_backward"] = ssd_backward_profile(
+            B, positions, cfg.ssm_heads, s.n_groups, s.head_dim, s.d_state,
+            s.chunk_size)
+        out["gated_backward"] = gated_backward_profile(
+            B * positions, cfg.d_inner,
+            cfg.d_inner + conv_dim(cfg) + cfg.ssm_heads)
+    return out
+
+
 def train_run(label, module, layers, cut, B, T, steps, moment_dtype):
     """One training run of phase 20: ``module``'s config pruned at ratio
     0.5 through ``model_setup``, its depth cut to ``layers`` (a ``slice``
@@ -3845,10 +4091,7 @@ def train_run(label, module, layers, cut, B, T, steps, moment_dtype):
                 "count_by_kind": prof["count_by_kind"], "top": prof["top"],
                 "parts_device_ms": parts, "peak_gb": peaks,
                 "launches_per_step": expected_train_launches(cfg),
-                "flash_backward": flash_backward_profile(
-                    B, row["positions"] - (1 if cfg.mtp_depth else 0),
-                    cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                    cfg.causal),
+                **backward_profiles(cfg, B, row["positions"]),
                 **check})
     lap("profile")
     row["seconds"] = seconds
@@ -3857,7 +4100,7 @@ def train_run(label, module, layers, cut, B, T, steps, moment_dtype):
 
 
 def training_phase():
-    """Phase 20: T1, T2 and T3 (``TRAIN_RUNS``), then a ``phase20`` line
+    """Phase 20: T1 to T5 (``TRAIN_RUNS``), then a ``phase20`` line
     with its seconds and the most memory a run allocated. Returns the
     launches of the counted train steps, by kernel, and of T2 (flash's
     D = 80 instance) apart."""
@@ -4073,6 +4316,12 @@ def main() -> int:
          ("fp32", 1, 1000, 16, 1, 64, 128, "float32", "half"),
          ("fp32 d_state 64", 2, 300, 8, 2, 64, 64, "float32", "none")],
         profile_cases=("mamba2 R1", "zamba2 R1"))
+    # the two Functions a Mamba2 block trains through, at the served R1
+    # shapes of Mamba2-2.7B and Zamba2-1.2B
+    check_ssd_grads([("mamba2 R1", 1, 2048, 80, 1, 64, 128),
+                     ("zamba2 R1", 1, 2048, 64, 1, 64, 64)])
+    check_gated_grads([("mamba2 R1", 2048, 5120, 10576),
+                       ("zamba2 R1", 2048, 4096, 8384)])
     if kernels_only:
         print(smi, flush=True)
         return 0
@@ -4163,8 +4412,8 @@ def main() -> int:
     vtotals = qwen2_vl_phase()
     # 19. the pruned HuBERT-XLarge at full width and depth
     htotals = hubert_phase()
-    # 20. training: pruned Qwen2-VL-7B, HuBERT-XLarge and DeepSeek-V3
-    # through make_train_step
+    # 20. training: pruned Qwen2-VL-7B, HuBERT-XLarge, DeepSeek-V3,
+    # Mamba2-2.7B and Zamba2-1.2B through make_train_step
     ttotals, t2_launches = training_phase()
     for name in totals:
         totals[name] += (xtotals[name] + dtotals[name] + vtotals[name]

@@ -11,23 +11,21 @@ named tuples keep their fields. A bfloat16 leaf arrives from JAX as
 numpy's ``bfloat16`` extension type, which ``torch.from_numpy`` refuses: it
 crosses as its 16-bit pattern (a ``uint16`` view), bit for bit.
 
-On disk: the reference's checkpoint format (``repro/checkpoint/store.py``)
-— ``<path>.npz`` holding the leaves as ``a0..aN`` in JAX's tree-flatten
-order, which sorts dict keys as strings (``l0, l10, l14, l16, l18, l3, l6,
-l8``, ``b`` before ``w``), plus ``<path>.json`` with the tree structure's
-text, the leaf count and free metadata. The port writes and reads that
-order itself, without JAX, so a plan directory saved by either package
-loads in the other.
+On disk: the reference's checkpoint format, through the port's own
+``checkpoint.store`` — ``<path>.npz`` holding the leaves as ``a0..aN`` in
+JAX's tree-flatten order, which sorts dict keys as strings (``l0, l10,
+l14, l16, l18, l3, l6, l8``, ``b`` before ``w``), plus ``<path>.json``
+with the tree structure's text, the leaf count and free metadata; so a
+plan directory saved by either package loads in the other.
 """
 from __future__ import annotations
 
-import json
-import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs.base import CNNConfig
 from repro_torch.models.cnn import param_shapes
 from repro_torch.models.layers.attention import KVCache, MLACache
@@ -112,61 +110,19 @@ def transformer_masks_from_reference(masks) -> Optional[List[Any]]:
                                                 masks)
 
 
-def _flatten(tree, path: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...],
-                                                              Any]]:
-    """(path, leaf) pairs in JAX's tree-flatten order for nested dicts."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out.extend(_flatten(tree[k], path + (k,)))
-        return out
-    return [(path, tree)]
-
-
-def _treedef_str(tree) -> str:
-    """The text ``str(jax.tree_util.tree_flatten(tree)[1])`` gives for a
-    nested dict of leaves, e.g. ``PyTreeDef({'l0': {'b': *, 'w': *}})``."""
-    def fmt(t) -> str:
-        if isinstance(t, dict):
-            return "{" + ", ".join(f"'{k}': {fmt(t[k])}"
-                                   for k in sorted(t)) + "}"
-        return "*"
-    return f"PyTreeDef({fmt(tree)})"
-
-
-def _as_numpy(leaf) -> np.ndarray:
-    return (leaf.detach().cpu().numpy() if torch.is_tensor(leaf)
-            else np.asarray(leaf))
-
-
 def save_params(path: str, params,
                 metadata: Optional[Dict[str, Any]] = None) -> None:
-    """Write ``<path>.npz`` + ``<path>.json`` in the reference's format."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    leaves = [_as_numpy(leaf) for _, leaf in _flatten(params)]
-    np.savez(path + ".npz", **{f"a{i}": a for i, a in enumerate(leaves)})
-    with open(path + ".json", "w") as f:
-        json.dump({"treedef": _treedef_str(params),
-                   "n_leaves": len(leaves),
-                   "meta": metadata or {}}, f)
+    """Write ``<path>.npz`` + ``<path>.json`` in the reference's format
+    (``checkpoint.store.save``)."""
+    store.save(path, params, metadata)
 
 
 def restore_params(path: str, cfg: CNNConfig) -> Params:
     """Read ``<path>.npz`` into the parameter structure of ``cfg``,
     checking the leaf count and every shape as the reference's
     ``store.restore`` does, and casting to ``cfg.dtype``."""
-    template = param_shapes(cfg)
-    slots = _flatten(template)
     dtype = getattr(torch, cfg.dtype)
-    with np.load(path + ".npz") as data:
-        if len(data.files) != len(slots):
-            raise ValueError(f"checkpoint has {len(data.files)} leaves, "
-                             f"template has {len(slots)}")
-        out: Params = {}
-        for i, ((name, leaf), shape) in enumerate(slots):
-            arr = data[f"a{i}"]
-            if tuple(arr.shape) != tuple(shape):
-                raise ValueError(f"leaf {i}: shape {arr.shape} != {shape}")
-            out.setdefault(name, {})[leaf] = torch.from_numpy(
-                np.array(arr, copy=True)).to(dtype)
-    return out
+    template = {name: {leaf: torch.empty(shape, dtype=dtype)
+                       for leaf, shape in layer.items()}
+                for name, layer in param_shapes(cfg).items()}
+    return store.restore(path, template)

@@ -12,12 +12,13 @@ lane holds in registers, and the vector or the scalar route.
 Unlike the reference's wrapper they pad nothing: the kernel masks the
 last rows and columns itself.
 
-``rmsnorm`` has a gradient: where autograd wants its output
-(``kernels.needs_grad``) it runs as ``_RMSNorm``, whose forward is the
-same kernel (or plain version) and whose backward is ``rmsnorm_backward``,
-the derivative in PyTorch ops (the reference trains on XLA's autodiff of
-its plain version and has no backward kernel). ``gated_rmsnorm`` has none
-yet and refuses a card operand that needs one.
+Both have a gradient: where autograd wants the output
+(``kernels.needs_grad``) ``rmsnorm`` runs as ``_RMSNorm`` and
+``gated_rmsnorm`` as ``_GatedRMSNorm``, whose forwards are the same kernel
+(or plain version) and whose backwards, ``rmsnorm_backward`` and
+``gated_rmsnorm_backward``, are the derivatives in PyTorch ops (the
+reference trains on XLA's autodiff of its plain versions and has no
+backward kernel).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, needs_grad, refuse_grad
+from repro_torch.kernels import build, needs_grad
 from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref, rmsnorm_ref
 
 #: every C entry of csrc/rmsnorm.cu, by (gated, dtype)
@@ -225,11 +226,68 @@ def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     d) in x's dtype; fp32 math. z is read in place: a view whose last dim
     is contiguous and whose rows lie one stride apart (Mamba2's z, a slice
     of the input projection) is not copied; x is made contiguous where it
-    is not such a view."""
+    is not such a view. Through ``_GatedRMSNorm`` where autograd wants the
+    output, else straight to the kernel (or, on the CPU, the plain
+    version)."""
+    if needs_grad(x, z, scale):
+        return _GatedRMSNorm.apply(x, z, scale, eps)
+    return _gated_rmsnorm(x, z, scale, eps)
+
+
+def gated_rmsnorm_backward(x: torch.Tensor, z: torch.Tensor,
+                           scale: torch.Tensor, g: torch.Tensor,
+                           eps: float = 1e-6
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """(dx, dz, dscale) of ``gated_rmsnorm`` at (x, z, scale) for the
+    output gradient ``g``, in fp32 (float64 for float64 operands) with
+    ``σ = sigmoid(z)``, ``s = z·σ``, ``u = x·s``, ``r = rsqrt(mean(u²) +
+    eps)`` and ``gw = g·scale``: ``du = r·(gw − u·r²·mean(u·gw))``, ``dx =
+    du·s``, ``dz = du·x·σ·(1 + z·(1 − σ))``, ``dscale = Σ_rows g·u·r``;
+    each cast to its operand's dtype. ``torch.sigmoid`` is finite at every
+    z, so dz is too (the reference's autodiff of its two-branch sigmoid
+    gives NaN where |z| ≥ ~89 in fp32)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32, z32, g32 = x.to(acc), z.to(acc), g.to(acc)
+    sig = torch.sigmoid(z32)
+    s = z32 * sig
+    u = x32 * s
+    r = 1.0 / torch.sqrt(torch.mean(torch.square(u), dim=-1, keepdim=True)
+                         + eps)
+    gw = g32 * scale.to(acc)
+    du = r * (gw - u * (r * r) * torch.mean(u * gw, dim=-1, keepdim=True))
+    dx = du * s
+    dz = du * x32 * sig * (1.0 + z32 * (1.0 - sig))
+    dscale = (g32 * u * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dz.to(z.dtype), dscale.to(scale.dtype)
+
+
+class _GatedRMSNorm(torch.autograd.Function):
+    """``gated_rmsnorm`` as an autograd node: the forward launches the
+    gated entry (the plain version on the CPU), which reads z in place;
+    the backward is ``gated_rmsnorm_backward``, whose dz autograd carries
+    into z's strided slice of the input projection."""
+
+    @staticmethod
+    def forward(ctx, x, z, scale, eps):
+        ctx.save_for_backward(x, z, scale)
+        ctx.eps = eps
+        return _gated_rmsnorm(x, z, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z, scale = ctx.saved_tensors
+        dx, dz, dscale = gated_rmsnorm_backward(x, z, scale, g, ctx.eps)
+        return dx, dz, dscale, None
+
+
+def _gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """The serving path: the gated entry on card tensors, the plain version
+    on CPU ones."""
     if x.device.type == "cpu":
         return gated_rmsnorm_ref(x, z, scale, eps)
     _check("gated_rmsnorm", x, z, scale)
-    refuse_grad("gated_rmsnorm", x, z, scale)
     d = x.shape[-1]
     rows = math.prod(x.shape[:-1])
     if z.shape != x.shape or tuple(scale.shape) != (d,):

@@ -24,12 +24,14 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
 
 def gated_rmsnorm_ref(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                       eps: float = 1e-6) -> torch.Tensor:
-    """Mamba2's norm-then-gate: RMSNorm(x * silu(z)) * scale, in fp32 with
-    the stable sigmoid, cast back to x's dtype."""
-    x32 = x.to(torch.float32)
-    z32 = z.to(torch.float32)
+    """Mamba2's norm-then-gate: RMSNorm(x * silu(z)) * scale, in fp32
+    (float64 for float64 operands) with the stable sigmoid, cast back to
+    x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
+    z32 = z.to(acc)
     g = x32 * (z32 * torch.where(z32 >= 0, 1 / (1 + torch.exp(-z32)),
                                  torch.exp(z32) / (1 + torch.exp(z32))))
     var = torch.mean(torch.square(g), dim=-1, keepdim=True)
     return ((g / torch.sqrt(var + eps))
-            * scale.to(torch.float32)).to(x.dtype)
+            * scale.to(acc)).to(x.dtype)

@@ -13,8 +13,13 @@ chunks; the result does not depend on the chunk length in exact
 arithmetic). ``ssd_scan.launches`` counts calls. Unlike the reference's
 wrapper this one pads nothing: the kernels bound-check the ragged last
 chunk and read x, B and C through their batch and step strides, so the
-slices of the Mamba2 block's conv output go in without a copy. The kernels
-have no gradient yet: card operands that need one are refused.
+slices of the Mamba2 block's conv output go in without a copy.
+
+Where autograd wants its outputs (``kernels.needs_grad``) the scan runs as
+``_SSDScan``, whose forward is the same kernel (or plain version) and
+whose backward is ``ssd_scan_backward``, the derivative of the chunked
+form in PyTorch ops (the reference trains on XLA's autodiff of its plain
+``ssd_chunked`` and has no backward kernel).
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import build, refuse_grad
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.device import exact_fp32
+from repro_torch.kernels import build, needs_grad
+from repro_torch.kernels.ssd_scan.ref import _segsum, ssd_scan_ref
 
 _ENTRIES = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
@@ -104,12 +111,175 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     float32; Bm/Cm (B,S,G,N) like xh; head_mask (H,) or None (all heads).
     Returns (y (B,S,H,P) in xh's dtype, y multiplied by head_mask; final
     state (B,H,P,N) float32, every head unmasked). ``chunk`` is the plain
-    version's chunk length; the kernel walks its own."""
+    version's chunk length, and the backward's; the kernel walks its own.
+    Through ``_SSDScan`` where autograd wants the outputs, else straight
+    to the kernel (or, on the CPU, the plain version)."""
+    if needs_grad(xh, dt, A, Bm, Cm):
+        return _SSDScan.apply(xh, dt, A, Bm, Cm, head_mask, chunk)
+    return _ssd_scan(xh, dt, A, Bm, Cm, head_mask, chunk)
+
+
+def _chunked(t: torch.Tensor, Q: int, acc: torch.dtype) -> torch.Tensor:
+    """(B, S, K, D) -> (B, nc, K, Q, D) in ``acc``, the last chunk padded
+    with zeros; (B, S, K) -> (B, nc, K, Q)."""
+    B, S = t.shape[:2]
+    nc = -(-S // Q)
+    t = t.to(acc)
+    if nc * Q != S:
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, nc * Q - S))
+    return t.reshape(B, nc, Q, *t.shape[2:]).transpose(2, 3)
+
+
+def _unchunked(t: torch.Tensor, S: int, dtype: torch.dtype) -> torch.Tensor:
+    """``_chunked``'s inverse: (B, nc, K, Q, ...) -> (B, S, K, ...)."""
+    B, nc, K, Q = t.shape[:4]
+    t = t.transpose(2, 3).reshape(B, nc * Q, K, *t.shape[4:])
+    return t[:, :S].to(dtype)
+
+
+def ssd_scan_backward(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bm: torch.Tensor, Cm: torch.Tensor,
+                      head_mask: Optional[torch.Tensor],
+                      dy: Optional[torch.Tensor],
+                      dstate: Optional[torch.Tensor], chunk: int = 256
+                      ) -> Tuple[torch.Tensor, ...]:
+    """(dxh, ddt, dA, dBm, dCm) of ``ssd_scan`` at its operands for the
+    gradients ``dy`` of y and ``dstate`` of the final state (either None
+    for zeros), by hand in the chunked form at ``min(chunk, S)``; fp32
+    math (float64 for float64 operands), each cast to its operand's dtype.
+
+    Per chunk, with ``cs`` the cumulative sum of dt·A, ``L = exp(segsum)``
+    and ``W = (C·Bᵀ)∘L``: y = W·(dt∘x) + exp(cs)∘(C·prevᵀ), the chunk's
+    state Σ_j dt_j·exp(cs_end − cs_j)·x_j⊗B_j, carried as prev·exp(cs_end)
+    + state. The backward takes ``dy·head_mask``, then the products of the
+    diagonal blocks (dx, ddt and dC, dB from ``W`` and ``dW``), the
+    gradient of each carried state by a reverse pass over the chunks from
+    ``dstate``, the chunk-state products, and the exponents' gradient
+    ``dcs``, whose reverse cumulative sum gives d(dt·A). B and C gradients
+    are summed over each group's heads. Every product is a batched
+    ``matmul`` over (batch, chunk, head)."""
+    acc = torch.promote_types(xh.dtype, torch.float32)
+    Bsz, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = max(1, min(chunk, S))
+    nc = -(-S // Q)
+    rep = H // G
+    x = _chunked(xh, Q, acc)                          # (B,nc,H,Q,P)
+    Bc = _chunked(Bm, Q, acc).unsqueeze(3)            # (B,nc,G,1,Q,N)
+    Cc = _chunked(Cm, Q, acc).unsqueeze(3)
+    dtc = _chunked(dt, Q, acc)                        # (B,nc,H,Q)
+    if dy is None:
+        g = torch.zeros_like(x)
+    else:
+        if head_mask is not None:
+            dy = dy.to(acc) * head_mask.to(acc)[:, None]
+        g = _chunked(dy, Q, acc)                      # (B,nc,H,Q,P)
+
+    def grouped(t):      # (B,nc,H,...) -> (B,nc,G,rep,...)
+        return t.reshape(Bsz, nc, G, rep, *t.shape[3:])
+
+    def heads(t):        # (B,nc,G,rep,...) -> (B,nc,H,...)
+        return t.reshape(Bsz, nc, H, *t.shape[4:])
+
+    Af = A.to(acc)[:, None]
+    cs = torch.cumsum(dtc * Af, -1)                   # (B,nc,H,Q)
+    L = torch.exp(_segsum(dtc * Af))                  # (B,nc,H,Q,Q)
+    W = grouped(L) * (Cc @ Bc.transpose(-1, -2))      # (B,nc,G,rep,Q,Q)
+    # the diagonal blocks: y_i = Σ_j W_ij dt_j x_j
+    dW = (g @ x.transpose(-1, -2)).mul_(dtc[..., None, :])
+    u = heads(W.transpose(-1, -2) @ grouped(g))       # Wᵀ·dy (B,nc,H,Q,P)
+    dx = dtc[..., None] * u
+    ddt = (x * u).sum(-1)
+    del u
+    M = grouped(dW) * W                               # dL∘L
+    dcs = heads(M.sum(-1) - M.sum(-2))                # (B,nc,H,Q)
+    del M, W
+    dCB = (grouped(dW) * grouped(L)).sum(3)           # (B,nc,G,Q,Q)
+    del dW, L
+    dC = dCB @ Bc[:, :, :, 0]
+    dB = dCB.transpose(-1, -2) @ Cc[:, :, :, 0]
+    del dCB
+    # the chunks' states and the states carried into them
+    decay = torch.exp(cs[..., -1:] - cs)              # (B,nc,H,Q)
+    w = dtc * decay
+    xw = x * w[..., None]
+    states = heads(grouped(xw).transpose(-1, -2) @ Bc)   # (B,nc,H,P,N)
+    chunk_decay = torch.exp(cs[..., -1])              # (B,nc,H)
+    prev = torch.empty_like(states)
+    s = torch.zeros_like(states[:, 0])
+    for c in range(nc):
+        prev[:, c] = s
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    del states
+    # the off-diagonal term: y_i += exp(cs_i)·(C_i·prevᵀ)
+    eg = torch.exp(cs)[..., None] * g                 # (B,nc,H,Q,P)
+    dC = dC + (grouped(eg) @ grouped(prev)).sum(3)
+    dcs += (eg * heads(Cc @ grouped(prev).transpose(-1, -2))).sum(-1)
+    dprev = heads(grouped(eg).transpose(-1, -2) @ Cc)    # (B,nc,H,P,N)
+    del eg
+    # the reverse state pass: dS[c] is the gradient of chunk c's state
+    dS = torch.empty_like(prev)
+    gs = torch.zeros_like(prev[:, 0]) if dstate is None else dstate.to(acc)
+    for c in reversed(range(nc)):
+        dS[:, c] = gs
+        dcs[:, c, :, -1] += (gs * prev[:, c]).sum((-1, -2)) * \
+            chunk_decay[:, c]
+        gs = gs * chunk_decay[:, c, :, None, None] + dprev[:, c]
+    del prev, dprev
+    # the chunk-state products
+    SB = heads(Bc @ grouped(dS).transpose(-1, -2))    # (B,nc,H,Q,P)
+    dx += w[..., None] * SB
+    xSB = (x * SB).sum(-1)
+    del SB
+    ddt += decay * xSB
+    v = w * xSB
+    dcs -= v
+    dcs[..., -1] += v.sum(-1)
+    dB = dB + (grouped(xw) @ grouped(dS)).sum(3)
+    del dS, xw
+    # exponents: cs = cumsum(dt·A), so d(dt·A) is dcs summed from the end
+    da = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    ddt += da * Af
+    dA = (da * dtc).sum((0, 1, 3))
+    return (_unchunked(dx, S, xh.dtype), _unchunked(ddt, S, dt.dtype),
+            dA.to(A.dtype), _unchunked(dB, S, Bm.dtype),
+            _unchunked(dC, S, Cm.dtype))
+
+
+class _SSDScan(torch.autograd.Function):
+    """``ssd_scan`` as an autograd node: the forward launches the kernels
+    (the plain version on the CPU) and keeps the caller's operands, not
+    the copies ``_kernel_layout`` may make; the backward is
+    ``ssd_scan_backward``. A gradient of an output autograd does not
+    reach (the final state, in training) stays None. ``head_mask`` gets
+    none: pruning masks are constants."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, head_mask, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xh, dt, A, Bm, Cm, head_mask)
+        ctx.chunk = chunk
+        return _ssd_scan(xh, dt, A, Bm, Cm, head_mask, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        xh, dt, A, Bm, Cm, head_mask = ctx.saved_tensors
+        with exact_fp32():
+            grads = ssd_scan_backward(xh, dt, A, Bm, Cm, head_mask, dy,
+                                      dstate, ctx.chunk)
+        return (*grads, None, None)
+
+
+def _ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bm: torch.Tensor, Cm: torch.Tensor,
+              head_mask: Optional[torch.Tensor],
+              chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The serving path: the kernels on card tensors, the plain version on
+    CPU ones."""
     if xh.device.type == "cpu":
         return ssd_scan_ref(xh, dt, A, Bm, Cm, head_mask, chunk)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {xh.device}")
-    refuse_grad("ssd_scan", xh, dt, A, Bm, Cm)
     B, S, H, P = xh.shape
     N = Bm.shape[3]
     if head_mask is None:

@@ -3,7 +3,8 @@
 of its ``kernels/ssd_scan`` wrapper): the CPU path, ``backend="ref"``, and
 the yardstick the CUDA kernel is held against on the card.
 
-fp32 math throughout: per chunk of ``chunk`` steps the intra-chunk
+fp32 math throughout (float64 for float64 operands, which gradient
+checks use): per chunk of ``chunk`` steps the intra-chunk
 (attention-like) products under the decay matrix ``L = exp(segsum)``, the
 chunk-final states, then the inter-chunk recurrence (the reference's
 ``lax.scan``, here a Python loop over chunks) and the carried-in states seen
@@ -31,7 +32,7 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor,
                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan (fp32 math).
+    """Chunked SSD scan (fp32 math; float64 for float64 operands).
 
     xh (B,S,H,P); dt (B,S,H) post-softplus; A (H,) negative; Bm/Cm
     (B,S,G,N) shared by the H/G heads of each group. Returns (y (B,S,H,P)
@@ -46,13 +47,13 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
     rep = H // G
-    f32 = torch.float32
-    xc = xh.reshape(Bsz, nc, chunk, H, P).to(f32)
-    dtc = dt.reshape(Bsz, nc, chunk, H).to(f32)
-    Bc = Bm.reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3).to(f32)
-    Cc = Cm.reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3).to(f32)
+    acc = torch.promote_types(xh.dtype, torch.float32)
+    xc = xh.reshape(Bsz, nc, chunk, H, P).to(acc)
+    dtc = dt.reshape(Bsz, nc, chunk, H).to(acc)
+    Bc = Bm.reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3).to(acc)
+    Cc = Cm.reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, 3).to(acc)
 
-    dA = dtc * A.to(f32)                                  # (B,nc,Q,H)
+    dA = dtc * A.to(acc)                                  # (B,nc,Q,H)
     dA_cs = torch.cumsum(dA, dim=2)
     # intra-chunk (diagonal blocks)
     L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))        # (B,nc,H,Q,Q)
@@ -64,7 +65,7 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                           Bc, dtc, decay_to_end, xc)
     # inter-chunk recurrence: prev[c] is the state carried into chunk c
     chunk_decay = torch.exp(dA_cs[:, :, -1, :])           # (B,nc,H)
-    s = torch.zeros((Bsz, H, P, N), dtype=f32, device=xh.device)
+    s = torch.zeros((Bsz, H, P, N), dtype=acc, device=xh.device)
     prev = []
     for c in range(nc):
         prev.append(s)
@@ -84,9 +85,9 @@ def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's contract: ``ssd_chunked`` at ``min(chunk, S)``, y
     multiplied by ``head_mask`` (H,) and returned in xh's dtype; the final
-    state (B,H,P,N) float32 for every head, pruned heads included,
-    unmasked."""
+    state (B,H,P,N) float32 (float64 for float64 operands) for every head,
+    pruned heads included, unmasked."""
     y, state = ssd_chunked(xh, dt, A, Bm, Cm, max(1, min(chunk, xh.shape[1])))
     if head_mask is not None:
-        y = y * head_mask.to(torch.float32)[None, None, :, None]
+        y = y * head_mask.to(y.dtype)[None, None, :, None]
     return y.to(xh.dtype), state

@@ -7,11 +7,11 @@ there (tokens and labels as int64, an audio config's ``embeds`` and a VLM
 config's ``vision_embeds`` in the model's dtype, ``mrope_positions`` as
 int32), and the parameters, optimizer state and cache must already live
 there. The train step differentiates ``loss_fn`` by autograd with the
-forward on the kernels: on the card the ``rmsnorm``, ``masked_matmul``
-and ``flash_attention`` kernels, each an autograd Function whose backward
-is in PyTorch ops. The SSD scan and the gated norm have no gradient on the
-card yet, so an ``ssm`` or ``hybrid`` config trains only on the CPU, on
-the plain versions, as the reference does (ROADMAP A7e).
+forward on the kernels: on the card the ``rmsnorm`` kernel and its gated
+entry, ``masked_matmul``, ``flash_attention`` and ``ssd_scan``, each an
+autograd Function whose backward is in PyTorch ops. Every family of the
+registry trains there, the ``ssm`` and ``hybrid`` ones included; nothing
+falls back to the plain versions.
 """
 from __future__ import annotations
 
@@ -86,18 +86,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
     ``grad_accum > 1`` runs the batch as that many microbatches
     (``_microbatches``), sums their gradients in fp32, divides by
     ``grad_accum`` and casts each to its parameter's dtype, and averages
-    the metrics: live activations shrink by the factor. An ``ssm`` or
-    ``hybrid`` config is refused on the card: its kernels have no
-    gradient there yet (ROADMAP A7e), and nothing falls back to the plain
-    path."""
+    the metrics: live activations shrink by the factor."""
     tr.check_supported(cfg)
-    if (torch.device("cuda" if device is None else device).type == "cuda"
-            and cfg.arch_type in ("ssm", "hybrid")):
-        raise NotImplementedError(
-            f"{cfg.name}: training an {cfg.arch_type} config on the card "
-            f"needs gradients of the ssd_scan kernel and the gated norm "
-            f"(ROADMAP A7e); pass device='cpu' to train it on the plain "
-            f"versions")
     dev = resolve_device(device)
     _check_card(cfg, dev)
 

@@ -54,10 +54,8 @@ entry, ``flash_attention``, ``masked_matmul``, ``ssd_scan``) through its
 wrapper, which launches the CUDA kernel for a tensor on the card and the
 plain version for one on the CPU; ``backend="ref"`` runs the plain
 versions wherever the tensors are (the yardstick on the card). Under
-autograd the wrappers of ``rmsnorm``, ``masked_matmul`` and
-``flash_attention`` are autograd Functions with a backward in PyTorch ops;
-the gated norm and the SSD scan have none on the card yet (ROADMAP A7e)
-and refuse. The MoE
+autograd every wrapper is an autograd Function with a backward in PyTorch
+ops. The MoE
 dispatch and expert products, and MLA's attention (naive or chunked), are
 plain PyTorch on both backends, as the reference leaves them to XLA.
 """

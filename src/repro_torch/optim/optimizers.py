@@ -7,7 +7,8 @@ decay and momentum differently and have no global-norm clip.
 
 ``sgd_momentum`` is the paper's fine-tuning optimizer (§4.1: momentum 0.9).
 ``adamw`` drives the reduced-scale runs; its moments may be held in a
-narrower dtype (``moment_dtype``).
+narrower dtype (``moment_dtype``), and it walks a large leaf in slabs
+(``slabwise``) so that its float32 temporaries stay the size of a slab.
 """
 from __future__ import annotations
 
@@ -39,6 +40,31 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+#: the most entries of one slab of ``slabwise``: 2**26, 256 MB of float32
+SLAB = 1 << 26
+
+
+def slabwise(fn: Callable, dtype: torch.dtype,
+             *tensors: torch.Tensor) -> torch.Tensor:
+    """A new tensor of ``dtype`` and ``tensors[0]``'s shape, filled by an
+    elementwise ``fn(*tensors, out=...)`` whose last operation writes its
+    float32 result into ``out`` (which takes the cast), called on slabs of
+    the tensors' first dim of at most ``SLAB`` entries each: the same bits
+    as one call, with temporaries the size of a slab (whole, those of a
+    stacked leaf such as Mamba2-2.7B's ``w_in``, 1.73 B entries, took ~40
+    GB of the card), and no copy a slab. A tensor of at most ``SLAB``
+    entries, or a 0-d one, is one call."""
+    t = tensors[0]
+    out = torch.empty(t.shape, dtype=dtype, device=t.device)
+    if t.dim() == 0 or t.numel() <= SLAB:
+        fn(*tensors, out=out)
+        return out
+    rows = max(1, SLAB // (t.numel() // t.shape[0]))
+    for i in range(0, t.shape[0], rows):
+        fn(*(x[i:i + rows] for x in tensors), out=out[i:i + rows])
+    return out
 
 
 def value_and_grad(loss_fn: Callable, tree) -> Tuple[torch.Tensor, Any]:
@@ -99,25 +125,31 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
             grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
-        m = tree_map(lambda mm, g: (b1 * mm.to(torch.float32)
-                                    + (1 - b1) * g.to(torch.float32)
-                                    ).to(moment_dtype), state["m"], grads)
-        v = tree_map(lambda vv, g: (b2 * vv.to(torch.float32)
-                                    + (1 - b2) * torch.square(
-                                        g.to(torch.float32))
-                                    ).to(moment_dtype), state["v"], grads)
+        f32 = torch.float32
+
+        def first(mm, g, out):
+            return torch.add(b1 * mm.to(f32), (1 - b1) * g.to(f32), out=out)
+
+        def second(vv, g, out):
+            return torch.add(b2 * vv.to(f32),
+                             (1 - b2) * torch.square(g.to(f32)), out=out)
+        m = tree_map(lambda mm, g: slabwise(first, moment_dtype, mm, g),
+                     state["m"], grads)
+        v = tree_map(lambda vv, g: slabwise(second, moment_dtype, vv, g),
+                     state["v"], grads)
         t = torch.tensor(step, dtype=torch.float32)
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
 
-        def upd(p, mm, vv):
+        def upd(p, mm, vv, out):
             mhat = mm.to(torch.float32) / bc1
             vhat = vv.to(torch.float32) / bc2
             delta = (mhat / (torch.sqrt(vhat) + eps)
                      + weight_decay * p.to(torch.float32))
-            return (p.to(torch.float32) - lr * delta).to(p.dtype)
+            return torch.sub(p.to(torch.float32), lr * delta, out=out)
 
-        new_params = tree_map(upd, params, m, v)
+        new_params = tree_map(
+            lambda p, mm, vv: slabwise(upd, p.dtype, p, mm, vv), params, m, v)
         return new_params, {"m": m, "v": v, "step": step}
 
     return Optimizer(init, update)

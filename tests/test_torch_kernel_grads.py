@@ -1,8 +1,10 @@
 """Gradients of the port's kernel wrappers (``rmsnorm``, ``masked_matmul``,
-``flash_attention``): each is a ``torch.autograd.Function`` whose forward
-is the wrapper's own path (the CUDA kernel for a card tensor, the plain
-version for a CPU one, so these CPU tests run the backward the card runs)
-and whose backward is written in PyTorch ops. Held three ways:
+``flash_attention``; ``gated_rmsnorm`` and ``ssd_scan`` are held the same
+ways in ``test_torch_ssm_grads.py``): each is a
+``torch.autograd.Function`` whose forward is the wrapper's own path (the
+CUDA kernel for a card tensor, the plain version for a CPU one, so these
+CPU tests run the backward the card runs) and whose backward is written
+in PyTorch ops. Held three ways:
 
 * ``torch.autograd.gradcheck`` in float64 (the plain versions and the
   backwards compute in float64 for float64 operands), in its fast mode:
@@ -19,8 +21,9 @@ and whose backward is written in PyTorch ops. Held three ways:
 Flash cases cover causal, non-causal, a window, GQA groups of 1, 2 and 4,
 keys past ``seq_k``, a ragged length and head dim 80; masked_matmul a
 partial and an all-zero mask (a pruned column's dB is exactly zero). With
-no operand requiring a gradient, or grad mode off, every wrapper takes the
-serving path: no Function, no ``grad_fn``, the same launch counts.
+no operand requiring a gradient, or grad mode off, every wrapper of the
+five takes the serving path: no Function, no ``grad_fn``, the same launch
+counts.
 """
 from __future__ import annotations
 
@@ -33,13 +36,14 @@ import torch
 from repro.kernels.flash_attention.ref import attention_ref as j_attention
 from repro.kernels.masked_matmul.ref import masked_matmul_ref as j_masked
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as j_rmsnorm
-from repro_torch.kernels import needs_grad, refuse_grad
+from repro_torch.kernels import needs_grad
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.masked_matmul import ops as mops
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 from repro_torch.kernels.rmsnorm import ops as rops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ops as sops
 from torch_parity import BF16_SPACING, EPS32, to_f32
 
 #: (name, B, S, H, Hkv, D, causal, window, seq_k)
@@ -271,13 +275,24 @@ def _calls():
     b = rng.standard_normal((16, 8)).astype(np.float32)
     m = torch.ones(8)
     q, k, v, _ = _flash_inputs(FLASH[0], rng)
+    z = rng.standard_normal((4, 16)).astype(np.float32)
+    xh = rng.standard_normal((1, 5, 2, 4)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.1, (1, 5, 2)).astype(np.float32)
+    A = -np.array([1.0, 4.0], np.float32)
+    bc = rng.standard_normal((1, 5, 1, 3)).astype(np.float32)
+    hm = torch.tensor([1.0, 0.0])
     return [
         ("rmsnorm", rops._RMSNorm,
          lambda rg: rops.rmsnorm(*_maybe((x, s), rg))),
         ("masked_matmul", mops._MaskedMatmul,
          lambda rg: mops.masked_matmul(*_maybe((x, b), rg), m)),
         ("flash_attention", fops._FlashAttention,
-         lambda rg: fops.flash_attention(*_maybe((q, k, v), rg)))]
+         lambda rg: fops.flash_attention(*_maybe((q, k, v), rg))),
+        ("gated_rmsnorm", rops._GatedRMSNorm,
+         lambda rg: rops.gated_rmsnorm(*_maybe((x, z, s), rg))),
+        ("ssd_scan", sops._SSDScan,
+         lambda rg: sops.ssd_scan(*_maybe((xh, dt, A, bc, bc), rg), hm,
+                                  4)[0])]
 
 
 def _maybe(arrays, requires_grad):
@@ -288,11 +303,15 @@ def _maybe(arrays, requires_grad):
 def _counts():
     return (rops.rmsnorm.launches, mops.masked_matmul.launches,
             dict(mops.masked_matmul.route_launches),
-            fops.flash_attention.launches)
+            fops.flash_attention.launches, rops.gated_rmsnorm.launches,
+            sops.ssd_scan.launches)
 
 
-@pytest.mark.parametrize("index", range(3), ids=["rmsnorm", "masked_matmul",
-                                                 "flash_attention"])
+WRAPPERS = ["rmsnorm", "masked_matmul", "flash_attention", "gated_rmsnorm",
+            "ssd_scan"]
+
+
+@pytest.mark.parametrize("index", range(len(WRAPPERS)), ids=WRAPPERS)
 def test_no_grad_takes_the_serving_path(index, monkeypatch):
     name, fn_cls, call = _calls()[index]
     before = _counts()
@@ -312,12 +331,13 @@ def test_no_grad_takes_the_serving_path(index, monkeypatch):
     assert _counts() == before         # the CPU path launches nothing
 
 
-def test_needs_grad_and_the_refusal_of_kernels_without_a_gradient():
+def test_needs_grad():
+    """Grad mode on and an operand requiring a gradient; nothing else."""
     t = torch.ones(2, requires_grad=True)
     assert needs_grad(torch.ones(2), t)
     assert not needs_grad(torch.ones(2))
+    assert not needs_grad()
     with torch.no_grad():
         assert not needs_grad(t)
-        refuse_grad("ssd_scan", t)           # serving: no refusal
-    with pytest.raises(NotImplementedError, match="A7e"):
-        refuse_grad("ssd_scan", t)
+    with torch.inference_mode():
+        assert not needs_grad(torch.ones(2))

@@ -145,3 +145,34 @@ def test_adamw_bf16_moments_match_reference():
             np.testing.assert_allclose(g, w, rtol=2.0 ** -7, atol=1e-30)
     for g, w in zip(_leaves(pt), _leaves(pr)):
         np.testing.assert_allclose(g, w, rtol=0, atol=3 * 0.05 * 2.0 ** -6)
+
+
+@pytest.mark.parametrize("dtype,moments", [("float32", "float32"),
+                                           ("bfloat16", "bfloat16"),
+                                           ("bfloat16", "float32")])
+def test_adamw_slabs_change_no_bit(dtype, moments, monkeypatch):
+    """Three AdamW steps (clip and weight decay on) with leaves walked in
+    slabs of at most 1,000 entries (``optimizers.SLAB``: a 3-d stacked
+    leaf, a long 1-d one, a list leaf, a scalar) equal the steps with each
+    leaf whole, bit for bit: the update is elementwise."""
+    from repro_torch.optim import optimizers
+    gen = torch.Generator().manual_seed(0)
+    dt = getattr(torch, dtype)
+    params = {"w": torch.randn(7, 33, 17, generator=gen).to(dt),
+              "e": torch.randn(3001, generator=gen).to(dt),
+              "s": torch.randn((), generator=gen).to(dt),
+              "b": [torch.randn(5, 401, generator=gen).to(dt)]}
+    grads = optimizers.tree_map(lambda p: 3 * p, params)
+    out = {}
+    for slab in (1000, optimizers.SLAB):
+        monkeypatch.setattr(optimizers, "SLAB", slab)
+        opt = topt.adamw(topt.constant(1e-3), weight_decay=0.1,
+                         moment_dtype=getattr(torch, moments))
+        p, state = params, opt.init(params)
+        for _ in range(3):
+            p, state = opt.update(grads, state, p)
+        out[slab] = optimizers.tree_leaves((p, state["m"], state["v"]))
+    small, whole = out.values()
+    assert len(small) == len(whole) == 12
+    assert all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(small, whole))

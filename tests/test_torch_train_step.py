@@ -23,15 +23,11 @@ import importlib.util
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.data.tokens import MarkovTokens as RMarkov
-from repro.launch import steps as rsteps
-from repro.optim import adamw as radamw
-from repro.optim import constant as rconstant
 from repro_torch.data.requests import request_batch
 from repro_torch.data.tokens import MarkovTokens as TMarkov
 from repro_torch.interop import (transformer_masks_from_reference,
@@ -41,9 +37,9 @@ from repro_torch.launch.steps import batch_on, make_train_step
 from repro_torch.models import transformer as ttr
 from repro_torch.optim import adamw
 from repro_torch.optim.schedules import constant
-from torch_parity import (EPS32, GRAD_RTOL32, LOSS_RTOL32, port_batch,
-                          port_loss_and_grads, to_f32, train_batch_np,
-                          train_setup)
+from torch_parity import (LOSS_RTOL32, adamw_step_both,
+                          assert_adamw_step_close, port_batch,
+                          port_loss_and_grads, train_batch_np, train_setup)
 
 #: ``chip_smoke.py``'s ``pruned_grads``: one list of the pruned units'
 #: gradient slices for the card and for these tests
@@ -56,54 +52,11 @@ _SPEC.loader.exec_module(smoke)
 LR = 1e-3
 
 
-def _leaves(tree):
-    return [to_f32(a) for a in jax.tree_util.tree_leaves(tree)]
-
-
-def _step_both(arch, batch_np, grad_accum=1, masked=True, **overrides):
-    """(reference (params, state, metrics), port (params, state,
-    metrics)) of one AdamW step from the same numpy tree."""
-    cr, ct, pn, mn = train_setup(arch, masked=masked, **overrides)
-    to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
-    ropt = radamw(rconstant(LR))
-    rp = to_j(pn)
-    ref = rsteps.make_train_step(cr, ropt, None if mn is None else to_j(mn),
-                                 grad_accum)(rp, ropt.init(rp),
-                                             to_j(batch_np))
-    topt = adamw(constant(LR))
-    tp = transformer_params_from_reference(pn)
-    port = make_train_step(ct, topt, transformer_masks_from_reference(mn),
-                           grad_accum, device="cpu")(
-        tp, topt.init(tp), batch_np)
-    return cr, pn, ref, port
-
-
-def _assert_step_close(pn, ref, port):
-    (rp, rs, rm), (tp, ts, tm) = ref, port
-    assert set(tm) == set(rm)
-    for k in rm:
-        assert abs(float(tm[k]) - float(rm[k])) <= LOSS_RTOL32 * max(
-            abs(float(rm[k])), 1.0)
-    assert ts["step"] == int(rs["step"]) == 1
-    m_ref, v_ref = _leaves(rs["m"]), _leaves(rs["v"])
-    m_got = _leaves(transformer_params_to_reference(ts["m"]))
-    v_got = _leaves(transformer_params_to_reference(ts["v"]))
-    for got, want, k in ((m_got, m_ref, 1), (v_got, v_ref, 2)):
-        for g, w in zip(got, want):
-            assert np.abs(g - w).max() <= k * GRAD_RTOL32 * np.abs(w).max()
-    p0 = _leaves(pn)
-    for g, w, start, m in zip(_leaves(transformer_params_to_reference(tp)),
-                              _leaves(rp), p0, m_ref):
-        tol = 64 * EPS32 * max(1.0, float(np.abs(start).max()))
-        noisy = np.abs(m) <= GRAD_RTOL32 * np.abs(m).max()
-        assert (np.abs(g - w) <= tol + np.where(noisy, 2 * LR, 0.0)).all()
-
-
 @pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-v3-671b"])
 def test_adamw_step_matches_reference(arch):
     cr, *_ = train_setup(arch, masked=False)
-    cr, pn, ref, port = _step_both(arch, train_batch_np(cr, 2, 12))
-    _assert_step_close(pn, ref, port)
+    cr, pn, ref, port = adamw_step_both(arch, train_batch_np(cr, 2, 12))
+    assert_adamw_step_close(pn, ref, port)
 
 
 def _vlm_batch(cr, B=2, T=12, seed=4):
@@ -119,14 +72,14 @@ def test_grad_accum_matches_reference_and_one_big_batch():
     cr, *_ = train_setup("qwen2-vl-7b")
     batch = _vlm_batch(cr)
     assert batch["mrope_positions"].shape[:2] == (3, 2)
-    _, pn, ref2, port2 = _step_both("qwen2-vl-7b", batch, grad_accum=2)
-    _assert_step_close(pn, ref2, port2)
-    _, _, _, port1 = _step_both("qwen2-vl-7b", batch, grad_accum=1)
+    _, pn, ref2, port2 = adamw_step_both("qwen2-vl-7b", batch, grad_accum=2)
+    assert_adamw_step_close(pn, ref2, port2)
+    _, _, _, port1 = adamw_step_both("qwen2-vl-7b", batch, grad_accum=1)
     # both microbatches hold 12 labels each, so the mean of their losses
     # is the whole batch's: the same within the fp32 tolerance
     assert abs(float(port2[2]["loss"]) - float(port1[2]["loss"])) <= \
         LOSS_RTOL32 * abs(float(port1[2]["loss"]))
-    _assert_step_close(pn, port1, port2)
+    assert_adamw_step_close(pn, port1, port2)
 
 
 def test_grad_accum_must_divide_the_batch():

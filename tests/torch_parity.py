@@ -385,3 +385,68 @@ def assert_grads_close32(got, want):
         assert g.shape == w.shape
         tol = GRAD_RTOL32 * float(np.abs(w).max())
         assert np.abs(to_f32(g) - to_f32(w)).max() <= tol
+
+
+def _f32_leaves(tree):
+    import jax
+    return [to_f32(a) for a in jax.tree_util.tree_leaves(tree)]
+
+
+def adamw_step_both(arch, batch_np, grad_accum=1, masked=True, lr=1e-3,
+                    **overrides):
+    """(cfg_ref, params_np, reference (params, state, metrics), port
+    (params, state, metrics)) of one AdamW step at ``lr`` through each
+    package's ``make_train_step`` from ``train_setup``'s numpy tree (the
+    port's on the CPU)."""
+    import jax
+    from repro.launch import steps as rsteps
+    from repro.optim import adamw as radamw
+    from repro.optim import constant as rconstant
+    from repro_torch.interop import (transformer_masks_from_reference,
+                                     transformer_params_from_reference)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    cr, ct, pn, mn = train_setup(arch, masked=masked, **overrides)
+    to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    ropt = radamw(rconstant(lr))
+    rp = to_j(pn)
+    ref = rsteps.make_train_step(cr, ropt, None if mn is None else to_j(mn),
+                                 grad_accum)(rp, ropt.init(rp),
+                                             to_j(batch_np))
+    topt = adamw(constant(lr))
+    tp = transformer_params_from_reference(pn)
+    port = make_train_step(ct, topt, transformer_masks_from_reference(mn),
+                           grad_accum, device="cpu")(
+        tp, topt.init(tp), batch_np)
+    return cr, pn, ref, port
+
+
+def assert_adamw_step_close(pn, ref, port, lr=1e-3):
+    """One AdamW step of the port against the reference's from the numpy
+    tree ``pn``: the metrics within ``LOSS_RTOL32``; the first moment
+    within ``GRAD_RTOL32`` of its largest entry and the second within
+    twice that (it is the square); each parameter within 64 eps of its
+    largest entry, except where the reference's gradient lies within the
+    gradient tolerance of zero, where AdamW's first step (lr x g / (|g| +
+    eps), about lr x sign g) may go either way: there within 2 lr."""
+    from repro_torch.interop import transformer_params_to_reference
+    (rp, rs, rm), (tp, ts, tm) = ref, port
+    assert set(tm) == set(rm)
+    for k in rm:
+        assert abs(float(tm[k]) - float(rm[k])) <= LOSS_RTOL32 * max(
+            abs(float(rm[k])), 1.0)
+    assert ts["step"] == int(rs["step"]) == 1
+    m_ref, v_ref = _f32_leaves(rs["m"]), _f32_leaves(rs["v"])
+    m_got = _f32_leaves(transformer_params_to_reference(ts["m"]))
+    v_got = _f32_leaves(transformer_params_to_reference(ts["v"]))
+    for got, want, k in ((m_got, m_ref, 1), (v_got, v_ref, 2)):
+        for g, w in zip(got, want):
+            assert np.abs(g - w).max() <= k * GRAD_RTOL32 * np.abs(w).max()
+    p0 = _f32_leaves(pn)
+    for g, w, start, m in zip(
+            _f32_leaves(transformer_params_to_reference(tp)),
+            _f32_leaves(rp), p0, m_ref):
+        tol = 64 * EPS32 * max(1.0, float(np.abs(start).max()))
+        noisy = np.abs(m) <= GRAD_RTOL32 * np.abs(m).max()
+        assert (np.abs(g - w) <= tol + np.where(noisy, 2 * lr, 0.0)).all()
