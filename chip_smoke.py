@@ -294,10 +294,33 @@ Phases, each printing its own lines:
    one step by kind, the device ms of its forward, forward and backward,
    and AdamW update on their own, and of one ``flash_attention_backward``
    at the run's shape. A ``train`` line each and a ``phase20`` line.
+21. mesh and examples — phase 20's T1 (Qwen2-VL-7B, 4 of 28 layers, masks
+   at ratio 0.5, one fixed batch of 1,024 vision + 1,024 text positions)
+   through the sharded train step (``make_train_step(mesh=...)``) on the
+   ``(1, 1)`` host mesh of a one-rank NCCL group (``launch.mesh.
+   host_mesh``; the parameters and AdamW state as DTensors placed by
+   ``sharding.specs``): 2 steps with the launch counters zeroed just
+   before and read just after (``expected_train_launches``), held bit for
+   bit against 2 steps of the unsharded step from the same weights (the
+   loss and every parameter; were they not bit-equal, a second unsharded
+   run would show the card's own run-to-run spread, and the sharded run
+   would be held within twice it plus one bf16 spacing), its wall and
+   device ms (``device_profile`` of one more step, beside the unsharded
+   step's) and peak memory (a ``train`` line with
+   ``"run": "T1 mesh"``; the group destroyed at the end); then the four
+   example twins on the card (``examples/port_*.py``: the quickstart at
+   its defaults, the collaborative serve with 8 int8 requests pipelined
+   over the socket, the prune-and-split of Qwen2-7B, the training twin of
+   Qwen2-7B under its own host mesh), each printing its own lines between
+   ``twin <name> start`` and a ``twin`` line with its seconds and
+   launches; and the transformer split of every registry config under the
+   ``h100_two_node`` and ``h100_edge_cloud`` profiles at 4,096-token
+   prefill and decode, greedy and balanced (``split`` lines). A
+   ``phase21`` line.
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
-phases 4 and 11-15, counted where one thread launches; the transformer
-kernels' of phases 6, 8, 9 and 16-20; ``flash_attention_d80``, the D = 80
+phases 4, 11-15 and 21, counted where one thread launches; the
+transformer kernels' of phases 6, 8, 9 and 16-21; ``flash_attention_d80``, the D = 80
 instance over one HuBERT R1 prefill with phase 19's and T2's launches),
 the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -1725,6 +1748,25 @@ def transformer_wrappers():
             "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
 
+def zero_launches() -> None:
+    """Every transformer wrapper's launch counter, and ``masked_matmul``'s
+    by route, set to 0."""
+    wrappers = transformer_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    mm = wrappers["masked_matmul"]
+    mm.route_launches = dict.fromkeys(mm.route_launches, 0)
+
+
+def read_launches() -> dict:
+    """The transformer wrappers' launch counters, and ``masked_matmul``'s
+    by route."""
+    wrappers = transformer_wrappers()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    counts.update(wrappers["masked_matmul"].route_launches)
+    return counts
+
+
 def expected_launches(cfg):
     """Kernel launches of one request (a prefill and DECODE_STEPS decode
     steps) of ``cfg``'s pruned stack: an attention or MoE layer has two
@@ -1777,17 +1819,12 @@ def kernel_path(cfg, params, masks, requests):
     counters zeroed just before and read just after, held to
     ``expected_launches``. Returns ``serve_tokens``' result a request,
     with its launches, and the launch totals."""
-    wrappers = transformer_wrappers()
-    mm = wrappers["masked_matmul"]
     per_request = expected_launches(cfg)
     kern, totals = {}, dict.fromkeys(per_request, 0)
     for label, batch in requests:
-        for w in wrappers.values():
-            w.launches = 0
-        mm.route_launches = dict.fromkeys(mm.route_launches, 0)
+        zero_launches()
         kern[label] = serve_tokens(cfg, params, masks, batch)
-        counts = {name: w.launches for name, w in wrappers.items()}
-        counts.update(mm.route_launches)
+        counts = read_launches()
         if counts != per_request:
             raise AssertionError(f"{cfg.name} {label}: launches {counts}, "
                                  f"expected {per_request}")
@@ -3859,11 +3896,7 @@ def train_steps(cfg, model, masks, batch, optimizer, steps: int):
     from repro_torch.launch.steps import make_train_step
     step = make_train_step(cfg, optimizer, masks)
     state = optimizer.init(model["params"])
-    wrappers = transformer_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    mm = wrappers["masked_matmul"]
-    mm.route_launches = dict.fromkeys(mm.route_launches, 0)
+    zero_launches()
     losses, walls = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -3873,8 +3906,7 @@ def train_steps(cfg, model, masks, batch, optimizer, steps: int):
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(metrics["loss"]))
-    counts = {name: w.launches for name, w in wrappers.items()}
-    counts.update(mm.route_launches)
+    counts = read_launches()
     want = expected_train_launches(cfg, steps)
     if counts != want:
         raise AssertionError(f"{cfg.name}: train launches {counts}, "
@@ -4119,6 +4151,268 @@ def training_phase():
         "card_gb": torch.cuda.get_device_properties(0).total_memory / 1e9}),
         flush=True)
     return totals, by_run["T2"]
+
+
+#: phase 21's sharded step: phase 20's T1 and its number of steps
+MESH_RUN = TRAIN_RUNS[0]
+MESH_STEPS = 2
+#: phase 21's example twins and their arguments: the reference's defaults,
+#: but the serve's 8 int8 requests pipelined, a port the OS assigns, and
+#: the train twin's checkpoint in a temporary directory
+TWINS = (("port_quickstart", []),
+         ("port_collaborative_serve",
+          ["--requests", "8", "--codec", "int8", "--pipeline"]),
+         ("port_prune_and_split", ["--arch", "qwen2-7b"]),
+         ("port_train_transformer", ["--arch", "qwen2-7b"]))
+#: phase 21's transformer split: tokens of the prefill, and the profiles
+SPLIT_SEQ = 4096
+SPLIT_PROFILES = ("h100_two_node", "h100_edge_cloud")
+
+
+def tree_equal(a, b) -> bool:
+    import torch
+    from repro_torch.optim.optimizers import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def tree_gaps(a, b) -> list:
+    """Each leaf's L2 distance between two trees of tensors."""
+    from repro_torch.optim.optimizers import tree_leaves
+    return [float((x.float() - y.float()).norm())
+            for x, y in zip(tree_leaves(a), tree_leaves(b))]
+
+
+def step_profile(step, params, state, batch) -> dict:
+    """``device_profile`` of one more ``step`` from ``params`` and
+    ``state`` (its results dropped): wall and device ms, idle share, by
+    kind."""
+    import torch
+
+    def one_step():
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    prof = device_profile(one_step)
+    return {k: prof[k] for k in ("wall_ms", "device_ms", "device_idle_share",
+                                 "by_kind")}
+
+
+def unsharded_steps(cfg, params, masks, batch, optimizer, steps: int,
+                    profile: bool = False):
+    """(params, losses, profile or None) after ``steps`` steps of the
+    unsharded ``make_train_step`` from ``params`` (left as it is), with
+    ``step_profile`` of one more step where asked."""
+    from repro_torch.launch.steps import make_train_step
+    step = make_train_step(cfg, optimizer, masks)
+    p, state, losses = params, optimizer.init(params), []
+    for _ in range(steps):
+        p, state, m = step(p, state, batch)
+        losses.append(float(m["loss"]))
+    prof = step_profile(step, p, state, batch) if profile else None
+    del state
+    return p, losses, prof
+
+
+def check_card_mesh(mesh) -> None:
+    """The host mesh is a (1, 1) mesh of the card on NCCL: no fallback to
+    the CPU or to gloo."""
+    import torch.distributed as dist
+    if (dist.get_backend(), mesh.device_type, tuple(mesh.shape)) != (
+            "nccl", "cuda", (1, 1)):
+        raise AssertionError(f"host mesh {mesh} on {dist.get_backend()}")
+
+
+def mesh_train(cfg, params, masks, batch, optimizer):
+    """The sharded T1 of phase 21 on the host mesh (a one-rank NCCL group
+    it starts and destroys): ``MESH_STEPS`` counted steps from
+    ``params``, held against the unsharded step's, then the step's device
+    profile. Returns the ``train`` line's row and the launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.sharding import specs as sh
+    torch.cuda.empty_cache()
+    want_p, want_losses, want_prof = unsharded_steps(
+        cfg, params, masks, batch, optimizer, MESH_STEPS, profile=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with host_mesh() as mesh:
+        check_card_mesh(mesh)
+        pspecs = sh.param_specs(params, cfg, mesh)
+        s = optimizer.init(params)
+        s = sh.distribute(s, sh.opt_state_specs(s, pspecs), mesh)
+        p = sh.distribute(params, pspecs, mesh)
+        step = make_train_step(cfg, optimizer, masks, mesh=mesh)
+        zero_launches()
+        losses, walls = [], []
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, batch)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want_launches = expected_train_launches(cfg, MESH_STEPS)
+        if launches != want_launches:
+            raise AssertionError(f"sharded T1 launches {launches}, "
+                                 f"expected {want_launches}")
+        prof = step_profile(step, p, s, batch)
+        got_p = sh.tree_map_with_path(lambda _, t: t.full_tensor(), p)
+        del p, s, step
+        torch.cuda.empty_cache()
+        row = {"model": cfg.name, "run": "T1 mesh", "steps": MESH_STEPS,
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "backend": dist.get_backend(), "losses": losses,
+               "unsharded_losses": want_losses, "wall_ms": walls,
+               "launches": launches, "peak_gb": peak,
+               "phase20_t1_peak_gb": 50.09,
+               **{k: prof[k] for k in ("device_ms", "device_idle_share",
+                                       "by_kind")},
+               "profile_wall_ms": prof["wall_ms"],
+               "unsharded_profile": want_prof}
+        row["bit_equal"] = (losses == want_losses
+                            and tree_equal(got_p, want_p))
+        if not row["bit_equal"]:
+            # the card's own spread: the unsharded step run again
+            again_p, again_losses, _ = unsharded_steps(
+                cfg, params, masks, batch, optimizer, MESH_STEPS)
+            spread = tree_gaps(again_p, want_p)
+            gaps = tree_gaps(got_p, want_p)
+            moved = tree_gaps(want_p, params)
+            worst = max((g / (2 * sp + BF16_SPACING * mv) if g else 0.0)
+                        for g, sp, mv in zip(gaps, spread, moved))
+            loss_tol = [2 * abs(a - w) + BF16_SPACING * abs(w)
+                        for a, w in zip(again_losses, want_losses)]
+            row.update(unsharded_rerun_bit_equal=(
+                again_losses == want_losses
+                and tree_equal(again_p, want_p)),
+                max_gap_over_tol=worst, loss_tol=loss_tol)
+            del again_p
+            if worst > 1.0 or any(abs(g - w) > t for g, w, t in zip(
+                    losses, want_losses, loss_tol)):
+                raise AssertionError(f"sharded T1 off the unsharded step: "
+                                     f"{json.dumps(row)}")
+        del got_p, want_p
+    if dist.is_initialized():
+        raise AssertionError("the host mesh's group outlived the phase")
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def run_twins() -> dict:
+    """Each example twin's ``main`` on the card (``TWINS``), its own lines
+    between a start line and a ``twin`` line with its seconds and the
+    transformer kernels' launches; a twin that fails fails the run.
+    Returns the launches summed over the twins."""
+    import importlib.util
+    import shutil
+    totals = collections.Counter()
+    ckpt = tempfile.mkdtemp(prefix="port_train_")
+    try:
+        for name, argv in TWINS:
+            if name == "port_collaborative_serve":
+                argv = argv + ["--port", str(free_local_port())]
+            if name == "port_train_transformer":
+                argv = argv + ["--ckpt", os.path.join(ckpt, "t")]
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(ROOT, "examples", f"{name}.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            print(f"twin {name} start {json.dumps(argv)}", flush=True)
+            zero_launches()
+            t0 = time.perf_counter()
+            mod.main(argv)
+            launches = read_launches()
+            totals.update(launches)
+            print("twin " + json.dumps({
+                "name": name, "argv": argv,
+                "seconds": time.perf_counter() - t0,
+                "launches": {k: v for k, v in launches.items() if v}}),
+                flush=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(totals)
+
+
+def free_local_port() -> int:
+    """A TCP port the OS assigns on 127.0.0.1."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def split_lines() -> None:
+    """The transformer split of every registry config (full size) under
+    ``SPLIT_PROFILES``, at a ``SPLIT_SEQ``-token prefill and a decode step
+    against that context, greedy and balanced: one ``split`` line a
+    config."""
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.core.partition.latency_model import \
+        transformer_layer_costs
+    from repro_torch.core.partition.profiles import PROFILES
+    from repro_torch.core.partition.splitter import (balanced_split,
+                                                     greedy_split)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        row = {"model": cfg.name, "layers": cfg.num_layers}
+        for mode, decode in (("prefill", False), ("decode", True)):
+            costs = transformer_layer_costs(cfg, SPLIT_SEQ, decode=decode)
+            inp = (1 if decode else SPLIT_SEQ) * cfg.d_model * 2
+            for prof in SPLIT_PROFILES:
+                g = greedy_split(costs, PROFILES[prof], inp)
+                b = balanced_split(costs, PROFILES[prof], inp)
+                row[f"{prof} {mode}"] = {
+                    "greedy_c": g.split_point,
+                    **{f"{k}_ms": 1e3 * g.latency[k]
+                       for k in ("T", "T_D", "T_TX", "T_S")},
+                    "balanced_c": b.split_point,
+                    "balanced_bottleneck_ms": 1e3 * max(
+                        b.latency["T_D"], b.latency["T_TX"],
+                        b.latency["T_S"])}
+        print("split " + json.dumps(row), flush=True)
+
+
+def mesh_phase() -> dict:
+    """Phase 21: the sharded T1 step on the host mesh against the
+    unsharded one, the four example twins on the card, the transformer
+    split lines and a ``phase21`` line. Returns the launches of the
+    sharded steps and the twins, by kernel and route."""
+    import importlib
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    t0 = time.perf_counter()
+    label, module, layers, cut, B, T, _, moment_dtype = MESH_RUN
+    full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+    cfg = full.replace(num_layers=layers)
+    params, masks = model_setup(cfg, SEED)
+    describe(cfg, params, masks, of_layers=full.num_layers,
+             layers=f"{layers} of {full.num_layers}", run=f"{label} mesh")
+    optimizer = adamw(constant(TRAIN_LR),
+                      moment_dtype=getattr(torch, moment_dtype))
+    row, launches = mesh_train(cfg, params, masks, train_batch(cfg, B, T),
+                               optimizer)
+    row.update(batch=B, tokens=T, positions=T + cfg.vision_tokens)
+    print("train " + json.dumps(row), flush=True)
+    del params, masks
+    torch.cuda.empty_cache()
+    t_twins = time.perf_counter()
+    twin_launches = run_twins()
+    t_split = time.perf_counter()
+    split_lines()
+    total = collections.Counter(launches)
+    total.update(twin_launches)
+    print("phase21 " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "seconds_sharded_t1": t_twins - t0,
+        "seconds_twins": t_split - t_twins,
+        "launches": dict(total)}), flush=True)
+    return dict(total)
 
 
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
@@ -4415,9 +4709,14 @@ def main() -> int:
     # 20. training: pruned Qwen2-VL-7B, HuBERT-XLarge, DeepSeek-V3,
     # Mamba2-2.7B and Zamba2-1.2B through make_train_step
     ttotals, t2_launches = training_phase()
+    # 21. the mesh and the example twins
+    mtotals = mesh_phase()
     for name in totals:
         totals[name] += (xtotals[name] + dtotals[name] + vtotals[name]
-                         + htotals[name] + ttotals[name])
+                         + htotals[name] + ttotals[name] + mtotals[name])
+    alex_routes.update({k: v for k, v in mtotals.items()
+                        if k.startswith(("masked_matmul_f32",
+                                         "masked_matmul_q8"))})
 
     # times of the kernel line: each float32 / codes masked_matmul route
     # summed over the GEMMs of one c=N request of the compacted AlexNet plan

@@ -312,6 +312,20 @@ def _warm_input(cfg: CNNConfig) -> np.ndarray:
     return np.zeros((1, h, w, cfg.input_channels), np.float32)
 
 
+def build_split_fns(params, cfg: CNNConfig, split: int, masks=None,
+                    compact: bool = False, pack: bool = False,
+                    quant: Optional[QuantPolicy] = None,
+                    device: DeviceLike = None):
+    """One-stop deployment resolution: (edge_fn, cloud_fn, keep,
+    deploy_cfg) for ``split``, a one-shot wrapper over ``SplitFnBank``
+    (the reference keeps the same shim importable). The functions take
+    and return tensors on the bank's device."""
+    bank = SplitFnBank(params, cfg, masks, compact, pack, quant=quant,
+                       device=device)
+    edge_fn, cloud_fn, keep = bank.get(split)
+    return edge_fn, cloud_fn, keep, bank.deploy_cfg
+
+
 class CollabRunner:
     """In-process split executor with a simulated (or real-time) channel.
 

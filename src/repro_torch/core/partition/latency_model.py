@@ -1,5 +1,6 @@
 """Per-layer cost model + the collaborative-inference latency of Eq. 5
-(the CNN arithmetic of the JAX package's ``core/partition/latency_model.py``):
+(the CNN and transformer arithmetic of the JAX package's
+``core/partition/latency_model.py``):
 
     T(c) = T_D(c) + T_TX(c) + T_S(c)
 
@@ -27,7 +28,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import CNNConfig
+from repro_torch.configs.base import CNNConfig, ModelConfig
 from repro_torch.core.collab.protocol import CODEC_TX_SCALE
 from repro_torch.core.partition.profiles import TwoTierProfile
 from repro_torch.device import DeviceLike, exact_fp32, resolve_device
@@ -121,6 +122,58 @@ def quantized_cnn_layer_costs(cfg: CNNConfig, masks=None,
     frac = weight_bits / (8.0 * bytes_per_elem)
     return [LayerCost(c.index, c.name, c.flops, c.out_bytes,
                       c.params_bytes * frac) for c in costs]
+
+
+# ---------------------------------------------------------------------------
+# analytic costs: transformer (per decoder layer, batch=1)
+# ---------------------------------------------------------------------------
+def transformer_layer_costs(cfg: ModelConfig, seq_len: int,
+                            bytes_per_elem: int = 2,
+                            decode: bool = False) -> List[LayerCost]:
+    """One ``LayerCost`` a decoder layer of ``cfg`` at batch 1: its
+    forward FLOPs over ``seq_len`` tokens (one token against a
+    ``seq_len`` context when ``decode``) and the bytes of its output.
+    GQA projections and attention over the (windowed) context, or MLA's
+    low-rank projections; an FFN, or ``top_k + num_shared`` experts plus
+    the router; an SSM layer's projections, SSD term and out-projection.
+    The reference's arithmetic in its order, so both packages give the
+    same list and pick the same split."""
+    d = cfg.d_model
+    S = 1 if decode else seq_len
+    ctx = seq_len
+    costs = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        fl = 0.0
+        if kind in ("attn", "attn_dense", "moe"):
+            if cfg.attention == "mla":
+                m = cfg.mla
+                qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+                proj = (d * m.q_lora_rank + m.q_lora_rank * cfg.num_heads * qk
+                        + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                        + m.kv_lora_rank * cfg.num_heads
+                        * (m.qk_nope_head_dim + m.v_head_dim)
+                        + cfg.num_heads * m.v_head_dim * d)
+                att = cfg.num_heads * ctx * (qk + m.v_head_dim)
+            else:
+                proj = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+                win = min(ctx, cfg.sliding_window or ctx)
+                att = cfg.num_heads * win * 2 * cfg.head_dim
+            fl += 2.0 * S * (proj + att)
+            mult = 3 if cfg.activation in ("silu_glu", "geglu") else 2
+            if kind == "moe":
+                m = cfg.moe
+                fl += 2.0 * S * (m.top_k + m.num_shared) * d * m.d_expert * mult
+                fl += 2.0 * S * d * m.num_experts     # router
+            else:
+                fl += 2.0 * S * d * cfg.d_ff * mult
+        elif kind == "ssm":
+            s = cfg.ssm
+            d_in = cfg.d_inner
+            proj = d * (2 * d_in + 2 * s.n_groups * s.d_state + cfg.ssm_heads)
+            ssd = d_in * s.d_state * 6
+            fl += 2.0 * S * (proj + ssd + d_in * d)
+        costs.append(LayerCost(i, f"{kind}{i}", fl, S * d * bytes_per_elem))
+    return costs
 
 
 # ---------------------------------------------------------------------------

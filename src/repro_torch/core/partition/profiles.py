@@ -25,7 +25,9 @@ the recovery machinery that survives one lives in
 The batched 3090 and the Jetson-class cloudlet are the fleet simulator's
 modelled tiers (``repro_torch.core.fleet``). ``H100_CARD`` is the one card
 this port runs on, priced from ``repro_torch.roofline.hw``'s data-sheet
-peaks; the reference's TPU profiles have no counterpart here.
+peaks. Tier B, a transformer split across two tiers of H100 cards, has
+its own profiles (``H100_TWO_NODE``, ``H100_EDGE_CLOUD``): nodes and a
+cluster priced from the same peaks, joined by data-sheet network rates.
 """
 from __future__ import annotations
 
@@ -226,6 +228,29 @@ H100_CARD = ComputeProfile("NVIDIA H100 SXM (data sheet)",
                            int8_flops_per_s=hw.PEAK_FLOPS_FP32)
 
 
+# --- Tier B: a transformer split across H100 nodes --------------------------
+#: the transformer's layers run in bf16 on the tensor cores, so a node or a
+#: cluster is priced at the data sheet's dense bf16 rate and HBM rate per
+#: card (``roofline.hw``), times its cards: an 8-card HGX/DGX H100 node,
+#: and a cluster of 32 such nodes
+H100_NODE = ComputeProfile("H100 node (8 cards)",
+                           flops_per_s=8 * hw.PEAK_FLOPS_BF16,
+                           mem_bw=8 * hw.HBM_BW)
+H100_CLUSTER = ComputeProfile("H100 cluster (256 cards)",
+                              flops_per_s=256 * hw.PEAK_FLOPS_BF16,
+                              mem_bw=256 * hw.HBM_BW)
+#: between two nodes of a cluster the activations cross InfiniBand at the
+#: node's whole compute fabric (``hw.NODE_FABRIC_BW``)
+INTER_NODE_IB = LinkProfile("inter-node InfiniBand NDR (8 x 400 Gb/s)",
+                            bandwidth=hw.NODE_FABRIC_BW, rtt_s=5e-6)
+H100_TWO_NODE = TwoTierProfile(H100_NODE, H100_NODE, INTER_NODE_IB)
+#: an edge site's node serving through a cluster over a 200 Gb/s Ethernet
+#: uplink (a ConnectX-7 port at its 200 GbE rate) into the datacenter
+DATACENTER_LINK = LinkProfile("datacenter Ethernet uplink (200 Gb/s)",
+                              bandwidth=200e9 / 8, rtt_s=1e-4)
+H100_EDGE_CLOUD = TwoTierProfile(H100_NODE, H100_CLUSTER, DATACENTER_LINK)
+
+
 # --- canned time-varying link traces ----------------------------------------
 #: the paper's steady testbed link, as a (degenerate) trace
 WIFI_STEADY = LinkTrace.from_mbps("wifi_steady",
@@ -252,6 +277,8 @@ TRACES = {
 PROFILES = {
     "paper": PAPER_PROFILE,
     "paper_farm": PAPER_FARM_PROFILE,
+    "h100_two_node": H100_TWO_NODE,
+    "h100_edge_cloud": H100_EDGE_CLOUD,
 }
 
 

@@ -12,6 +12,16 @@ entry, ``masked_matmul``, ``flash_attention`` and ``ssd_scan``, each an
 autograd Function whose backward is in PyTorch ops. Every family of the
 registry trains there, the ``ssm`` and ``hybrid`` ones included; nothing
 falls back to the plain versions.
+
+Given a ``mesh`` (a ``DeviceMesh``, ``launch.mesh``), the train step is
+the sharded one, the counterpart of the reference's ``jax.jit`` with
+``in_shardings``: the parameters and the optimizer state are DTensor trees
+(``sharding.specs.distribute`` by ``param_specs`` and
+``opt_state_specs``), each rank reads its ``batch_specs`` slice of the
+batch, gathers the whole parameter tree into local tensors (the kernels
+take plain tensors) and differentiates the loss on them, reduces the
+gradients over the data axes to each parameter's placements, and updates
+its own shards, AdamW's clip on the norm of the whole gradient.
 """
 from __future__ import annotations
 
@@ -23,8 +33,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import check_head_dim
 from repro_torch.models import transformer as tr
-from repro_torch.optim.optimizers import (Optimizer, tree_map,
+from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
                                           value_and_grad)
+from repro_torch.sharding import specs as shard_specs
 
 
 def _on(device: torch.device, tokens) -> torch.Tensor:
@@ -78,7 +89,8 @@ def loss_and_grads(params, cfg: ModelConfig, batch, masks=None,
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
-                    grad_accum: int = 1, device: DeviceLike = None):
+                    grad_accum: int = 1, device: DeviceLike = None,
+                    mesh=None):
     """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradient (``optim.value_and_grad`` of
     ``loss_fn``), then ``optimizer.update``, as the reference's step.
@@ -86,33 +98,152 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
     ``grad_accum > 1`` runs the batch as that many microbatches
     (``_microbatches``), sums their gradients in fp32, divides by
     ``grad_accum`` and casts each to its parameter's dtype, and averages
-    the metrics: live activations shrink by the factor."""
+    the metrics: live activations shrink by the factor. With ``mesh`` the
+    step is the sharded one (``_sharded_train_step``): its ``params`` and
+    ``opt_state`` are DTensor trees on ``mesh`` and ``batch`` the whole
+    batch, which every rank holds."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
     _check_card(cfg, dev)
 
-    def train_step(params, opt_state, batch):
-        batch = batch_on(dev, cfg, batch)
+    def grads_of(params, batch):
         if grad_accum == 1:
-            metrics, grads = loss_and_grads(params, cfg, batch, masks)
-        else:
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            ms = []
-            for mb in _microbatches(batch, grad_accum):
-                m, g = loss_and_grads(params, cfg, mb, masks)
-                gsum = tree_map(lambda acc, gg: acc + gg.to(torch.float32),
-                                gsum, g)
-                del g
-                ms.append(m)
-            grads = tree_map(lambda g, p: (g / grad_accum).to(p.dtype),
-                             gsum, params)
-            del gsum
-            metrics = {k: torch.stack([m[k] for m in ms]).mean()
-                       for k in ms[0]}
+            return loss_and_grads(params, cfg, batch, masks)
+        gsum = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        ms = []
+        for mb in _microbatches(batch, grad_accum):
+            m, g = loss_and_grads(params, cfg, mb, masks)
+            gsum = tree_map(lambda acc, gg: acc + gg.to(torch.float32),
+                            gsum, g)
+            del g
+            ms.append(m)
+        grads = tree_map(lambda g, p: (g / grad_accum).to(p.dtype),
+                         gsum, params)
+        del gsum
+        return ({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]},
+                grads)
+
+    if mesh is not None:
+        return _sharded_train_step(cfg, optimizer, grads_of, dev, mesh)
+
+    def train_step(params, opt_state, batch):
+        metrics, grads = grads_of(params, batch_on(dev, cfg, batch))
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, metrics
     return train_step
+
+
+def _sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, grads_of,
+                        dev: torch.device, mesh):
+    """The train step on ``mesh``. Each rank takes its ``batch_specs``
+    slice of the batch, gathers the parameters whole, and computes the
+    loss and gradients of its slice (``grads_of``: the kernel path on the
+    card). A slice's share of the batch is its share of the labelled
+    tokens (the cross-entropy's denominator), so its gradients and metrics
+    are weighted by that share and summed over the data axes
+    (``Partial``), then laid out as each parameter is: a dense model's
+    gradient is the whole batch's. (MoE's balance losses and the MTP
+    loss have denominators of their own; for them this is the
+    data-parallel weighting, not the whole batch's.) Each rank updates its
+    own shards as plain tensors; AdamW's clip takes the norm of the whole
+    gradient, each element counted once (``_mesh_sq_norm``). On a one-rank
+    mesh every gather and reduction is the identity, and the step gives
+    the unsharded step's bits."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the step on "
+                         f"{dev.type}")
+    import torch.distributed as dist
+    names = mesh.mesh_dim_names
+    data, _ = shard_specs.mesh_axes(mesh)
+    sizes = shard_specs.axis_sizes(mesh)
+    n_data = 1
+    for a in data:
+        n_data *= sizes[a]
+    partial = tuple(Partial() if n in data else Replicate() for n in names)
+
+    def local_batch(batch):
+        """This rank's rows of ``batch`` (``batch_specs``); a batch that
+        the data axes do not divide would be split on its sequence, which
+        needs context parallelism, and is refused."""
+        out = {}
+        specs = shard_specs.batch_specs(batch, cfg, mesh)
+        for name, t in batch.items():
+            sp = specs[name]
+            bdim = 1 if name == "mrope_positions" else 0
+            if any(ax is not None for d, ax in enumerate(sp) if d != bdim) \
+                    or (n_data > 1 and sp[bdim] is None):
+                raise ValueError(
+                    f"{name} {tuple(torch.as_tensor(t).shape)}: its batch "
+                    f"dim must divide the data axes ({n_data}); a "
+                    f"sequence split is not ported")
+            out[name] = shard_specs.local_slice(torch.as_tensor(t), sp, mesh)
+        return out
+
+    def weighted(t: torch.Tensor, share: float) -> torch.Tensor:
+        """``t`` times this rank's share, in float32 when the data axes
+        have more than one rank (the unsharded step's tensor itself when
+        they have one)."""
+        return t if n_data == 1 else t.to(torch.float32) * share
+
+    def train_step(params, opt_state, batch):
+        local = batch_on(dev, cfg, local_batch(batch))
+        whole = tree_map(lambda p: p.full_tensor(), params)
+        metrics, grads = grads_of(whole, local)
+        del whole
+        share = (float((local["labels"] >= 0).sum())
+                 / max(float((torch.as_tensor(batch["labels"]) >= 0).sum()),
+                       1.0))
+
+        def reduce(g, p):
+            return DTensor.from_local(weighted(g, share), mesh, partial,
+                                      run_check=False).redistribute(
+                mesh, p.placements).to_local().to(p.dtype)
+        grads = tree_map(reduce, grads, params)
+        for k, v in metrics.items():
+            metrics[k] = v = weighted(v, share).clone()
+            for a in data:
+                dist.all_reduce(v, group=mesh.get_group(a))
+        placed = [p.placements for p in tree_leaves(params)]
+        local_params = tree_map(lambda p: p.to_local(), params)
+        state = {k: (tree_map(lambda t: t.to_local(), v)
+                     if k != "step" else v) for k, v in opt_state.items()}
+        new_params, new_state = optimizer.update(
+            grads, state, local_params,
+            sq_norm=lambda g: _mesh_sq_norm(g, placed, mesh))
+        del grads, local_params, state
+
+        def wrap(t, p):
+            return DTensor.from_local(t, mesh, p.placements, run_check=False,
+                                      shape=p.shape, stride=p.stride())
+        new_params = tree_map(wrap, new_params, params)
+        new_state = {k: (tree_map(wrap, v, params) if k != "step" else v)
+                     for k, v in new_state.items()}
+        return new_params, new_state, metrics
+    return train_step
+
+
+def _mesh_sq_norm(grads, placed, mesh) -> torch.Tensor:
+    """The squared norm of the whole gradient from each rank's shards: a
+    leaf counts on the ranks at coordinate 0 of every mesh dim it is
+    replicated over (each element once), the sums of squares added in the
+    tree's order and all-reduced over the mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+    coord = mesh.get_coordinate()
+    total = None
+    for g, pl in zip(tree_leaves(grads), placed):
+        if any(isinstance(p, Replicate) and c for p, c in zip(pl, coord)):
+            continue
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tree_leaves(grads)[0].device)
+    for d in range(mesh.ndim):
+        dist.all_reduce(total, group=mesh.get_group(d))
+    return total
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,

@@ -12,7 +12,10 @@ it, both plain PyTorch; its two latent norms (``q_norm``, ``kv_norm``) go
 through the rmsnorm wrapper. Decode (``gqa_decode``, ``mla_decode``)
 takes one new token per sequence against the cache; the reference has no
 kernel there, so it is plain PyTorch. The head-atomic chunked path
-(``chunked_attention_ha``), a sharding lever, comes with the mesh.
+(``chunked_attention_ha``), a sharding lever, is the plain branch's
+choice above ``cfg.naive_attn_max`` tokens when ``cfg.attn_head_atomic``
+is set (no registry config sets it), as in the reference; its
+``maybe_constrain`` calls are the identity outside a mesh.
 Pruning hook: an optional ``head_mask`` (num_heads,) multiplies the
 attention output per head.
 """
@@ -28,6 +31,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.sharding.constraints import data_axes_spec, maybe_constrain
+from repro_torch.sharding.specs import P
 
 NEG_INF = -2.0 ** 30
 
@@ -189,6 +194,57 @@ def chunked_attention(q, k, v, q_pos, k_pos, causal: bool,
     return out.to(q.dtype)
 
 
+def chunked_attention_ha(q, k, v, q_pos, k_pos, causal: bool,
+                         window: Optional[int], scale: float,
+                         block_kv: int = 1024):
+    """The head-atomic variant of ``chunked_attention`` (the reference's
+    ``chunked_attention_ha``): K and V repeated to all H query heads
+    instead of H reshaped into (Hkv, group), so the (B, H, Sq, block)
+    logits can shard H over "model" even when that axis divides neither
+    Hkv nor the group (28 heads on a 16-way axis). The same fp32 online
+    softmax over KV blocks padded to whole blocks (padded keys at the
+    2**30 sentinel), with ``maybe_constrain`` on K, V and each block's
+    logits."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    rep = H // Hkv
+    f32 = torch.float32
+    dspec = data_axes_spec()
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    k = maybe_constrain(k, P(dspec, None, "model", None))
+    v = maybe_constrain(v, P(dspec, None, "model", None))
+    nblk = -(-Sk // block_kv)
+    pad = nblk * block_kv - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=2 ** 30)
+    qh = q.to(f32) * scale
+    m = torch.full((B, H, Sq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, H, Sq, Dv), dtype=f32, device=q.device)
+    for i in range(nblk):
+        blk = slice(i * block_kv, (i + 1) * block_kv)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, k[:, blk].to(f32))
+        logits = maybe_constrain(logits, P(dspec, "model", None, None))
+        ok = _band_mask(q_pos[:, None], k_pos[:, None, blk], causal,
+                        window)                          # (B,1,Sq,block)
+        logits = logits.masked_fill_(~ok, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = logits.sub_(m_new[..., None]).exp_()
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, v[:, blk].to(f32))
+        m = m_new
+        del logits, p
+    out = acc / l.clamp_min(1e-37)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA block
 # ---------------------------------------------------------------------------
@@ -225,13 +281,21 @@ def gqa_forward(params, cfg, x, angles, *, head_mask=None,
                 backend: str = "auto"):
     """Full-sequence forward (prefill). Returns (out, (k, v)). The
     attention is the flash kernel's wrapper (``"auto"``) or its plain
-    version (``"ref"``)."""
+    version (``"ref"``); on the plain branch a config with
+    ``attn_head_atomic`` takes ``chunked_attention_ha`` above
+    ``naive_attn_max`` tokens, as the reference's does."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x, angles, S)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    attend = attention_ref if backend == "ref" else flash_attention
-    out = attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                 scale=scale)
+    if backend == "ref" and cfg.attn_head_atomic and S > cfg.naive_attn_max:
+        q = maybe_constrain(q, P(data_axes_spec(), None, "model", None))
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        out = chunked_attention_ha(q, k, v, pos, pos, cfg.causal,
+                                   cfg.sliding_window, scale)
+    else:
+        attend = attention_ref if backend == "ref" else flash_attention
+        out = attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                     scale=scale)
     if head_mask is not None:
         out = out * head_mask[None, None, :, None].to(out.dtype)
     return out.reshape(B, S, cfg.q_dim) @ params["wo"], (k, v)

@@ -12,8 +12,10 @@ ops: ``argsort``, ``bincount``, indexing, ``bmm`` and ``index_add_``.
 
 Expert weights are stacked (E, ...), as in the reference. Its sharding
 constraints on the dispatch buffer and the expert outputs (expert
-parallelism on the "model" mesh axis) are the identity on one device and
-are left out here; they return with the mesh (ROADMAP A8).
+parallelism on the "model" mesh axis) and on the gathered output (the
+data axes) are kept (``sharding.constraints.maybe_constrain``); outside a
+mesh, and on the plain tensors the sharded train step runs the model on,
+each is the identity.
 
 Pruning hook: ``expert_mask`` (E,) — pruned experts get a router logit of
 -1e30, so the softmax or sigmoid gives them a score of 0 and top-k never
@@ -28,6 +30,8 @@ import torch
 
 from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.mlp import GATED, _act
+from repro_torch.sharding.constraints import data_axes_spec, maybe_constrain
+from repro_torch.sharding.specs import P
 
 
 class MoEMetrics(NamedTuple):
@@ -132,17 +136,24 @@ def moe_forward(params, moe, x: torch.Tensor, activation: str, *,
     slot = torch.where(keep, se * C + pos, E * C)             # E*C = drop bin
     keep_x = keep[:, None].to(x.dtype)
 
+    dspec = data_axes_spec()
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
     buf[slot] = x2d[st] * keep_x
     eb = buf[:-1].reshape(E, C, d)
+    # expert parallelism: the dispatch buffer lives expert-sharded on
+    # "model"
+    eb = maybe_constrain(eb, P("model", None, None))
     h = _act(torch.bmm(eb, params["w_up"]), activation)
     if activation in GATED:
         h = h * torch.bmm(eb, params["w_gate"])
-    ob = torch.bmm(h, params["w_down"]).reshape(E * C, d)
+    h = maybe_constrain(h, P("model", None, None))
+    ob = torch.bmm(h, params["w_down"])
+    ob = maybe_constrain(ob, P("model", None, None)).reshape(E * C, d)
 
     gathered = ob[slot.clamp(max=E * C - 1)] * keep_x
     out = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add_(
-        0, st, gathered.to(torch.float32) * sp[:, None]).to(x.dtype)
+        0, st, gathered.to(torch.float32) * sp[:, None])
+    out = maybe_constrain(out, P(dspec, None)).to(x.dtype)
 
     if moe.num_shared:
         hs = _act(x2d @ params["w_up_sh"], activation)

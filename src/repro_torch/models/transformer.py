@@ -225,7 +225,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     the reference) and its norm."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # on the meta device (shapes and dtypes only, as the sharding specs
+    # of a full-size config want them) nothing is drawn
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dtype = getattr(torch, cfg.dtype)
     V = cfg.padded_vocab
     params: Dict[str, Any] = {

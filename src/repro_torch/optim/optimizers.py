@@ -19,7 +19,11 @@ import torch
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any], Any]   # (grads, state, params) -> (params, state)
+    #: (grads, state, params) -> (params, state); AdamW also takes
+    #: ``sq_norm``, the function that gives its clip the squared global
+    #: norm of ``grads`` (``global_sq_norm`` unless a sharded step passes
+    #: one that sums over every rank's shard)
+    update: Callable[..., Any]
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -82,6 +86,13 @@ def value_and_grad(loss_fn: Callable, tree) -> Tuple[torch.Tensor, Any]:
     return loss.detach(), tree_map(lambda _: next(flat), tree)
 
 
+def global_sq_norm(grads) -> torch.Tensor:
+    """The squared L2 norm of a whole gradient tree, in float32: each
+    leaf's sum of squares, summed in the tree's order."""
+    return sum(torch.sum(torch.square(g.to(torch.float32)))
+               for g in tree_leaves(grads))
+
+
 def _zeros_like(params, dtype=None):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype or p.dtype,
                                           device=p.device), params)
@@ -89,11 +100,13 @@ def _zeros_like(params, dtype=None):
 
 def sgd_momentum(schedule, momentum: float = 0.9,
                  weight_decay: float = 0.0) -> Optimizer:
+    """SGD with momentum; it has no clip, so ``update`` ignores the
+    ``sq_norm`` a sharded step passes every optimizer."""
     def init(params):
         return {"mom": _zeros_like(params, torch.float32), "step": 0}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, sq_norm=None):
         lr = schedule(state["step"])
         mom = tree_map(lambda m, g: momentum * m + g.to(torch.float32),
                        state["mom"], grads)
@@ -115,13 +128,11 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "v": _zeros_like(params, moment_dtype), "step": 0}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, sq_norm=global_sq_norm):
         step = state["step"] + 1
         lr = schedule(state["step"])
         if grad_clip:
-            gnorm = torch.sqrt(sum(
-                torch.sum(torch.square(g.to(torch.float32)))
-                for g in tree_leaves(grads)))
+            gnorm = torch.sqrt(sq_norm(grads))
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
             grads = tree_map(lambda g: g * scale.to(g.dtype), grads)

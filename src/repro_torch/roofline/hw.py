@@ -28,3 +28,7 @@ NVLINK_BW = 900e9
 #: a collective is the bytes it sends, and they leave over the outgoing
 #: half of its links while the incoming half carries what it receives
 NVLINK_BW_PER_DIRECTION = NVLINK_BW / 2
+#: a DGX H100 node's compute fabric, bytes/s: its data sheet's eight
+#: single-port ConnectX-7 cards, one a GPU, at 400 Gb/s (InfiniBand NDR)
+#: each, 3.2 Tb/s in all
+NODE_FABRIC_BW = 3.2e12 / 8

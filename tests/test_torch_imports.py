@@ -16,15 +16,23 @@ PKG = os.path.join(REPO, "src", "repro_torch")
 
 
 def _port_sources():
+    """``chip_smoke.py``, the package's modules, then the example twins
+    (``examples/port_*.py``), which are scripts, not modules."""
     out = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
-    return sorted(out)
+    return sorted(out) + _twins()
+
+
+def _twins():
+    ex = os.path.join(REPO, "examples")
+    return sorted(os.path.join(ex, f) for f in os.listdir(ex)
+                  if f.startswith("port_") and f.endswith(".py"))
 
 
 def _modules():
     mods = []
-    for path in _port_sources()[1:]:
+    for path in _port_sources()[1:len(_port_sources()) - len(_twins())]:
         rel = os.path.relpath(path, os.path.join(REPO, "src"))[:-3]
         mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
     return mods

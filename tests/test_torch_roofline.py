@@ -195,7 +195,8 @@ def test_no_tpu_constant_in_the_port():
                 bad.append(f"{rel}:{node.lineno} {v!r}")
     assert not bad, bad
     assert hasattr(tprof, "H100_CARD")
-    assert set(tprof.PROFILES) == {"paper", "paper_farm"}
+    assert set(tprof.PROFILES) == {"paper", "paper_farm", "h100_two_node",
+                                   "h100_edge_cloud"}
 
 
 def test_chip_smoke_reads_its_peaks_from_the_device_model():
