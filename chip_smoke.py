@@ -4214,12 +4214,12 @@ def unsharded_steps(cfg, params, masks, batch, optimizer, steps: int,
     return p, losses, prof
 
 
-def check_card_mesh(mesh) -> None:
-    """The host mesh is a (1, 1) mesh of the card on NCCL: no fallback to
-    the CPU or to gloo."""
+def check_card_mesh(mesh, shape=(1, 1)) -> None:
+    """The host mesh is a one-rank mesh of ``shape`` on the card on NCCL:
+    no fallback to the CPU or to gloo."""
     import torch.distributed as dist
     if (dist.get_backend(), mesh.device_type, tuple(mesh.shape)) != (
-            "nccl", "cuda", (1, 1)):
+            "nccl", "cuda", tuple(shape)):
         raise AssertionError(f"host mesh {mesh} on {dist.get_backend()}")
 
 
@@ -4412,6 +4412,240 @@ def mesh_phase() -> dict:
         "seconds_sharded_t1": t_twins - t0,
         "seconds_twins": t_split - t_twins,
         "launches": dict(total)}), flush=True)
+    return dict(total)
+
+#: phase 22: the pipelined split served on the card at the reference's
+#: split-serve defaults (``dryrun.run_split_serve``): full width and depth
+SPLIT_SERVE_MODELS = ("qwen2_7b", "mamba2_2p7b")
+SPLIT_SERVE_BATCH = 32
+SPLIT_SERVE_SEQ = 4096
+SPLIT_SERVE_MICROBATCHES = 8
+#: rows of the batch the bf16 and fp32 plain yardsticks run (the fp32
+#: Qwen2-7B tree alone is 30.5 GB)
+SPLIT_YARDSTICK_ROWS = 2
+#: the dry-run cell phase 22 traces on this machine, in a subprocess
+DRYRUN_CELL = ("qwen2-7b", "decode_32k", "pod")
+
+
+def expected_split_launches(cfg, microbatches: int) -> dict:
+    """Kernel launches of one split-serve step with one pod: every layer's
+    kernels once a microbatch (an attention layer two norms and a flash
+    attention, a Mamba2 layer a norm, a gated norm and a scan; no masks,
+    so no ``masked_matmul``), and the final norm once over the whole
+    batch."""
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.models.transformer import layer_runs
+    attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
+    ssm = cfg.num_layers - attn
+    return {"rmsnorm": (2 * attn + ssm) * microbatches + 1,
+            "rmsnorm_gated": ssm * microbatches, "masked_matmul": 0,
+            "flash_attention": attn * microbatches,
+            "ssd_scan": ssm * microbatches,
+            **dict.fromkeys(masked_matmul.route_launches, 0)}
+
+
+def dryrun_subprocess(args, out_dir: str):
+    """``python -m repro_torch.launch.dryrun`` with ``args`` in a process
+    of its own (its fake process group never meets this one's NCCL
+    group), on the CPU, started now; ``finish_dryrun`` waits for it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+           "--out", out_dir]
+    return subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dryrun(proc, record: str) -> dict:
+    """The record a ``dryrun_subprocess`` wrote; its output on failure."""
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0 or not os.path.exists(record):
+        raise AssertionError(f"dry run failed ({proc.returncode}): "
+                             f"{out[-3000:]}")
+    with open(record) as f:
+        return json.load(f)
+
+
+def split_serve_model(cfg, mesh) -> dict:
+    """One model of phase 22: the same batch through ``make_prefill_step``
+    and through ``make_split_serve_step`` on ``mesh`` (one pod, the
+    reference's microbatches), both on the kernels; their last-position
+    logits held to each other and to fp32 (the LM-logits rule of PERF.md
+    §2, the bf16 and fp32 plain yardsticks run on the first
+    ``SPLIT_YARDSTICK_ROWS`` rows); wall and device ms of each, peaks,
+    the split step's launches. Returns the ``split_serve`` line's row and
+    the launches; ``split_serve_phase`` prints and holds the row."""
+    import numpy as np
+    import torch
+    from repro_torch.core.partition import pod_pipeline as pp
+    from repro_torch.data.requests import request_batch
+    from repro_torch.device import exact_fp32
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import specs as sh
+    B, S, M = SPLIT_SERVE_BATCH, SPLIT_SERVE_SEQ, SPLIT_SERVE_MICROBATCHES
+    # the model_setup weights; the split step takes no masks
+    params, _ = model_setup(cfg, SEED)
+    n_params = tr.param_count(params)
+    batch = request_batch(cfg, B, S, np.random.default_rng(SEED))
+    prefill = make_prefill_step(cfg, max_len=S)
+
+    def run_prefill():
+        lg, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        del cache
+        return lg
+    sp = dict(params)
+    sp["runs"] = [pp.stack_stage_params(params, cfg, 1)]
+    placed = sh.distribute(sp, pp.stage_param_specs(sp, cfg, mesh), mesh)
+    step = pp.make_split_serve_step(cfg, 1, M, mesh)
+
+    def run_split():
+        lg = step(placed, batch)
+        torch.cuda.synchronize()
+        return lg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    want = run_prefill().float()
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    got = run_split().float()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    split_peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = expected_split_launches(cfg, M)
+    if launches != expected:
+        raise AssertionError(f"{cfg.name} split serve launches {launches}, "
+                             f"expected {expected}")
+    if got.shape != (B, cfg.padded_vocab) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name}: bad split logits "
+                             f"{tuple(got.shape)}")
+    prof_pre = device_profile(run_prefill)
+    prof_split = device_profile(run_split)
+    del placed, step, sp
+    torch.cuda.empty_cache()
+    # the yardsticks: the plain versions in bf16, then in fp32, on the
+    # first rows
+    rows = {k: v[:SPLIT_YARDSTICK_ROWS] for k, v in batch.items()}
+    plain = tr.prefill(params, cfg, card_batch(cfg, rows), max_len=S,
+                       backend="ref")[0].float()
+    torch.cuda.empty_cache()
+    params32 = tr.cast_params(params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    with exact_fp32():
+        f = tr.prefill(params32, cfg.replace(dtype="float32"),
+                       card_batch(cfg.replace(dtype="float32"), rows),
+                       max_len=S, backend="ref")[0].float()
+    del params32
+    torch.cuda.empty_cache()
+    n = SPLIT_YARDSTICK_ROWS
+    gap_p = float((plain - f).abs().max())
+    tol = 2 * gap_p + BF16_SPACING * float(f.abs().max())
+    gaps = {"split_vs_prefill": float((got - want).abs().max()),
+            "split_vs_fp32": float((got[:n] - f).abs().max()),
+            "prefill_vs_fp32": float((want[:n] - f).abs().max()),
+            "bf16_plain_vs_fp32": gap_p}
+    worst = max(gaps[k] for k in ("split_vs_prefill", "split_vs_fp32",
+                                  "prefill_vs_fp32")) / tol
+    row = {"model": cfg.name, "layers": cfg.num_layers,
+           "params": n_params, "batch": B,
+           "prompt": S, "microbatches": M, "pods": 1,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "bit_equal_to_prefill": bool(torch.equal(got, want)),
+           "max_gap": gaps, "tol": tol, "max_gap_over_tol": worst,
+           "launches": {k: v for k, v in launches.items() if v},
+           "split_first_call_ms": first_ms,
+           "split_wall_ms": prof_split["wall_ms"],
+           "split_device_ms": prof_split["device_ms"],
+           "split_idle_share": prof_split["device_idle_share"],
+           "split_by_kind": prof_split["by_kind"],
+           "prefill_wall_ms": prof_pre["wall_ms"],
+           "prefill_device_ms": prof_pre["device_ms"],
+           "prefill_idle_share": prof_pre["device_idle_share"],
+           "prefill_by_kind": prof_pre["by_kind"],
+           "split_peak_gb": split_peak, "prefill_peak_gb": prefill_peak}
+    return row, launches
+
+
+def beside_dryrun(row, dry_split) -> None:
+    """The dry run's terms for the served step (one-rank fake mesh, plain
+    route) beside the measured device time."""
+    terms = dry_split["roofline"]
+    top = max(("t_compute_s", "t_memory_s", "t_collective_s"),
+              key=terms.get)
+    row["dryrun"] = {
+        "mesh": dry_split["mesh"], "dominant": terms["dominant"],
+        "largest_term_ms": 1e3 * terms[top],
+        "t_compute_ms": 1e3 * terms["t_compute_s"],
+        "t_memory_ms": 1e3 * terms["t_memory_s"],
+        "flops": terms["flops"], "bytes_unfused": terms["hbm_bytes"],
+        "peak_gb": dry_split["memory_analysis"]["peak_bytes_per_card"] / 1e9,
+        "measured_device_over_largest_term":
+            row["split_device_ms"] / (1e3 * terms[top]),
+        "measured_device_over_compute_term":
+            row["split_device_ms"] / (1e3 * terms["t_compute_s"])}
+
+
+def split_serve_phase() -> dict:
+    """Phase 22: the pipelined split (``core.partition.pod_pipeline``) on
+    the card's one-rank NCCL (1, 1, 1) ("pod", "data", "model") mesh for
+    Qwen2-7B and Mamba2-2.7B at full width and depth, each against the
+    prefill step; one dry-run cell (``DRYRUN_CELL``) and the split serve
+    of Qwen2-7B on a one-rank fake mesh traced in subprocesses meanwhile;
+    a ``dryrun`` line and a ``phase22`` line. Returns the split steps'
+    launches."""
+    import importlib
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import host_mesh
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    arch, shape, mesh_name = DRYRUN_CELL
+    try:
+        cell = dryrun_subprocess(["--arch", arch, "--shape", shape,
+                                  "--mesh", mesh_name], tmp)
+        served = dryrun_subprocess(["--arch", "qwen2-7b", "--split-serve",
+                                    "--pods-mesh", "1x1x1"], tmp)
+        total = collections.Counter()
+        with host_mesh(pod_axis=True) as mesh:
+            check_card_mesh(mesh, (1, 1, 1))
+            for module in SPLIT_SERVE_MODELS:
+                cfg = importlib.import_module(
+                    f"repro_torch.configs.{module}").CONFIG
+                row, launches = split_serve_model(cfg, mesh)
+                if module == "qwen2_7b":
+                    beside_dryrun(row, finish_dryrun(served, os.path.join(
+                        tmp, "torch_qwen2-7b_split_serve_1x1x1.json")))
+                print("split_serve " + json.dumps(row), flush=True)
+                if row["max_gap_over_tol"] > 1.0:
+                    raise AssertionError(
+                        f"{cfg.name}: split-serve logits off by "
+                        f"{row['max_gap_over_tol']} of the tolerance")
+                total.update(launches)
+                torch.cuda.empty_cache()
+        if dist.is_initialized():
+            raise AssertionError("the pod mesh's group outlived the phase")
+        rec = finish_dryrun(cell, os.path.join(
+            tmp, f"torch_{arch}_{shape}_{mesh_name}.json"))
+        print("dryrun " + json.dumps({
+            "cell": list(DRYRUN_CELL), "status": rec["status"],
+            "trace_s": rec["trace_s"], "chips": rec["chips"],
+            "dominant": rec["roofline"]["dominant"],
+            "roofline": rec["roofline"],
+            "collectives": rec["collectives"]["bytes_by_op"],
+            "peak_gb": rec["memory_analysis"]["peak_bytes_per_card"] / 1e9,
+            "fits": rec["memory_analysis"]["fits"]}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase22 " + json.dumps({
+        "seconds": time.perf_counter() - t0, "launches": dict(total)}),
+        flush=True)
     return dict(total)
 
 
@@ -4711,9 +4945,12 @@ def main() -> int:
     ttotals, t2_launches = training_phase()
     # 21. the mesh and the example twins
     mtotals = mesh_phase()
+    # 22. the pipelined split served on a one-pod mesh, and the dry run
+    stotals = split_serve_phase()
     for name in totals:
         totals[name] += (xtotals[name] + dtotals[name] + vtotals[name]
-                         + htotals[name] + ttotals[name] + mtotals[name])
+                         + htotals[name] + ttotals[name] + mtotals[name]
+                         + stotals[name])
     alex_routes.update({k: v for k, v in mtotals.items()
                         if k.startswith(("masked_matmul_f32",
                                          "masked_matmul_q8"))})

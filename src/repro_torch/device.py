@@ -22,6 +22,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors of one shape are the same memory, compared by
+    storage and offset (which a fake tensor has too) and not by data
+    pointer (which a fake tensor does not)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
+
+
 _fp32_lock = threading.Lock()
 #: threads inside ``exact_fp32`` now, and the switches the first one found
 _fp32_state = {"depth": 0, "prev": None}

@@ -39,10 +39,12 @@ def make_production_mesh(*, multi_pod: bool = False):
     return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
 
 
-def make_host_mesh(device: DeviceLike = None):
+def make_host_mesh(device: DeviceLike = None, pod_axis: bool = False):
     """A (1, n) ("data", "model") mesh over this host's process group (the
     card unless the caller asks for the CPU), starting a one-process group
-    (NCCL on the card, gloo on the CPU) when none exists."""
+    (NCCL on the card, gloo on the CPU) when none exists; with
+    ``pod_axis``, a (1, 1, n) ("pod", "data", "model") mesh, the pipeline's
+    (``core.partition.pod_pipeline``) with one pod."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     dev = resolve_device(device)
@@ -57,18 +59,21 @@ def make_host_mesh(device: DeviceLike = None):
         raise RuntimeError(f"the process group's backend "
                            f"{dist.get_backend()!r} does not drive "
                            f"{dev.type}")
+    if pod_axis:
+        return init_device_mesh(dev.type, (1, 1, dist.get_world_size()),
+                                mesh_dim_names=("pod", "data", "model"))
     return init_device_mesh(dev.type, (1, dist.get_world_size()),
                             mesh_dim_names=("data", "model"))
 
 
 @contextlib.contextmanager
-def host_mesh(device: DeviceLike = None) -> Iterator:
+def host_mesh(device: DeviceLike = None, pod_axis: bool = False) -> Iterator:
     """``make_host_mesh`` as the current mesh for the duration; a group it
     started is destroyed on exit."""
     import torch.distributed as dist
     started = not dist.is_initialized()
     try:
-        mesh = make_host_mesh(device)
+        mesh = make_host_mesh(device, pod_axis)
         with use_mesh(mesh):
             yield mesh
     finally:

@@ -21,7 +21,18 @@ the sharded one, the counterpart of the reference's ``jax.jit`` with
 batch, gathers the whole parameter tree into local tensors (the kernels
 take plain tensors) and differentiates the loss on them, reduces the
 gradients over the data axes to each parameter's placements, and updates
-its own shards, AdamW's clip on the norm of the whole gradient.
+its own shards, AdamW's clip on the norm of the whole gradient. The
+serve steps take a ``mesh`` in the same strategy: each rank takes its
+rows of the batch, gathers the parameters whole and runs the local step;
+the prefill returns its logits and cache as DTensors (rows over the data
+axes, the cache laid out by ``cache_specs``), and the decode step gathers
+each cache leaf's shards for its rows, runs the local step, and writes
+the updated rows back into the DTensor cache's own shards in place.
+Tensor parallelism over "model" is not ported: every rank of a "model"
+group computes the same rows again.
+
+Every step takes ``backend``: ``"auto"`` (the kernels on the card) or
+``"ref"`` (the plain versions, as the dry run traces them).
 """
 from __future__ import annotations
 
@@ -30,7 +41,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, same_memory
 from repro_torch.kernels.flash_attention.ops import check_head_dim
 from repro_torch.models import transformer as tr
 from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
@@ -90,7 +101,7 @@ def loss_and_grads(params, cfg: ModelConfig, batch, masks=None,
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
                     grad_accum: int = 1, device: DeviceLike = None,
-                    mesh=None):
+                    mesh=None, backend: str = "auto"):
     """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradient (``optim.value_and_grad`` of
     ``loss_fn``), then ``optimizer.update``, as the reference's step.
@@ -108,12 +119,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
 
     def grads_of(params, batch):
         if grad_accum == 1:
-            return loss_and_grads(params, cfg, batch, masks)
+            return loss_and_grads(params, cfg, batch, masks, backend)
         gsum = tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
         ms = []
         for mb in _microbatches(batch, grad_accum):
-            m, g = loss_and_grads(params, cfg, mb, masks)
+            m, g = loss_and_grads(params, cfg, mb, masks, backend)
             gsum = tree_map(lambda acc, gg: acc + gg.to(torch.float32),
                             gsum, g)
             del g
@@ -134,6 +145,138 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
     return train_step
 
 
+def _data_size(mesh) -> int:
+    """Ranks along the mesh's data axes."""
+    data, _ = shard_specs.mesh_axes(mesh)
+    sizes = shard_specs.axis_sizes(mesh)
+    n = 1
+    for a in data:
+        n *= sizes[a]
+    return n
+
+
+def _check_mesh(mesh, dev: torch.device) -> None:
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the step on "
+                         f"{dev.type}")
+
+
+def _my_rows(batch, mesh, split: bool):
+    """This rank's rows of every input of ``batch`` where ``split``, else
+    all of them (``mrope_positions`` holds its rows on dim 1)."""
+    def rows(name, t):
+        t = torch.as_tensor(t)
+        bdim = 1 if name == "mrope_positions" else 0
+        return shard_specs.local_slice(
+            t, shard_specs.P(*_rows_spec(mesh, bdim, split)), mesh)
+    return {name: rows(name, t) for name, t in batch.items()}
+
+
+def _rows_spec(mesh, bdim: int, split: bool) -> list:
+    data, _ = shard_specs.mesh_axes(mesh)
+    return [None] * bdim + [data if split else None]
+
+
+def _rows_split(B: int, mesh) -> bool:
+    """Whether a batch of ``B`` rows splits over the data axes (else every
+    rank holds them all)."""
+    n = _data_size(mesh)
+    return n > 1 and B % n == 0
+
+
+def _rows_placements(mesh, bdim: int, split: bool) -> tuple:
+    """Placements of a tensor whose dim ``bdim`` holds the batch rows:
+    sharded over the data axes where ``split``, whole on "model"."""
+    return shard_specs.placements(
+        shard_specs.P(*_rows_spec(mesh, bdim, split)), mesh)
+
+
+def _cache_bdim(path) -> int:
+    """The batch dim of a cache leaf: 0 for ``pos`` (B,), else 1 (a run's
+    or the shared block's stacked (L, B, ...))."""
+    return 0 if shard_specs.path_keys(path)[-1] == "pos" else 1
+
+
+def _rows_dtensor(t: torch.Tensor, mesh, bdim: int, split: bool):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, _rows_placements(mesh, bdim, split),
+                              run_check=False)
+
+
+def _mesh_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
+                       dev: torch.device, mesh):
+    """The prefill on ``mesh``: this rank's rows (all of them where the
+    data axes do not divide the batch), the parameters gathered whole,
+    the local prefill; logits as a DTensor of rows over the data
+    axes, the cache as a DTensor tree laid out by ``cache_specs`` (each
+    rank keeps its rows' slice on "model")."""
+    _check_mesh(mesh, dev)
+
+    def prefill_step(params, batch):
+        split = _rows_split(_batch_rows(cfg, batch), mesh)
+        local = batch_on(dev, cfg, _my_rows(batch, mesh, split))
+        whole = tree_map(lambda p: p.full_tensor(), params)
+        logits, cache = tr.prefill(whole, cfg, local, max_len=max_len,
+                                   masks=masks, backend=backend)
+        del whole
+        logits = _rows_dtensor(logits, mesh, 0, split)
+        if cache is None:
+            return logits, None
+        rows = shard_specs.tree_map_with_path(
+            lambda path, t: _rows_dtensor(t, mesh, _cache_bdim(path), split),
+            cache)
+        specs = shard_specs.cache_specs(rows, cfg, mesh)
+        return logits, shard_specs.tree_map_with_path(
+            lambda _, sp, t: t.redistribute(
+                mesh, shard_specs.placements(sp, mesh)),
+            specs, rows, is_leaf=shard_specs._is_spec)
+    return prefill_step
+
+
+def _batch_rows(cfg: ModelConfig, batch) -> int:
+    name = "embeds" if cfg.embeds_input else "tokens"
+    return torch.as_tensor(batch[name]).shape[0]
+
+
+def _mesh_decode_step(cfg: ModelConfig, masks, backend: str,
+                      dev: torch.device, mesh):
+    """The decode step on ``mesh`` over a DTensor cache (``cache_specs``):
+    each leaf is gathered to this rank's rows, whole on "model" (a
+    sequence sharded over "data", as ``long_500k``'s B = 1 lays it out,
+    gathered whole: context-parallel attention is not ported), the local
+    step runs on the gathered tensors, and each leaf's updated rows are
+    laid back out and copied into its own shards in place."""
+    _check_mesh(mesh, dev)
+
+    def decode_step(params, cache, tokens):
+        tokens = torch.as_tensor(tokens)
+        split = _rows_split(tokens.shape[0], mesh)
+        local_tok = _on(dev, _my_rows({"tokens": tokens}, mesh,
+                                      split)["tokens"])
+        held = shard_specs.tree_map_with_path(
+            lambda path, t: t.redistribute(
+                mesh, _rows_placements(mesh, _cache_bdim(path), split)),
+            cache)
+        local = shard_specs.tree_map_with_path(lambda _, t: t.to_local(),
+                                               held)
+        whole = tree_map(lambda p: p.full_tensor(), params)
+        logits, _ = tr.decode_step(whole, cfg, local, local_tok, masks=masks,
+                                   backend=backend)
+        del whole
+
+        def put_back(path, leaf, rows):
+            if shard_specs.path_keys(path)[-1] == "pos":
+                return
+            mine = rows.redistribute(mesh, leaf.placements).to_local()
+            dst = leaf.to_local()
+            if not same_memory(dst, mine):
+                dst.copy_(mine)
+        shard_specs.tree_map_with_path(put_back, cache, held)
+        return (_rows_dtensor(logits, mesh, 0, split),
+                dict(cache, pos=cache["pos"] + 1))
+    return decode_step
+
+
 def _sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, grads_of,
                         dev: torch.device, mesh):
     """The train step on ``mesh``. Each rank takes its ``batch_specs``
@@ -151,50 +294,37 @@ def _sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, grads_of,
     mesh every gather and reduction is the identity, and the step gives
     the unsharded step's bits."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    if mesh.device_type != dev.type:
-        raise ValueError(f"the mesh is on {mesh.device_type}, the step on "
-                         f"{dev.type}")
     import torch.distributed as dist
+    _check_mesh(mesh, dev)
     names = mesh.mesh_dim_names
     data, _ = shard_specs.mesh_axes(mesh)
-    sizes = shard_specs.axis_sizes(mesh)
-    n_data = 1
-    for a in data:
-        n_data *= sizes[a]
+    n_data = _data_size(mesh)
     partial = tuple(Partial() if n in data else Replicate() for n in names)
 
-    def local_batch(batch):
-        """This rank's rows of ``batch`` (``batch_specs``); a batch that
-        the data axes do not divide would be split on its sequence, which
-        needs context parallelism, and is refused."""
-        out = {}
-        specs = shard_specs.batch_specs(batch, cfg, mesh)
-        for name, t in batch.items():
-            sp = specs[name]
-            bdim = 1 if name == "mrope_positions" else 0
-            if any(ax is not None for d, ax in enumerate(sp) if d != bdim) \
-                    or (n_data > 1 and sp[bdim] is None):
-                raise ValueError(
-                    f"{name} {tuple(torch.as_tensor(t).shape)}: its batch "
-                    f"dim must divide the data axes ({n_data}); a "
-                    f"sequence split is not ported")
-            out[name] = shard_specs.local_slice(torch.as_tensor(t), sp, mesh)
-        return out
-
-    def weighted(t: torch.Tensor, share: float) -> torch.Tensor:
+    def weighted(t: torch.Tensor, share: torch.Tensor) -> torch.Tensor:
         """``t`` times this rank's share, in float32 when the data axes
         have more than one rank (the unsharded step's tensor itself when
         they have one)."""
         return t if n_data == 1 else t.to(torch.float32) * share
 
     def train_step(params, opt_state, batch):
-        local = batch_on(dev, cfg, local_batch(batch))
+        B = _batch_rows(cfg, batch)
+        if n_data > 1 and B % n_data:
+            # the reference would split the sequence instead, which needs
+            # context parallelism
+            raise ValueError(f"batch {B} does not divide the data axes "
+                             f"({n_data}); a sequence split is not ported")
+        local = batch_on(dev, cfg, _my_rows(batch, mesh, n_data > 1))
         whole = tree_map(lambda p: p.full_tensor(), params)
         metrics, grads = grads_of(whole, local)
         del whole
-        share = (float((local["labels"] >= 0).sum())
-                 / max(float((torch.as_tensor(batch["labels"]) >= 0).sum()),
-                       1.0))
+        # the share of the labelled tokens, divided in float64 and rounded
+        # once, as a float32 tensor times a Python float rounds it; a
+        # tensor, so that a traced step reads no value
+        f64 = torch.float64
+        total = (torch.as_tensor(batch["labels"]) >= 0).sum().to(dev, f64)
+        share = ((local["labels"] >= 0).sum().to(f64)
+                 / total.clamp_min(1.0)).to(torch.float32)
 
         def reduce(g, p):
             return DTensor.from_local(weighted(g, share), mesh, partial,
@@ -247,7 +377,8 @@ def _mesh_sq_norm(grads, placed, mesh) -> torch.Tensor:
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
-                      masks=None, device: DeviceLike = None):
+                      masks=None, device: DeviceLike = None, mesh=None,
+                      backend: str = "auto"):
     """-> ``prefill_step(params, batch) -> (last_logits (B,V), cache)``.
     On the card a config whose attention goes through the flash kernel
     (GQA) but whose head dim the kernel has no instance of is refused
@@ -255,31 +386,42 @@ def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
     that kernel. ``batch`` holds ``tokens`` (B, S), or an audio config's
     ``embeds`` (B, S, d_model); a VLM config's also ``vision_embeds`` (B,
     V, d_model) and, optionally, ``mrope_positions`` (3, B, V + S). A
-    bidirectional config returns (all logits (B, S, V), None)."""
+    bidirectional config returns (all logits (B, S, V), None). With
+    ``mesh`` the step is the sharded one (``_mesh_prefill_step``):
+    ``params`` is a DTensor tree, ``batch`` the whole batch."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
     _check_card(cfg, dev)
+    if mesh is not None:
+        return _mesh_prefill_step(cfg, max_len, masks, backend, dev, mesh)
 
     def prefill_step(params, batch):
         batch = batch_on(dev, cfg, batch)
-        return tr.prefill(params, cfg, batch, max_len=max_len, masks=masks)
+        return tr.prefill(params, cfg, batch, max_len=max_len, masks=masks,
+                          backend=backend)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, masks=None,
-                     device: DeviceLike = None):
+                     device: DeviceLike = None, mesh=None,
+                     backend: str = "auto"):
     """-> ``decode_step(params, cache, tokens (B,1)) -> (logits (B,V),
     cache)``; the cache's tensors (KV or MLA latent slots, SSD states and
     conv windows) are updated in place. A bidirectional (encoder-only)
-    config has no decode step and is refused."""
+    config has no decode step and is refused. With ``mesh`` the step is
+    the sharded one (``_mesh_decode_step``): ``params`` and ``cache`` are
+    DTensor trees (the mesh prefill's cache), ``tokens`` the whole
+    batch's."""
     tr.check_supported(cfg)
     if not cfg.causal:
         raise ValueError(f"{cfg.name}: a bidirectional encoder has no "
                          f"decode step; its prefill returns every "
                          f"position's logits")
     dev = resolve_device(device)
+    if mesh is not None:
+        return _mesh_decode_step(cfg, masks, backend, dev, mesh)
 
     def decode_step(params, cache, tokens):
         return tr.decode_step(params, cfg, cache, _on(dev, tokens),
-                              masks=masks)
+                              masks=masks, backend=backend)
     return decode_step

@@ -4,7 +4,9 @@ cache.
 
 GQA prefill (``gqa_forward``) goes through the flash-attention wrapper
 (``kernels.flash_attention``: the CUDA kernel on the card, its plain
-version on the CPU or with ``backend="ref"``). MLA prefill
+version on the CPU); with ``backend="ref"`` it takes the reference's
+kernel-off path: the plain version up to ``cfg.naive_attn_max`` tokens,
+``chunked_attention`` above. MLA prefill
 (``mla_forward``) never reaches that kernel, as in the reference: it runs
 the materialising ``naive_attention`` up to ``cfg.naive_attn_max`` tokens
 and ``chunked_attention`` (an online-softmax loop over KV blocks) above
@@ -280,18 +282,23 @@ def _qkv(params, cfg, x, angles, S):
 def gqa_forward(params, cfg, x, angles, *, head_mask=None,
                 backend: str = "auto"):
     """Full-sequence forward (prefill). Returns (out, (k, v)). The
-    attention is the flash kernel's wrapper (``"auto"``) or its plain
-    version (``"ref"``); on the plain branch a config with
-    ``attn_head_atomic`` takes ``chunked_attention_ha`` above
-    ``naive_attn_max`` tokens, as the reference's does."""
+    attention is the flash kernel's wrapper (``"auto"``) or, on the plain
+    branch (``"ref"``), what the reference runs with its kernels off: the
+    kernel's plain version up to ``naive_attn_max`` tokens, and above it
+    ``chunked_attention`` (``chunked_attention_ha`` for a config with
+    ``attn_head_atomic``), one KV block's scores at a time."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x, angles, S)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    if backend == "ref" and cfg.attn_head_atomic and S > cfg.naive_attn_max:
-        q = maybe_constrain(q, P(data_axes_spec(), None, "model", None))
+    if backend == "ref" and S > cfg.naive_attn_max:
         pos = torch.arange(S, device=x.device)[None].expand(B, S)
-        out = chunked_attention_ha(q, k, v, pos, pos, cfg.causal,
-                                   cfg.sliding_window, scale)
+        if cfg.attn_head_atomic:
+            q = maybe_constrain(q, P(data_axes_spec(), None, "model", None))
+            out = chunked_attention_ha(q, k, v, pos, pos, cfg.causal,
+                                       cfg.sliding_window, scale)
+        else:
+            out = chunked_attention(q, k, v, pos, pos, cfg.causal,
+                                    cfg.sliding_window, scale)
     else:
         attend = attention_ref if backend == "ref" else flash_attention
         out = attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window,

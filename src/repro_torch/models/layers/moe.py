@@ -129,7 +129,10 @@ def moe_forward(params, moe, x: torch.Tensor, activation: str, *,
     # it which assignments fall past C, follows token order
     order = torch.argsort(flat_e, stable=True)
     se, st, sp = flat_e[order], flat_t[order], flat_p[order]
-    counts = torch.bincount(se, minlength=E)
+    # bincount's output length depends on the data; a count of static
+    # shape gives the same integers
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=dev) - starts[se]
     keep = pos < C

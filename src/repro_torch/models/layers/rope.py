@@ -10,6 +10,7 @@ import functools
 from typing import Tuple, Union
 
 import torch
+from torch._guards import detect_fake_mode
 
 
 def rope_freqs(head_dim: int, theta: float,
@@ -51,13 +52,25 @@ def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
                                               positions.device))
 
 
-@functools.lru_cache(maxsize=None)
 def _section_ids(sections: Tuple[int, ...],
                  device: torch.device) -> torch.Tensor:
-    """(half,) axis of each band, built on the host and moved once a
-    device: a constant of the config, not of the step."""
-    return torch.repeat_interleave(torch.arange(3),
-                                   torch.tensor(sections)).to(device)
+    """(half,) axis of each band: a constant of the config, not of the
+    step, built from the Python tuple and kept once a device. Under a fake
+    mode (a traced dry run) it is built anew and never kept: a fake tensor
+    cached under the device's key would be handed to every later real
+    run."""
+    if detect_fake_mode() is not None:
+        return _ids_tensor(sections, device)
+    return _cached_ids(sections, device)
+
+
+def _ids_tensor(sections: Tuple[int, ...],
+                device: torch.device) -> torch.Tensor:
+    ids = [axis for axis, n in enumerate(sections) for _ in range(n)]
+    return torch.tensor(ids, dtype=torch.long).to(device)
+
+
+_cached_ids = functools.lru_cache(maxsize=None)(_ids_tensor)
 
 
 def _select_sections(ang: torch.Tensor, sec_id: torch.Tensor) -> torch.Tensor:

@@ -69,7 +69,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, same_memory
 from repro_torch.models.layers.attention import (KVCache, MLACache,
                                                  gqa_decode, gqa_forward,
                                                  init_gqa_params,
@@ -191,7 +191,7 @@ def _fill(dst, src) -> None:
     if isinstance(src, dict):
         for k, v in src.items():
             _fill(dst[k], v)
-    elif src.data_ptr() != dst.data_ptr():
+    elif not same_memory(src, dst):
         dst.copy_(src)
 
 

@@ -32,3 +32,13 @@ NVLINK_BW_PER_DIRECTION = NVLINK_BW / 2
 #: single-port ConnectX-7 cards, one a GPU, at 400 Gb/s (InfiniBand NDR)
 #: each, 3.2 Tb/s in all
 NODE_FABRIC_BW = 3.2e12 / 8
+#: cards of a DGX H100 node, joined all to all by NVLink
+CARDS_PER_NODE = 8
+#: a card's share of its node's fabric, bytes/s: what a collective group
+#: that spans nodes moves a card
+NODE_FABRIC_BW_PER_CARD = NODE_FABRIC_BW / CARDS_PER_NODE
+
+#: the dry run's meshes: one (16, 16) ("data", "model") mesh of 32 nodes,
+#: and two of them as ("pod", "data", "model") (2, 16, 16)
+SINGLE_MESH_CARDS = 256
+MULTI_MESH_CARDS = 512

@@ -322,13 +322,22 @@ def distribute(tree, specs, mesh):
     return tree_map_with_path(put, specs, tree, is_leaf=_is_spec)
 
 
-def local_slice(t, spec: PartitionSpec, mesh):
-    """This rank's slice of the full tensor (or array) ``t`` under
-    ``spec`` (``compute_local_shape_and_global_offset``), without
-    communication."""
+def local_shape_and_offset(shape, spec: PartitionSpec, mesh):
+    """(local shape, global offset) of this rank's slice of a tensor of
+    ``shape`` under ``spec`` (``compute_local_shape_and_global_offset``,
+    computed outside any fake mode: it is arithmetic on the layout, and
+    a traced dry run must not see it)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    shape, offset = compute_local_shape_and_global_offset(
-        _shape(t), mesh, placements(spec, mesh))
-    return t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    with unset_fake_temporarily():
+        local, offset = compute_local_shape_and_global_offset(
+            tuple(shape), mesh, placements(spec, mesh))
+    return tuple(int(n) for n in local), tuple(int(o) for o in offset)
 
+
+def local_slice(t, spec: PartitionSpec, mesh):
+    """This rank's slice of the full tensor (or array) ``t`` under
+    ``spec``, without communication."""
+    shape, offset = local_shape_and_offset(_shape(t), spec, mesh)
+    return t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]

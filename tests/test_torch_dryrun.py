@@ -1,0 +1,428 @@
+"""The port's dry run (``repro_torch.launch.specs``, ``launch.dryrun``,
+``launch.dryrun_matrix`` and the counter half of ``roofline.analysis``)
+against the reference's tables and counts.
+
+* Specs: ``supported`` over all 10 archs x 4 shapes equals the
+  reference's (33 live pairs); ``input_specs``' ``meta`` trees have the
+  shapes and dtypes of the reference's ``jax.eval_shape`` trees for every
+  full config (token ids int64 where the reference's are int32; a hybrid's
+  ssm cache compared field by field in total, since the reference keeps it
+  as (groups, period) + tail).
+* Counts: ``active_params``, ``model_flops``, ``analytic_memory`` (the
+  reference given a stand-in with ``devices.size``) and ``est_cost``
+  equal the reference's for every (arch, shape).
+* The counter: on a fake 4-rank mesh under ``FakeTensorMode``, a
+  DTensor's all-gather and a ``batch_isend_irecv`` send count the bytes
+  computed by hand, a matmul its FLOPs, the live storages their peak.
+* ``run_one`` and ``run_split_serve`` at smoke size on small fake meshes
+  write records with the reference's keys into the directory given and
+  nowhere else; every arch's train, prefill and decode steps trace under
+  ``FakeTensorMode`` (the MoE count, M-RoPE band ids, the train step's
+  token share and ``init_params``' fill read no value of a fake tensor).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import warnings
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import registry as treg
+from repro_torch.launch import dryrun, dryrun_matrix
+from repro_torch.launch import specs as tspecs
+from repro_torch.roofline import analysis, hw
+from repro_torch.sharding import specs as sh
+
+SHAPE_NAMES = tuple(tspecs.SHAPES)
+SMALL = (2, 2)
+RECORD_KEYS = {"arch", "shape", "mesh", "grad_accum", "chips", "status",
+               "scan_counted", "trace_s", "backend", "token_dtype",
+               "model_axis", "memory_analysis", "analytic_memory",
+               "cost_analysis", "collectives", "roofline", "params_total",
+               "params_active", "model_flops", "useful_flops_ratio",
+               "moment_dtype"}
+ROOFLINE_KEYS = {"flops", "hbm_bytes", "flops_global", "hbm_bytes_global",
+                 "collective_bytes_per_chip", "chips", "t_compute_s",
+                 "t_memory_s", "t_collective_s", "dominant"}
+
+
+@pytest.fixture
+def no_group():
+    """No process group before or after the test."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _reference_dryrun():
+    """The reference's ``launch.dryrun``: its import sets ``XLA_FLAGS``
+    for a 512-device host, which must reach neither this process's JAX
+    (started first, here) nor later tests, so the variable is restored."""
+    import jax
+    jax.devices()
+    old = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as rdry
+    finally:
+        if old is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = old
+    return rdry
+
+
+def _ref_leaves(tree):
+    import jax
+    from repro.sharding.specs import path_keys
+    return {path_keys(p): (tuple(x.shape), np.dtype(x.dtype).name)
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _port_leaves(tree):
+    out = {}
+    sh.tree_map_with_path(lambda p, t: out.__setitem__(
+        sh.path_keys(p), (tuple(t.shape), str(t.dtype).removeprefix(
+            "torch."))), tree)
+    return out
+
+
+def _by_field(leaves):
+    """{field: (total entries, dtypes)} of a cache's leaves."""
+    out = {}
+    for keys, (shape, dt) in leaves.items():
+        n, dts = out.get(keys[-1], (0, set()))
+        out[keys[-1]] = (n + math.prod(shape), dts | {dt})
+    return out
+
+
+def test_supported_table_matches_reference():
+    from repro.configs import registry as rreg
+    from repro.launch import specs as rspecs
+    assert tspecs.SHAPES == rspecs.SHAPES and tspecs.LONG_OK == rspecs.LONG_OK
+    live = 0
+    for arch in treg.ARCH_IDS:
+        for shape in SHAPE_NAMES:
+            got = tspecs.supported(treg.get_config(arch), shape)
+            assert got == rspecs.supported(rreg.get_config(arch), shape)
+            assert tspecs.mode_of(shape) == rspecs.mode_of(shape)
+            live += got[0]
+    assert live == 33
+
+
+@pytest.mark.parametrize("arch", treg.ARCH_IDS)
+def test_input_specs_match_eval_shape(arch):
+    """Every shape's params, batch and (decode) cache, leaf by leaf."""
+    from repro.configs import registry as rreg
+    from repro.launch import specs as rspecs
+    cr, ct = rreg.get_config(arch), treg.get_config(arch)
+    token = {"int32": "int64"}
+    for shape in SHAPE_NAMES:
+        want, got = rspecs.input_specs(cr, shape), tspecs.input_specs(ct, shape)
+        assert set(want) == set(got)
+        for key in want:
+            w, g = _ref_leaves(want[key]), _port_leaves(got[key])
+            if key in ("batch", "tokens"):
+                w = {p: (s, token.get(d, d) if p[-1:] != ("mrope_positions",)
+                         else d) for p, (s, d) in w.items()}
+            if key == "cache" and ct.shared_attn_period:
+                assert _by_field(g) == _by_field(w)
+            else:
+                assert g == w, (shape, key)
+        assert all(t.device.type == "meta" for t in
+                   analysis._tensors(got))
+
+
+class _MeshStandIn:
+    """What ``analytic_memory`` reads of a mesh, in both packages."""
+
+    def __init__(self, n):
+        self.devices = np.empty((n,), dtype=object)
+
+    def size(self):
+        return self.devices.size
+
+
+@pytest.mark.parametrize("arch", treg.ARCH_IDS)
+def test_counts_match_reference(arch):
+    import jax
+    from repro.configs import registry as rreg
+    from repro.launch import dryrun_matrix as rmatrix
+    from repro.launch import specs as rspecs
+    from repro.roofline import analysis as ranalysis
+    rdry = _reference_dryrun()
+    cr, ct = rreg.get_config(arch), treg.get_config(arch)
+    rparams = jax.eval_shape(lambda: rdry.tr.init_params(
+        cr, jax.random.PRNGKey(0)))
+    tparams = tspecs.input_specs(ct, "train_4k")["params"]
+    n_active = dryrun.active_params(ct, tparams)
+    assert n_active == rdry.active_params(cr, rparams)
+    assert dryrun.tr.param_count(tparams) == rdry.tr.param_count(rparams)
+    for shape in SHAPE_NAMES:
+        assert analysis.model_flops(ct, shape, n_params_active=n_active) == \
+            ranalysis.model_flops(cr, shape, n_params_active=n_active)
+        assert dryrun_matrix.est_cost(arch, shape) == \
+            rmatrix.est_cost(arch, shape)
+        if not tspecs.supported(ct, shape)[0]:
+            continue
+        mode = tspecs.mode_of(shape)
+        tin = tspecs.input_specs(ct, shape)
+        for n in (256, 512):
+            want = rdry.analytic_memory(cr, rspecs.input_specs(cr, shape),
+                                        _MeshStandIn(n), mode)
+            if mode == "train":     # token ids and labels: 8 bytes, not 4
+                want["batch_global"] += 4 * sum(
+                    tin["batch"][k].numel() for k in ("tokens", "labels")
+                    if k in tin["batch"])
+            assert dryrun.analytic_memory(ct, tin, _MeshStandIn(n),
+                                          mode) == want
+
+
+def test_counter_counts_collectives_flops_and_memory_by_hand(no_group):
+    """A (2, 2) fake mesh: a (4, 8) fp32 local shard gathered over
+    "model" (128 operand bytes), a (3, 5) bf16 send over "data" (30
+    bytes), a (8, 8) x (8, 16) matmul (2048 FLOPs); then the eager
+    ``dist`` calls, whose group comes after their operand."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    with dryrun.fake_group(4):
+        mesh = dryrun._mesh_of(SMALL)
+        with FakeTensorMode():
+            d = DTensor.from_local(torch.empty(4, 8), mesh,
+                                   [Replicate(), Shard(0)], run_check=False)
+            counter = analysis.TraceCounter(mesh)
+            with counter:
+                counter.track(d)
+                full = d.full_tensor()
+                y = full @ torch.empty(8, 16)
+                s = torch.empty(3, 5, dtype=torch.bfloat16)
+                r = torch.empty_like(s)
+                peer = dist.get_process_group_ranks(mesh.get_group("data"))[1]
+                for q in dist.batch_isend_irecv([
+                        dist.P2POp(dist.isend, s, peer,
+                                   mesh.get_group("data")),
+                        dist.P2POp(dist.irecv, r, peer,
+                                   mesh.get_group("data"))]):
+                    q.wait()
+                del y
+            # the eager collectives (c10d ops): an all-reduce of 6 floats
+            # over "model", an all-gather of 5 over the whole group
+            with analysis.TraceCounter(mesh) as eager:
+                dist.all_reduce(torch.empty(6), group=mesh.get_group("model"))
+                dist.all_gather_into_tensor(torch.empty(20), torch.empty(5))
+    assert eager.collectives.bytes_by_op == {"all-reduce": 24,
+                                             "all-gather": 20}
+    assert eager.collectives.bytes_by_group == {"model": 24, "world": 20}
+    coll = counter.collectives
+    assert coll.bytes_by_op == {"all-gather": 128, "collective-permute": 30}
+    assert coll.count_by_op == {"all-gather": 1, "collective-permute": 1}
+    assert coll.bytes_by_group == {"model": 128, "data": 30}
+    assert coll.rate_by_group == {"model": hw.NVLINK_BW_PER_DIRECTION,
+                                  "data": hw.NVLINK_BW_PER_DIRECTION}
+    assert counter.flops == 2 * 8 * 8 * 16
+    assert analysis.shape_bytes(torch.bfloat16, (3, 5)) == 30
+    # live at the matmul: the shard, the gathered tensor, its operand and
+    # the product
+    assert counter.peak_bytes == 4 * (4 * 8 + 8 * 8 + 8 * 16 + 8 * 16)
+    terms, same = analysis.terms_from_trace(counter, 4)
+    assert same is coll and terms.collective_bytes == 158
+    assert terms.t_collective == 158 / hw.NVLINK_BW_PER_DIRECTION
+    assert set(terms.as_dict()) == ROOFLINE_KEYS
+
+
+def test_link_rate_prices_groups_by_node():
+    assert analysis.link_rate(range(8)) == hw.NVLINK_BW_PER_DIRECTION
+    assert analysis.link_rate(range(16)) == hw.NODE_FABRIC_BW_PER_CARD
+    assert analysis.link_rate([0, 256]) == hw.NODE_FABRIC_BW_PER_CARD
+    assert hw.NODE_FABRIC_BW_PER_CARD == hw.NODE_FABRIC_BW / 8
+    assert (hw.SINGLE_MESH_CARDS, hw.MULTI_MESH_CARDS) == (256, 512)
+
+
+def _records(out):
+    return sorted(os.listdir(out))
+
+
+@pytest.mark.parametrize("arch", treg.ARCH_IDS)
+def test_every_arch_traces_under_fake_mode(arch, tmp_path, no_group):
+    """Train, prefill and decode of each smoke config at the full shapes
+    on a (2, 2) fake mesh: an ``ok`` record with the reference's keys, or
+    the reference's skip. An SSD config's chunk is raised to 1,024
+    tokens: the plain scan walks its chunks in a Python loop, 1,024 of
+    them at the smoke chunk over 32,768 tokens."""
+    cfg = treg.get_smoke_config(arch)
+    over = ({"ssm": dataclasses.replace(cfg.ssm, chunk_size=1024)}
+            if cfg.ssm else {})
+    written = []
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        rec = dryrun.run_one(arch, shape, False, str(tmp_path),
+                             mesh_shape=SMALL, smoke=True,
+                             cfg_overrides=over)
+        assert rec["chips"] == 4 and rec["mesh"] == "2x2"
+        if rec["status"] == "skipped":
+            assert not tspecs.supported(treg.get_smoke_config(arch),
+                                        shape)[0]
+            continue
+        written.append(f"torch_{arch}_{shape}_2x2.json")
+        assert set(rec) == RECORD_KEYS
+        assert set(rec["roofline"]) == ROOFLINE_KEYS
+        assert rec["status"] == "ok" and rec["scan_counted"] is False
+        assert rec["cost_analysis"]["flops"] > 0
+        assert rec["memory_analysis"]["fits"] == (
+            rec["memory_analysis"]["peak_bytes_per_card"] <= hw.HBM_BYTES)
+        assert rec["collectives"]["bytes_by_op"]["all-gather"] > 0
+        with open(tmp_path / written[-1]) as f:
+            assert json.load(f) == json.loads(json.dumps(rec))
+    assert _records(tmp_path) == sorted(written)
+    assert not dist.is_initialized()
+
+
+def test_run_one_keeps_its_records_in_out_dir(tmp_path, monkeypatch,
+                                             no_group):
+    """A decode cell on (2, 2, 2), a skipped cell (no record), a train
+    cell with ``grad_accum`` 2: only their records appear, in
+    ``out_dir``; nothing lands in the working directory."""
+    out, cwd = tmp_path / "out", tmp_path / "cwd"
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    rec = dryrun.run_one("mixtral-8x7b", "long_500k", True, str(out),
+                         mesh_shape=(2, 2, 2), smoke=True)
+    assert rec["status"] == "ok" and rec["chips"] == 8
+    assert set(rec["collectives"]["bytes_by_mesh_dim"]) <= {"pod", "data",
+                                                            "model"}
+    skipped = dryrun.run_one("hubert-xlarge", "decode_32k", False, str(out),
+                             mesh_shape=SMALL, smoke=True)
+    assert skipped["status"] == "skipped" and skipped["reason"]
+    rec = dryrun.run_one("qwen2-7b", "train_4k", False, str(out),
+                         mesh_shape=SMALL, smoke=True, grad_accum=2)
+    assert rec["grad_accum"] == 2 and rec["moment_dtype"] == "float32"
+    assert _records(out) == ["torch_mixtral-8x7b_long_500k_2x2x2.json",
+                             "torch_qwen2-7b_train_4k_2x2.json"]
+    assert _records(cwd) == [] and _records(tmp_path) == ["cwd", "out"]
+
+
+def test_run_one_refuses_a_group_of_another_size(no_group):
+    with dryrun.fake_group(2):
+        with pytest.raises(RuntimeError, match="needs 4"):
+            dryrun.run_one("qwen2-7b", "decode_32k", False, "/nonexistent",
+                           mesh_shape=SMALL, smoke=True)
+
+
+def test_run_split_serve_counts_the_hop(tmp_path, no_group):
+    """Smoke Qwen2-7B on a (2, 2, 2) fake mesh, 8 rows of 64 tokens in 4
+    microbatches: rank 0 (pod 0) sends each of the 5 ticks' activation
+    (2, 64, d) and angles (2, 64, head_dim / 2) float32."""
+    cfg = treg.get_smoke_config("qwen2-7b")
+    rec = dryrun.run_split_serve("qwen2-7b", str(tmp_path),
+                                 num_microbatches=4, seq_len=64, batch=8,
+                                 mesh_shape=(2, 2, 2), smoke=True)
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    per_tick = 2 * 64 * (cfg.d_model * itemsize + cfg.head_dim // 2 * 4)
+    coll = rec["collectives"]
+    assert coll["bytes_by_op"]["collective-permute"] == 5 * per_tick
+    assert coll["count_by_op"]["collective-permute"] == 10
+    assert rec["hop"] == {"ticks": 5,
+                          "collective_permute_bytes_per_card": 5 * per_tick,
+                          "activation_shards_in_reference": 4}
+    # the last pod's result reaches every pod: one float32 all-reduce
+    assert coll["count_by_op"]["all-reduce"] == 1
+    assert coll["bytes_by_op"]["all-reduce"] == 8 * 64 * cfg.d_model * 4
+    assert rec["boundary_bytes_model"] == 8 * 64 * cfg.d_model * 2
+    assert set(rec["eq5_prediction"]) == {"T", "T_D", "T_TX", "T_S"}
+    assert set(rec["roofline"]) == ROOFLINE_KEYS
+    assert _records(tmp_path) == ["torch_qwen2-7b_split_serve_2x2x2.json"]
+
+
+def test_main_traces_a_full_size_cell_on_the_production_mesh(tmp_path,
+                                                             no_group):
+    """``main`` on full Qwen2-7B decode_32k over 256 fake ranks."""
+    dryrun.main(["--arch", "qwen2-7b", "--shape", "decode_32k", "--mesh",
+                 "pod", "--out", str(tmp_path)])
+    with open(tmp_path / "torch_qwen2-7b_decode_32k_pod.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["chips"] == hw.SINGLE_MESH_CARDS
+    assert rec["params_total"] == dryrun.tr.param_count(
+        tspecs.input_specs(treg.get_config("qwen2-7b"),
+                           "decode_32k")["params"])
+    # the cache of a row's KV heads is gathered over "model" every step
+    assert rec["collectives"]["bytes_by_mesh_dim"]["model"] > \
+        rec["analytic_memory"]["cache_per_device"]
+    assert rec["collectives"]["link_bytes_per_s_by_mesh_dim"]["model"] == \
+        hw.NODE_FABRIC_BW_PER_CARD
+
+
+def test_matrix_queues_the_cells_without_an_ok_record(tmp_path):
+    cells = dryrun_matrix.todo(["pod"], str(tmp_path))
+    assert len(cells) == 33
+    assert [c[0] for c in cells] == sorted(c[0] for c in cells)
+    both = dryrun_matrix.todo(["pod", "multipod"], str(tmp_path))
+    assert [c[3] for c in both] == ["pod"] * 33 + ["multipod"] * 33
+    _, arch, shape, _ = cells[0]
+    with open(tmp_path / f"torch_{arch}_{shape}_pod.json", "w") as f:
+        json.dump({"status": "ok"}, f)
+    with open(tmp_path / f"torch_{cells[1][1]}_{cells[1][2]}_pod.json",
+              "w") as f:
+        json.dump({"status": "skipped"}, f)
+    assert dryrun_matrix.todo(["pod"], str(tmp_path)) == cells[1:]
+
+
+def test_fake_mode_repairs_leave_real_runs_alone():
+    """``init_params`` under a fake mode reads no data pointer, and
+    M-RoPE band ids made under one are not handed to a later real run."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.layers import rope
+    cfg = treg.get_smoke_config("qwen2-vl-7b")
+    pos = torch.arange(12, dtype=torch.int32).reshape(3, 1, 4)
+    want = rope.mrope_angles(pos, cfg.head_dim, cfg.rope_theta,
+                             cfg.mrope_sections)
+    rope._cached_ids.cache_clear()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with FakeTensorMode():
+            ttr.init_params(cfg, device="cpu")
+            fake = rope.mrope_angles(torch.empty(3, 1, 4, dtype=torch.int32),
+                                     cfg.head_dim, cfg.rope_theta,
+                                     cfg.mrope_sections)
+    assert isinstance(fake, FakeTensor)
+    got = rope.mrope_angles(pos, cfg.head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
+    assert not isinstance(got, FakeTensor) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("window", (None, 6))
+def test_plain_gqa_chunks_above_naive_attn_max_as_the_reference(window):
+    """``backend="ref"`` is the reference's kernel-off path: above
+    ``naive_attn_max`` tokens (8 here; 20 tokens, blocks of 1,024, one
+    padded) both run ``chunked_attention``, which the dry run traces at
+    32,768 tokens; within 64 eps of the largest output."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as rreg
+    from repro.models.layers import attention as ratt
+    from repro_torch.interop import transformer_params_from_reference
+    from repro_torch.models.layers import attention as tatt
+    from torch_parity import stack_tol, transformer_params_np
+    over = dict(dtype="float32", naive_attn_max=8, sliding_window=window)
+    cr = rreg.get_smoke_config("qwen2-7b").replace(**over)
+    ct = treg.get_smoke_config("qwen2-7b").replace(**over)
+    pn = transformer_params_np(cr)
+    attn_np = jax.tree_util.tree_map(lambda a: a[0], pn["runs"][0]["attn"])
+    x = np.random.default_rng(4).standard_normal(
+        (2, 20, cr.d_model)).astype(np.float32)
+    want, (wk, _) = ratt.gqa_forward(
+        jax.tree_util.tree_map(jnp.asarray, attn_np), cr, jnp.asarray(x),
+        None)
+    want = np.asarray(want)
+    got, (gk, _) = tatt.gqa_forward(
+        transformer_params_from_reference(attn_np), ct, torch.from_numpy(x),
+        None, backend="ref")
+    assert np.abs(got.numpy() - want).max() <= stack_tol(want, "float32")
+    assert np.abs(gk.numpy() - np.asarray(wk)).max() <= stack_tol(
+        np.asarray(wk), "float32")
