@@ -297,6 +297,11 @@ Phases, each printing its own lines:
 21. mesh and examples — phase 20's T1 (Qwen2-VL-7B, 4 of 28 layers, masks
    at ratio 0.5, one fixed batch of 1,024 vision + 1,024 text positions)
    through the sharded train step (``make_train_step(mesh=...)``) on the
+   split route of ``sharding.tensor_parallel``, then phase 20's T5
+   (Zamba2-1.2B cut to 12 of 38 layers, two invocations of its shared
+   block, 2,048 tokens: its hybrid stack keeps the replicated route, the
+   whole tree gathered, which MoE, MLA, SSM and hybrid configs train
+   through), each on the
    ``(1, 1)`` host mesh of a one-rank NCCL group (``launch.mesh.
    host_mesh``; the parameters and AdamW state as DTensors placed by
    ``sharding.specs``): 2 steps with the launch counters zeroed just
@@ -306,8 +311,10 @@ Phases, each printing its own lines:
    run would show the card's own run-to-run spread, and the sharded run
    would be held within twice it plus one bf16 spacing), its wall and
    device ms (``device_profile`` of one more step, beside the unsharded
-   step's) and peak memory (a ``train`` line with
-   ``"run": "T1 mesh"``; the group destroyed at the end); then the four
+   step's) and peak memory, and each run's peak above the memory held
+   before it, from its optimizer's init through its profiled step, the
+   route it took checked (a ``train`` line each, ``"run": "T1 mesh"`` and
+   ``"T5 mesh"``; the group destroyed at the end of each); then the four
    example twins on the card (``examples/port_*.py``: the quickstart at
    its defaults, the collaborative serve with 8 int8 requests pipelined
    over the socket, the prune-and-split of Qwen2-7B, the training twin of
@@ -317,10 +324,33 @@ Phases, each printing its own lines:
    ``h100_two_node`` and ``h100_edge_cloud`` profiles at 4,096-token
    prefill and decode, greedy and balanced (``split`` lines). A
    ``phase21`` line.
+22. split serve — two dry-run cells in subprocesses on the CPU, then the
+   pipelined split (``core.partition.pod_pipeline``, one pod on a
+   one-rank NCCL mesh, 32 x 4,096 tokens in 8 microbatches) of Qwen2-7B
+   and Mamba2-2.7B at full width and depth against the prefill step on
+   the same batch: bit-equal, gaps to the fp32 plain run, wall and device
+   ms, peaks, launches (``split_serve`` lines, a ``dryrun`` line and a
+   ``phase22`` line).
+23. tensor parallelism — the pruned Qwen2-7B at full width and depth on
+   the split route (``sharding.tensor_parallel``): (a) an R1 prefill and
+   16 greedy decode steps through the mesh steps on the one-rank NCCL
+   host mesh, bit for bit against the unsharded steps, with the same
+   launches, wall and device ms and peaks beside the unsharded run's;
+   (b) the "model" = 2 split's two shares run one after another on the
+   card (``SequentialRanks``: 14 heads over 2 KV heads, FFN columns N =
+   9,472 and half the vocabulary a rank), a prefill and 4 decode steps,
+   both ranks' logits bit-equal, launches exactly twice one request's,
+   every logit row within phase 6's rule of the unsharded bf16 and fp32
+   plain runs teacher-forced with its tokens (``tensor_parallel`` lines
+   and a ``phase23`` line). Phase 3 holds the kernels at these shard
+   shapes too: the bf16 ``masked_matmul`` at N = 9,472 and 1,184
+   (Qwen2-7B's d_ff over 2 and 16 ranks), M = 2,048 and 1;
+   ``flash_attention`` at 14 heads over 2 and 2 over 1 (D = 128) and
+   gemma-7b's 1 over 1 (D = 256).
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
 phases 4, 11-15 and 21, counted where one thread launches; the
-transformer kernels' of phases 6, 8, 9 and 16-21; ``flash_attention_d80``, the D = 80
+transformer kernels' of phases 6, 8, 9 and 16-23; ``flash_attention_d80``, the D = 80
 instance over one HuBERT R1 prefill with phase 19's and T2's launches),
 the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -1691,11 +1721,12 @@ def card_batch(cfg, batch):
 
 
 def serve_tokens(cfg, params, masks, batch, plain: bool = False,
-                 forced=None):
+                 forced=None, steps: int = DECODE_STEPS):
     """One request ``batch`` (``request_batches``): prefill, then
     DECODE_STEPS greedy decode steps (or, with ``forced``, the given
     tokens: teacher forcing); a bidirectional encoder's prefill alone,
-    which gives every position's logits. The kernel path goes through the
+    which gives every position's logits (``steps`` decode steps where
+    given). The kernel path goes through the
     serving steps a launcher calls; ``plain`` calls the stack's plain
     versions on the card (``backend="ref"``), the yardstick. Returns every
     logit row (float32), the fed tokens and the host wall-clock of each
@@ -1705,8 +1736,8 @@ def serve_tokens(cfg, params, masks, batch, plain: bool = False,
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import transformer as tr
     B, S = batch_shape(cfg, batch)
-    max_len = S + DECODE_STEPS
-    steps = DECODE_STEPS if cfg.causal else 0
+    max_len = S + steps
+    steps = steps if cfg.causal else 0
     if plain:
         def prefill(p, batch):
             return tr.prefill(p, cfg, card_batch(cfg, batch),
@@ -1767,8 +1798,8 @@ def read_launches() -> dict:
     return counts
 
 
-def expected_launches(cfg):
-    """Kernel launches of one request (a prefill and DECODE_STEPS decode
+def expected_launches(cfg, steps: int = DECODE_STEPS):
+    """Kernel launches of one request (a prefill and ``steps`` decode
     steps) of ``cfg``'s pruned stack: an attention or MoE layer has two
     pre-norms and (prefill only) one flash attention, or, with MLA, two
     more norms (``q_norm``, ``kv_norm``) every step and no flash
@@ -1785,7 +1816,7 @@ def expected_launches(cfg):
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.models.layers.mlp import GATED
     from repro_torch.models.transformer import hybrid_split, layer_runs
-    decode = DECODE_STEPS if cfg.causal else 0
+    decode = steps if cfg.causal else 0
     steps = 1 + decode
     attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
     ffn = sum(r.count for r in layer_runs(cfg)
@@ -4153,8 +4184,13 @@ def training_phase():
     return totals, by_run["T2"]
 
 
-#: phase 21's sharded step: phase 20's T1 and its number of steps
-MESH_RUN = TRAIN_RUNS[0]
+#: phase 21's sharded steps: phase 20's runs by label, each with the mesh
+#: route it must take (T1's dense attention stack the split one, T5's
+#: hybrid Zamba2 the replicated one) and its depth (None: phase 20's; T5
+#: cut to 12 of 38 layers, two invocations of its shared block, for the
+#: script's time: its two device profiles take ~20 s at full depth), and
+#: their number of steps
+MESH_RUNS = (("T1", "split", None), ("T5", "replicated", 12))
 MESH_STEPS = 2
 #: phase 21's example twins and their arguments: the reference's defaults,
 #: but the serve's 8 int8 requests pipelined, a port the OS assigns, and
@@ -4223,21 +4259,30 @@ def check_card_mesh(mesh, shape=(1, 1)) -> None:
         raise AssertionError(f"host mesh {mesh} on {dist.get_backend()}")
 
 
-def mesh_train(cfg, params, masks, batch, optimizer):
-    """The sharded T1 of phase 21 on the host mesh (a one-rank NCCL group
-    it starts and destroys): ``MESH_STEPS`` counted steps from
-    ``params``, held against the unsharded step's, then the step's device
-    profile. Returns the ``train`` line's row and the launches."""
+def mesh_train(label, route, cfg, params, masks, batch, optimizer):
+    """A sharded run of phase 21 (``label``, phase 20's run) on the host
+    mesh (a one-rank NCCL group it starts and destroys): the step must
+    take ``route`` (``"split"`` or ``"replicated"``); ``MESH_STEPS``
+    counted steps from ``params``, held against the unsharded step's,
+    then the step's device profile. Returns the ``train`` line's row and
+    the launches."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.sharding import specs as sh
-    torch.cuda.empty_cache()
-    want_p, want_losses, want_prof = unsharded_steps(
-        cfg, params, masks, batch, optimizer, MESH_STEPS, profile=True)
+    from repro_torch.sharding.tensor_parallel import (ROUTE_REPLICATED,
+                                                      ROUTE_SPLIT)
+    want_route = {"split": ROUTE_SPLIT, "replicated": ROUTE_REPLICATED}[route]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    want_p, want_losses, want_prof = unsharded_steps(
+        cfg, params, masks, batch, optimizer, MESH_STEPS, profile=True)
+    want_rise = (torch.cuda.max_memory_allocated() - start) / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     with host_mesh() as mesh:
         check_card_mesh(mesh)
         pspecs = sh.param_specs(params, cfg, mesh)
@@ -4245,6 +4290,9 @@ def mesh_train(cfg, params, masks, batch, optimizer):
         s = sh.distribute(s, sh.opt_state_specs(s, pspecs), mesh)
         p = sh.distribute(params, pspecs, mesh)
         step = make_train_step(cfg, optimizer, masks, mesh=mesh)
+        if step.route != want_route:
+            raise AssertionError(f"sharded {label} ({cfg.name}) took "
+                                 f"{step.route!r}, not the {route} route")
         zero_launches()
         losses, walls = [], []
         for _ in range(MESH_STEPS):
@@ -4258,18 +4306,25 @@ def mesh_train(cfg, params, masks, batch, optimizer):
         peak = torch.cuda.max_memory_allocated() / 1e9
         want_launches = expected_train_launches(cfg, MESH_STEPS)
         if launches != want_launches:
-            raise AssertionError(f"sharded T1 launches {launches}, "
+            raise AssertionError(f"sharded {label} launches {launches}, "
                                  f"expected {want_launches}")
         prof = step_profile(step, p, s, batch)
+        rise = (torch.cuda.max_memory_allocated() - start) / 1e9
+        step_route = step.route
         got_p = sh.tree_map_with_path(lambda _, t: t.full_tensor(), p)
         del p, s, step
         torch.cuda.empty_cache()
-        row = {"model": cfg.name, "run": "T1 mesh", "steps": MESH_STEPS,
+        row = {"model": cfg.name, "run": f"{label} mesh",
+               "steps": MESH_STEPS,
                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
                "backend": dist.get_backend(), "losses": losses,
                "unsharded_losses": want_losses, "wall_ms": walls,
                "launches": launches, "peak_gb": peak,
-               "phase20_t1_peak_gb": 50.09,
+               # the peak above the memory held before the run, each run
+               # from its optimizer's init through its profiled step
+               "steps_peak_rise_gb": rise,
+               "unsharded_steps_peak_rise_gb": want_rise,
+               "route": step_route,
                **{k: prof[k] for k in ("device_ms", "device_idle_share",
                                        "by_kind")},
                "profile_wall_ms": prof["wall_ms"],
@@ -4294,8 +4349,8 @@ def mesh_train(cfg, params, masks, batch, optimizer):
             del again_p
             if worst > 1.0 or any(abs(g - w) > t for g, w, t in zip(
                     losses, want_losses, loss_tol)):
-                raise AssertionError(f"sharded T1 off the unsharded step: "
-                                     f"{json.dumps(row)}")
+                raise AssertionError(f"sharded {label} off the unsharded "
+                                     f"step: {json.dumps(row)}")
         del got_p, want_p
     if dist.is_initialized():
         raise AssertionError("the host mesh's group outlived the phase")
@@ -4378,38 +4433,46 @@ def split_lines() -> None:
 
 
 def mesh_phase() -> dict:
-    """Phase 21: the sharded T1 step on the host mesh against the
-    unsharded one, the four example twins on the card, the transformer
-    split lines and a ``phase21`` line. Returns the launches of the
-    sharded steps and the twins, by kernel and route."""
+    """Phase 21: the sharded T1 and T5 steps on the host mesh against the
+    unsharded ones (``MESH_RUNS``: the split route and the replicated
+    one), the four example twins on the card, the transformer split lines
+    and a ``phase21`` line. Returns the launches of the sharded steps and
+    the twins, by kernel and route."""
     import importlib
     import torch
     from repro_torch.optim import adamw
     from repro_torch.optim.schedules import constant
     t0 = time.perf_counter()
-    label, module, layers, cut, B, T, _, moment_dtype = MESH_RUN
-    full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
-    cfg = full.replace(num_layers=layers)
-    params, masks = model_setup(cfg, SEED)
-    describe(cfg, params, masks, of_layers=full.num_layers,
-             layers=f"{layers} of {full.num_layers}", run=f"{label} mesh")
-    optimizer = adamw(constant(TRAIN_LR),
-                      moment_dtype=getattr(torch, moment_dtype))
-    row, launches = mesh_train(cfg, params, masks, train_batch(cfg, B, T),
-                               optimizer)
-    row.update(batch=B, tokens=T, positions=T + cfg.vision_tokens)
-    print("train " + json.dumps(row), flush=True)
-    del params, masks
-    torch.cuda.empty_cache()
+    total, seconds = collections.Counter(), {}
+    for label, route, depth in MESH_RUNS:
+        t_run = time.perf_counter()
+        _, module, layers, _, B, T, _, moment_dtype = next(
+            r for r in TRAIN_RUNS if r[0] == label)
+        layers = depth or layers
+        full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+        cfg = full.replace(num_layers=layers)
+        params, masks = model_setup(cfg, SEED)
+        describe(cfg, params, masks, of_layers=full.num_layers,
+                 layers=f"{layers} of {full.num_layers}", run=f"{label} mesh")
+        optimizer = adamw(constant(TRAIN_LR),
+                          moment_dtype=getattr(torch, moment_dtype))
+        row, launches = mesh_train(label, route, cfg, params, masks,
+                                   train_batch(cfg, B, T), optimizer)
+        row.update(batch=B, tokens=T,
+                   positions=T + (cfg.vision_tokens or 0))
+        print("train " + json.dumps(row), flush=True)
+        total.update(launches)
+        del params, masks
+        torch.cuda.empty_cache()
+        seconds[f"seconds_sharded_{label.lower()}"] = (time.perf_counter()
+                                                      - t_run)
     t_twins = time.perf_counter()
     twin_launches = run_twins()
     t_split = time.perf_counter()
     split_lines()
-    total = collections.Counter(launches)
     total.update(twin_launches)
     print("phase21 " + json.dumps({
-        "seconds": time.perf_counter() - t0,
-        "seconds_sharded_t1": t_twins - t0,
+        "seconds": time.perf_counter() - t0, **seconds,
         "seconds_twins": t_split - t_twins,
         "launches": dict(total)}), flush=True)
     return dict(total)
@@ -4648,6 +4711,212 @@ def split_serve_phase() -> dict:
         flush=True)
     return dict(total)
 
+#: phase 23: tensor parallelism over "model" for the dense attention stack
+TP_REQUEST = ("R1", 1, 2048)
+#: (b)'s split: "model" ranks run one after another, and its decode steps
+TP_RANKS = 2
+TP_DECODE_STEPS = 4
+
+
+def tp_one_rank(cfg, params, masks, batch) -> dict:
+    """Phase 23 (a): an R1 prefill and ``DECODE_STEPS`` greedy decode steps
+    through the mesh steps on the one-rank NCCL host mesh (the split
+    route: every fetch a view, every reduction the identity) against the
+    unsharded steps: the same logits bit for bit, the same tokens and
+    launches; each run's wall ms, device ms (one traced run) and peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.sharding import specs as sh
+    from repro_torch.sharding.tensor_parallel import ROUTE_SPLIT
+
+    def request(prefill, decode, p, local):
+        lg, cache = prefill(p, batch)
+        out = [local(lg)]
+        for _ in range(DECODE_STEPS):
+            lg, cache = decode(p, cache, out[-1].argmax(-1, keepdim=True))
+            out.append(local(lg))
+        torch.cuda.synchronize()
+        return out
+
+    def measured(prefill, decode, p, local):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = [t.float() for t in request(prefill, decode, p, local)]
+        wall = 1e3 * (time.perf_counter() - t0)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(lambda: request(prefill, decode, p, local))
+        return out, {"wall_ms": wall, "device_ms": prof["device_ms"],
+                     "profile_wall_ms": prof["wall_ms"],
+                     "device_idle_share": prof["device_idle_share"],
+                     "peak_gb": peak / 1e9,
+                     "peak_rise_gb": (peak - start) / 1e9,
+                     "launches": launches}
+    B, S = TP_REQUEST[1:]
+    max_len = S + DECODE_STEPS
+    torch.cuda.empty_cache()
+    want, base = measured(make_prefill_step(cfg, max_len=max_len,
+                                            masks=masks),
+                          make_decode_step(cfg, masks=masks), params,
+                          lambda t: t)
+    with host_mesh() as mesh:
+        check_card_mesh(mesh)
+        p = sh.distribute(params, sh.param_specs(params, cfg, mesh), mesh)
+        prefill = make_prefill_step(cfg, max_len=max_len, masks=masks,
+                                    mesh=mesh)
+        decode = make_decode_step(cfg, masks=masks, mesh=mesh)
+        if (prefill.route, decode.route) != (ROUTE_SPLIT, ROUTE_SPLIT):
+            raise AssertionError(f"{cfg.name} on the mesh took "
+                                 f"{prefill.route!r}")
+        got, row = measured(prefill, decode, p, lambda t: t.to_local())
+        del p, prefill, decode
+    if dist.is_initialized():
+        raise AssertionError("the host mesh's group outlived the phase")
+    torch.cuda.empty_cache()
+    want_launches = expected_launches(cfg)
+    row.update(route=ROUTE_SPLIT, mesh={"data": 1, "model": 1},
+               unsharded=base,
+               bit_equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+               tokens_equal=all(torch.equal(a.argmax(-1), b.argmax(-1))
+                                for a, b in zip(got, want)))
+    if not row["bit_equal"] or row["launches"] != base["launches"] \
+            or base["launches"] != want_launches:
+        raise AssertionError(f"phase 23 (a) off the unsharded steps: "
+                             f"{json.dumps(row)}")
+    return row
+
+
+def tp_shares(cfg, params, masks, batch, m: int, steps: int) -> dict:
+    """Phase 23 (b): the ``m``-rank split of ``cfg`` over "model" on the
+    card, each rank's share run in turn through ``SequentialRanks`` (every
+    row product's partial sums added in rank order): an R1 prefill and
+    ``steps`` greedy decode steps through the stack with ``tp``, every
+    layer at the rank's shapes (its heads, FFN columns and vocabulary).
+    Returns each rank's logits, the tokens, the ms of the run and its
+    launches, which must be ``m`` times one request's."""
+    import torch
+    from repro_torch.data.requests import batch_shape
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding.tensor_parallel import (SequentialRanks,
+                                                      TensorParallel)
+    B, S = batch_shape(cfg, batch)
+    ranks = SequentialRanks(m)
+    shares = [TensorParallel.sliced(cfg, params, a) for a in ranks.axes()]
+    on_card = card_batch(cfg, batch)
+
+    def run(tp):
+        lg, cache = tr.prefill(params, cfg, on_card, max_len=S + steps,
+                               masks=masks, tp=tp)
+        out, fed = [lg.float()], []
+        for _ in range(steps):
+            nxt = lg.argmax(-1, keepdim=True)
+            fed.append(nxt)
+            lg, cache = tr.decode_step(params, cfg, cache, nxt, masks=masks,
+                                       tp=tp)
+            out.append(lg.float())
+        return out, torch.cat(fed, 1)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = ranks.run([lambda tp=tp: run(tp) for tp in shares])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    one = expected_launches(cfg, steps)
+    want = {k: m * v for k, v in one.items()}
+    if launches != want:
+        raise AssertionError(f"phase 23 (b) launches {launches}, expected "
+                             f"{want}")
+    for out, tok in res[1:]:
+        if not (torch.equal(tok, res[0][1]) and all(
+                torch.equal(a, b) for a, b in zip(out, res[0][0]))):
+            raise AssertionError("phase 23 (b): the ranks' logits differ")
+    return {"logits": res[0][0], "tokens": res[0][1], "ms": ms,
+            "launches": launches,
+            "shapes": [{"rank": tp.axis.rank, "heads": tp.heads.q,
+                        "kv_heads": tp.heads.kv, "ffn": tp.ffn,
+                        "vocab": tp.vocab, "kv_cache": tp.kv_layout}
+                       for tp in shares]}
+
+
+def tensor_parallel_phase() -> dict:
+    """Phase 23: the pruned Qwen2-7B at full width and depth: (a) an R1
+    request through the mesh steps on the one-rank NCCL mesh, bit-equal to
+    the unsharded steps (``tp_one_rank``); (b) the ``TP_RANKS``-rank split
+    run rank after rank on the card (``tp_shares``), its logits held to
+    the LM phases' rule against the unsharded plain runs in bf16 and fp32,
+    teacher-forced with its tokens: no farther from the fp32 run than
+    twice the bf16 plain run is, plus one bf16 spacing of the largest
+    logit. One ``tensor_parallel`` line each and a ``phase23`` line.
+    Returns the launches of both, by kernel and route."""
+    import torch
+    from repro_torch.configs import qwen2_7b
+    from repro_torch.device import exact_fp32
+    from repro_torch.models import transformer as tr
+    t0 = time.perf_counter()
+    cfg = qwen2_7b.CONFIG
+    params, masks = model_setup(cfg, SEED)
+    describe(cfg, params, masks, run="tensor parallel")
+    (_, batch), = request_batches(cfg, [TP_REQUEST])
+    row_a = tp_one_rank(cfg, params, masks, batch)
+    print("tensor_parallel " + json.dumps({
+        "part": "a", "model": cfg.name, "request": TP_REQUEST[0],
+        "decode_steps": DECODE_STEPS, **row_a}), flush=True)
+    t_b = time.perf_counter()
+    split = tp_shares(cfg, params, masks, batch, TP_RANKS, TP_DECODE_STEPS)
+    kern = serve_tokens(cfg, params, masks, batch, forced=split["tokens"],
+                        steps=TP_DECODE_STEPS)
+    plain = serve_tokens(cfg, params, masks, batch, plain=True,
+                         forced=split["tokens"], steps=TP_DECODE_STEPS)
+    params32 = tr.cast_params(params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    with exact_fp32():
+        fp32 = serve_tokens(cfg.replace(dtype="float32"), params32, masks,
+                            batch, plain=True, forced=split["tokens"],
+                            steps=TP_DECODE_STEPS)
+    del params32
+    torch.cuda.empty_cache()
+    worst, gaps = 0.0, []
+    for g, k, p, f in zip(split["logits"], kern["logits"], plain["logits"],
+                          fp32["logits"]):
+        if g.shape != (1, cfg.padded_vocab) or not bool(
+                torch.isfinite(g).all()):
+            raise AssertionError(f"phase 23 (b): bad logits {g.shape}")
+        gap = float((g - f).abs().max())
+        tol = (2 * float((p - f).abs().max())
+               + BF16_SPACING * float(f.abs().max()))
+        worst = max(worst, gap / tol)
+        gaps.append({"split_vs_fp32": gap, "tol": tol,
+                     "split_vs_unsharded_kernel": float((g - k).abs().max()),
+                     "unsharded_kernel_vs_fp32": float((k - f).abs().max())})
+    row_b = {"part": "b", "model": cfg.name, "request": TP_REQUEST[0],
+             "model_ranks": TP_RANKS, "decode_steps": TP_DECODE_STEPS,
+             "shapes": split["shapes"], "ms": split["ms"],
+             "unsharded_prefill_ms": kern["prefill_ms"],
+             "unsharded_decode_ms": kern["decode_ms"],
+             "launches": split["launches"], "gaps": gaps,
+             "max_gap_over_tol": worst,
+             "tokens": split["tokens"].tolist()}
+    print("tensor_parallel " + json.dumps(row_b), flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"phase 23 (b): the split's logits off by "
+                             f"{worst} of the tolerance")
+    total = collections.Counter(row_a["launches"])
+    total.update(row_a["unsharded"]["launches"])
+    total.update(split["launches"])
+    print("phase23 " + json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "seconds_a": t_b - t0, "seconds_b": time.perf_counter() - t_b,
+        "launches": dict(total)}), flush=True)
+    return dict(total)
+
 
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                  **extra):
@@ -4751,6 +5020,11 @@ def main() -> int:
         # HuBERT-XLarge's non-gated FFN up product: K = 1280, N = 5120
         + [("hubert ffn prefill R1", 2048, 1280, 5120, "half"),
            ("hubert ffn prefill R2", 2000, 1280, 5120, "half")]
+        # the shard shapes of tensor parallelism over "model": Qwen2-7B's
+        # FFN columns on 2 ranks (d_ff / 2) and on 16 (d_ff / 16)
+        + [(f"tp{m} ffn {mode} R1", M, d, dff // m, "half")
+           for m in (2, 16) for mode, M in (("prefill", 2048),
+                                            ("decode", 1))]
         + [("tiles ragged", 200, 3576, 1000, "partial"),
            ("gemv ragged", 2, 1000, 1000, "partial"),
            ("all_zero_mask tiles", 256, 512, 1024, "zeros"),
@@ -4830,7 +5104,14 @@ def main() -> int:
          ("ragged 77 D80", 1, 77, 16, 16, 80, False, None, "bfloat16"),
          ("fp32 D80", 1, 512, 16, 16, 80, False, None, "float32"),
          ("causal D80", 1, 1000, 16, 4, 80, True, None, "bfloat16"),
-         ("window D80", 1, 300, 16, 4, 80, True, 40, "bfloat16")])
+         ("window D80", 1, 300, 16, 4, 80, True, 40, "bfloat16"),
+         # a rank's heads under tensor parallelism over "model": Qwen2-7B
+         # on 2 ranks (14 heads over 2 KV heads) and on 16 (2 over 1),
+         # gemma-7b on 16 (1 over 1, D = 256)
+         ("tp2 R1 14/2", 1, 2048, 14, 2, 128, True, None, "bfloat16"),
+         ("tp16 R1 2/1", 1, 2048, 2, 1, 128, True, None, "bfloat16"),
+         ("gemma tp16 R1 1/1 D256", 1, 2048, 1, 1, 256, True, None,
+          "bfloat16")])
     # Mamba2-2.7B: 80 heads of 64, d_state 128; Zamba2-1.2B: 64 heads of
     # 64, d_state 64; one B/C group each
     ssd_rows = check_ssd(
@@ -4947,10 +5228,13 @@ def main() -> int:
     mtotals = mesh_phase()
     # 22. the pipelined split served on a one-pod mesh, and the dry run
     stotals = split_serve_phase()
+    # 23. tensor parallelism over "model": the one-rank mesh and a
+    # two-rank split's shares on the card
+    ptotals = tensor_parallel_phase()
     for name in totals:
         totals[name] += (xtotals[name] + dtotals[name] + vtotals[name]
                          + htotals[name] + ttotals[name] + mtotals[name]
-                         + stotals[name])
+                         + stotals[name] + ptotals[name])
     alex_routes.update({k: v for k, v in mtotals.items()
                         if k.startswith(("masked_matmul_f32",
                                          "masked_matmul_q8"))})

@@ -21,12 +21,17 @@ reference's dispatch is off by default) once under a
 (unfused), collective bytes by op and mesh dim, the live storages' peak.
 
 Each run writes ``experiments/dryrun/torch_<arch>_<shape>_<mesh>.json``
-(``torch_`` first: no reference record is ever written). The port's steps
-gather the whole parameter tree on every rank and compute their rows
-whole, so every rank of a "model" group computes the same thing: the
-per-card FLOPs are up to 16x the reference's, and the peak holds the
-whole tree; the record says so (``model_axis``). Layers run as a Python
-loop, so nothing is counted once for many (``scan_counted`` is false).
+(``torch_`` first: no reference record is ever written). A record's
+``model_axis`` is the route its step took (``step.route``): ``split`` for
+the dense attention stack, whose products split over "model" with one
+layer's FSDP dims gathered at a time (``sharding.tensor_parallel``), and
+``replicated`` for MoE, MLA, SSM and hybrid stacks, whose steps gather
+the whole parameter tree on every rank and compute their rows whole, so
+every rank of a "model" group computes the same thing (per-card FLOPs up
+to 16x the reference's, the whole tree in the peak). The pod pipeline's
+stages are gathered whole (``PIPELINE_MODEL_AXIS``). Layers run as a
+Python loop, so nothing is counted once for many (``scan_counted`` is
+false).
 """
 from __future__ import annotations
 
@@ -54,14 +59,14 @@ from repro_torch.roofline import hw
 from repro_torch.roofline.analysis import (TraceCounter, model_flops,
                                            terms_from_trace)
 from repro_torch.sharding import specs as sh
+from repro_torch.sharding.tensor_parallel import contiguous_stride
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun")
 
-#: what the records say of the "model" axis
-MODEL_AXIS = ("replicated: every rank gathers the whole parameter tree "
-              "and computes its data rows whole; tensor parallelism over "
-              "'model' is not ported")
+#: what a split-serve record says of the "model" axis
+PIPELINE_MODEL_AXIS = ("replicated: every rank gathers its pod's stage "
+                       "whole and computes the whole microbatch")
 MEMORY_TRACKER = ("repro_torch.roofline.analysis.TraceCounter: the live "
                   "storages of the traced step on rank 0, its inputs "
                   "(the local shards, the whole batch) included")
@@ -151,14 +156,6 @@ def _fake(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(tuple(t.shape), dtype=t.dtype)
 
 
-def _contiguous(shape) -> Tuple[int, ...]:
-    stride, n = [], 1
-    for d in reversed(tuple(shape)):
-        stride.append(n)
-        n *= d
-    return tuple(reversed(stride))
-
-
 def _placed(tree, specs, mesh):
     """Fake DTensors of ``tree``'s (``meta``) leaves laid out by
     ``specs``: each rank's local shard, the global shape. Other leaves
@@ -171,7 +168,7 @@ def _placed(tree, specs, mesh):
         local, _ = sh.local_shape_and_offset(t.shape, sp, mesh)
         return DTensor.from_local(
             torch.empty(local, dtype=t.dtype), mesh, sh.placements(sp, mesh),
-            run_check=False, shape=t.shape, stride=_contiguous(t.shape))
+            run_check=False, shape=t.shape, stride=contiguous_stride(t.shape))
     return sh.tree_map_with_path(put, specs, tree, is_leaf=sh._is_spec)
 
 
@@ -242,6 +239,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                 step = make_train_step(cfg, optimizer, grad_accum=grad_accum,
                                        device="cpu", mesh=mesh,
                                        backend="ref")
+                route = step.route
                 with counter:
                     counter.track(params, state, batch)
                     out = step(params, state, batch)
@@ -251,6 +249,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                 batch = {k: _fake(v) for k, v in specs["batch"].items()}
                 step = make_prefill_step(cfg, max_len=S, device="cpu",
                                          mesh=mesh, backend="ref")
+                route = step.route
                 with counter, torch.no_grad():
                     counter.track(params, batch)
                     out = step(params, batch)
@@ -261,6 +260,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                 tokens = _fake(specs["tokens"])
                 step = make_decode_step(cfg, device="cpu", mesh=mesh,
                                         backend="ref")
+                route = step.route
                 with counter, torch.no_grad():
                     counter.track(params, cache, tokens)
                     out = step(params, cache, tokens)
@@ -281,7 +281,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         "trace_s": round(trace_s, 2),
         "backend": "ref",
         "token_dtype": str(TOKEN_DTYPE).removeprefix("torch."),
-        "model_axis": MODEL_AXIS,
+        "model_axis": route,
         "memory_analysis": _memory_record(counter),
         "analytic_memory": analytic_memory(cfg, specs, mesh, mode),
         "cost_analysis": {"flops": float(counter.flops),
@@ -333,7 +333,7 @@ def run_split_serve(arch: str, out_dir: str = OUT_DIR,
     rec = {"arch": arch, "mode": "split_serve", "mesh": mesh_name,
            "chips": math.prod(shape), "num_microbatches": num_microbatches,
            "seq_len": seq_len, "batch": batch, "backend": "ref",
-           "model_axis": MODEL_AXIS}
+           "model_axis": PIPELINE_MODEL_AXIS}
     params = tr.init_params(cfg, device="meta")
     sp = dict(params)
     sp["runs"] = [pp.stack_stage_params(params, cfg, n_pods)]

@@ -13,23 +13,36 @@ autograd Function whose backward is in PyTorch ops. Every family of the
 registry trains there, the ``ssm`` and ``hybrid`` ones included; nothing
 falls back to the plain versions.
 
-Given a ``mesh`` (a ``DeviceMesh``, ``launch.mesh``), the train step is
-the sharded one, the counterpart of the reference's ``jax.jit`` with
+Given a ``mesh`` (a ``DeviceMesh``, ``launch.mesh``), the steps are the
+sharded ones, the counterpart of the reference's ``jax.jit`` with
 ``in_shardings``: the parameters and the optimizer state are DTensor trees
 (``sharding.specs.distribute`` by ``param_specs`` and
-``opt_state_specs``), each rank reads its ``batch_specs`` slice of the
-batch, gathers the whole parameter tree into local tensors (the kernels
-take plain tensors) and differentiates the loss on them, reduces the
-gradients over the data axes to each parameter's placements, and updates
-its own shards, AdamW's clip on the norm of the whole gradient. The
-serve steps take a ``mesh`` in the same strategy: each rank takes its
-rows of the batch, gathers the parameters whole and runs the local step;
-the prefill returns its logits and cache as DTensors (rows over the data
-axes, the cache laid out by ``cache_specs``), and the decode step gathers
-each cache leaf's shards for its rows, runs the local step, and writes
-the updated rows back into the DTensor cache's own shards in place.
-Tensor parallelism over "model" is not ported: every rank of a "model"
-group computes the same rows again.
+``opt_state_specs``), each rank reads its ``batch_specs`` rows of the
+batch, and each step names its route (``step.route``,
+``sharding.tensor_parallel.mesh_route``):
+
+* **split** — the dense attention stack (GQA and a dense FFN: Qwen2-7B,
+  Qwen2-VL-7B, gemma-7b, qwen1.5-4b, nemotron-4-340b, HuBERT-XLarge): the
+  products split over "model" (``sharding.tensor_parallel``: heads, FFN
+  columns, the vocabulary), each layer's parameters fetched one layer at
+  a time with their data dims gathered, no copy of the whole tree. The
+  train step differentiates the loss with respect to the DTensor leaves:
+  a "model"-split leaf's gradient stays on its shard, and the data axes'
+  reduction is the gather's backward (a reduce-scatter). The prefill
+  writes each rank's KV cache shard as ``cache_specs`` lays it out, and
+  the decode step writes the new slot into it in place and attends where
+  the cache lies: the queries move to it, never the cache.
+* **replicated** — MoE, MLA, SSM and hybrid stacks: each rank gathers
+  the whole parameter tree into local tensors and computes its rows
+  whole, so every rank of a "model" group computes the same rows again;
+  the train step reduces the gradients over the data axes to each
+  parameter's placements by hand.
+
+Either way each rank updates its own shards, AdamW's clip on the norm of
+the whole gradient; the prefill returns its logits and cache as DTensors
+(rows over the data axes, the cache laid out by ``cache_specs``), and the
+decode step writes the updated rows back into the DTensor cache's own
+shards in place.
 
 Every step takes ``backend``: ``"auto"`` (the kernels on the card) or
 ``"ref"`` (the plain versions, as the dry run traces them).
@@ -47,6 +60,9 @@ from repro_torch.models import transformer as tr
 from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
                                           value_and_grad)
 from repro_torch.sharding import specs as shard_specs
+from repro_torch.sharding.tensor_parallel import (TensorParallel,
+                                                  contiguous_stride,
+                                                  mesh_route, tp_supported)
 
 
 def _on(device: torch.device, tokens) -> torch.Tensor:
@@ -85,18 +101,44 @@ def _microbatches(batch, n: int):
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch, masks=None,
-                   backend: str = "auto"):
+                   backend: str = "auto", tp_of=None, share=None):
     """(metrics, grads): ``loss_fn``'s metrics, detached, and its gradient
     with respect to every leaf of ``params`` (``optim.value_and_grad``),
     on the device the parameters and ``batch`` already live on; the
-    kernel path (``backend="auto"``) or the plain versions (``"ref"``)."""
+    kernel path (``backend="auto"``) or the plain versions (``"ref"``).
+    ``tp_of(leaves)``, where given, is the tensor-parallel share the loss
+    runs as (``sharding.tensor_parallel.TensorParallel``); ``share``, where
+    given, weights the loss in float32 before it is differentiated."""
     out = {}
 
     def loss(p):
-        total, out["metrics"] = tr.loss_fn(p, cfg, batch, masks, backend)
-        return total
+        tp = None if tp_of is None else tp_of(p)
+        total, out["metrics"] = tr.loss_fn(p, cfg, batch, masks, backend,
+                                           tp=tp)
+        return total if share is None else total.to(torch.float32) * share
     _, grads = value_and_grad(loss, params)
     return {k: v.detach() for k, v in out["metrics"].items()}, grads
+
+
+def _accumulated(grads_of, params, batch, grad_accum: int):
+    """(metrics, grads) of ``batch`` by ``grads_of(params, microbatch)``:
+    one call where ``grad_accum`` is 1, else one a microbatch
+    (``_microbatches``), their gradients summed in fp32, divided by
+    ``grad_accum`` and cast to each parameter's dtype, their metrics
+    averaged."""
+    if grad_accum == 1:
+        return grads_of(params, batch)
+    gsum, ms = None, []
+    for mb in _microbatches(batch, grad_accum):
+        m, g = grads_of(params, mb)
+        g = tree_map(lambda t: t.to(torch.float32), g)
+        gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+        del g
+        ms.append(m)
+    grads = tree_map(lambda g, p: (g / grad_accum).to(p.dtype), gsum, params)
+    del gsum
+    return ({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]},
+            grads)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
@@ -110,33 +152,25 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
     (``_microbatches``), sums their gradients in fp32, divides by
     ``grad_accum`` and casts each to its parameter's dtype, and averages
     the metrics: live activations shrink by the factor. With ``mesh`` the
-    step is the sharded one (``_sharded_train_step``): its ``params`` and
-    ``opt_state`` are DTensor trees on ``mesh`` and ``batch`` the whole
-    batch, which every rank holds."""
+    step is the sharded one (``_tp_train_step`` for the dense attention
+    stack, else ``_sharded_train_step``; ``step.route`` names it): its
+    ``params`` and ``opt_state`` are DTensor trees on ``mesh`` and
+    ``batch`` the whole batch, which every rank holds."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
     _check_card(cfg, dev)
 
     def grads_of(params, batch):
-        if grad_accum == 1:
-            return loss_and_grads(params, cfg, batch, masks, backend)
-        gsum = tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
-        ms = []
-        for mb in _microbatches(batch, grad_accum):
-            m, g = loss_and_grads(params, cfg, mb, masks, backend)
-            gsum = tree_map(lambda acc, gg: acc + gg.to(torch.float32),
-                            gsum, g)
-            del g
-            ms.append(m)
-        grads = tree_map(lambda g, p: (g / grad_accum).to(p.dtype),
-                         gsum, params)
-        del gsum
-        return ({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]},
-                grads)
+        return _accumulated(
+            lambda p, mb: loss_and_grads(p, cfg, mb, masks, backend),
+            params, batch, grad_accum)
 
     if mesh is not None:
-        return _sharded_train_step(cfg, optimizer, grads_of, dev, mesh)
+        step = (_tp_train_step(cfg, optimizer, masks, grad_accum, backend,
+                               dev, mesh) if tp_supported(cfg) else
+                _sharded_train_step(cfg, optimizer, grads_of, dev, mesh))
+        step.route = mesh_route(cfg)
+        return step
 
     def train_step(params, opt_state, batch):
         metrics, grads = grads_of(params, batch_on(dev, cfg, batch))
@@ -225,12 +259,17 @@ def _mesh_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
         rows = shard_specs.tree_map_with_path(
             lambda path, t: _rows_dtensor(t, mesh, _cache_bdim(path), split),
             cache)
-        specs = shard_specs.cache_specs(rows, cfg, mesh)
-        return logits, shard_specs.tree_map_with_path(
-            lambda _, sp, t: t.redistribute(
-                mesh, shard_specs.placements(sp, mesh)),
-            specs, rows, is_leaf=shard_specs._is_spec)
+        return logits, _laid_out(rows, cfg, mesh)
     return prefill_step
+
+
+def _laid_out(cache, cfg: ModelConfig, mesh):
+    """A DTensor cache redistributed to ``cache_specs``' layout."""
+    specs = shard_specs.cache_specs(cache, cfg, mesh)
+    return shard_specs.tree_map_with_path(
+        lambda _, sp, t: t.redistribute(mesh,
+                                        shard_specs.placements(sp, mesh)),
+        specs, cache, is_leaf=shard_specs._is_spec)
 
 
 def _batch_rows(cfg: ModelConfig, batch) -> int:
@@ -263,15 +302,7 @@ def _mesh_decode_step(cfg: ModelConfig, masks, backend: str,
         logits, _ = tr.decode_step(whole, cfg, local, local_tok, masks=masks,
                                    backend=backend)
         del whole
-
-        def put_back(path, leaf, rows):
-            if shard_specs.path_keys(path)[-1] == "pos":
-                return
-            mine = rows.redistribute(mesh, leaf.placements).to_local()
-            dst = leaf.to_local()
-            if not same_memory(dst, mine):
-                dst.copy_(mine)
-        shard_specs.tree_map_with_path(put_back, cache, held)
+        _put_back(cache, held, mesh)
         return (_rows_dtensor(logits, mesh, 0, split),
                 dict(cache, pos=cache["pos"] + 1))
     return decode_step
@@ -294,7 +325,6 @@ def _sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, grads_of,
     mesh every gather and reduction is the identity, and the step gives
     the unsharded step's bits."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    import torch.distributed as dist
     _check_mesh(mesh, dev)
     names = mesh.mesh_dim_names
     data, _ = shard_specs.mesh_axes(mesh)
@@ -308,49 +338,209 @@ def _sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, grads_of,
         return t if n_data == 1 else t.to(torch.float32) * share
 
     def train_step(params, opt_state, batch):
-        B = _batch_rows(cfg, batch)
-        if n_data > 1 and B % n_data:
-            # the reference would split the sequence instead, which needs
-            # context parallelism
-            raise ValueError(f"batch {B} does not divide the data axes "
-                             f"({n_data}); a sequence split is not ported")
-        local = batch_on(dev, cfg, _my_rows(batch, mesh, n_data > 1))
+        local, share = _my_batch(cfg, batch, mesh, dev)
         whole = tree_map(lambda p: p.full_tensor(), params)
         metrics, grads = grads_of(whole, local)
         del whole
-        # the share of the labelled tokens, divided in float64 and rounded
-        # once, as a float32 tensor times a Python float rounds it; a
-        # tensor, so that a traced step reads no value
-        f64 = torch.float64
-        total = (torch.as_tensor(batch["labels"]) >= 0).sum().to(dev, f64)
-        share = ((local["labels"] >= 0).sum().to(f64)
-                 / total.clamp_min(1.0)).to(torch.float32)
 
         def reduce(g, p):
             return DTensor.from_local(weighted(g, share), mesh, partial,
                                       run_check=False).redistribute(
                 mesh, p.placements).to_local().to(p.dtype)
         grads = tree_map(reduce, grads, params)
-        for k, v in metrics.items():
-            metrics[k] = v = weighted(v, share).clone()
-            for a in data:
-                dist.all_reduce(v, group=mesh.get_group(a))
-        placed = [p.placements for p in tree_leaves(params)]
-        local_params = tree_map(lambda p: p.to_local(), params)
-        state = {k: (tree_map(lambda t: t.to_local(), v)
-                     if k != "step" else v) for k, v in opt_state.items()}
-        new_params, new_state = optimizer.update(
-            grads, state, local_params,
-            sq_norm=lambda g: _mesh_sq_norm(g, placed, mesh))
-        del grads, local_params, state
+        return _update_shards(optimizer, grads, params, opt_state, mesh) + (
+            _data_sum(metrics, share, mesh),)
+    return train_step
 
-        def wrap(t, p):
-            return DTensor.from_local(t, mesh, p.placements, run_check=False,
-                                      shape=p.shape, stride=p.stride())
-        new_params = tree_map(wrap, new_params, params)
-        new_state = {k: (tree_map(wrap, v, params) if k != "step" else v)
-                     for k, v in new_state.items()}
-        return new_params, new_state, metrics
+
+def _my_batch(cfg: ModelConfig, batch, mesh, dev: torch.device):
+    """(this rank's rows of ``batch`` on ``dev``, their share of the
+    labelled tokens): the share divided in float64 and rounded once, as a
+    float32 tensor times a Python float rounds it; a tensor, so that a
+    traced step reads no value."""
+    n_data = _data_size(mesh)
+    B = _batch_rows(cfg, batch)
+    if n_data > 1 and B % n_data:
+        # the reference would split the sequence instead, which needs
+        # context parallelism
+        raise ValueError(f"batch {B} does not divide the data axes "
+                         f"({n_data}); a sequence split is not ported")
+    local = batch_on(dev, cfg, _my_rows(batch, mesh, n_data > 1))
+    f64 = torch.float64
+    total = (torch.as_tensor(batch["labels"]) >= 0).sum().to(dev, f64)
+    share = ((local["labels"] >= 0).sum().to(f64)
+             / total.clamp_min(1.0)).to(torch.float32)
+    return local, share
+
+
+def _data_sum(metrics, share, mesh):
+    """Each metric weighted by this rank's ``share`` in float32 and summed
+    over the data axes (as it is, where they have one rank)."""
+    import torch.distributed as dist
+    if _data_size(mesh) == 1:
+        return metrics
+    data, _ = shard_specs.mesh_axes(mesh)
+    out = {}
+    for k, v in metrics.items():
+        out[k] = v = v.to(torch.float32) * share
+        for a in data:
+            dist.all_reduce(v, group=mesh.get_group(a))
+    return out
+
+
+def _update_shards(optimizer: Optimizer, grads, params, opt_state, mesh):
+    """(params, opt_state) after ``optimizer.update`` of this rank's own
+    shards by its local ``grads``, AdamW's clip on the whole gradient's
+    norm (``_mesh_sq_norm``), wrapped back as DTensors placed as
+    ``params``."""
+    from torch.distributed.tensor import DTensor
+    placed = [p.placements for p in tree_leaves(params)]
+    local_params = tree_map(lambda p: p.to_local(), params)
+    state = {k: (tree_map(lambda t: t.to_local(), v)
+                 if k != "step" else v) for k, v in opt_state.items()}
+    new_params, new_state = optimizer.update(
+        grads, state, local_params,
+        sq_norm=lambda g: _mesh_sq_norm(g, placed, mesh))
+    del grads, local_params, state
+
+    def wrap(t, p):
+        return DTensor.from_local(t, mesh, p.placements, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+    return (tree_map(wrap, new_params, params),
+            {k: (tree_map(wrap, v, params) if k != "step" else v)
+             for k, v in new_state.items()})
+
+
+def _kv_placements(mesh, tp, split: bool) -> tuple:
+    """Placements of a run's stacked KV cache leaf (L, B, S, heads, D)
+    holding this rank's rows (over the data axes where ``split``) and its
+    "model" shard (``tp.kv_layout``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = list(_rows_placements(mesh, 1, split))
+    dim = {"heads": 3, "dims": 4}.get(tp.kv_layout)
+    pl[mesh.mesh_dim_names.index("model")] = (
+        Replicate() if dim is None else Shard(dim))
+    return tuple(pl)
+
+
+def _tp_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
+                     dev: torch.device, mesh):
+    """The prefill on ``mesh`` on the split route: this rank's rows (all
+    of them where the data axes do not divide the batch), its share of
+    every product (``TensorParallel.on_mesh``), the last logits gathered
+    over "model"; logits as a DTensor of rows over the data axes, the
+    cache as a DTensor tree laid out by ``cache_specs``, each rank's
+    shard written from the KV heads the ranks computed."""
+    from torch.distributed.tensor import DTensor
+    _check_mesh(mesh, dev)
+
+    def prefill_step(params, batch):
+        B = _batch_rows(cfg, batch)
+        split = _rows_split(B, mesh)
+        local = batch_on(dev, cfg, _my_rows(batch, mesh, split))
+        tp = TensorParallel.on_mesh(cfg, mesh, params)
+        logits, cache = tr.prefill(params, cfg, local, max_len=max_len,
+                                   masks=masks, backend=backend, tp=tp)
+        logits = _rows_dtensor(logits, mesh, 0, split)
+        if cache is None:
+            return logits, None
+
+        def placed(path, t):
+            if shard_specs.path_keys(path)[-1] == "pos":
+                return _rows_dtensor(t, mesh, 0, split)
+            shape = (t.shape[0], B, t.shape[2], cfg.num_kv_heads,
+                     cfg.head_dim)
+            return DTensor.from_local(
+                t, mesh, _kv_placements(mesh, tp, split), run_check=False,
+                shape=shape, stride=contiguous_stride(shape))
+        rows = shard_specs.tree_map_with_path(placed, cache)
+        return logits, _laid_out(rows, cfg, mesh)
+    return prefill_step
+
+
+def _tp_decode_step(cfg: ModelConfig, masks, backend: str,
+                    dev: torch.device, mesh):
+    """The decode step on ``mesh`` on the split route, over a DTensor
+    cache (``cache_specs``): each leaf laid out to this rank's rows on the
+    data axes, its "model" shard kept; the local step on this rank's
+    share (``TensorParallel.decode_attention`` writes the new slot into
+    the shard and attends where the cache lies), the logits gathered over
+    "model"; each leaf's updated rows laid back out and copied into its
+    own shards in place."""
+    _check_mesh(mesh, dev)
+    mi = mesh.mesh_dim_names.index("model")
+
+    def decode_step(params, cache, tokens):
+        tokens = torch.as_tensor(tokens)
+        split = _rows_split(tokens.shape[0], mesh)
+        local_tok = _on(dev, _my_rows({"tokens": tokens}, mesh,
+                                      split)["tokens"])
+
+        def rows(path, t):
+            want = list(_rows_placements(mesh, _cache_bdim(path), split))
+            want[mi] = t.placements[mi]
+            return t.redistribute(mesh, tuple(want))
+        held = shard_specs.tree_map_with_path(rows, cache)
+        local = shard_specs.tree_map_with_path(lambda _, t: t.to_local(),
+                                               held)
+        tp = TensorParallel.on_mesh(cfg, mesh, params)
+        logits, _ = tr.decode_step(params, cfg, local, local_tok,
+                                   masks=masks, backend=backend, tp=tp)
+        _put_back(cache, held, mesh)
+        return (_rows_dtensor(logits, mesh, 0, split),
+                dict(cache, pos=cache["pos"] + 1))
+    return decode_step
+
+
+def _put_back(cache, held, mesh) -> None:
+    """Each cache leaf's rows of ``held`` (written in place by the local
+    step) laid out as the leaf is and copied into its own shards, where
+    they are not the same memory already; ``pos`` advances apart."""
+    def put_back(path, leaf, rows):
+        if shard_specs.path_keys(path)[-1] == "pos":
+            return
+        mine = rows.redistribute(mesh, leaf.placements).to_local()
+        dst = leaf.to_local()
+        if not same_memory(dst, mine):
+            dst.copy_(mine)
+    shard_specs.tree_map_with_path(put_back, cache, held)
+
+
+def _tp_train_step(cfg: ModelConfig, optimizer: Optimizer, masks,
+                   grad_accum: int, backend: str, dev: torch.device, mesh):
+    """The train step on ``mesh`` on the split route. Each rank takes its
+    ``batch_specs`` rows and differentiates the loss of its share
+    (``TensorParallel.on_mesh``: each layer's data dims gathered inside
+    the layer's remat checkpoint, the products split over "model", the
+    vocabulary-parallel cross-entropy) with respect to the DTensor
+    parameters themselves: a "model"-split leaf's gradient stays on its
+    shard, and the gather's backward reduce-scatters the gradient over
+    the data axes. The loss is weighted by this rank's share of the
+    labelled tokens first where the data axes have more than one rank (in
+    float32; on one rank the unsharded step's loss itself), so the
+    reduction gives the whole batch's gradient, as ``_sharded_train_step``
+    weights its gradients. ``grad_accum`` microbatches sum their local
+    gradients in fp32 and divide, as the unsharded step does. The metrics
+    are weighted and summed over the data axes; AdamW updates each rank's
+    own shards, its clip on the whole gradient's norm
+    (``_mesh_sq_norm``). On a one-rank mesh every fetch is a view and
+    every reduction the identity: the unsharded step's bits."""
+    _check_mesh(mesh, dev)
+    n_data = _data_size(mesh)
+
+    def tp_of(leaves):
+        return TensorParallel.on_mesh(cfg, mesh, leaves)
+
+    def train_step(params, opt_state, batch):
+        local, share = _my_batch(cfg, batch, mesh, dev)
+
+        def grads_of(p, mb):
+            m, g = loss_and_grads(p, cfg, mb, masks, backend, tp_of=tp_of,
+                                  share=share if n_data > 1 else None)
+            return m, tree_map(lambda t: t.to_local(), g)
+        metrics, grads = _accumulated(grads_of, params, local, grad_accum)
+        return _update_shards(optimizer, grads, params, opt_state, mesh) + (
+            _data_sum(metrics, share, mesh),)
     return train_step
 
 
@@ -387,13 +577,18 @@ def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
     ``embeds`` (B, S, d_model); a VLM config's also ``vision_embeds`` (B,
     V, d_model) and, optionally, ``mrope_positions`` (3, B, V + S). A
     bidirectional config returns (all logits (B, S, V), None). With
-    ``mesh`` the step is the sharded one (``_mesh_prefill_step``):
-    ``params`` is a DTensor tree, ``batch`` the whole batch."""
+    ``mesh`` the step is the sharded one (``_tp_prefill_step`` for the
+    dense attention stack, else ``_mesh_prefill_step``; ``step.route``
+    names it): ``params`` is a DTensor tree, ``batch`` the whole batch."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
     _check_card(cfg, dev)
     if mesh is not None:
-        return _mesh_prefill_step(cfg, max_len, masks, backend, dev, mesh)
+        make = (_tp_prefill_step if tp_supported(cfg)
+                else _mesh_prefill_step)
+        step = make(cfg, max_len, masks, backend, dev, mesh)
+        step.route = mesh_route(cfg)
+        return step
 
     def prefill_step(params, batch):
         batch = batch_on(dev, cfg, batch)
@@ -409,9 +604,10 @@ def make_decode_step(cfg: ModelConfig, masks=None,
     cache)``; the cache's tensors (KV or MLA latent slots, SSD states and
     conv windows) are updated in place. A bidirectional (encoder-only)
     config has no decode step and is refused. With ``mesh`` the step is
-    the sharded one (``_mesh_decode_step``): ``params`` and ``cache`` are
-    DTensor trees (the mesh prefill's cache), ``tokens`` the whole
-    batch's."""
+    the sharded one (``_tp_decode_step`` for the dense attention stack,
+    else ``_mesh_decode_step``; ``step.route`` names it): ``params`` and
+    ``cache`` are DTensor trees (the mesh prefill's cache), ``tokens`` the
+    whole batch's."""
     tr.check_supported(cfg)
     if not cfg.causal:
         raise ValueError(f"{cfg.name}: a bidirectional encoder has no "
@@ -419,7 +615,10 @@ def make_decode_step(cfg: ModelConfig, masks=None,
                          f"position's logits")
     dev = resolve_device(device)
     if mesh is not None:
-        return _mesh_decode_step(cfg, masks, backend, dev, mesh)
+        make = _tp_decode_step if tp_supported(cfg) else _mesh_decode_step
+        step = make(cfg, masks, backend, dev, mesh)
+        step.route = mesh_route(cfg)
+        return step
 
     def decode_step(params, cache, tokens):
         return tr.decode_step(params, cfg, cache, _on(dev, tokens),

@@ -129,16 +129,21 @@ def naive_attention(q, k, v, mask, scale):
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, valid_len, q_pos, window, scale):
+def decode_attention(q, k_cache, v_cache, valid_len, q_pos, window, scale,
+                     partial_sum=None):
     """Single-step decode: q (B,1,H,D) against (B,Smax,Hkv,D) cache.
 
     ``valid_len`` (B,) — number of filled cache slots; positions are
-    0..valid_len-1 (or a rolling window layout handled by the caller)."""
+    0..valid_len-1 (or a rolling window layout handled by the caller).
+    ``partial_sum``, where given, sums the float32 scores over the ranks
+    that each hold a part of the head dim (D here is that part)."""
     B, _, H, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     group = H // Hkv
     qg = (q.to(torch.float32) * scale).reshape(B, Hkv, group, D)
     logits = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.to(torch.float32))
+    if partial_sum is not None:
+        logits = partial_sum(logits)
     kpos = torch.arange(Smax, device=q.device)[None]
     ok = kpos < valid_len[:, None]
     if window is not None:
@@ -264,15 +269,17 @@ def init_kv_cache(batch: int, max_len: int, num_kv_heads: int,
 
 
 def _qkv(params, cfg, x, angles, S):
+    """q (B, S, heads, D), k and v (B, S, KV heads, D), the head counts
+    those of the projections' columns (a tensor-parallel rank's block)."""
     B = x.shape[0]
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
@@ -280,50 +287,61 @@ def _qkv(params, cfg, x, angles, S):
 
 
 def gqa_forward(params, cfg, x, angles, *, head_mask=None,
-                backend: str = "auto"):
+                backend: str = "auto", tp=None):
     """Full-sequence forward (prefill). Returns (out, (k, v)). The
     attention is the flash kernel's wrapper (``"auto"``) or, on the plain
     branch (``"ref"``), what the reference runs with its kernels off: the
     kernel's plain version up to ``naive_attn_max`` tokens, and above it
     ``chunked_attention`` (``chunked_attention_ha`` for a config with
-    ``attn_head_atomic``), one KV block's scores at a time."""
+    ``attn_head_atomic``), one KV block's scores at a time. With ``tp``
+    (a ``sharding.tensor_parallel.TensorParallel``) ``params`` hold the
+    rank's head block: the attention runs on its heads (KV heads repeated
+    where the block crosses KV groups unevenly), ``head_mask`` is its
+    heads', and the out product's partial sum is reduced over "model";
+    (k, v) are the KV heads the rank computed."""
     B, S, _ = x.shape
+    if tp is not None:
+        x = tp.copy_in(x)
     q, k, v = _qkv(params, cfg, x, angles, S)
+    ka, va = (k, v) if tp is None else tp.kv_for_q(k, v)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if backend == "ref" and S > cfg.naive_attn_max:
         pos = torch.arange(S, device=x.device)[None].expand(B, S)
         if cfg.attn_head_atomic:
             q = maybe_constrain(q, P(data_axes_spec(), None, "model", None))
-            out = chunked_attention_ha(q, k, v, pos, pos, cfg.causal,
+            out = chunked_attention_ha(q, ka, va, pos, pos, cfg.causal,
                                        cfg.sliding_window, scale)
         else:
-            out = chunked_attention(q, k, v, pos, pos, cfg.causal,
+            out = chunked_attention(q, ka, va, pos, pos, cfg.causal,
                                     cfg.sliding_window, scale)
     else:
         attend = attention_ref if backend == "ref" else flash_attention
-        out = attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                     scale=scale)
+        out = attend(q, ka, va, causal=cfg.causal,
+                     window=cfg.sliding_window, scale=scale)
     if head_mask is not None:
         out = out * head_mask[None, None, :, None].to(out.dtype)
-    return out.reshape(B, S, cfg.q_dim) @ params["wo"], (k, v)
+    out = out.reshape(B, S, -1) @ params["wo"]
+    return (out if tp is None else tp.reduce(out)), (k, v)
 
 
 def gqa_decode(params, cfg, x, angles, cache: KVCache, pos, *,
-               head_mask=None):
+               head_mask=None, tp=None):
     """One-token decode. x (B,1,d_model); pos (B,) absolute position.
 
     For sliding-window configs the cache is a rolling buffer of size
     min(Smax, window): slot = pos % cache_len. Unlike the reference, which
     returns new cache arrays, this writes the new key and value into
     ``cache``'s tensors in place (one slot per sequence) and returns the
-    same tensors: a decode step copies no cache."""
+    same tensors: a decode step copies no cache. With ``tp`` the cache is
+    the rank's shard of the layer's (``TensorParallel.decode_attention``
+    writes it and attends the rank's heads) and the out product's partial
+    sum is reduced over "model"."""
     B = x.shape[0]
+    if tp is not None:
+        x = tp.copy_in(x)
     q, k, v = _qkv(params, cfg, x, angles, 1)
     cache_len = cache.k.shape[1]
     slot = (pos % cache_len).long()
-    rows = torch.arange(B, device=x.device)
-    cache.k[rows, slot] = k[:, 0]
-    cache.v[rows, slot] = v[:, 0]
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if cfg.sliding_window is not None and cache_len <= cfg.sliding_window:
         # rolling buffer: every slot written within the window is valid
@@ -332,11 +350,18 @@ def gqa_decode(params, cfg, x, angles, cache: KVCache, pos, *,
     else:
         valid = pos + 1
         window = cfg.sliding_window
-    out = decode_attention(q, cache.k, cache.v, valid, pos, window, scale)
+    if tp is None:
+        rows = torch.arange(B, device=x.device)
+        cache.k[rows, slot] = k[:, 0]
+        cache.v[rows, slot] = v[:, 0]
+        out = decode_attention(q, cache.k, cache.v, valid, pos, window, scale)
+    else:
+        out = tp.decode_attention(q, cache, k[:, 0], v[:, 0], slot, valid,
+                                  pos, window, scale)
     if head_mask is not None:
         out = out * head_mask[None, None, :, None].to(out.dtype)
-    out = out.reshape(B, 1, cfg.q_dim) @ params["wo"]
-    return out, cache
+    out = out.reshape(B, 1, -1) @ params["wo"]
+    return (out if tp is None else tp.reduce(out)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -59,15 +59,21 @@ def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
 
 def mlp_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
                 activation: str, *, ffn_mask: Optional[torch.Tensor] = None,
-                backend: str = "auto") -> torch.Tensor:
-    """x (..., d_model) -> (..., d_model)."""
+                backend: str = "auto", tp=None) -> torch.Tensor:
+    """x (..., d_model) -> (..., d_model). With ``tp`` (a
+    ``sharding.tensor_parallel.TensorParallel``) ``params`` and
+    ``ffn_mask`` hold the rank's FFN columns and the down product's
+    partial sum is reduced over "model"."""
+    if tp is not None:
+        x = tp.copy_in(x)
     if ffn_mask is not None:
         mm = masked_matmul_ref if backend == "ref" else masked_matmul
         h = _act(mm(x, params["w_up"], ffn_mask), activation)
         if activation in GATED:
             h = h * mm(x, params["w_gate"], ffn_mask)
-        return h @ params["w_down"]
-    h = _act(x @ params["w_up"], activation)
-    if activation in GATED:
-        h = h * (x @ params["w_gate"])
-    return h @ params["w_down"]
+    else:
+        h = _act(x @ params["w_up"], activation)
+        if activation in GATED:
+            h = h * (x @ params["w_gate"])
+    out = h @ params["w_down"]
+    return out if tp is None else tp.reduce(out)

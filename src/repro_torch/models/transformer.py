@@ -83,6 +83,7 @@ from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rope import (mrope_angles, positions_for,
                                             rope_angles,
                                             text_mrope_positions)
+from repro_torch.sharding.tensor_parallel import vocab_xent
 
 BACKENDS = ("auto", "ref")
 Masks = Optional[List[Optional[Dict[str, torch.Tensor]]]]
@@ -283,8 +284,20 @@ def cast_params(params, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 # embedding, rope, head
 # ---------------------------------------------------------------------------
-def embed_inputs(params, cfg: ModelConfig,
-                 batch) -> Tuple[torch.Tensor, int, int]:
+def _embed(params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The tokens' rows of the embedding table (with ``tp``, the
+    vocabulary-parallel lookup)."""
+    return params["embed"][tokens] if tp is None else tp.embed(tokens)
+
+
+def _top(params, name: str, tp=None) -> torch.Tensor:
+    """A leaf outside the runs (``final_norm``), through ``tp`` where
+    given."""
+    return params[name] if tp is None else tp.top(name)
+
+
+def embed_inputs(params, cfg: ModelConfig, batch,
+                 tp=None) -> Tuple[torch.Tensor, int, int]:
     """(x (B, S, d_model), B, S): an audio config's frame embeddings in
     ``cfg.dtype``; a VLM config's vision embeddings, cast to the embedding
     table's dtype first, then its text tokens' embeddings (S counts
@@ -292,11 +305,11 @@ def embed_inputs(params, cfg: ModelConfig,
     if cfg.embeds_input:                   # audio: stubbed conv frontend
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
     elif cfg.vision_tokens:                # vlm: vision prefix + text
-        emb = params["embed"][batch["tokens"]]
+        emb = _embed(params, batch["tokens"], tp)
         vis = batch["vision_embeds"].to(emb.dtype)        # (B, V, d)
         x = torch.cat([vis, emb], dim=1)
     else:
-        x = params["embed"][batch["tokens"]]
+        x = _embed(params, batch["tokens"], tp)
     B, S = x.shape[:2]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -326,9 +339,16 @@ def _angles_for(cfg: ModelConfig, batch, B: int, S: int, offset, device):
     return rope_angles(pos, _rope_dim(cfg), cfg.rope_theta)
 
 
-def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    logits = x @ head
+def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor,
+               tp=None) -> torch.Tensor:
+    """The head's logits; with ``tp``, this rank's vocabulary columns
+    where the vocabulary is split."""
+    if tp is not None:
+        logits = tp.logits(x)
+    else:
+        head = (params["embed"].T if cfg.tie_embeddings
+                else params["lm_head"])
+        logits = x @ head
     if cfg.logit_softcap:
         cap = cfg.logit_softcap
         logits = torch.tanh(logits / cap) * cap
@@ -338,15 +358,23 @@ def _lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # stack walker (shared by forward & prefill)
 # ---------------------------------------------------------------------------
-def _attn_block(cfg, lp, x, angles, mask, backend):
+def _attn_block(cfg, lp, x, angles, mask, backend, tp=None):
     """An attention block (GQA or MLA) with an FFN or an MoE layer (the
     reference's ``_attn_block`` and ``_moe_block``): (x, what the cache
-    keeps — (k, v), or MLA's (ckv, k_rope) —, MoEMetrics or None)."""
+    keeps — (k, v), or MLA's (ckv, k_rope) —, MoEMetrics or None). With
+    ``tp`` the block is a tensor-parallel rank's share (GQA and a dense
+    FFN) and ``lp`` is (run, layer): the layer's parameters are fetched
+    here (``tp.layer``: its FSDP dims gathered, so that under remat the
+    gather runs again in the backward) and its masks sliced to the rank's
+    heads and FFN columns."""
+    if tp is not None:
+        lp, mask = tp.layer(*lp), tp.mask(mask)
     mask = mask or {}
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
     attend = mla_forward if cfg.attention == "mla" else gqa_forward
     a, kv = attend(lp["attn"], cfg, h, angles,
-                   head_mask=mask.get("head_mask"), backend=backend)
+                   head_mask=mask.get("head_mask"), backend=backend,
+                   **({} if tp is None else {"tp": tp}))
     x = x + a
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
     if "moe" in lp:
@@ -355,7 +383,7 @@ def _attn_block(cfg, lp, x, angles, mask, backend):
         return x + m, kv, metrics
     return x + mlp_forward(lp["mlp"], h, cfg.activation,
                            ffn_mask=mask.get("ffn_mask"),
-                           backend=backend), kv, None
+                           backend=backend, tp=tp), kv, None
 
 
 def _ssm_block(cfg, lp, x, mask, backend, collect_state: bool):
@@ -381,7 +409,8 @@ def _shared_after(cfg: ModelConfig, count: int, j: int) -> Optional[int]:
 
 
 def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
-               backend: str, on_kv=None, on_state=None, on_shared_kv=None):
+               backend: str, on_kv=None, on_state=None, on_shared_kv=None,
+               tp=None):
     """Run every layer over x; returns (x, {"moe_aux", "moe_z"}), the MoE
     layers' router losses summed (zeros without MoE layers). Each callback,
     when given, receives what prefill keeps: ``on_kv(run, layer_in_run,
@@ -390,7 +419,8 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
     layer's conv tail and final state; ``on_shared_kv(g, k, v)`` the keys
     and values of the shared block's invocation ``g``. With ``cfg.remat``
     and grad enabled each block runs under a non-reentrant checkpoint
-    (the callbacks see its outputs, outside it)."""
+    (the callbacks see its outputs, outside it). With ``tp`` each layer
+    is a tensor-parallel rank's share (``_attn_block``)."""
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -403,10 +433,11 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
         return fn(*args)
     for r, (run, rp, rmask) in enumerate(zip(runs, params["runs"], masks)):
         for j in range(run.count):
-            lp, mk = _index(rp, j), _index(rmask, j)
+            lp = (r, j) if tp is not None else _index(rp, j)
+            mk = _index(rmask, j)
             if run.kind != "ssm":
                 x, kv, metrics = block(_attn_block, cfg, lp, x, angles, mk,
-                                       backend)
+                                       backend, tp)
                 if metrics is not None:
                     aux = aux + metrics.aux_loss
                     zl = zl + metrics.z_loss
@@ -430,15 +461,19 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
 # full-sequence forward
 # ---------------------------------------------------------------------------
 def forward(params, cfg: ModelConfig, batch, masks: Masks = None,
-            backend: str = "auto"):
-    """tokens (B,S) -> (logits (B,S,V), {"moe_aux", "moe_z", "hidden"})."""
+            backend: str = "auto", tp=None):
+    """tokens (B,S) -> (logits (B,S,V), {"moe_aux", "moe_z", "hidden"}).
+    With ``tp`` (a ``sharding.tensor_parallel.TensorParallel``) every
+    parameter comes through it and the logits are the rank's vocabulary
+    columns where the vocabulary is split."""
     check_supported(cfg)
     _check_backend(backend)
-    x, B, S = embed_inputs(params, cfg, batch)
+    x, B, S = embed_inputs(params, cfg, batch, tp)
     angles = _angles_for(cfg, batch, B, S, 0, x.device)
-    x, aux = _run_stack(params, cfg, x, angles, masks, backend)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
-    return _lm_logits(params, cfg, x), dict(aux, hidden=x)
+    x, aux = _run_stack(params, cfg, x, angles, masks, backend, tp=tp)
+    x = rmsnorm(x, _top(params, "final_norm", tp), cfg.norm_eps,
+                backend=backend)
+    return _lm_logits(params, cfg, x, tp), dict(aux, hidden=x)
 
 
 # ---------------------------------------------------------------------------
@@ -487,18 +522,23 @@ def _mtp_loss(params, cfg: ModelConfig, batch, hidden: torch.Tensor,
 
 
 def loss_fn(params, cfg: ModelConfig, batch, masks: Masks = None,
-            backend: str = "auto"):
+            backend: str = "auto", tp=None):
     """-> (total, metrics): ``batch`` holds the model inputs and
     ``labels`` (B, S), S the text length (a VLM's labels are padded with
     -1 over its vision prefix). ``total = xent + moe_aux + moe_z``, plus
     ``MTP_WEIGHT`` x the MTP loss for a config with ``mtp_depth`` and an
     ``mtp`` subtree; ``metrics`` holds ``xent``, ``moe_aux``, ``moe_z``,
-    ``mtp`` (where present) and ``loss``, as the reference's."""
-    logits, aux = forward(params, cfg, batch, masks, backend)
+    ``mtp`` (where present) and ``loss``, as the reference's. With ``tp``
+    the cross-entropy is the vocabulary-parallel one where the vocabulary
+    is split."""
+    logits, aux = forward(params, cfg, batch, masks, backend, tp)
     labels = batch["labels"]
     if cfg.vision_tokens:
         labels = F.pad(labels, (cfg.vision_tokens, 0), value=-1)
-    loss = softmax_xent(logits, labels)
+    if tp is None or tp.vocab is None:
+        loss = softmax_xent(logits, labels)
+    else:
+        loss = vocab_xent(logits, labels, tp.vocab[0], tp.axis)
     total = loss + aux["moe_aux"] + aux["moe_z"]
     metrics = {"xent": loss, "moe_aux": aux["moe_aux"],
                "moe_z": aux["moe_z"]}
@@ -520,7 +560,7 @@ def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
 
 
 def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
-                 device: torch.device) -> Dict[str, Any]:
+                 device: torch.device, tp=None) -> Dict[str, Any]:
     """{"runs": [KVCache((count, B, clen, Hkv, D) x2) for an attention run,
     MLACache(ckv (count, B, max_len, kv_lora_rank), krope (count, B,
     max_len, rope_dim)) for an MLA stack's, SSMCache(conv (count, B,
@@ -528,13 +568,18 @@ def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
     run]} and, for a hybrid, "shared": KVCache((ninv, B, max_len, Hkv, D)
     x2), one slot per invocation of the shared block. A hybrid's ssm
     layers are stacked flat, in layer order (the reference splits them
-    into (groups, period) and a tail)."""
+    into (groups, period) and a tail). With ``tp`` a KV cache holds the
+    rank's shard of the heads and head dims."""
     dtype = getattr(torch, cfg.dtype)
     clen = cache_len_for(cfg, max_len)
+    heads, dims = cfg.num_kv_heads, cfg.head_dim
+    if tp is not None:
+        heads = tp.kv_heads[1] - tp.kv_heads[0]
+        dims = tp.kv_dims[1] - tp.kv_dims[0]
 
     def kv(n, length):
         return KVCache(*(torch.zeros(
-            (n, batch_size, length, cfg.num_kv_heads, cfg.head_dim),
+            (n, batch_size, length, heads, dims),
             dtype=dtype, device=device) for _ in range(2)))
 
     caches: List[Any] = []
@@ -591,14 +636,15 @@ def _kv_to_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 # prefill: full sequence -> (last logits, decode-ready cache)
 # ---------------------------------------------------------------------------
 def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
-            masks: Masks = None, backend: str = "auto"):
+            masks: Masks = None, backend: str = "auto", tp=None):
     """Returns (last_logits (B,V), cache) — or (all_logits, None) for a
     bidirectional config (no decode). Each layer's keys and values, or its
     conv tail and SSD state, are written into the cache as the layer
-    finishes."""
+    finishes. With ``tp`` the cache holds the rank's shard
+    (``TensorParallel.store_kv``) and the logits are gathered whole."""
     check_supported(cfg)
     _check_backend(backend)
-    x, B, S = embed_inputs(params, cfg, batch)
+    x, B, S = embed_inputs(params, cfg, batch, tp)
     angles = _angles_for(cfg, batch, B, S, 0, x.device)
     max_len = max_len or S
     callbacks = {}
@@ -609,7 +655,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
             raise ValueError(
                 f"prefill max_len={max_len} < prefill length {S} "
                 "(vision or audio prefix tokens count toward max_len)")
-        caches = _zero_caches(cfg, B, max_len, x.device)
+        caches = _zero_caches(cfg, B, max_len, x.device, tp)
 
         def on_kv(r, j, kv):
             dst = caches["runs"][r]
@@ -617,6 +663,8 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
                 dst.ckv[j, :, :S] = kv[0]
                 dst.krope[j, :, :S] = kv[1]
                 return
+            if tp is not None:
+                kv = tp.store_kv(*kv)
             kc, vc = _kv_to_cache(cfg, *kv, max_len)
             dst.k[j] = kc
             dst.v[j] = vc
@@ -630,11 +678,14 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
             caches["shared"].v[g, :, :S] = v
         callbacks = dict(on_kv=on_kv, on_state=on_state,
                          on_shared_kv=on_shared_kv)
-    x, _ = _run_stack(params, cfg, x, angles, masks, backend, **callbacks)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
+    x, _ = _run_stack(params, cfg, x, angles, masks, backend, tp=tp,
+                      **callbacks)
+    x = rmsnorm(x, _top(params, "final_norm", tp), cfg.norm_eps,
+                backend=backend)
+    whole = (lambda t: t) if tp is None else tp.gather_vocab
     if not cfg.causal:
-        return _lm_logits(params, cfg, x), None
-    logits = _lm_logits(params, cfg, x[:, -1])
+        return whole(_lm_logits(params, cfg, x, tp)), None
+    logits = whole(_lm_logits(params, cfg, x[:, -1], tp))
     caches["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, caches
 
@@ -643,15 +694,17 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
 # decode
 # ---------------------------------------------------------------------------
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
-                masks: Masks = None, backend: str = "auto"):
+                masks: Masks = None, backend: str = "auto", tp=None):
     """tokens (B,1) -> (logits (B,V), new cache). The tensors of ``cache``
     are updated in place (KV slots by ``gqa_decode``, latent slots by
     ``mla_decode``, each Mamba2 layer's conv window and state copied over);
-    the returned cache holds them and the advanced positions."""
+    the returned cache holds them and the advanced positions. With ``tp``
+    the cache holds the rank's shard (``prefill`` with ``tp``) and the
+    logits are gathered whole."""
     check_supported(cfg)
     _check_backend(backend)
     pos = cache["pos"]
-    x = params["embed"][tokens[:, 0]][:, None]
+    x = _embed(params, tokens[:, 0], tp)[:, None]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.rope_mode == "mrope":     # t == h == w == pos, prefix counted
@@ -664,10 +717,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
         angles = rope_angles(pos[:, None], _rope_dim(cfg), cfg.rope_theta)
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
-    for run, rp, rc, rmask in zip(runs, params["runs"], cache["runs"],
-                                  masks):
+    for r, (run, rp, rc, rmask) in enumerate(zip(runs, params["runs"],
+                                                 cache["runs"], masks)):
         for j in range(run.count):
-            lp, mk = _index(rp, j), _index(rmask, j)
+            lp = tp.layer(r, j) if tp is not None else _index(rp, j)
+            mk = _index(rmask, j)
+            if tp is not None:
+                mk = tp.mask(mk)
             if run.kind == "ssm":
                 hm = None if mk is None else mk.get("ssm_head_mask")
                 h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
@@ -686,13 +742,17 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                                      None, backend)
                 continue
             x = _attn_decode(cfg, lp, x, angles,
-                             type(rc)(*(t[j] for t in rc)), pos, mk, backend)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps, backend=backend)
-    logits = _lm_logits(params, cfg, x[:, 0])
+                             type(rc)(*(t[j] for t in rc)), pos, mk, backend,
+                             tp)
+    x = rmsnorm(x, _top(params, "final_norm", tp), cfg.norm_eps,
+                backend=backend)
+    logits = _lm_logits(params, cfg, x[:, 0], tp)
+    if tp is not None:
+        logits = tp.gather_vocab(logits)
     return logits, dict(cache, pos=pos + 1)
 
 
-def _attn_decode(cfg, lp, x, angles, kv, pos, mask, backend):
+def _attn_decode(cfg, lp, x, angles, kv, pos, mask, backend, tp=None):
     """One token through an attention or MoE block; its key and value (a
     ``KVCache``), or its latent and rotary key (an ``MLACache``), go into
     slot ``pos`` of ``kv``, in place. An MoE block dispatches the step's B
@@ -705,7 +765,7 @@ def _attn_decode(cfg, lp, x, angles, kv, pos, mask, backend):
                           head_mask=mask.get("head_mask"), backend=backend)
     else:
         a, _ = gqa_decode(lp["attn"], cfg, h, angles, kv, pos,
-                          head_mask=mask.get("head_mask"))
+                          head_mask=mask.get("head_mask"), tp=tp)
     x = x + a
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
     if "moe" in lp:
@@ -713,4 +773,5 @@ def _attn_decode(cfg, lp, x, angles, kv, pos, mask, backend):
                            expert_mask=mask.get("expert_mask"))
         return x + m
     return x + mlp_forward(lp["mlp"], h, cfg.activation,
-                           ffn_mask=mask.get("ffn_mask"), backend=backend)
+                           ffn_mask=mask.get("ffn_mask"), backend=backend,
+                           tp=tp)

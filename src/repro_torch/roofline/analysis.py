@@ -23,7 +23,11 @@ usually under ``FakeTensorMode`` on a fake process group
   redistributes with, the eager ``c10d`` ones (``dist.all_reduce``), and
   point-to-point sends (the pipeline's hop), which are
   ``"collective-permute"``; a receive moves nothing the sender has not
-  counted. Bytes are also kept by the mesh dim whose group carried them;
+  counted. Collectives issued inside autograd Functions and in the
+  backward (the split route's "model" all-reduces, the reduce-scatter a
+  per-layer gather's backward makes) dispatch through the mode like any
+  other op and count alike. Bytes are also kept by the mesh dim whose
+  group carried them;
 * the peak of the live storages the step holds, its inputs included.
 
 **The collective term's rule.** A collective is priced on the links its

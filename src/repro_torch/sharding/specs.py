@@ -309,16 +309,24 @@ def to_shardings(specs, mesh):
 def distribute(tree, specs, mesh):
     """``tree``'s tensors as DTensors on ``mesh`` laid out by ``specs``:
     each rank keeps its own slice of the full tensor it holds (no
-    communication: every rank must hold the same tree). Other leaves
-    (an optimizer's step counter) stay as they are."""
+    communication: every rank must hold the same tree). A leaf whose
+    slice is the whole tensor (a one-rank mesh, a replicated leaf) is
+    wrapped as it is, without a copy: the DTensor's local tensor *is* the
+    caller's tensor, so a write in place through either shows in the
+    other, and a caller that keeps its tree must write to neither in
+    place (the port's optimizers and steps return new tensors). Other
+    leaves (an optimizer's step counter) stay as they are."""
     import torch
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     def put(_, sp, t):
         if not torch.is_tensor(t):
             return t
-        return distribute_tensor(t, mesh, placements(sp, mesh),
-                                 src_data_rank=None)
+        pl = placements(sp, mesh)
+        if local_shape_and_offset(t.shape, sp, mesh)[0] == tuple(t.shape):
+            return DTensor.from_local(t, mesh, pl, run_check=False,
+                                      shape=t.shape, stride=t.stride())
+        return distribute_tensor(t, mesh, pl, src_data_rank=None)
     return tree_map_with_path(put, specs, tree, is_leaf=_is_spec)
 
 

@@ -38,6 +38,8 @@ from repro_torch.launch import dryrun, dryrun_matrix
 from repro_torch.launch import specs as tspecs
 from repro_torch.roofline import analysis, hw
 from repro_torch.sharding import specs as sh
+from repro_torch.sharding.tensor_parallel import (ROUTE_REPLICATED,
+                                                  ROUTE_SPLIT)
 
 SHAPE_NAMES = tuple(tspecs.SHAPES)
 SMALL = (2, 2)
@@ -237,6 +239,85 @@ def test_counter_counts_collectives_flops_and_memory_by_hand(no_group):
     assert set(terms.as_dict()) == ROOFLINE_KEYS
 
 
+def test_counter_counts_the_split_routes_collectives_by_hand(no_group):
+    """A (2, 2) fake mesh: the column product's input (``copy_to_model``:
+    nothing forward, its gradient all-reduced over "model" backward), a
+    row product's partial sum (``reduce_from_model``: all-reduced forward,
+    nothing backward), both from inside autograd Functions; one layer's
+    weight fetched with its data dim gathered (an all-gather over "data")
+    whose backward reduce-scatters the gradient over "data"; and the
+    vocabulary-parallel cross-entropy's three all-reduces (the max and the
+    sum of exponentials of 6 rows, the gold logits)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.sharding import tensor_parallel as tpm
+    with dryrun.fake_group(4):
+        mesh = dryrun._mesh_of(SMALL)
+        axis = tpm.GroupAxis(mesh.get_group("model"), 0, 2)
+        fetch = tpm._MeshFetch(mesh)
+        cfg = treg.get_smoke_config("qwen2-7b").replace(d_ff=16)
+        with FakeTensorMode():
+            w = DTensor.from_local(torch.empty(3, 4, 8), mesh,
+                                   [Shard(1), Shard(2)], run_check=False,
+                                   shape=(3, 8, 16), stride=(128, 16, 1))
+            w.requires_grad_(True)
+            x = torch.empty(5, 8, requires_grad=True)
+            tp = tpm.TensorParallel(cfg, axis, fetch)
+            with analysis.TraceCounter(mesh) as layer:
+                # the leaf's columns are this rank's FFN block: kept local
+                y = tpm.copy_to_model(x, axis) @ fetch(tp, "w_up", w, 1)
+                out = tpm.reduce_from_model(y @ torch.empty(8, 8), axis)
+                torch.autograd.grad(out.sum(), [x, w])
+            with analysis.TraceCounter(mesh) as xent:
+                tpm.vocab_xent(torch.empty(6, 16), torch.zeros(6).long(), 0,
+                               axis)
+    coll = layer.collectives
+    assert coll.count_by_op == {"all-gather": 1, "all-reduce": 2,
+                                "reduce-scatter": 1}
+    assert coll.bytes_by_op == {"all-gather": 4 * 4 * 8,
+                                "all-reduce": 2 * 4 * 5 * 8,
+                                "reduce-scatter": 4 * 8 * 8}
+    assert coll.bytes_by_group == {"data": 4 * 4 * 8 + 4 * 8 * 8,
+                                   "model": 2 * 4 * 5 * 8}
+    assert xent.collectives.count_by_op == {"all-reduce": 3}
+    assert xent.collectives.bytes_by_group == {"model": 3 * 4 * 6}
+
+
+def test_counter_counts_the_split_decode_by_hand(no_group):
+    """A (1, 4) fake mesh, rank 0, a cache split on the head dim (2 KV
+    heads, D = 32 on 4 ranks: 8 dims a rank) and 10 q heads in blocks of
+    3, 3, 2, 2: the decode step's attention sends the queries at the
+    other ranks' dims (an all-to-all of 3 heads x 8 dims x 3 ranks), all-
+    reduces the scores (10 heads x 40 slots, float32) and sends the
+    output back (an all-to-all of 7 heads x 8 dims); the new slot goes to
+    the shards from the rank that owns KV head 0 (1 head x 8 dims x 3
+    ranks, k and v). Nothing of the cache moves."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models.layers.attention import KVCache
+    from repro_torch.sharding import tensor_parallel as tpm
+    with dryrun.fake_group(4):
+        mesh = dryrun._mesh_of((1, 4))
+        axis = tpm.GroupAxis(mesh.get_group("model"), 0, 4)
+        cfg = treg.get_smoke_config("qwen2-7b").replace(
+            num_heads=10, num_kv_heads=2, head_dim=32, dtype="float32")
+        tp = tpm.TensorParallel(cfg, axis, None)
+        assert tp.kv_layout == "dims" and tp.heads.q == (0, 3)
+        with FakeTensorMode():
+            cache = KVCache(torch.empty(1, 40, 2, 8), torch.empty(1, 40, 2, 8))
+            pos = torch.zeros(1, dtype=torch.int32)
+            with analysis.TraceCounter(mesh) as step:
+                tp.decode_attention(torch.empty(1, 1, 3, 32), cache,
+                                    torch.empty(1, 1, 32),
+                                    torch.empty(1, 1, 32),
+                                    pos.long(), pos + 1, pos, None, 0.1)
+    coll = step.collectives
+    assert coll.count_by_op == {"all-to-all": 3, "all-reduce": 1}
+    assert coll.bytes_by_op == {
+        "all-to-all": 4 * (2 * 1 * 8 * 3 + 3 * 8 * 3 + 7 * 8),
+        "all-reduce": 4 * 10 * 40}
+    assert coll.bytes_by_group == {"model": 4 * (48 + 72 + 56 + 400)}
+
+
 def test_link_rate_prices_groups_by_node():
     assert analysis.link_rate(range(8)) == hw.NVLINK_BW_PER_DIRECTION
     assert analysis.link_rate(range(16)) == hw.NODE_FABRIC_BW_PER_CARD
@@ -281,6 +362,31 @@ def test_every_arch_traces_under_fake_mode(arch, tmp_path, no_group):
             assert json.load(f) == json.loads(json.dumps(rec))
     assert _records(tmp_path) == sorted(written)
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k",
+                                   "decode_32k"])
+def test_split_route_divides_the_per_card_flops_over_model(shape, tmp_path,
+                                                           no_group):
+    """The smoke Qwen2-7B at the full shapes: on a fake (1, 4) mesh its
+    heads, FFN columns and vocabulary split four ways, so a card counts at
+    most 0.35x the FLOPs of the (1, 1) mesh (the even share is 0.25; each
+    rank also computes the KV head its head reads, one of 2), its record
+    says ``split`` and the "model" dim carries the all-reduces; the smoke
+    Mixtral's says ``replicated``."""
+    one = dryrun.run_one("qwen2-7b", shape, False, str(tmp_path / "1"),
+                         mesh_shape=(1, 1), smoke=True)
+    four = dryrun.run_one("qwen2-7b", shape, False, str(tmp_path / "4"),
+                          mesh_shape=(1, 4), smoke=True)
+    assert one["model_axis"] == four["model_axis"] == ROUTE_SPLIT
+    assert (four["cost_analysis"]["flops"]
+            <= 0.35 * one["cost_analysis"]["flops"])
+    coll = four["collectives"]
+    assert coll["count_by_op"]["all-reduce"] > 0
+    assert coll["bytes_by_mesh_dim"]["model"] > 0
+    moe = dryrun.run_one("mixtral-8x7b", shape, False, str(tmp_path / "m"),
+                         mesh_shape=(1, 4), smoke=True)
+    assert moe["model_axis"] == ROUTE_REPLICATED
 
 
 def test_run_one_keeps_its_records_in_out_dir(tmp_path, monkeypatch,
@@ -350,9 +456,13 @@ def test_main_traces_a_full_size_cell_on_the_production_mesh(tmp_path,
     assert rec["params_total"] == dryrun.tr.param_count(
         tspecs.input_specs(treg.get_config("qwen2-7b"),
                            "decode_32k")["params"])
-    # the cache of a row's KV heads is gathered over "model" every step
-    assert rec["collectives"]["bytes_by_mesh_dim"]["model"] > \
+    # the cache stays where it lies (4 KV heads on 16 ranks: split on the
+    # head dim): the queries, the scores and the outputs cross "model"
+    # every step, fewer bytes than a card's cache
+    coll = rec["collectives"]
+    assert 0 < coll["bytes_by_mesh_dim"]["model"] < \
         rec["analytic_memory"]["cache_per_device"]
+    assert coll["count_by_op"]["all-to-all"] > 0
     assert rec["collectives"]["link_bytes_per_s_by_mesh_dim"]["model"] == \
         hw.NODE_FABRIC_BW_PER_CARD
 

@@ -136,6 +136,20 @@ def test_sharded_step_matches_one_process(shape, two_rank_runs, one_process):
         assert float((g - w).abs().max()) <= tol
 
 
+def test_distribute_wraps_a_whole_slice_without_a_copy():
+    """On a one-rank mesh every leaf's slice is the whole tensor, and
+    ``distribute`` wraps the caller's tensor itself: the DTensor's local
+    tensor and the caller's share their memory (so neither may be written
+    in place while the other is in use), and no leaf is copied."""
+    cfg, params, _ = _setup()
+    with host_mesh("cpu") as mesh:
+        placed = sh.distribute(params, sh.param_specs(params, cfg, mesh),
+                               mesh)
+        for t, d in zip(tree_leaves(params), tree_leaves(placed)):
+            assert d.to_local().data_ptr() == t.data_ptr()
+            assert d.shape == t.shape and d.stride() == t.stride()
+
+
 def test_one_rank_mesh_gives_the_unsharded_bits(one_process):
     want_p, want_m = one_process
     cfg, params, batch = _setup()

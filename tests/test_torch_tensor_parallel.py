@@ -1,0 +1,561 @@
+"""Tensor parallelism over "model" for the dense attention stack
+(``repro_torch.sharding.tensor_parallel`` through ``launch.steps``' mesh
+steps) against the port's one-process steps and the reference's
+unsharded ``prefill``, ``decode_step`` and ``jax.value_and_grad`` of
+``loss_fn``, on the same numpy arrays.
+
+One spawn of four gloo ranks (``mp.start_processes``, spawn; inputs and
+results through files in ``tmp_path``) runs a (1, 4) and a (2, 2) ("data",
+"model") mesh for each case: the smoke Qwen2-7B (GQA with QKV biases,
+masks at ratio 0.5), Qwen2-VL-7B (M-RoPE, a vision prefix), gemma-7b
+(MHA, GeGLU, tied and scaled embeddings), nemotron-4-340b (``sq_relu``),
+HuBERT-XLarge (bidirectional, ``embeds`` input, all logits) and a
+hand-made GQA config of 10 heads over 2 KV heads (masks at ratio 0.5),
+whose heads do not divide 4: its (1, 4) split gives ranks 3, 3, 2, 2
+heads, rank 1's crossing its KV groups unevenly (the repeated-KV route),
+and its KV cache lies on the head dim. Each case: the prefill's logits
+and cache, 4 decode steps (the cache written in place), and 2 AdamW
+steps (the loss, the first step's gradient, every parameter after).
+
+Tolerances (float32): the mesh's logits and caches within
+``stack_tol`` of the one-process run's (the same sums split over ranks
+and added in another order; measured under 5e-6 of logits of size ~1);
+its metrics within 1e-6 relative, its parameters within 4 ulp of a
+leaf's largest entry plus 1e-4 of one step's lr, its gradient within
+``GRAD_RTOL32`` of the reference's (as ``tests/test_torch_mesh.py`` and
+the training parity tests state). Against the reference: logits within
+``stack_tol``, the loss within ``LOSS_RTOL32``, each gradient leaf within
+``GRAD_RTOL32`` of its largest entry. In-process: the head split of every
+registry config at "model" 1, 2 and 16, the routes, and the shares of a
+two-rank split run one after another in one process
+(``SequentialRanks``) against the one-process logits.
+
+This file imports no JAX at module level: the spawned ranks import it by
+name."""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch.configs.registry import ARCH_IDS, get_config, \
+    get_smoke_config
+from repro_torch.sharding.tensor_parallel import (
+    ROUTE_REPLICATED, ROUTE_SPLIT, SequentialRanks, TensorParallel,
+    head_split, kv_cache_layout, mesh_route, tp_supported)
+
+#: (name, registry arch, config overrides, masked)
+CASES = (("qwen2-7b", "qwen2-7b", {}, True),
+         ("qwen2-vl-7b", "qwen2-vl-7b", {}, False),
+         ("gemma-7b", "gemma-7b", {}, False),
+         ("nemotron-4-340b", "nemotron-4-340b", {}, False),
+         ("hubert-xlarge", "hubert-xlarge", {}, False),
+         ("gqa-10-over-2", "qwen2-7b",
+          dict(num_heads=10, num_kv_heads=2, head_dim=32), True))
+NAMES = [c[0] for c in CASES]
+MESHES = ((1, 4), (2, 2))
+MESH_IDS = ["1x4", "2x2"]
+B, S, DECODE = 2, 8, 4
+LR = 1e-3
+#: AdamW's eps near the gradients' size (as ``tests/test_torch_mesh.py``):
+#: an update moves with the gradient, not with the sign of an entry near 0
+EPS = 1e-3
+METRIC_RTOL = 1e-6
+PARAM_ULPS = 4
+UPDATE_RTOL = 1e-4
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _case(name):
+    return next(c for c in CASES if c[0] == name)
+
+
+def _port_config(name):
+    _, arch, over, _ = _case(name)
+    return get_smoke_config(arch).replace(dtype="float32", **over)
+
+
+def _max_len(cfg) -> int:
+    return S + (cfg.vision_tokens or 0) + DECODE
+
+
+def _leaves(tree):
+    from repro_torch.optim.optimizers import tree_leaves
+    return tree_leaves(tree)
+
+
+def _steps(cfg, params, masks, batch, tokens, mesh=None) -> dict:
+    """The prefill, ``DECODE`` decode steps and 2 AdamW steps through the
+    steps a launcher calls (on ``mesh``, or in one process); every tensor
+    of the result whole (a DTensor gathered)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.optim.schedules import constant
+    from repro_torch.sharding import specs as sh
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t.clone()
+    opt = adamw(constant(LR), eps=EPS)
+    seen = []
+
+    def update(grads, state, p, **kw):
+        seen.append(grads)
+        return opt.update(grads, state, p, **kw)
+    state = opt.init(params)
+    p = params
+    if mesh is not None:
+        ps = sh.param_specs(params, cfg, mesh)
+        p = sh.distribute(params, ps, mesh)
+        state = sh.distribute(state, sh.opt_state_specs(state, ps), mesh)
+    out = {}
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        prefill = make_prefill_step(cfg, max_len=_max_len(cfg), masks=masks,
+                                    device="cpu", mesh=mesh)
+        logits, cache = prefill(p, inputs)
+        out["prefill"] = whole(logits)
+        if cache is not None:
+            out["cache"] = [whole(t) for t in _leaves(cache["runs"])]
+            decode = make_decode_step(cfg, masks=masks, device="cpu",
+                                      mesh=mesh)
+            out["decode"] = []
+            for t in tokens:
+                logits, cache = decode(p, cache, t)
+                out["decode"].append(whole(logits))
+            out["cache_after"] = [whole(t) for t in _leaves(cache["runs"])]
+    step = make_train_step(cfg, Optimizer(opt.init, update), masks,
+                           device="cpu", mesh=mesh)
+    out["route"] = getattr(step, "route", None)
+    out["metrics"] = []
+    for i in range(2):
+        p, state, m = step(p, state, batch)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            g = _leaves(seen[0])
+            if mesh is not None:
+                g = [DTensor.from_local(t, mesh, q.placements,
+                                        run_check=False, shape=q.shape,
+                                        stride=q.stride())
+                     for t, q in zip(g, _leaves(p))]
+            out["grads"] = [whole(t) for t in g]
+    out["params"] = [whole(t) for t in _leaves(p)]
+    return out
+
+
+def _rank(rank: int, port: int, d: str) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.set_num_threads(1)        # four ranks beside the other workers
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=4)
+    try:
+        for name in NAMES:
+            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
+            cfg = _port_config(name)
+            for shape, sid in zip(MESHES, MESH_IDS):
+                mesh = init_device_mesh("cpu", shape,
+                                        mesh_dim_names=("data", "model"))
+                got = _steps(cfg, inp["params"], inp["masks"], inp["batch"],
+                             inp["tokens"], mesh)
+                if rank == 0:
+                    torch.save(got, os.path.join(d, f"{name}.{sid}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's smoke-size work (its ranks run
+    beside the other workers; a core's threads contending slowed the
+    one-process steps 50-fold), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{name: {"numpy": the shared arrays, "one": the one-process run,
+    "1x4" / "2x2": the mesh runs}}: the inputs made here from numpy (the
+    reference's parameter layout, masks at ratio 0.5 where the case asks),
+    the ranks spawned once for every case."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as rreg
+    from repro.core.pruning import masks as rmasks
+    from repro_torch.interop import (transformer_masks_from_reference,
+                                     transformer_params_from_reference)
+    from torch_parity import free_port, train_batch_np, transformer_params_np
+    d = str(tmp_path_factory.mktemp("tp"))
+    out = {}
+    for name, arch, over, masked in CASES:
+        cr = rreg.get_smoke_config(arch).replace(dtype="float32", **over)
+        pn = transformer_params_np(cr, seed=3)
+        mn = None
+        if masked:
+            n = len(rmasks.transformer_prunable_units(cr))
+            mn = jax.tree_util.tree_map(
+                np.asarray, rmasks.transformer_masks_from_ratios(
+                    jax.tree_util.tree_map(jnp.asarray, pn), cr, [0.5] * n))
+        bn = train_batch_np(cr, B, S, seed=5)
+        tok = np.random.default_rng(6).integers(
+            0, cr.vocab_size, (DECODE, B, 1)).astype(np.int32)
+        inp = {"params": transformer_params_from_reference(pn),
+               "masks": transformer_masks_from_reference(mn),
+               "batch": {k: torch.from_numpy(np.asarray(v))
+                         for k, v in bn.items()},
+               "tokens": [torch.from_numpy(t.astype(np.int64))
+                          for t in tok]}
+        torch.save(inp, os.path.join(d, f"{name}.in.pt"))
+        out[name] = {"numpy": (cr, pn, mn, bn, tok),
+                     "one": _steps(_port_config(name), inp["params"],
+                                   inp["masks"], inp["batch"],
+                                   inp["tokens"])}
+    mp.start_processes(_rank, args=(free_port(), d), nprocs=4,
+                       start_method="spawn")
+    for name in NAMES:
+        for sid in MESH_IDS:
+            out[name][sid] = torch.load(os.path.join(d, f"{name}.{sid}.pt"))
+    return out
+
+
+def _close(got, want, tol_of):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol_of(want)
+
+
+def _stack_tol(want):
+    from torch_parity import stack_tol
+    return stack_tol(want, "float32")
+
+
+# ---------------------------------------------------------------------------
+# the mesh against the one-process steps
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("sid", MESH_IDS)
+@pytest.mark.parametrize("name", NAMES)
+def test_mesh_prefill_and_cache_match_one_process(name, sid, runs):
+    got, want = runs[name][sid], runs[name]["one"]
+    assert got["route"] == ROUTE_SPLIT
+    _close(got["prefill"], want["prefill"], _stack_tol)
+    assert ("cache" in got) == ("cache" in want) == _port_config(name).causal
+    for g, w in zip(got.get("cache", []), want.get("cache", [])):
+        _close(g, w, _stack_tol)
+
+
+@pytest.mark.parametrize("sid", MESH_IDS)
+@pytest.mark.parametrize("name", [n for n in NAMES if n != "hubert-xlarge"])
+def test_mesh_decode_steps_match_one_process(name, sid, runs):
+    got, want = runs[name][sid], runs[name]["one"]
+    assert len(got["decode"]) == len(want["decode"]) == DECODE
+    for g, w in zip(got["decode"], want["decode"]):
+        _close(g, w, _stack_tol)
+    for g, w in zip(got["cache_after"], want["cache_after"]):
+        _close(g, w, _stack_tol)
+
+
+@pytest.mark.parametrize("sid", MESH_IDS)
+@pytest.mark.parametrize("name", NAMES)
+def test_mesh_train_steps_match_one_process(name, sid, runs):
+    got, want = runs[name][sid], runs[name]["one"]
+    for gm, wm in zip(got["metrics"], want["metrics"]):
+        assert set(gm) == set(wm)
+        for k, v in wm.items():
+            assert abs(gm[k] - v) <= METRIC_RTOL * max(abs(v), 1.0)
+    assert len(got["params"]) == len(want["params"])
+    for g, w in zip(got["params"], want["params"]):
+        tol = PARAM_ULPS * EPS32 * float(w.abs().max()) + UPDATE_RTOL * LR
+        _close(g, w, lambda _: tol)
+
+
+# ---------------------------------------------------------------------------
+# against the reference
+# ---------------------------------------------------------------------------
+_REFERENCE: dict = {}
+
+
+def _reference(name, runs, fn):
+    """``fn(*runs[name]["numpy"])``, once a case for both meshes."""
+    key = (name, fn.__name__)
+    if key not in _REFERENCE:
+        _REFERENCE[key] = fn(*runs[name]["numpy"])
+    return _REFERENCE[key]
+
+
+def _reference_serve(cr, pn, mn, bn, tok):
+    """The reference's prefill logits and cache leaves, and its decode
+    steps' logits (dispatch off: its plain path)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import transformer as rtr
+    from torch_parity import to_f32
+    j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    inputs = {k: v for k, v in bn.items() if k != "labels"}
+    logits, cache = rtr.prefill(j(pn), cr, j(inputs),
+                                max_len=_max_len(cr),
+                                masks=None if mn is None else j(mn))
+    out = {"prefill": to_f32(logits)}
+    if cache is None:
+        return out
+    out["cache"] = [to_f32(c) for c in
+                    jax.tree_util.tree_leaves(cache["runs"])]
+    out["decode"] = []
+    for t in tok:
+        logits, cache = rtr.decode_step(j(pn), cr, cache, jnp.asarray(t),
+                                        None if mn is None else j(mn))
+        out["decode"].append(to_f32(logits))
+    return out
+
+
+@pytest.mark.parametrize("sid", MESH_IDS)
+@pytest.mark.parametrize("name", NAMES)
+def test_mesh_serving_matches_reference(name, sid, runs):
+    want = _reference(name, runs, _reference_serve)
+    got = runs[name][sid]
+    _close(got["prefill"], want["prefill"], _stack_tol)
+    for g, w in zip(got.get("cache", []), want.get("cache", [])):
+        _close(g, w, _stack_tol)
+    for g, w in zip(got.get("decode", []), want.get("decode", [])):
+        _close(g, w, _stack_tol)
+
+
+def _reference_train(cr, pn, mn, bn, tok):
+    from torch_parity import reference_loss_and_grads
+    return reference_loss_and_grads(cr, pn, bn, mn)
+
+
+@pytest.mark.parametrize("sid", MESH_IDS)
+@pytest.mark.parametrize("name", NAMES)
+def test_mesh_gradient_and_loss_match_reference(name, sid, runs):
+    """The first step's loss and gradient (every leaf, gathered whole)
+    against ``jax.value_and_grad`` of the reference's ``loss_fn``."""
+    from repro_torch.interop import transformer_params_from_reference
+    from repro_torch.optim.optimizers import tree_map
+    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
+                              port_grad_leaves)
+    pn = runs[name]["numpy"][1]
+    loss, _, grads = _reference(name, runs, _reference_train)
+    got = runs[name][sid]
+    assert abs(got["metrics"][0]["loss"] - loss) <= LOSS_RTOL32 * abs(loss)
+    flat = iter(got["grads"])
+    tree = tree_map(lambda _: next(flat),
+                    transformer_params_from_reference(pn))
+    assert_grads_close32(port_grad_leaves(tree), grads)
+
+
+# ---------------------------------------------------------------------------
+# in one process
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m", [1, 2, 16])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_head_split_of_every_registry_config(arch, m):
+    """Contiguous q-head blocks covering every head once, sizes within one
+    of each other, each with the KV heads its heads read (``h // group``)
+    and a map the kernel can take or a repeat; configs without GQA heads
+    take the replicated route and are refused."""
+    cfg = get_config(arch)
+    if not tp_supported(cfg):
+        assert mesh_route(cfg) == ROUTE_REPLICATED
+        with pytest.raises(ValueError):
+            TensorParallel(cfg, SequentialRanks(m).axes()[0], None)
+        return
+    assert mesh_route(cfg) == ROUTE_SPLIT
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    group = H // Hkv
+    split = head_split(H, Hkv, m)
+    assert [s.q for s in split] == sorted(s.q for s in split)
+    assert split[0].q[0] == 0 and split[-1].q[1] == H
+    assert all(a.q[1] == b.q[0] for a, b in zip(split, split[1:]))
+    sizes = [s.q[1] - s.q[0] for s in split]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    for s in split:
+        reads = [h // group for h in range(*s.q)]
+        assert s.kv == (reads[0], reads[-1] + 1)
+        assert [s.kv[0] + k for k in s.kv_of_q] == reads
+        nq, nkv = s.q[1] - s.q[0], s.kv[1] - s.kv[0]
+        kernel_map = ([h // (nq // nkv) for h in range(nq)]
+                      if nq % nkv == 0 else None)
+        assert s.grouped == (kernel_map == list(s.kv_of_q))
+    if m == 1:
+        assert split == [head_split(H, Hkv, 1)[0]] and split[0].grouped
+    assert kv_cache_layout(Hkv, cfg.head_dim, m) == (
+        "heads" if Hkv % m == 0 else
+        "dims" if cfg.head_dim % m == 0 else "whole")
+
+
+def test_qwen2_7b_at_model_8_repeats_the_kv_heads_of_a_crossing_block():
+    """The example of the split's hard part: 28 heads over 4 KV heads on 8
+    ranks are blocks of 4, 4, 4, 4, 3, 3, 3, 3; rank 1 holds heads 4-7,
+    three reading KV head 0 and one KV head 1, which the kernel's ``h //
+    group`` map would read wrong."""
+    split = head_split(28, 4, 8)
+    assert [s.q[1] - s.q[0] for s in split] == [4] * 4 + [3] * 4
+    assert split[1].q == (4, 8) and split[1].kv == (0, 2)
+    assert split[1].kv_of_q == (0, 0, 0, 1) and not split[1].grouped
+    at16 = head_split(28, 4, 16)
+    assert [s.q[1] - s.q[0] for s in at16] == [2] * 12 + [1] * 4
+
+
+@pytest.mark.parametrize("m", [2, 3, 4])
+@pytest.mark.parametrize("name", NAMES)
+def test_sequential_ranks_give_the_one_process_logits(name, m):
+    """The shares of an ``m``-rank split run one after another in one
+    process (each reduction adding them in rank order): the prefill's
+    logits and 2 decode steps' within ``stack_tol`` of the one-process
+    run, every rank with the same bits. The KV cache lies by heads on 2
+    ranks, whole on 3 (neither the KV heads nor the head dim divide 3)
+    and by the head dim on 4 where the KV heads do not divide 4 (the
+    queries sent to the cache)."""
+    from repro_torch.models import transformer as tr
+    from torch_parity import model_batch_np
+    cfg = _port_config(name)
+    if cfg.num_heads < m:
+        pytest.skip("more ranks than heads")
+    params = tr.init_params(cfg, 0, device="cpu")
+    batch = {k: torch.as_tensor(v)
+             for k, v in model_batch_np(cfg, B, S, seed=4).items()}
+    toks = [torch.tensor([[3], [5]]), torch.tensor([[7], [1]])]
+
+    def run(tp=None):
+        logits, cache = tr.prefill(params, cfg, batch,
+                                   max_len=_max_len(cfg), tp=tp)
+        out = [logits]
+        for t in toks if cfg.causal else ():
+            logits, cache = tr.decode_step(params, cfg, cache, t, tp=tp)
+            out.append(logits)
+        return out
+    with torch.no_grad():
+        want = run()
+        ranks = SequentialRanks(m)
+        shares = [TensorParallel.sliced(cfg, params, axis)
+                  for axis in ranks.axes()]
+        got = ranks.run([lambda tp=tp: run(tp) for tp in shares])
+    for r in got[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r, got[0]))
+    for g, w in zip(got[0], want):
+        _close(g, w, _stack_tol)
+
+
+def test_sequential_ranks_fail_every_rank_when_one_fails():
+    ranks = SequentialRanks(2)
+    a0, a1 = ranks.axes()
+
+    def bad():
+        raise RuntimeError("rank 1 broke")
+    with pytest.raises(RuntimeError, match="rank 1 broke"):
+        ranks.run([lambda: a0.all_reduce(torch.ones(2)), bad])
+
+
+def test_sequential_ranks_reduce_in_rank_order():
+    ranks = SequentialRanks(3)
+    axes = ranks.axes()
+    parts = [torch.tensor([1.0, -2.0]), torch.tensor([10.0, 5.0]),
+             torch.tensor([100.0, 1.0])]
+    got = ranks.run([lambda a=a, p=p: (a.all_reduce(p),
+                                       a.all_reduce(p, op="max"),
+                                       a.all_gather(p))
+                     for a, p in zip(axes, parts)])
+    for s, mx, g in got:
+        assert s.tolist() == [111.0, 4.0]
+        assert mx.tolist() == [100.0, 5.0]
+        assert torch.equal(g, torch.stack(parts))
+
+
+def test_sequential_ranks_all_to_all_delivers_each_part():
+    """``all_to_all``: rank s receives ``parts[s]`` of every rank, in rank
+    order (its own part as it is); a part of another shape than the
+    receiver expects is refused."""
+    ranks = SequentialRanks(3)
+    axes = ranks.axes()
+
+    def parts(r):
+        return [torch.full((r + 1, s + 1), 10.0 * r + s) for s in range(3)]
+    got = ranks.run([lambda a=a: a.all_to_all(
+        parts(a.rank), [(r + 1, a.rank + 1) for r in range(3)])
+        for a in axes])
+    for s, recv in enumerate(got):
+        assert [t.tolist() for t in recv] == [
+            parts(r)[s].tolist() for r in range(3)]
+    ranks = SequentialRanks(2)
+    with pytest.raises(ValueError, match="expected"):
+        ranks.run([lambda a=a: a.all_to_all([torch.ones(2)] * 2,
+                                            [(3,), (3,)])
+                   for a in ranks.axes()])
+
+
+@pytest.mark.parametrize("layout", ["dims", "whole"])
+def test_decode_sends_the_queries_not_the_cache(layout):
+    """A decode step on 4 ranks of a config whose KV heads do not divide
+    4: what the ranks exchange is the queries, one layer's scores and
+    the outputs, never a cache leaf: every exchanged tensor is smaller
+    than one rank's cache shard of a layer, and the decode's logits
+    agree with the one-process run's."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import tensor_parallel as tpm
+    from torch_parity import model_batch_np
+    over = (dict(num_heads=10, num_kv_heads=2, head_dim=32)
+            if layout == "dims" else
+            dict(num_heads=10, num_kv_heads=2, head_dim=30))
+    cfg = _port_config("qwen2-7b").replace(**over)
+    params = tr.init_params(cfg, 0, device="cpu")
+    batch = {k: torch.as_tensor(v)
+             for k, v in model_batch_np(cfg, B, 24, seed=4).items()}
+    tok = torch.tensor([[3], [5]])
+    seen = []
+
+    class Watched(tpm._SequentialAxis):
+        def all_gather(self, t):
+            seen.append(("all_gather", t.numel()))
+            return super().all_gather(t)
+
+        def all_reduce(self, t, op="sum"):
+            seen.append(("all_reduce", t.numel()))
+            return super().all_reduce(t, op)
+
+        def all_to_all(self, parts, shapes):
+            seen.append(("all_to_all", sum(p.numel() for p in parts)))
+            return super().all_to_all(parts, shapes)
+
+    def run(tp=None, at=None):
+        _, cache = tr.prefill(params, cfg, batch, max_len=32, tp=tp)
+        if at is not None:
+            at.append(len(seen))
+        return tr.decode_step(params, cfg, cache, tok, tp=tp)[0]
+    with torch.no_grad():
+        want = run()
+        ranks = SequentialRanks(4)
+        shares = [TensorParallel.sliced(cfg, params, Watched(ranks, r))
+                  for r in range(4)]
+        assert {tp.kv_layout for tp in shares} == {layout}
+        marks = []
+        got = ranks.run([lambda tp=tp: run(tp, marks) for tp in shares])
+    shard = min(2 * B * 32 * (tp.kv_heads[1] - tp.kv_heads[0])
+                * (tp.kv_dims[1] - tp.kv_dims[0]) for tp in shares)
+    moved = seen[min(marks):]
+    assert moved and all(n < shard for _, n in moved)
+    _close(got[0], want, _stack_tol)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b",
+                                  "mamba2-2.7b", "zamba2-1.2b"])
+def test_other_stacks_name_the_replicated_route(arch):
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    cfg = get_smoke_config(arch)
+    with host_mesh("cpu") as mesh:
+        steps = [make_prefill_step(cfg, device="cpu", mesh=mesh),
+                 make_decode_step(cfg, device="cpu", mesh=mesh),
+                 make_train_step(cfg, adamw(constant(1e-3)), device="cpu",
+                                 mesh=mesh)]
+    assert [s.route for s in steps] == [ROUTE_REPLICATED] * 3
