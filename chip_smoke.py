@@ -277,10 +277,10 @@ Phases, each printing its own lines:
    from ``data.tokens.MarkovTokens``, for three pruned models at full
    width (``TRAIN_RUNS``; masks at ratio 0.5 through ``model_setup``): T1
    Qwen2-VL-7B cut to 4 of 28 layers (1,024 seeded vision embeddings on
-   the 32 x 32 grid, then 1,024 tokens), T2 HuBERT-XLarge at 48 of 48
+   the 32 x 32 grid, then 1,024 tokens), T2 HuBERT-XLarge cut to 24 of 48
    (2,048 frames, labels in [0, 504)), T3 DeepSeek-V3 cut to its first
    (dense MLA) layer plus the MTP block (1,024 tokens, bf16 moments). A
-   ``slice`` line each (``layers 4 of 28``, ``48 of 48``, ``1 of 61 +
+   ``slice`` line each (``layers 4 of 28``, ``24 of 48``, ``1 of 61 +
    mtp``, with the cut's reason); the loss and every gradient three ways
    (the kernel path, the bf16 plain run, the fp32 plain run on a float32
    copy with TF32 off), each metric and each leaf's relative L2 gap to
@@ -296,12 +296,13 @@ Phases, each printing its own lines:
    at the run's shape. A ``train`` line each and a ``phase20`` line.
 21. mesh and examples — phase 20's T1 (Qwen2-VL-7B, 4 of 28 layers, masks
    at ratio 0.5, one fixed batch of 1,024 vision + 1,024 text positions)
-   through the sharded train step (``make_train_step(mesh=...)``) on the
-   split route of ``sharding.tensor_parallel``, then phase 20's T5
-   (Zamba2-1.2B cut to 12 of 38 layers, two invocations of its shared
-   block, 2,048 tokens: its hybrid stack keeps the replicated route, the
-   whole tree gathered, which MoE, MLA, SSM and hybrid configs train
-   through), each on the
+   and T3 (DeepSeek-V3's dense MLA layer and its MTP block, 1,024 tokens,
+   bf16 moments) through the sharded train step
+   (``make_train_step(mesh=...)``) on the split route of
+   ``sharding.tensor_parallel``, then phase 20's T5 (Zamba2-1.2B cut to
+   12 of 38 layers, two invocations of its shared block, 2,048 tokens:
+   its hybrid stack keeps the replicated route, the whole tree gathered,
+   which the Mamba2 stacks train through), each on the
    ``(1, 1)`` host mesh of a one-rank NCCL group (``launch.mesh.
    host_mesh``; the parameters and AdamW state as DTensors placed by
    ``sharding.specs``): 2 steps with the launch counters zeroed just
@@ -313,8 +314,9 @@ Phases, each printing its own lines:
    device ms (``device_profile`` of one more step, beside the unsharded
    step's) and peak memory, and each run's peak above the memory held
    before it, from its optimizer's init through its profiled step, the
-   route it took checked (a ``train`` line each, ``"run": "T1 mesh"`` and
-   ``"T5 mesh"``; the group destroyed at the end of each); then the four
+   route it took checked (a ``train`` line each, ``"run": "T1 mesh"``,
+   ``"T3 mesh"`` and ``"T5 mesh"``; the group destroyed at the end of
+   each); then the four
    example twins on the card (``examples/port_*.py``: the quickstart at
    its defaults, the collaborative serve with 8 int8 requests pipelined
    over the socket, the prune-and-split of Qwen2-7B, the training twin of
@@ -331,8 +333,9 @@ Phases, each printing its own lines:
    the same batch: bit-equal, gaps to the fp32 plain run, wall and device
    ms, peaks, launches (``split_serve`` lines, a ``dryrun`` line and a
    ``phase22`` line).
-23. tensor parallelism — the pruned Qwen2-7B at full width and depth on
-   the split route (``sharding.tensor_parallel``): (a) an R1 prefill and
+23. tensor parallelism — the pruned Qwen2-7B at full width, 14 of its 28
+   layers (``TP_QWEN_LAYERS``, for the script's time), on the split route
+   (``sharding.tensor_parallel``): (a) an R1 prefill and
    16 greedy decode steps through the mesh steps on the one-rank NCCL
    host mesh, bit for bit against the unsharded steps, with the same
    launches, wall and device ms and peaks beside the unsharded run's;
@@ -341,8 +344,20 @@ Phases, each printing its own lines:
    9,472 and half the vocabulary a rank), a prefill and 4 decode steps,
    both ranks' logits bit-equal, launches exactly twice one request's,
    every logit row within phase 6's rule of the unsharded bf16 and fp32
-   plain runs teacher-forced with its tokens (``tensor_parallel`` lines
-   and a ``phase23`` line). Phase 3 holds the kernels at these shard
+   plain runs teacher-forced with its tokens. Then the MoE stacks, pruned
+   at full width, the MTP block released: Mixtral-8x7B at 4 of 32 layers
+   and DeepSeek-V3 at its 3 dense layers and 1 MoE layer, (c) an R1
+   prefill and 4 decode steps through the mesh steps on the one-rank
+   mesh, bit-equal to the unsharded steps with the same launches, (d)
+   the "model" = 2 split rank after rank held as (b), every step, the
+   plain runs taking the split's own routes (the share of routes the
+   split and the unsharded kernel path pick alike reported, and the
+   steps they routed apart);
+   (e) Mixtral-8x7B at 2 layers on "model" = 16 rank after rank (two
+   ranks an expert, 7,168 columns each; its 8 KV heads on the head dim,
+   the decode's queries sent to the cache), an R1 prefill and 2 decode
+   steps held as (d) (``tensor_parallel`` lines and a ``phase23`` line).
+   Phase 3 holds the kernels at these shard
    shapes too: the bf16 ``masked_matmul`` at N = 9,472 and 1,184
    (Qwen2-7B's d_ff over 2 and 16 ranks), M = 2,048 and 1;
    ``flash_attention`` at 14 heads over 2 and 2 over 1 (D = 128) and
@@ -1962,17 +1977,19 @@ def transformer_slice(cfg, params, masks, requests, to_fp32=None):
 def watch_moe():
     """Record each MoE layer call of the stack made while the block runs:
     yields a list that gains, a call, (params, MoEConfig, input, expert
-    mask, drop_frac). Storing references costs the timed run nothing;
-    ``routes_of`` recomputes the routes afterwards (``moe.route`` is
-    deterministic). The stack looks ``moe_forward`` up in its module at
-    each call, so the block wraps it there."""
+    mask, drop_frac, the tensor-parallel rank or 0). Storing references
+    costs the timed run nothing; ``routes_of`` recomputes the routes
+    afterwards (``moe.route`` is deterministic, and a split's router is
+    whole on every rank). The stack looks ``moe_forward`` up in its module
+    at each call, so the block wraps it there."""
     from repro_torch.models import transformer as tr
     calls, inner = [], tr.moe_forward
 
-    def watched(params, moe, x, activation, *, expert_mask=None):
+    def watched(params, moe, x, activation, *, expert_mask=None, tp=None):
         out, metrics = inner(params, moe, x, activation,
-                             expert_mask=expert_mask)
-        calls.append((params, moe, x, expert_mask, metrics.drop_frac))
+                             expert_mask=expert_mask, tp=tp)
+        calls.append((params, moe, x, expert_mask, metrics.drop_frac,
+                      0 if tp is None else tp.axis.rank))
         return out, metrics
     tr.moe_forward = watched
     try:
@@ -1981,14 +1998,46 @@ def watch_moe():
         tr.moe_forward = inner
 
 
+@contextlib.contextmanager
+def routes_forced(routes):
+    """While the block runs, each MoE layer call routes its tokens to the
+    experts ``routes`` gives (``routes_of``'s list of one request: (experts
+    (T, k), drop_frac) a call, in call order), each pick weighted by the
+    call's own router scores renormalised over the picks, as the router
+    does. Fails unless the calls take every route, in order, each at its
+    shape. A stack without MoE layers has no routes and makes no call."""
+    from repro_torch.models.layers import moe as moe_layer
+    inner, queue = moe_layer._router, list(routes)
+
+    def forced(params, moe, x2d, expert_mask):
+        logits, scores = moe_layer._scores(params, moe, x2d, expert_mask)
+        if not queue:
+            raise AssertionError("an MoE call past the recorded routes")
+        idx = queue.pop(0)[0]
+        if tuple(idx.shape) != (x2d.shape[0], moe.top_k):
+            raise AssertionError(f"recorded routes {tuple(idx.shape)} for "
+                                 f"{x2d.shape[0]} tokens")
+        probs = scores.gather(-1, idx)
+        return (logits, probs / probs.sum(-1, keepdim=True).clamp_min(1e-9),
+                idx)
+    moe_layer._router = forced
+    try:
+        yield
+    finally:
+        moe_layer._router = inner
+    if queue:
+        raise AssertionError(f"{len(queue)} recorded routes not taken")
+
+
 def routes_of(calls, n_requests: int):
     """The recorded MoE calls of ``n_requests`` requests served one after
     the other (each makes as many), as a list a request of (experts (T,
-    k) each token was routed to, drop_frac) a call, in call order.
-    Empties ``calls``, releasing the layer inputs it held."""
+    k) each token was routed to, drop_frac) a call, in call order; of a
+    split's shares, rank 0's. Empties ``calls``, releasing the layer
+    inputs it held."""
     from repro_torch.models.layers.moe import route
     out = [(route(p, moe, x.reshape(-1, x.shape[-1]), mask)[1], float(drop))
-           for p, moe, x, mask, drop in calls]
+           for p, moe, x, mask, drop, rank in calls if rank == 0]
     calls.clear()
     per = len(out) // max(n_requests, 1)
     return [out[i * per:(i + 1) * per] for i in range(n_requests)]
@@ -2001,10 +2050,10 @@ def moe_layer_count(cfg) -> int:
     return sum(r.count for r in layer_runs(cfg) if r.kind == "moe")
 
 
-def flipped_steps(cfg, shape, kroutes, proutes):
+def flipped_steps(cfg, shape, kroutes, proutes, steps: int = DECODE_STEPS):
     """For one request of ``shape`` (B, S) served by the kernel path and by
-    the bf16 plain run (``routes_of`` of each): a flag a step (the
-    prefill, then each decode step) set where, in some MoE layer, the two
+    the bf16 plain run (``routes_of`` of each), a prefill and ``steps``
+    decode steps: a flag a step set where, in some MoE layer, the two
     routed one of that step's own tokens (the prefill's last token of each
     sequence, a decode step's B tokens) to different experts."""
     B, S = shape
@@ -2012,7 +2061,7 @@ def flipped_steps(cfg, shape, kroutes, proutes):
     flags = []
     kr = [r for r, _ in kroutes]
     pr = [r for r, _ in proutes]
-    for step in range(1 + DECODE_STEPS):
+    for step in range(1 + steps):
         rows = ([b * S + S - 1 for b in range(B)] if step == 0
                 else list(range(B)))
         flags.append(any(bool((kr[step * L + j][rows]
@@ -3705,17 +3754,22 @@ def hubert_phase():
 #: bf16 moments) fit only since AdamW walks a leaf in slabs
 #: (``optim.optimizers.slabwise``): the float32 temporaries of its whole
 #: stacked ``w_in`` (1.73 B entries) ran the card out of memory; now ~45
-#: GB. Zamba2-1.2B's 38 (1.09 B), fp32 moments: under 40 GB
+#: GB. Zamba2-1.2B's 38 (1.09 B), fp32 moments: under 40 GB; T2 and T5
+#: run half their depth for the script's time
 TRAIN_RUNS = (
     ("T1", "qwen2_vl_7b", 4, "a step of 8 layers needs ~65 GB of the "
      "card's 80 (bf16 weights and grads, fp32 moments, the update's "
      "second copy)", 1, 1024, 8, "float32"),
-    ("T2", "hubert_xlarge", 48, None, 1, 2048, 8, "float32"),
+    ("T2", "hubert_xlarge", 24, "the script's time: at 48 layers its "
+     "profiles took ~63 s, and phases 21 and 23 grew", 1, 2048, 8,
+     "float32"),
     ("T3", "deepseek_v3_671b", 1, "one dense MLA layer and the MTP block "
      "(3.41 B parameters) with bf16 moments: ~48 GB a step", 1, 1024, 2,
      "bfloat16"),
     ("T4", "mamba2_2p7b", 64, None, 1, 2048, 4, "bfloat16"),
-    ("T5", "zamba2_1p2b", 38, None, 1, 2048, 8, "float32"))
+    ("T5", "zamba2_1p2b", 19, "the script's time: at 38 layers its "
+     "profiles took ~50 s, and phases 21 and 23 grew", 1, 2048, 8,
+     "float32"))
 #: the constant learning rate of the training runs (AdamW, the reference's
 #: defaults otherwise: b1 0.9, b2 0.95, eps 1e-8, clip 1.0)
 TRAIN_LR = 1e-4
@@ -4185,12 +4239,14 @@ def training_phase():
 
 
 #: phase 21's sharded steps: phase 20's runs by label, each with the mesh
-#: route it must take (T1's dense attention stack the split one, T5's
-#: hybrid Zamba2 the replicated one) and its depth (None: phase 20's; T5
-#: cut to 12 of 38 layers, two invocations of its shared block, for the
-#: script's time: its two device profiles take ~20 s at full depth), and
-#: their number of steps
-MESH_RUNS = (("T1", "split", None), ("T5", "replicated", 12))
+#: route it must take (T1's dense attention stack and T3's DeepSeek-V3
+#: dense MLA layer and MTP block the split one, T5's hybrid Zamba2 the
+#: replicated one) and its depth (None: phase 20's; T5 cut to 12 of 38
+#: layers, two invocations of its shared block, for the script's time:
+#: its two device profiles take ~20 s at full depth), and their number of
+#: steps
+MESH_RUNS = (("T1", "split", None), ("T3", "split", None),
+             ("T5", "replicated", 12))
 MESH_STEPS = 2
 #: phase 21's example twins and their arguments: the reference's defaults,
 #: but the serve's 8 int8 requests pipelined, a port the OS assigns, and
@@ -4711,16 +4767,28 @@ def split_serve_phase() -> dict:
         flush=True)
     return dict(total)
 
-#: phase 23: tensor parallelism over "model" for the dense attention stack
+#: phase 23: tensor parallelism over "model" for the attention stacks
 TP_REQUEST = ("R1", 1, 2048)
-#: (b)'s split: "model" ranks run one after another, and its decode steps
+#: (a) and (b): Qwen2-7B's layers kept (14 of 28, for the script's time)
+TP_QWEN_LAYERS = 14
+#: (b)'s and (d)'s split: "model" ranks run one after another, and the
+#: decode steps of (b), (c) and (d)
 TP_RANKS = 2
 TP_DECODE_STEPS = 4
+#: (c) and (d): the MoE stacks at full width, (registry module, layers
+#: kept): Mixtral-8x7B 4 of 32; DeepSeek-V3 its 3 dense layers and 1 MoE
+#: layer (~30 GB: one MoE layer is 23.0 GB)
+TP_MOE_RUNS = (("mixtral_8x7b", 4), ("deepseek_v3_671b", 4))
+#: (e): Mixtral-8x7B at "model" = 16 rank after rank: (layers, ranks,
+#: decode steps); the only run on the card of two ranks an expert and of a
+#: KV cache on the head dim (8 KV heads on 16 ranks)
+TP_WIDE = (2, 16, 2)
 
 
-def tp_one_rank(cfg, params, masks, batch) -> dict:
-    """Phase 23 (a): an R1 prefill and ``DECODE_STEPS`` greedy decode steps
-    through the mesh steps on the one-rank NCCL host mesh (the split
+def tp_one_rank(cfg, params, masks, batch, steps: int = DECODE_STEPS,
+                part: str = "a") -> dict:
+    """Phase 23 (a) and (c): an R1 prefill and ``steps`` greedy decode
+    steps through the mesh steps on the one-rank NCCL host mesh (the split
     route: every fetch a view, every reduction the identity) against the
     unsharded steps: the same logits bit for bit, the same tokens and
     launches; each run's wall ms, device ms (one traced run) and peak."""
@@ -4734,7 +4802,7 @@ def tp_one_rank(cfg, params, masks, batch) -> dict:
     def request(prefill, decode, p, local):
         lg, cache = prefill(p, batch)
         out = [local(lg)]
-        for _ in range(DECODE_STEPS):
+        for _ in range(steps):
             lg, cache = decode(p, cache, out[-1].argmax(-1, keepdim=True))
             out.append(local(lg))
         torch.cuda.synchronize()
@@ -4758,7 +4826,7 @@ def tp_one_rank(cfg, params, masks, batch) -> dict:
                      "peak_rise_gb": (peak - start) / 1e9,
                      "launches": launches}
     B, S = TP_REQUEST[1:]
-    max_len = S + DECODE_STEPS
+    max_len = S + steps
     torch.cuda.empty_cache()
     want, base = measured(make_prefill_step(cfg, max_len=max_len,
                                             masks=masks),
@@ -4778,7 +4846,7 @@ def tp_one_rank(cfg, params, masks, batch) -> dict:
     if dist.is_initialized():
         raise AssertionError("the host mesh's group outlived the phase")
     torch.cuda.empty_cache()
-    want_launches = expected_launches(cfg)
+    want_launches = expected_launches(cfg, steps)
     row.update(route=ROUTE_SPLIT, mesh={"data": 1, "model": 1},
                unsharded=base,
                bit_equal=all(torch.equal(a, b) for a, b in zip(got, want)),
@@ -4786,19 +4854,20 @@ def tp_one_rank(cfg, params, masks, batch) -> dict:
                                 for a, b in zip(got, want)))
     if not row["bit_equal"] or row["launches"] != base["launches"] \
             or base["launches"] != want_launches:
-        raise AssertionError(f"phase 23 (a) off the unsharded steps: "
+        raise AssertionError(f"phase 23 ({part}) off the unsharded steps: "
                              f"{json.dumps(row)}")
     return row
 
 
 def tp_shares(cfg, params, masks, batch, m: int, steps: int) -> dict:
-    """Phase 23 (b): the ``m``-rank split of ``cfg`` over "model" on the
-    card, each rank's share run in turn through ``SequentialRanks`` (every
-    row product's partial sums added in rank order): an R1 prefill and
-    ``steps`` greedy decode steps through the stack with ``tp``, every
-    layer at the rank's shapes (its heads, FFN columns and vocabulary).
-    Returns each rank's logits, the tokens, the ms of the run and its
-    launches, which must be ``m`` times one request's."""
+    """Phase 23 (b), (d) and (e): the ``m``-rank split of ``cfg`` over
+    "model" on the card, each rank's share run in turn through
+    ``SequentialRanks`` (every row product's partial sums added in rank
+    order): an R1 prefill and ``steps`` greedy decode steps through the
+    stack with ``tp``, every layer at the rank's shapes (its heads, FFN
+    columns, experts and vocabulary). Returns each rank's logits, the
+    tokens, rank 0's MoE routes, the ms of the run and its launches, which
+    must be ``m`` times one request's."""
     import torch
     from repro_torch.data.requests import batch_shape
     from repro_torch.models import transformer as tr
@@ -4823,7 +4892,7 @@ def tp_shares(cfg, params, masks, batch, m: int, steps: int) -> dict:
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), watch_moe() as calls:
         res = ranks.run([lambda tp=tp: run(tp) for tp in shares])
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
@@ -4831,64 +4900,59 @@ def tp_shares(cfg, params, masks, batch, m: int, steps: int) -> dict:
     one = expected_launches(cfg, steps)
     want = {k: m * v for k, v in one.items()}
     if launches != want:
-        raise AssertionError(f"phase 23 (b) launches {launches}, expected "
-                             f"{want}")
+        raise AssertionError(f"phase 23 split launches {launches}, "
+                             f"expected {want}")
     for out, tok in res[1:]:
         if not (torch.equal(tok, res[0][1]) and all(
                 torch.equal(a, b) for a, b in zip(out, res[0][0]))):
-            raise AssertionError("phase 23 (b): the ranks' logits differ")
+            raise AssertionError("phase 23: the ranks' logits differ")
+    shapes = [{"rank": tp.axis.rank, "heads": tp.heads.q,
+               "kv_heads": tp.heads.kv, "ffn": tp.ffn, "vocab": tp.vocab,
+               "kv_cache": tp.kv_layout} for tp in shares]
+    for row, tp in zip(shapes, shares):
+        if cfg.moe is not None:
+            row["experts"], row["expert_cols"] = tp.experts
+        if cfg.attention == "mla":
+            row["latent_cache"] = tp.latent_layouts
     return {"logits": res[0][0], "tokens": res[0][1], "ms": ms,
-            "launches": launches,
-            "shapes": [{"rank": tp.axis.rank, "heads": tp.heads.q,
-                        "kv_heads": tp.heads.kv, "ffn": tp.ffn,
-                        "vocab": tp.vocab, "kv_cache": tp.kv_layout}
-                       for tp in shares]}
+            "routes": routes_of(calls, 1)[0], "launches": launches,
+            "shapes": shapes}
 
 
-def tensor_parallel_phase() -> dict:
-    """Phase 23: the pruned Qwen2-7B at full width and depth: (a) an R1
-    request through the mesh steps on the one-rank NCCL mesh, bit-equal to
-    the unsharded steps (``tp_one_rank``); (b) the ``TP_RANKS``-rank split
-    run rank after rank on the card (``tp_shares``), its logits held to
-    the LM phases' rule against the unsharded plain runs in bf16 and fp32,
-    teacher-forced with its tokens: no farther from the fp32 run than
-    twice the bf16 plain run is, plus one bf16 spacing of the largest
-    logit. One ``tensor_parallel`` line each and a ``phase23`` line.
-    Returns the launches of both, by kernel and route."""
+def tp_held(cfg, params, masks, batch, split, steps: int) -> dict:
+    """A split's logits (``tp_shares``) held to the LM phases' rule against
+    the unsharded plain runs in bf16 and fp32, teacher-forced with its
+    tokens: no farther from the fp32 run than twice the bf16 plain run
+    is, plus one bf16 spacing of the largest logit. In an MoE stack both
+    plain runs take the split's own routes (``routes_forced``), so every
+    step is held: routing is discontinuous, and one bf16 rounding in a
+    norm or an attention can move a token past the top-k boundary, which
+    the rule is not about. The share of (token, k) routes the split and
+    the unsharded kernel path pick alike is reported, and the steps whose
+    own tokens they routed apart in some layer (``flipped_steps``).
+    ``params`` end as float32 (``float32_in_place``). Returns the row."""
     import torch
-    from repro_torch.configs import qwen2_7b
+    from repro_torch.data.requests import batch_shape
     from repro_torch.device import exact_fp32
-    from repro_torch.models import transformer as tr
-    t0 = time.perf_counter()
-    cfg = qwen2_7b.CONFIG
-    params, masks = model_setup(cfg, SEED)
-    describe(cfg, params, masks, run="tensor parallel")
-    (_, batch), = request_batches(cfg, [TP_REQUEST])
-    row_a = tp_one_rank(cfg, params, masks, batch)
-    print("tensor_parallel " + json.dumps({
-        "part": "a", "model": cfg.name, "request": TP_REQUEST[0],
-        "decode_steps": DECODE_STEPS, **row_a}), flush=True)
-    t_b = time.perf_counter()
-    split = tp_shares(cfg, params, masks, batch, TP_RANKS, TP_DECODE_STEPS)
-    kern = serve_tokens(cfg, params, masks, batch, forced=split["tokens"],
-                        steps=TP_DECODE_STEPS)
-    plain = serve_tokens(cfg, params, masks, batch, plain=True,
-                         forced=split["tokens"], steps=TP_DECODE_STEPS)
-    params32 = tr.cast_params(params, torch.float32)
-    del params
-    torch.cuda.empty_cache()
-    with exact_fp32():
-        fp32 = serve_tokens(cfg.replace(dtype="float32"), params32, masks,
+    with watch_moe() as kcalls:
+        kern = serve_tokens(cfg, params, masks, batch,
+                            forced=split["tokens"], steps=steps)
+    kroutes = routes_of(kcalls, 1)[0]
+    with routes_forced(split["routes"]):
+        plain = serve_tokens(cfg, params, masks, batch, plain=True,
+                             forced=split["tokens"], steps=steps)
+    float32_in_place(params)
+    with exact_fp32(), routes_forced(split["routes"]):
+        fp32 = serve_tokens(cfg.replace(dtype="float32"), params, masks,
                             batch, plain=True, forced=split["tokens"],
-                            steps=TP_DECODE_STEPS)
-    del params32
+                            steps=steps)
     torch.cuda.empty_cache()
     worst, gaps = 0.0, []
     for g, k, p, f in zip(split["logits"], kern["logits"], plain["logits"],
                           fp32["logits"]):
         if g.shape != (1, cfg.padded_vocab) or not bool(
                 torch.isfinite(g).all()):
-            raise AssertionError(f"phase 23 (b): bad logits {g.shape}")
+            raise AssertionError(f"phase 23: bad logits {g.shape}")
         gap = float((g - f).abs().max())
         tol = (2 * float((p - f).abs().max())
                + BF16_SPACING * float(f.abs().max()))
@@ -4896,24 +4960,139 @@ def tensor_parallel_phase() -> dict:
         gaps.append({"split_vs_fp32": gap, "tol": tol,
                      "split_vs_unsharded_kernel": float((g - k).abs().max()),
                      "unsharded_kernel_vs_fp32": float((k - f).abs().max())})
-    row_b = {"part": "b", "model": cfg.name, "request": TP_REQUEST[0],
-             "model_ranks": TP_RANKS, "decode_steps": TP_DECODE_STEPS,
-             "shapes": split["shapes"], "ms": split["ms"],
-             "unsharded_prefill_ms": kern["prefill_ms"],
-             "unsharded_decode_ms": kern["decode_ms"],
-             "launches": split["launches"], "gaps": gaps,
-             "max_gap_over_tol": worst,
-             "tokens": split["tokens"].tolist()}
-    print("tensor_parallel " + json.dumps(row_b), flush=True)
+    row = {"shapes": split["shapes"], "ms": split["ms"],
+           "unsharded_prefill_ms": kern["prefill_ms"],
+           "unsharded_decode_ms": kern["decode_ms"],
+           "launches": split["launches"], "gaps": gaps,
+           "max_gap_over_tol": worst, "held_steps": len(gaps),
+           "tokens": split["tokens"].tolist()}
+    if cfg.moe is not None:
+        same = [a == b for (a, _), (b, _) in zip(split["routes"], kroutes)]
+        flips = flipped_steps(cfg, batch_shape(cfg, batch), split["routes"],
+                              kroutes, steps)
+        row.update(
+            route_agreement=(sum(int(x.sum()) for x in same)
+                             / sum(x.numel() for x in same)),
+            flipped_steps=[i for i, f in enumerate(flips) if f],
+            split_drop_frac=[d for _, d in split["routes"]],
+            unsharded_drop_frac=[d for _, d in kroutes])
     if worst > 1.0:
-        raise AssertionError(f"phase 23 (b): the split's logits off by "
+        raise AssertionError(f"phase 23: {cfg.name}'s split logits off by "
                              f"{worst} of the tolerance")
+    return row
+
+
+def tp_moe_run(module: str, layers: int, totals) -> None:
+    """Phase 23 (c) and (d) for one MoE stack (``TP_MOE_RUNS``): the
+    pruned config at full width, ``layers`` deep, the MTP block released
+    (serving never runs it); (c) on the one-rank mesh against the
+    unsharded steps (``tp_one_rank``), (d) the ``TP_RANKS``-rank split
+    rank after rank, held by ``tp_held``. A ``tensor_parallel`` line
+    each; their launches added to ``totals``."""
+    import importlib
+    import torch
+    full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+    cfg = full.replace(num_layers=layers)
+    params, masks = model_setup(cfg, SEED)
+    params.pop("mtp", None)
+    describe(cfg, params, masks, of_layers=full.num_layers,
+             run="tensor parallel")
+    (_, batch), = request_batches(cfg, [TP_REQUEST])
+    t0 = time.perf_counter()
+    row = tp_one_rank(cfg, params, masks, batch, TP_DECODE_STEPS, "c")
+    row["seconds"] = time.perf_counter() - t0
+    print("tensor_parallel " + json.dumps({
+        "part": "c", "model": cfg.name, "layers": f"{layers} of "
+        f"{full.num_layers}", "request": TP_REQUEST[0],
+        "decode_steps": TP_DECODE_STEPS, **row}), flush=True)
+    totals.update(row["launches"])
+    totals.update(row["unsharded"]["launches"])
+    t0 = time.perf_counter()
+    split = tp_shares(cfg, params, masks, batch, TP_RANKS, TP_DECODE_STEPS)
+    totals.update(split["launches"])
+    held = tp_held(cfg, params, masks, batch, split, TP_DECODE_STEPS)
+    del params, masks, split
+    torch.cuda.empty_cache()
+    print("tensor_parallel " + json.dumps({
+        "part": "d", "model": cfg.name, "layers": f"{layers} of "
+        f"{full.num_layers}", "request": TP_REQUEST[0],
+        "model_ranks": TP_RANKS, "decode_steps": TP_DECODE_STEPS, **held,
+        "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def tp_wide(totals) -> None:
+    """Phase 23 (e): the pruned Mixtral-8x7B, ``TP_WIDE`` layers, split
+    over 16 "model" ranks run rank after rank: 2 heads and half an
+    expert's columns a rank, its 8 KV heads on the head dim (the prefill's
+    KV heads sent to the shards, the decode's queries sent to the cache);
+    an R1 prefill and the decode steps held by ``tp_held``. A
+    ``tensor_parallel`` line; its launches added to ``totals``."""
+    import torch
+    from repro_torch.configs import mixtral_8x7b
+    layers, m, steps = TP_WIDE
+    full = mixtral_8x7b.CONFIG
+    cfg = full.replace(num_layers=layers)
+    params, masks = model_setup(cfg, SEED)
+    describe(cfg, params, masks, of_layers=full.num_layers,
+             run="tensor parallel 16")
+    (_, batch), = request_batches(cfg, [TP_REQUEST])
+    t0 = time.perf_counter()
+    split = tp_shares(cfg, params, masks, batch, m, steps)
+    totals.update(split["launches"])
+    held = tp_held(cfg, params, masks, batch, split, steps)
+    del params, masks, split
+    torch.cuda.empty_cache()
+    print("tensor_parallel " + json.dumps({
+        "part": "e", "model": cfg.name, "layers": f"{layers} of "
+        f"{full.num_layers}", "request": TP_REQUEST[0], "model_ranks": m,
+        "decode_steps": steps, **held,
+        "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def tensor_parallel_phase() -> dict:
+    """Phase 23: (a) the pruned Qwen2-7B at full width, ``TP_QWEN_LAYERS``
+    deep, an R1 request through the mesh steps on the one-rank NCCL mesh,
+    bit-equal to the unsharded steps (``tp_one_rank``); (b) its
+    ``TP_RANKS``-rank
+    split run rank after rank on the card (``tp_shares``), held to the LM
+    phases' rule (``tp_held``); (c) and (d) the same for the pruned
+    Mixtral-8x7B and DeepSeek-V3 (``tp_moe_run``); (e) Mixtral-8x7B at
+    "model" = 16 (``tp_wide``). One ``tensor_parallel`` line each and a
+    ``phase23`` line. Returns the launches of the mesh runs and the
+    splits, by kernel and route."""
+    import torch
+    from repro_torch.configs import qwen2_7b
+    t0 = time.perf_counter()
+    cfg = qwen2_7b.CONFIG.replace(num_layers=TP_QWEN_LAYERS)
+    params, masks = model_setup(cfg, SEED)
+    describe(cfg, params, masks, of_layers=qwen2_7b.CONFIG.num_layers,
+             run="tensor parallel")
+    (_, batch), = request_batches(cfg, [TP_REQUEST])
+    row_a = tp_one_rank(cfg, params, masks, batch)
+    print("tensor_parallel " + json.dumps({
+        "part": "a", "model": cfg.name, "request": TP_REQUEST[0],
+        "decode_steps": DECODE_STEPS, **row_a}), flush=True)
     total = collections.Counter(row_a["launches"])
     total.update(row_a["unsharded"]["launches"])
+    t_b = time.perf_counter()
+    split = tp_shares(cfg, params, masks, batch, TP_RANKS, TP_DECODE_STEPS)
     total.update(split["launches"])
+    row_b = tp_held(cfg, params, masks, batch, split, TP_DECODE_STEPS)
+    del params, masks, split
+    torch.cuda.empty_cache()
+    print("tensor_parallel " + json.dumps({
+        "part": "b", "model": cfg.name, "request": TP_REQUEST[0],
+        "model_ranks": TP_RANKS, "decode_steps": TP_DECODE_STEPS,
+        **row_b}), flush=True)
+    t_c = time.perf_counter()
+    for module, layers in TP_MOE_RUNS:
+        tp_moe_run(module, layers, total)
+    t_e = time.perf_counter()
+    tp_wide(total)
     print("phase23 " + json.dumps({
         "seconds": time.perf_counter() - t0,
-        "seconds_a": t_b - t0, "seconds_b": time.perf_counter() - t_b,
+        "seconds_a": t_b - t0, "seconds_b": t_c - t_b,
+        "seconds_cd": t_e - t_c, "seconds_e": time.perf_counter() - t_e,
         "launches": dict(total)}), flush=True)
     return dict(total)
 

@@ -21,22 +21,26 @@ sharded ones, the counterpart of the reference's ``jax.jit`` with
 batch, and each step names its route (``step.route``,
 ``sharding.tensor_parallel.mesh_route``):
 
-* **split** — the dense attention stack (GQA and a dense FFN: Qwen2-7B,
-  Qwen2-VL-7B, gemma-7b, qwen1.5-4b, nemotron-4-340b, HuBERT-XLarge): the
+* **split** — every attention stack (GQA or MLA, a dense FFN or MoE
+  layers, an MTP head: Qwen2-7B, Qwen2-VL-7B, gemma-7b, qwen1.5-4b,
+  nemotron-4-340b, HuBERT-XLarge, Mixtral-8x7B, DeepSeek-V3): the
   products split over "model" (``sharding.tensor_parallel``: heads, FFN
-  columns, the vocabulary), each layer's parameters fetched one layer at
-  a time with their data dims gathered, no copy of the whole tree. The
+  columns, experts, the vocabulary), each layer's parameters fetched one
+  layer at a time with their data dims gathered, no copy of the whole
+  tree; the MoE dispatch and the router and MTP losses are the whole
+  batch's over the data axes, as the reference computes them. The
   train step differentiates the loss with respect to the DTensor leaves:
   a "model"-split leaf's gradient stays on its shard, and the data axes'
   reduction is the gather's backward (a reduce-scatter). The prefill
-  writes each rank's KV cache shard as ``cache_specs`` lays it out, and
-  the decode step writes the new slot into it in place and attends where
-  the cache lies: the queries move to it, never the cache.
-* **replicated** — MoE, MLA, SSM and hybrid stacks: each rank gathers
-  the whole parameter tree into local tensors and computes its rows
-  whole, so every rank of a "model" group computes the same rows again;
-  the train step reduces the gradients over the data axes to each
-  parameter's placements by hand.
+  writes each rank's KV (or MLA latent) cache shard as ``cache_specs``
+  lays it out, and the decode step writes the new slot into it in place
+  and attends where the cache lies: the queries move to it, never the
+  cache.
+* **replicated** — Mamba2 and Zamba2: each rank gathers the whole
+  parameter tree into local tensors and computes its rows whole, so
+  every rank of a "model" group computes the same rows again; the train
+  step reduces the gradients over the data axes to each parameter's
+  placements by hand.
 
 Either way each rank updates its own shards, AdamW's clip on the norm of
 the whole gradient; the prefill returns its logits and cache as DTensors
@@ -62,7 +66,9 @@ from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
 from repro_torch.sharding import specs as shard_specs
 from repro_torch.sharding.tensor_parallel import (TensorParallel,
                                                   contiguous_stride,
-                                                  mesh_route, tp_supported)
+                                                  mesh_route,
+                                                  sum_model_partials,
+                                                  tp_supported)
 
 
 def _on(device: torch.device, tokens) -> torch.Tensor:
@@ -152,8 +158,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
     (``_microbatches``), sums their gradients in fp32, divides by
     ``grad_accum`` and casts each to its parameter's dtype, and averages
     the metrics: live activations shrink by the factor. With ``mesh`` the
-    step is the sharded one (``_tp_train_step`` for the dense attention
-    stack, else ``_sharded_train_step``; ``step.route`` names it): its
+    step is the sharded one (``_tp_train_step`` for an attention stack,
+    else ``_sharded_train_step``; ``step.route`` names it): its
     ``params`` and ``opt_state`` are DTensor trees on ``mesh`` and
     ``batch`` the whole batch, which every rank holds."""
     tr.check_supported(cfg)
@@ -316,10 +322,9 @@ def _sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, grads_of,
     card). A slice's share of the batch is its share of the labelled
     tokens (the cross-entropy's denominator), so its gradients and metrics
     are weighted by that share and summed over the data axes
-    (``Partial``), then laid out as each parameter is: a dense model's
-    gradient is the whole batch's. (MoE's balance losses and the MTP
-    loss have denominators of their own; for them this is the
-    data-parallel weighting, not the whole batch's.) Each rank updates its
+    (``Partial``), then laid out as each parameter is: the whole batch's
+    gradient of a loss that is a mean over the labelled tokens (the
+    Mamba2 and Zamba2 stacks this route serves). Each rank updates its
     own shards as plain tensors; AdamW's clip takes the norm of the whole
     gradient, each element counted once (``_mesh_sq_norm``). On a one-rank
     mesh every gather and reduction is the identity, and the step gives
@@ -411,13 +416,18 @@ def _update_shards(optimizer: Optimizer, grads, params, opt_state, mesh):
              for k, v in new_state.items()})
 
 
-def _kv_placements(mesh, tp, split: bool) -> tuple:
-    """Placements of a run's stacked KV cache leaf (L, B, S, heads, D)
-    holding this rank's rows (over the data axes where ``split``) and its
-    "model" shard (``tp.kv_layout``)."""
+def _kv_placements(mesh, tp, split: bool, name: str) -> tuple:
+    """Placements of a run's stacked cache leaf ``name``, a KV leaf (L, B,
+    S, heads, D) or an MLA leaf (L, B, S, width), holding this rank's rows
+    (over the data axes where ``split``) and its "model" shard
+    (``tp.kv_layout``, ``tp.latent_layouts``)."""
     from torch.distributed.tensor import Replicate, Shard
     pl = list(_rows_placements(mesh, 1, split))
-    dim = {"heads": 3, "dims": 4}.get(tp.kv_layout)
+    if name in ("ckv", "krope"):
+        lay = tp.latent_layouts[name == "krope"]
+        dim = 3 if lay == "dims" else None
+    else:
+        dim = {"heads": 3, "dims": 4}.get(tp.kv_layout)
     pl[mesh.mesh_dim_names.index("model")] = (
         Replicate() if dim is None else Shard(dim))
     return tuple(pl)
@@ -427,10 +437,12 @@ def _tp_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
                      dev: torch.device, mesh):
     """The prefill on ``mesh`` on the split route: this rank's rows (all
     of them where the data axes do not divide the batch), its share of
-    every product (``TensorParallel.on_mesh``), the last logits gathered
-    over "model"; logits as a DTensor of rows over the data axes, the
-    cache as a DTensor tree laid out by ``cache_specs``, each rank's
-    shard written from the KV heads the ranks computed."""
+    every product (``TensorParallel.on_mesh``; the MoE dispatch over the
+    data axes where they split the rows), the last logits gathered over
+    "model"; logits as a DTensor of rows over the data axes, the cache as
+    a DTensor tree laid out by ``cache_specs``, each rank's shard written
+    from the KV heads the ranks computed (an MLA cache: its slice of the
+    latent every rank computed whole)."""
     from torch.distributed.tensor import DTensor
     _check_mesh(mesh, dev)
 
@@ -438,7 +450,7 @@ def _tp_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
         B = _batch_rows(cfg, batch)
         split = _rows_split(B, mesh)
         local = batch_on(dev, cfg, _my_rows(batch, mesh, split))
-        tp = TensorParallel.on_mesh(cfg, mesh, params)
+        tp = TensorParallel.on_mesh(cfg, mesh, params, rows_split=split)
         logits, cache = tr.prefill(params, cfg, local, max_len=max_len,
                                    masks=masks, backend=backend, tp=tp)
         logits = _rows_dtensor(logits, mesh, 0, split)
@@ -446,13 +458,20 @@ def _tp_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
             return logits, None
 
         def placed(path, t):
-            if shard_specs.path_keys(path)[-1] == "pos":
+            name = shard_specs.path_keys(path)[-1]
+            if name == "pos":
                 return _rows_dtensor(t, mesh, 0, split)
-            shape = (t.shape[0], B, t.shape[2], cfg.num_kv_heads,
-                     cfg.head_dim)
+            if name in ("ckv", "krope"):
+                width = (cfg.mla.kv_lora_rank if name == "ckv"
+                         else cfg.mla.qk_rope_head_dim)
+                shape = (t.shape[0], B, t.shape[2], width)
+            else:
+                shape = (t.shape[0], B, t.shape[2], cfg.num_kv_heads,
+                         cfg.head_dim)
             return DTensor.from_local(
-                t, mesh, _kv_placements(mesh, tp, split), run_check=False,
-                shape=shape, stride=contiguous_stride(shape))
+                t, mesh, _kv_placements(mesh, tp, split, name),
+                run_check=False, shape=shape,
+                stride=contiguous_stride(shape))
         rows = shard_specs.tree_map_with_path(placed, cache)
         return logits, _laid_out(rows, cfg, mesh)
     return prefill_step
@@ -483,7 +502,7 @@ def _tp_decode_step(cfg: ModelConfig, masks, backend: str,
         held = shard_specs.tree_map_with_path(rows, cache)
         local = shard_specs.tree_map_with_path(lambda _, t: t.to_local(),
                                                held)
-        tp = TensorParallel.on_mesh(cfg, mesh, params)
+        tp = TensorParallel.on_mesh(cfg, mesh, params, rows_split=split)
         logits, _ = tr.decode_step(params, cfg, local, local_tok,
                                    masks=masks, backend=backend, tp=tp)
         _put_back(cache, held, mesh)
@@ -518,29 +537,39 @@ def _tp_train_step(cfg: ModelConfig, optimizer: Optimizer, masks,
     the data axes. The loss is weighted by this rank's share of the
     labelled tokens first where the data axes have more than one rank (in
     float32; on one rank the unsharded step's loss itself), so the
-    reduction gives the whole batch's gradient, as ``_sharded_train_step``
-    weights its gradients. ``grad_accum`` microbatches sum their local
-    gradients in fp32 and divide, as the unsharded step does. The metrics
-    are weighted and summed over the data axes; AdamW updates each rank's
-    own shards, its clip on the whole gradient's norm
-    (``_mesh_sq_norm``). On a one-rank mesh every fetch is a view and
-    every reduction the identity: the unsharded step's bits."""
+    reduction gives the whole batch's gradient of the cross-entropy; the
+    router losses and the MTP loss are the whole batch's on every rank
+    (``TensorParallel.batch_sum``), and the shares summing to 1, their
+    gradient is the whole batch's too. With ``grad_accum`` microbatches
+    the whole batch is cut into the unsharded step's microbatches first
+    and each rank takes its rows of each, so a microbatch's whole-batch
+    sums (the MoE dispatch's capacity, slots and drops, the balance
+    losses) run over the reference's rows; a rank's share is then its
+    share of the microbatch's labelled tokens, the local gradients sum in
+    fp32 and divide, as the unsharded step does. The metrics are weighted
+    and summed over the data axes; AdamW updates each rank's own shards,
+    its clip on the whole gradient's norm (``_mesh_sq_norm``). On a
+    one-rank mesh every fetch is a view and every reduction the identity:
+    the unsharded step's bits."""
     _check_mesh(mesh, dev)
     n_data = _data_size(mesh)
 
     def tp_of(leaves):
-        return TensorParallel.on_mesh(cfg, mesh, leaves)
+        return TensorParallel.on_mesh(cfg, mesh, leaves,
+                                      rows_split=n_data > 1)
+
+    def grads_of(p, mb):
+        local, share = _my_batch(cfg, mb, mesh, dev)
+        m, g = loss_and_grads(p, cfg, local, masks, backend, tp_of=tp_of,
+                              share=share if n_data > 1 else None)
+        return _data_sum(m, share, mesh), tree_map(
+            lambda t, q: sum_model_partials(t, q).to_local(), g, p)
 
     def train_step(params, opt_state, batch):
-        local, share = _my_batch(cfg, batch, mesh, dev)
-
-        def grads_of(p, mb):
-            m, g = loss_and_grads(p, cfg, mb, masks, backend, tp_of=tp_of,
-                                  share=share if n_data > 1 else None)
-            return m, tree_map(lambda t: t.to_local(), g)
-        metrics, grads = _accumulated(grads_of, params, local, grad_accum)
+        batch = {name: torch.as_tensor(t) for name, t in batch.items()}
+        metrics, grads = _accumulated(grads_of, params, batch, grad_accum)
         return _update_shards(optimizer, grads, params, opt_state, mesh) + (
-            _data_sum(metrics, share, mesh),)
+            metrics,)
     return train_step
 
 
@@ -577,8 +606,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
     ``embeds`` (B, S, d_model); a VLM config's also ``vision_embeds`` (B,
     V, d_model) and, optionally, ``mrope_positions`` (3, B, V + S). A
     bidirectional config returns (all logits (B, S, V), None). With
-    ``mesh`` the step is the sharded one (``_tp_prefill_step`` for the
-    dense attention stack, else ``_mesh_prefill_step``; ``step.route``
+    ``mesh`` the step is the sharded one (``_tp_prefill_step`` for an
+    attention stack, else ``_mesh_prefill_step``; ``step.route``
     names it): ``params`` is a DTensor tree, ``batch`` the whole batch."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
@@ -604,8 +633,8 @@ def make_decode_step(cfg: ModelConfig, masks=None,
     cache)``; the cache's tensors (KV or MLA latent slots, SSD states and
     conv windows) are updated in place. A bidirectional (encoder-only)
     config has no decode step and is refused. With ``mesh`` the step is
-    the sharded one (``_tp_decode_step`` for the dense attention stack,
-    else ``_mesh_decode_step``; ``step.route`` names it): ``params`` and
+    the sharded one (``_tp_decode_step`` for an attention stack, else
+    ``_mesh_decode_step``; ``step.route`` names it): ``params`` and
     ``cache`` are DTensor trees (the mesh prefill's cache), ``tokens`` the
     whole batch's."""
     tr.check_supported(cfg)

@@ -383,42 +383,58 @@ def init_mla_cache(batch: int, max_len: int, mla, dtype: torch.dtype,
                     device=device))
 
 
-def _mla_qkv(params, cfg, x, angles, backend: str):
-    """(q_nope, q_rope, ckv, k_rope): the query's heads split into their
-    position-free and rotary parts, the normed KV latent and the one
-    rotary key all heads share. ``kv_norm`` normalises a strided slice of
-    the joint down-projection, which the rmsnorm wrapper makes
-    contiguous."""
+def _mla_latents(params, cfg, x, angles, backend: str):
+    """(q_lat, ckv, k_rope): the query's normed low-rank latent, the
+    normed KV latent and the one rotary key all heads share, the parts
+    of MLA a tensor-parallel rank computes whole. ``kv_norm`` normalises
+    a strided slice of the joint down-projection, which the rmsnorm
+    wrapper makes contiguous."""
     m = cfg.mla
-    B, S, _ = x.shape
-    H = cfg.num_heads
     q_lat = rmsnorm(x @ params["w_dq"], params["q_norm"], cfg.norm_eps,
                     backend=backend)
-    q = (q_lat @ params["w_uq"]).reshape(
-        B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
-    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
-    q_rope = apply_rope(q_rope, angles)
     dkv = x @ params["w_dkv"]
     ckv = rmsnorm(dkv[..., :m.kv_lora_rank], params["kv_norm"],
                   cfg.norm_eps, backend=backend)
     k_rope = apply_rope(dkv[..., None, m.kv_lora_rank:], angles)[:, :, 0]
-    return q_nope, q_rope, ckv, k_rope
+    return q_lat, ckv, k_rope
+
+
+def _mla_queries(params, cfg, q_lat, angles):
+    """(q_nope, q_rope) of the heads of ``w_uq``'s columns (a
+    tensor-parallel rank's block): each head split into its position-free
+    and rotary parts."""
+    m = cfg.mla
+    B, S, _ = q_lat.shape
+    q = (q_lat @ params["w_uq"]).reshape(
+        B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, angles)
 
 
 def mla_forward(params, cfg, x, angles, *, head_mask=None,
-                backend: str = "auto"):
+                backend: str = "auto", tp=None):
     """Prefill path: per-head K/V materialised from the latent, the one
     rotary key broadcast to all H heads; naive attention up to
     ``cfg.naive_attn_max`` tokens, chunked above. Returns (out, (ckv,
-    k_rope)), what the cache keeps."""
+    k_rope)), what the cache keeps. With ``tp`` (a
+    ``sharding.tensor_parallel.TensorParallel``) the latents are computed
+    whole and enter the rank's heads through ``copy_in`` (the query
+    latent, the KV latent and the rotary key: each rank's heads read all
+    of them); ``params`` hold the rank's columns of ``w_uq``, ``w_uk``,
+    ``w_uv`` and rows of ``wo``, ``head_mask`` its heads'; the out
+    product's partial sum is reduced over "model"; (ckv, k_rope) are
+    whole."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, cfg, x, angles, backend)
-    k_nope = (ckv @ params["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
-    vv = (ckv @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    q_lat, ckv, k_rope = _mla_latents(params, cfg, x, angles, backend)
+    qc, cc, kc = ((q_lat, ckv, k_rope) if tp is None else
+                  (tp.copy_in(q_lat), tp.copy_in(ckv), tp.copy_in(k_rope)))
+    q_nope, q_rope = _mla_queries(params, cfg, qc, angles)
+    H = q_nope.shape[2]
+    k_nope = (cc @ params["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
+    vv = (cc @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+    k = torch.cat([k_nope, kc[:, :, None].expand(
         B, S, H, m.qk_rope_head_dim)], -1)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     pos = torch.arange(S, device=x.device)
@@ -432,11 +448,40 @@ def mla_forward(params, cfg, x, angles, *, head_mask=None,
     if head_mask is not None:
         out = out * head_mask[None, None, :, None].to(out.dtype)
     out = out.reshape(B, S, H * m.v_head_dim) @ params["wo"]
-    return out, (ckv, k_rope)
+    return (out if tp is None else tp.reduce(out)), (ckv, k_rope)
+
+
+def latent_scores(q_lat, q_rope, ckv, krope, pos, scale: float,
+                  partial_sum=None):
+    """The absorbed decode's attention weights (B, heads, Smax), float32:
+    ``q_lat`` (B, heads, r) against ``ckv`` (B, Smax, r) plus ``q_rope``
+    against ``krope``, times ``scale``, slots past ``pos`` masked, a
+    softmax. ``partial_sum``, where given, sums the scores over the ranks
+    that each hold a part of the latent dims (r here is that part)."""
+    f32 = torch.float32
+    s_lat = torch.einsum("bhr,bkr->bhk", q_lat, ckv.to(f32))
+    s_rope = torch.einsum("bhd,bkd->bhk", q_rope, krope.to(f32))
+    logits = s_lat + s_rope
+    if partial_sum is not None:
+        logits = partial_sum(logits)
+    logits = logits * scale
+    ok = torch.arange(ckv.shape[1], device=ckv.device)[None] < (
+        pos[:, None] + 1)
+    logits = torch.where(ok[:, None], logits, NEG_INF)
+    return torch.softmax(logits, dim=-1)
+
+
+def latent_attention(q_lat, q_rope, cache: MLACache, pos,
+                     scale: float) -> torch.Tensor:
+    """The absorbed decode's latent output o_lat (B, heads, r), float32:
+    ``latent_scores`` of the heads' queries against the whole latent cache
+    of one layer (the step's slot already written), times ``cache.ckv``."""
+    probs = latent_scores(q_lat, q_rope, cache.ckv, cache.krope, pos, scale)
+    return torch.einsum("bhk,bkr->bhr", probs, cache.ckv.to(torch.float32))
 
 
 def mla_decode(params, cfg, x, angles, cache: MLACache, pos, *,
-               head_mask=None, backend: str = "auto"):
+               head_mask=None, backend: str = "auto", tp=None):
     """Absorbed decode: scores and values in the latent space, per head,
 
         scores = (q_nope W_uk^T) . ckv + q_rope . k_rope
@@ -446,33 +491,33 @@ def mla_decode(params, cfg, x, angles, cache: MLACache, pos, *,
     mask on the float32 output), cast to x's dtype only before ``wo``. The
     new latent and rotary key are written into ``cache``'s tensors in
     place at slot ``pos % cache_len``, as ``gqa_decode`` does; the valid
-    slots are ``0..pos`` (MLA has no window)."""
+    slots are ``0..pos`` (MLA has no window). With ``tp`` the cache is the
+    rank's shard of the layer's latent cache, ``params`` the rank's heads
+    (``mla_forward``), and the scores go where the cache lies
+    (``TensorParallel.latent_attention``); the out product's partial sum
+    is reduced over "model"."""
     m = cfg.mla
     B = x.shape[0]
-    H = cfg.num_heads
     f32 = torch.float32
-    q_nope, q_rope, ckv_new, krope_new = _mla_qkv(params, cfg, x, angles,
-                                                  backend)
+    q_lat_x, ckv_new, krope_new = _mla_latents(params, cfg, x, angles,
+                                               backend)
+    q_nope, q_rope = _mla_queries(params, cfg, q_lat_x, angles)
+    H = q_nope.shape[2]
     wuk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32), wuk.to(f32))
     cache_len = cache.ckv.shape[1]
     at = (pos % cache_len).long()
     rows = torch.arange(B, device=x.device)
+    if tp is not None:
+        ckv_new, krope_new = tp.store_latent(ckv_new, krope_new)
     cache.ckv[rows, at] = ckv_new[:, 0]
     cache.krope[rows, at] = krope_new[:, 0]
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    ckv = cache.ckv.to(f32)
-    s_lat = torch.einsum("bhr,bkr->bhk", q_lat, ckv)
-    s_rope = torch.einsum("bhd,bkd->bhk", q_rope[:, 0].to(f32),
-                          cache.krope.to(f32))
-    logits = (s_lat + s_rope) * scale
-    ok = torch.arange(cache_len, device=x.device)[None] < (pos[:, None] + 1)
-    logits = torch.where(ok[:, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    o_lat = torch.einsum("bhk,bkr->bhr", probs, ckv)
+    attend = latent_attention if tp is None else tp.latent_attention
+    o_lat = attend(q_lat, q_rope[:, 0].to(f32), cache, pos, scale)
     wuv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bhr,rhd->bhd", o_lat, wuv.to(f32))
     if head_mask is not None:
         out = out * head_mask[None, :, None]
     out = out.reshape(B, 1, H * m.v_head_dim).to(x.dtype) @ params["wo"]
-    return out, cache
+    return (out if tp is None else tp.reduce(out)), cache

@@ -10,12 +10,11 @@ probability, into its token's output in float32. The reference computes
 all of it outside any Pallas kernel, so the port keeps it in plain PyTorch
 ops: ``argsort``, ``bincount``, indexing, ``bmm`` and ``index_add_``.
 
-Expert weights are stacked (E, ...), as in the reference. Its sharding
-constraints on the dispatch buffer and the expert outputs (expert
-parallelism on the "model" mesh axis) and on the gathered output (the
-data axes) are kept (``sharding.constraints.maybe_constrain``); outside a
-mesh, and on the plain tensors the sharded train step runs the model on,
-each is the identity.
+Expert weights are stacked (E, ...), as in the reference. The
+reference's sharding constraints on the dispatch buffer (expert
+parallelism on the "model" mesh axis) become the split itself: a
+tensor-parallel rank holds its block of experts and builds the buffer of
+those only (``moe_forward``'s ``tp``).
 
 Pruning hook: ``expert_mask`` (E,) — pruned experts get a router logit of
 -1e30, so the softmax or sigmoid gives them a score of 0 and top-k never
@@ -30,8 +29,6 @@ import torch
 
 from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.mlp import GATED, _act
-from repro_torch.sharding.constraints import data_axes_spec, maybe_constrain
-from repro_torch.sharding.specs import P
 
 
 class MoEMetrics(NamedTuple):
@@ -80,6 +77,67 @@ def capacity(num_tokens: int, moe) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def _scores(params, moe, x2d: torch.Tensor,
+            expert_mask: Optional[torch.Tensor]):
+    """(router logits float32, scores): the sigmoid or softmax of the
+    logits; a pruned expert's logit is -1e30."""
+    logits = x2d.to(torch.float32) @ params["w_router"]
+    if expert_mask is not None:
+        logits = torch.where(expert_mask[None] > 0, logits, -1e30)
+    if moe.score_fn == "sigmoid":
+        return logits, torch.sigmoid(logits)
+    return logits, torch.softmax(logits, dim=-1)
+
+
+def _router(params, moe, x2d: torch.Tensor,
+            expert_mask: Optional[torch.Tensor]):
+    """(logits float32, probs (T, k) renormalised over the picked
+    experts, idx (T, k))."""
+    logits, scores = _scores(params, moe, x2d, expert_mask)
+    probs, idx = torch.topk(scores, moe.top_k, dim=-1)
+    probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, probs, idx
+
+
+def _by_expert(idx: torch.Tensor, probs: torch.Tensor, E: int):
+    """The (token, k) assignments sorted by expert, stably as
+    ``jnp.argsort``: (expert, token, probability, assignments an expert,
+    position within the expert), the position following token order."""
+    T, k = idx.shape
+    dev = idx.device
+    flat_e = idx.reshape(-1)                                  # (T*k,)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_p = probs.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sp = flat_e[order], flat_t[order], flat_p[order]
+    # bincount's output length depends on the data; a count of static
+    # shape gives the same integers
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * k, device=dev) - starts[se]
+    return se, st, sp, counts, pos
+
+
+def _router_losses(moe, logits: torch.Tensor, idx: torch.Tensor, T: int,
+                   batch_sum=None):
+    """(aux, z): the Switch-style load-balance loss E * sum_e f_e * p_e and
+    the router z-loss, means over ``T`` tokens. ``batch_sum``, where given,
+    sums this rank's parts over the ranks whose rows make up the ``T``
+    tokens (one all-reduce: assignments an expert, router probability an
+    expert, the squared log-partition)."""
+    E = moe.num_experts
+    sums = torch.cat([
+        torch.nn.functional.one_hot(idx, E).to(torch.float32).sum((0, 1)),
+        torch.softmax(logits, dim=-1).sum(0),
+        (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]])
+    if batch_sum is not None:
+        sums = batch_sum(sums)
+    aux = E * torch.sum((sums[:E] / T) * (sums[E:2 * E] / T)) \
+        * moe.router_aux_weight
+    return aux, sums[2 * E] / T * moe.router_z_weight
+
+
 def route(params, moe, x2d: torch.Tensor,
           expert_mask: Optional[torch.Tensor]):
     """x2d (T, d) -> (probs (T,k) float32, idx (T,k), aux, z).
@@ -92,77 +150,102 @@ def route(params, moe, x2d: torch.Tensor,
     scores that saturate in float32 (a sigmoid of 1.0 for logits past
     ~17, a softmax that underflows to 0), or from equal router logits (a
     token whose normed input is zero)."""
-    logits = x2d.to(torch.float32) @ params["w_router"]
-    if expert_mask is not None:
-        logits = torch.where(expert_mask[None] > 0, logits, -1e30)
-    if moe.score_fn == "sigmoid":
-        scores = torch.sigmoid(logits)
-    else:
-        scores = torch.softmax(logits, dim=-1)
-    probs, idx = torch.topk(scores, moe.top_k, dim=-1)
-    probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-9)
-    # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
-    E = moe.num_experts
-    dense_probs = torch.softmax(logits, dim=-1)
-    frac = torch.nn.functional.one_hot(idx, E).to(torch.float32).sum(1) \
-        .mean(0)
-    aux = E * torch.sum(frac * dense_probs.mean(0)) * moe.router_aux_weight
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * moe.router_z_weight
-    return probs, idx, aux, z
+    logits, probs, idx = _router(params, moe, x2d, expert_mask)
+    return (probs, idx) + _router_losses(moe, logits, idx, x2d.shape[0])
+
+
+class _Whole:
+    """The share of a layer that holds every expert whole and every row of
+    the batch: ``moe_forward`` without a split, each of the split's
+    exchanges the identity."""
+    data = None
+
+    def __init__(self, moe):
+        self.experts = ((0, moe.num_experts), (0, moe.d_expert))
+
+    @staticmethod
+    def copy_in(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    reduce = batch_sum = copy_in
 
 
 def moe_forward(params, moe, x: torch.Tensor, activation: str, *,
-                expert_mask: Optional[torch.Tensor] = None):
-    """x (B, S, d) -> (out (B, S, d), MoEMetrics)."""
+                expert_mask: Optional[torch.Tensor] = None, tp=None):
+    """x (B, S, d) -> (out (B, S, d), MoEMetrics). ``tp``, where given, is
+    a tensor-parallel rank's share (``sharding.tensor_parallel.
+    TensorParallel``): ``params`` hold the rank's experts at its columns
+    (``tp.experts``) and its shared-expert columns, the router whole; ``x``
+    is this rank's rows, the same on every "model" rank. Without ``tp`` the
+    layer is whole (``_Whole``) and every exchange below is the identity.
+
+    The reference's semantics over the whole batch: where the data axes
+    split the rows (``tp.data``), the capacity is the whole batch's, an
+    assignment's position within its expert counts the lower data ranks'
+    assignments first (their rows come first; one all-gather of E counts),
+    and the balance loss, z-loss and ``drop_frac`` are means over every
+    token (``tp.batch_sum``). The dispatch buffer is the reference's
+    ``eb`` at this rank's experts, its C slots padded to a multiple of the
+    data ranks and laid out (data rank, expert, slot block, d): each rank
+    writes its own kept rows at their global slots, zeros elsewhere; a
+    reduce-scatter over the data axes (exact: one rank writes each slot)
+    gives each rank its block of slots, the expert products run on the
+    block, and an all-gather returns the outputs. Slots of other ranks'
+    experts go to the drop bin.
+
+    The router runs outside the split region on the replicated rows, so
+    every rank routes alike and the aux and z losses' gradients count
+    once. Two tensors enter the split region through ``copy_in``: the rows
+    sent to the experts (and the shared experts), and the combine weights,
+    whose gradient on a rank holds only its own experts' share until the
+    all-reduce sums them. The combine adds a rank's weighted rows in fp32,
+    all-reduces the partial sums over "model" in fp32 and casts; the
+    shared experts' row product is reduced on its own, after it."""
+    tp = _Whole(moe) if tp is None else tp
     B, S, d = x.shape
-    T = B * S
+    Tl = B * S
     dev = x.device
-    x2d = x.reshape(T, d)
-    probs, idx, aux, z = route(params, moe, x2d, expert_mask)
+    data = tp.data
+    n = 1 if data is None else data.size
+    T = n * Tl
     E, k = moe.num_experts, moe.top_k
+    x2d = x.reshape(Tl, d)
+    logits, probs, idx = _router(params, moe, x2d, expert_mask)
+    aux, z = _router_losses(moe, logits, idx, T, tp.batch_sum)
     C = capacity(T, moe)
-
-    flat_e = idx.reshape(-1)                                  # (T*k,)
-    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
-    flat_p = probs.reshape(-1)
-    # stable, as jnp.argsort is: the position within an expert, and with
-    # it which assignments fall past C, follows token order
-    order = torch.argsort(flat_e, stable=True)
-    se, st, sp = flat_e[order], flat_t[order], flat_p[order]
-    # bincount's output length depends on the data; a count of static
-    # shape gives the same integers
-    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
-        0, se, torch.ones_like(se))
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(T * k, device=dev) - starts[se]
+    se, st, sp, counts, pos = _by_expert(idx, probs, E)
+    if data is not None:
+        every = data.all_gather(counts)                     # (n, E)
+        pos = pos + every[:data.rank].sum(0)[se]
+        counts = every.sum(0)
     keep = pos < C
-    slot = torch.where(keep, se * C + pos, E * C)             # E*C = drop bin
-    keep_x = keep[:, None].to(x.dtype)
+    drop = 1.0 - torch.minimum(counts, torch.tensor(C, device=dev)).sum() \
+        .to(torch.float32) / (T * k)
 
-    dspec = data_axes_spec()
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
-    buf[slot] = x2d[st] * keep_x
-    eb = buf[:-1].reshape(E, C, d)
-    # expert parallelism: the dispatch buffer lives expert-sharded on
-    # "model"
-    eb = maybe_constrain(eb, P("model", None, None))
+    (e0, e1), _ = tp.experts
+    El, Cb = e1 - e0, -(-C // n)
+    N = n * El * Cb
+    mine = keep & (se >= e0) & (se < e1)
+    slot = torch.where(mine, ((pos // Cb) * El + se - e0) * Cb + pos % Cb, N)
+    mine_x = mine[:, None].to(x.dtype)
+    xs, sp = tp.copy_in(x2d), tp.copy_in(sp)
+    buf = torch.zeros((N + 1, d), dtype=x.dtype, device=dev)
+    buf[slot] = xs[st] * mine_x
+    eb = buf[:-1].reshape(n, El, Cb, d)
+    eb = eb[0] if data is None else tp.scatter_slots(eb)  # (El, Cb, d)
     h = _act(torch.bmm(eb, params["w_up"]), activation)
     if activation in GATED:
         h = h * torch.bmm(eb, params["w_gate"])
-    h = maybe_constrain(h, P("model", None, None))
     ob = torch.bmm(h, params["w_down"])
-    ob = maybe_constrain(ob, P("model", None, None)).reshape(E * C, d)
-
-    gathered = ob[slot.clamp(max=E * C - 1)] * keep_x
-    out = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add_(
+    ob = ob[None] if data is None else tp.gather_slots(ob)
+    gathered = ob.reshape(N, d)[slot.clamp(max=N - 1)] * mine_x
+    out = torch.zeros((Tl, d), dtype=torch.float32, device=dev).index_add_(
         0, st, gathered.to(torch.float32) * sp[:, None])
-    out = maybe_constrain(out, P(dspec, None)).to(x.dtype)
+    out = tp.reduce(out).to(x.dtype)
 
     if moe.num_shared:
-        hs = _act(x2d @ params["w_up_sh"], activation)
+        hs = _act(xs @ params["w_up_sh"], activation)
         if activation in GATED:
-            hs = hs * (x2d @ params["w_gate_sh"])
-        out = out + hs @ params["w_down_sh"]
-
-    drop = 1.0 - keep.sum().to(torch.float32) / (T * k)
+            hs = hs * (xs @ params["w_gate_sh"])
+        out = out + tp.reduce(hs @ params["w_down_sh"])
     return out.reshape(B, S, d), MoEMetrics(aux, z, drop)

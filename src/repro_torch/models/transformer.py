@@ -362,8 +362,9 @@ def _attn_block(cfg, lp, x, angles, mask, backend, tp=None):
     """An attention block (GQA or MLA) with an FFN or an MoE layer (the
     reference's ``_attn_block`` and ``_moe_block``): (x, what the cache
     keeps — (k, v), or MLA's (ckv, k_rope) —, MoEMetrics or None). With
-    ``tp`` the block is a tensor-parallel rank's share (GQA and a dense
-    FFN) and ``lp`` is (run, layer): the layer's parameters are fetched
+    ``tp`` the block is a tensor-parallel rank's share (its heads, FFN
+    columns or experts) and ``lp`` is (run, layer), or the key path of an
+    unstacked block (the MTP block): the layer's parameters are fetched
     here (``tp.layer``: its FSDP dims gathered, so that under remat the
     gather runs again in the backward) and its masks sliced to the rank's
     heads and FFN columns."""
@@ -371,15 +372,15 @@ def _attn_block(cfg, lp, x, angles, mask, backend, tp=None):
         lp, mask = tp.layer(*lp), tp.mask(mask)
     mask = mask or {}
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
+    split = {} if tp is None else {"tp": tp}
     attend = mla_forward if cfg.attention == "mla" else gqa_forward
     a, kv = attend(lp["attn"], cfg, h, angles,
-                   head_mask=mask.get("head_mask"), backend=backend,
-                   **({} if tp is None else {"tp": tp}))
+                   head_mask=mask.get("head_mask"), backend=backend, **split)
     x = x + a
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
     if "moe" in lp:
         m, metrics = moe_forward(lp["moe"], cfg.moe, h, cfg.activation,
-                                 expert_mask=mask.get("expert_mask"))
+                                 expert_mask=mask.get("expert_mask"), **split)
         return x + m, kv, metrics
     return x + mlp_forward(lp["mlp"], h, cfg.activation,
                            ffn_mask=mask.get("ffn_mask"),
@@ -483,42 +484,70 @@ def forward(params, cfg: ModelConfig, batch, masks: Masks = None,
 MTP_WEIGHT = 0.1
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 parts: bool = False):
     """Mean token cross-entropy in fp32; labels < 0 are masked out, the
-    sum divided by max(unmasked count, 1)."""
+    sum divided by max(unmasked count, 1) (with ``parts``, the sum and the
+    count)."""
     logits = logits.to(torch.float32)
     mask = labels >= 0
     gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
     nll = (torch.logsumexp(logits, dim=-1) - gold) * mask
+    if parts:
+        return nll.sum(), mask.sum()
     return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
 def _mtp_loss(params, cfg: ModelConfig, batch, hidden: torch.Tensor,
-              backend: str) -> torch.Tensor:
+              backend: str, tp=None) -> torch.Tensor:
     """DeepSeek-V3's next-next-token loss (the reference's, line for
     line): [h_t; emb(token_{t+1})] projected by ``mtp.proj``, the GQA
     block of the MTP config (MLA becomes GQA, M-RoPE standard rope, its
     angles from that config's own head dim), ``mtp.ln``, the LM head, and
-    labels two ahead, -1 past the end."""
+    labels two ahead, -1 past the end. With ``tp``: the vocabulary-
+    parallel embedding, head and cross-entropy, the block on the MTP
+    config's split (``tp.for_config``), and where the data axes split the
+    rows the whole batch's mean (``_whole_xent``)."""
     h = hidden
-    emb_next = params["embed"][batch["tokens"].clamp_min(0)]
+    emb_next = _embed(params, batch["tokens"].clamp_min(0), tp)
     if cfg.scale_embeddings:
         emb_next = emb_next * torch.tensor(math.sqrt(cfg.d_model),
                                            dtype=emb_next.dtype)
     if cfg.vision_tokens:
         h = h[:, cfg.vision_tokens:]
-    hcat = torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1) \
-        @ params["mtp"]["proj"]
+    mtp = (params["mtp"] if tp is None else
+           {"proj": tp.top("mtp", "proj"), "ln": tp.top("mtp", "ln")})
+    hcat = torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1) @ mtp["proj"]
     B2, S2 = hcat.shape[:2]
     mtp_cfg = cfg.replace(attention="gqa") if cfg.attention == "mla" else cfg
     if mtp_cfg.rope_mode == "mrope":
         mtp_cfg = mtp_cfg.replace(rope_mode="standard")
     ang = _angles_for(mtp_cfg, {}, B2, S2, 0, hcat.device)
-    hcat = _attn_block(mtp_cfg, params["mtp"]["block"], hcat, ang, None,
-                       backend)[0]
-    hcat = rmsnorm(hcat, params["mtp"]["ln"], cfg.norm_eps, backend=backend)
+    if tp is None:
+        hcat = _attn_block(mtp_cfg, params["mtp"]["block"], hcat, ang,
+                           None, backend)[0]
+    else:
+        hcat = _attn_block(mtp_cfg, ("mtp", "block"), hcat, ang, None,
+                           backend, tp.for_config(mtp_cfg))[0]
+    hcat = rmsnorm(hcat, mtp["ln"], cfg.norm_eps, backend=backend)
     labels = F.pad(batch["labels"][:, 2:], (0, 1), value=-1)[:, :S2]
-    return softmax_xent(_lm_logits(params, cfg, hcat), labels)
+    return _whole_xent(_lm_logits(params, cfg, hcat, tp), labels, tp)
+
+
+def _whole_xent(logits: torch.Tensor, labels: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """``softmax_xent`` (with ``tp``, the vocabulary-parallel one where the
+    vocabulary is split); where ``tp``'s data axes split the rows, the
+    whole batch's: the sum of every rank's terms over the count of every
+    rank's labels (``tp.batch_sum``)."""
+    if tp is not None and tp.vocab is not None:
+        total, count = vocab_xent(logits, labels, tp.vocab[0], tp.axis,
+                                  parts=True)
+    else:
+        total, count = softmax_xent(logits, labels, parts=True)
+    if tp is not None:
+        total, count = tp.batch_sum(total), tp.batch_count(count)
+    return total / torch.clamp(count, min=1)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, masks: Masks = None,
@@ -530,7 +559,10 @@ def loss_fn(params, cfg: ModelConfig, batch, masks: Masks = None,
     ``mtp`` subtree; ``metrics`` holds ``xent``, ``moe_aux``, ``moe_z``,
     ``mtp`` (where present) and ``loss``, as the reference's. With ``tp``
     the cross-entropy is the vocabulary-parallel one where the vocabulary
-    is split."""
+    is split; the router losses and the MTP loss are the whole batch's
+    where the data axes split the rows (``moe_forward``, ``_mtp_loss``),
+    the cross-entropy this rank's rows' own (a step weights it by the
+    rank's share of the labels)."""
     logits, aux = forward(params, cfg, batch, masks, backend, tp)
     labels = batch["labels"]
     if cfg.vision_tokens:
@@ -543,7 +575,7 @@ def loss_fn(params, cfg: ModelConfig, batch, masks: Masks = None,
     metrics = {"xent": loss, "moe_aux": aux["moe_aux"],
                "moe_z": aux["moe_z"]}
     if cfg.mtp_depth and "mtp" in params:
-        mtp = _mtp_loss(params, cfg, batch, aux["hidden"], backend)
+        mtp = _mtp_loss(params, cfg, batch, aux["hidden"], backend, tp)
         total = total + MTP_WEIGHT * mtp
         metrics["mtp"] = mtp
     metrics["loss"] = total
@@ -569,7 +601,8 @@ def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
     x2), one slot per invocation of the shared block. A hybrid's ssm
     layers are stacked flat, in layer order (the reference splits them
     into (groups, period) and a tail). With ``tp`` a KV cache holds the
-    rank's shard of the heads and head dims."""
+    rank's shard of the heads and head dims, an MLA cache its shard of
+    each leaf's last dim."""
     dtype = getattr(torch, cfg.dtype)
     clen = cache_len_for(cfg, max_len)
     heads, dims = cfg.num_kv_heads, cfg.head_dim
@@ -589,10 +622,12 @@ def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
             caches.append(ssm_lib.SSMCache(*(
                 t.new_zeros((run.count,) + tuple(t.shape)) for t in base)))
         elif cfg.attention == "mla":
+            widths = ((cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)
+                      if tp is None else
+                      tuple(hi - lo for lo, hi in tp.latent_dims))
             caches.append(MLACache(*(torch.zeros(
                 (run.count, batch_size, max_len, width), dtype=dtype,
-                device=device) for width in (cfg.mla.kv_lora_rank,
-                                             cfg.mla.qk_rope_head_dim))))
+                device=device) for width in widths)))
         else:
             caches.append(kv(run.count, clen))
     out: Dict[str, Any] = {"runs": caches}
@@ -660,6 +695,8 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
         def on_kv(r, j, kv):
             dst = caches["runs"][r]
             if cfg.attention == "mla":        # (ckv, k_rope) at max_len
+                if tp is not None:
+                    kv = tp.store_latent(*kv)
                 dst.ckv[j, :, :S] = kv[0]
                 dst.krope[j, :, :S] = kv[1]
                 return
@@ -759,10 +796,12 @@ def _attn_decode(cfg, lp, x, angles, kv, pos, mask, backend, tp=None):
     tokens as one ``moe_forward`` (capacity ``capacity(B)``, at least 8
     slots an expert)."""
     mask = mask or {}
+    split = {} if tp is None else {"tp": tp}
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
     if cfg.attention == "mla":
         a, _ = mla_decode(lp["attn"], cfg, h, angles, kv, pos,
-                          head_mask=mask.get("head_mask"), backend=backend)
+                          head_mask=mask.get("head_mask"), backend=backend,
+                          **split)
     else:
         a, _ = gqa_decode(lp["attn"], cfg, h, angles, kv, pos,
                           head_mask=mask.get("head_mask"), tp=tp)
@@ -770,7 +809,7 @@ def _attn_decode(cfg, lp, x, angles, kv, pos, mask, backend, tp=None):
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps, backend=backend)
     if "moe" in lp:
         m, _ = moe_forward(lp["moe"], cfg.moe, h, cfg.activation,
-                           expert_mask=mask.get("expert_mask"))
+                           expert_mask=mask.get("expert_mask"), **split)
         return x + m
     return x + mlp_forward(lp["mlp"], h, cfg.activation,
                            ffn_mask=mask.get("ffn_mask"), backend=backend,

@@ -1,5 +1,8 @@
-"""Tensor parallelism over the "model" mesh axis for the dense attention
-stack: GQA attention, the gated and non-gated FFN, and the vocabulary.
+"""Tensor parallelism over the "model" mesh axis for every attention
+stack: GQA and MLA attention, the gated and non-gated FFN, the MoE layer
+(experts over "model", the dispatch over the whole batch), DeepSeek-V3's
+MTP head, and the vocabulary. Mamba2 layers and Zamba2's shared block are
+not split (``tp_supported``).
 
 The reference has no counterpart: it lays its arrays out by
 ``param_specs`` and GSPMD splits every product over "model". The port's
@@ -15,8 +18,18 @@ local tensors and the reductions between the shares are explicit:
   rank's block crosses KV groups unevenly, the flash kernel's ``h //
   group`` map does not hold, and each q head gets its KV head repeated
   (``TensorParallel.kv_for_q``); the kernel does not change.
+* **MLA.** The latent projections (``w_dq``, ``w_dkv``, both norms) are
+  computed whole on every rank; ``w_uq``, ``w_uk`` and ``w_uv`` are taken
+  at the rank's heads, each by its own head width (192, 128 and 128
+  columns at DeepSeek-V3), ``wo`` by rows of ``v_head_dim``.
 * **FFN.** ``w_up`` and ``w_gate`` by columns (``ffn_mask`` sliced with
   them), ``w_down`` by rows, its partial sums all-reduced.
+* **Experts** (``expert_split``). With at least as many experts as ranks,
+  whole experts in contiguous blocks; with fewer, each expert on a
+  contiguous group of ranks, its ``d_expert`` columns in blocks over the
+  group. The shared experts split as the FFN does; the router is used
+  whole, so every rank routes alike. Each rank dispatches only to its own
+  experts; the combine's fp32 partial sums are all-reduced over "model".
 * **Vocabulary.** Where the vocabulary divides "model" (as ``param_specs``
   shards ``embed`` and ``lm_head``): the embedding lookup gives zeros for
   ids outside a rank's rows, then an all-reduce; the logits stay split,
@@ -33,15 +46,28 @@ Every "model" reduction goes through one seam, an *axis* with ``rank``,
 ``size``, ``all_reduce``, ``all_gather`` and ``all_to_all``: ``GroupAxis`` over a process
 group (a mesh's "model" group), or ``SequentialRanks``, which runs the
 shares of an n-rank split in one process one after another, each reduction
-adding the shares in rank order (the card's two-rank check, and tests).
+adding the shares in rank order (the card's split checks, and tests).
+
+**The whole batch.** Where a mesh's data axes split the rows, the MoE
+dispatch and the losses that are not a mean of per-row terms are the whole
+batch's, as the reference computes them on the global batch: the data
+axes (``DataAxes``, "pod" major) carry an all-gather of each rank's expert
+counts (capacity and each assignment's slot in global order), the
+reduce-scatter of the dispatch buffer's slots to the rank that computes
+them and the all-gather of the expert outputs back, and the sums of the
+balance loss, the z-loss and the MTP loss (``batch_sum``: all-reduced
+forward and backward, so that with each rank's loss weighted by its share
+of the labels the gradient is the whole batch's).
 
 Parameters reach a layer through ``TensorParallel.layer``: on a mesh
-(``on_mesh``) one layer's slice of each stacked DTensor, its data dims
-gathered (FSDP-style) and its "model" shard kept where it is the rank's
-block, else gathered over "model" and sliced; the gather's backward is the
-reduce-scatter of the gradient (``Partial`` grad placements on the dims
-it gathered). Whole trees (``sliced``) are sliced per rank with no
-communication. A one-rank axis takes every shortcut: the unsharded
+(``on_mesh``) one layer's slice of each stacked DTensor (or an unstacked
+block's leaves: the MTP block), its data dims gathered (FSDP-style) and
+its "model" shard kept where it is the rank's block, else gathered over
+"model" and sliced; the gather's backward is the reduce-scatter of the
+gradient (``Partial`` grad placements on the dims it gathered). The walk
+is by path: an MoE layer's ``w_up`` is cut on its expert and column dims,
+an FFN's on its columns. Whole trees (``sliced``) are sliced per rank with
+no communication. A one-rank axis takes every shortcut: the unsharded
 step's ops, the same bits.
 
 The KV cache keeps ``cache_specs``' layout (``kv_cache_layout``): KV heads
@@ -55,7 +81,10 @@ queries at every rank's dims (an all-to-all), each rank scores every head
 on its dims, the partial scores are all-reduced, and each rank's share of
 the output goes back to the ranks whose heads they are (an all-to-all).
 What moves a step is the queries, one layer's scores and the outputs,
-never the cache; a replicated cache is read where it is.
+never the cache; a replicated cache is read where it is. MLA's latent
+cache is the same: ``ckv`` and ``krope`` each on their last dim where it
+divides "model" (``latent_cache_layout``), else whole; its decode sends
+the absorbed queries to the latent dims the same way.
 """
 from __future__ import annotations
 
@@ -66,26 +95,26 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 #: what a step's record says of the "model" axis, by route
-ROUTE_SPLIT = "split: heads, FFN columns, vocabulary"
+ROUTE_SPLIT = "split: heads, FFN columns, experts, vocabulary"
 ROUTE_REPLICATED = ("replicated: every rank gathers the whole parameter "
                     "tree and computes its data rows whole; tensor "
-                    "parallelism over 'model' is ported for the dense "
-                    "attention stack only")
+                    "parallelism over 'model' is not ported for Mamba2 "
+                    "layers")
 
 
 def tp_supported(cfg) -> bool:
-    """Whether ``cfg`` is the dense attention stack: GQA attention and a
-    dense FFN in every layer, no MoE, SSM, shared block or MTP head."""
-    return (cfg.arch_type in ("dense", "audio", "vlm")
-            and cfg.attention == "gqa" and cfg.moe is None
-            and not cfg.shared_attn_period and not cfg.mtp_depth
-            and bool(cfg.num_heads))
+    """Whether ``cfg`` is an attention stack: GQA or MLA attention and a
+    dense FFN or an MoE layer in every layer, with or without an MTP head;
+    no SSM layer and no shared block."""
+    return (cfg.arch_type in ("dense", "audio", "vlm", "moe")
+            and cfg.attention in ("gqa", "mla")
+            and not cfg.shared_attn_period and bool(cfg.num_heads))
 
 
 def mesh_route(cfg) -> str:
-    """The route a mesh step takes for ``cfg``: ``ROUTE_SPLIT`` for the
-    dense attention stack, ``ROUTE_REPLICATED`` (the whole-tree
-    gather) for the rest."""
+    """The route a mesh step takes for ``cfg``: ``ROUTE_SPLIT`` for an
+    attention stack, ``ROUTE_REPLICATED`` (the whole-tree gather) for
+    Mamba2 and Zamba2."""
     return ROUTE_SPLIT if tp_supported(cfg) else ROUTE_REPLICATED
 
 
@@ -154,6 +183,45 @@ def kv_shard(num_kv_heads: int, head_dim: int, m: int,
     return (0, num_kv_heads), (0, head_dim)
 
 
+class ExpertSplit(NamedTuple):
+    experts: Tuple[int, int]    # the rank's experts [lo, hi)
+    cols: Tuple[int, int]       # their d_expert columns [lo, hi)
+
+
+def expert_split(num_experts: int, m: int,
+                 d_expert: int) -> List[ExpertSplit]:
+    """Each "model" rank's experts and their columns: with ``num_experts
+    >= m`` whole experts in contiguous blocks (``blocks``, uneven
+    allowed); with fewer, each expert on a contiguous group of ranks
+    (``blocks(m, num_experts)``), its ``d_expert`` columns in blocks over
+    the group (``w_up`` and ``w_gate`` take those columns, ``w_down``
+    those rows)."""
+    if num_experts >= m:
+        return [ExpertSplit(b, (0, d_expert)) for b in blocks(num_experts, m)]
+    out = []
+    for e, (r0, r1) in enumerate(blocks(m, num_experts)):
+        if d_expert < r1 - r0:
+            raise ValueError(f"{d_expert} expert columns on {r1 - r0} "
+                             f"ranks: a rank would hold none")
+        out += [ExpertSplit((e, e + 1), c) for c in blocks(d_expert, r1 - r0)]
+    return out
+
+
+def latent_cache_layout(width: int, m: int) -> str:
+    """``cache_specs``' "model" rule for an MLA cache leaf (``ckv``,
+    ``krope``): ``"dims"`` where its last dim divides "model", else
+    ``"whole"`` (replicated)."""
+    return "dims" if width % m == 0 else "whole"
+
+
+def latent_shard(width: int, m: int, rank: int) -> Tuple[int, int]:
+    """(lo, hi) of ``rank``'s shard of an MLA cache leaf's last dim."""
+    if latent_cache_layout(width, m) == "dims":
+        n = width // m
+        return rank * n, (rank + 1) * n
+    return 0, width
+
+
 # ---------------------------------------------------------------------------
 # the seam: every "model" reduction goes through an axis
 # ---------------------------------------------------------------------------
@@ -196,6 +264,49 @@ class GroupAxis:
                                group=self.group)
         return [parts[me] if r == me else o.view(tuple(s))
                 for r, (o, s) in enumerate(zip(out.split(sizes), shapes))]
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (size, ...) summed over the ranks; this rank keeps
+        entry ``rank`` of the sum."""
+        import torch.distributed as dist
+        out = t.new_empty(tuple(t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t.reshape((-1,) + out.shape[1:]),
+                                   group=self.group)
+        return out
+
+
+class DataAxes:
+    """A mesh's data axes (``GroupAxis`` each, major first: "pod", then
+    "data") as one axis of ``size`` ranks, ``rank`` in the order the rows
+    are split (``launch.steps._my_rows``): each collective runs axis by
+    axis."""
+
+    def __init__(self, axes: Sequence[GroupAxis]):
+        self.axes = list(axes)
+        self.size, self.rank = 1, 0
+        for a in self.axes:
+            self.size *= a.size
+            self.rank = self.rank * a.size + a.rank
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        for a in self.axes:
+            t = a.all_reduce(t)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t`` in rank order."""
+        shape = tuple(t.shape)
+        for a in reversed(self.axes):        # minor first
+            t = a.all_gather(t)
+        return t.reshape((self.size,) + shape)
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (size, ...) summed over the ranks; entry ``rank`` of the
+        sum."""
+        blk = tuple(t.shape[1:])
+        for a in self.axes:                  # major first
+            t = a.reduce_scatter(t.reshape((a.size, -1) + blk))
+        return t[0]
 
 
 class SequentialRanks:
@@ -338,6 +449,52 @@ def reduce_from_model(x: torch.Tensor, axis) -> torch.Tensor:
     return _ReduceFromModel.apply(x, axis)
 
 
+class _SumBatch(torch.autograd.Function):
+    """A sum over the data axes of a loss's per-rank part: all-reduced
+    forward, and the gradient all-reduced backward. Every rank then holds
+    the whole batch's value; where each rank's loss is weighted by its
+    share of the labels (the shares summing to 1), the backward's sum
+    gives each rank's part the whole batch's gradient, not its share of
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, data):
+        ctx.data = data
+        return data.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.data.all_reduce(g), None
+
+
+class _ScatterSlots(torch.autograd.Function):
+    """(size, ...) -> this rank's entry of the sum over the data axes
+    (reduce-scatter); the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, data):
+        ctx.data = data
+        return data.reduce_scatter(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.data.all_gather(g), None
+
+
+class _GatherSlots(torch.autograd.Function):
+    """(...) -> (size, ...) of every data rank's (all-gather); the
+    backward reduce-scatters."""
+
+    @staticmethod
+    def forward(ctx, x, data):
+        ctx.data = data
+        return data.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.data.reduce_scatter(g), None
+
+
 # ---------------------------------------------------------------------------
 # the vocabulary
 # ---------------------------------------------------------------------------
@@ -353,11 +510,12 @@ def vocab_embedding(table: torch.Tensor, ids: torch.Tensor, lo: int,
 
 
 def vocab_xent(logits: torch.Tensor, labels: torch.Tensor, lo: int,
-               axis) -> torch.Tensor:
+               axis, parts: bool = False):
     """``softmax_xent`` of logits split over "model" (this rank's columns
     [lo, lo + logits.shape[-1])), in fp32: the row max and the sum of
     exponentials all-reduced, the gold logit from the rank holding it;
-    labels < 0 masked out, the sum over max(count, 1)."""
+    labels < 0 masked out, the sum over max(count, 1) (with ``parts``,
+    the sum and the count)."""
     logits = logits.to(torch.float32)
     mask = labels >= 0
     big = axis.all_reduce(logits.detach().amax(-1), op="max")
@@ -368,36 +526,39 @@ def vocab_xent(logits: torch.Tensor, labels: torch.Tensor, lo: int,
                         local.clamp(0, logits.shape[-1] - 1)[..., None])
     gold = reduce_from_model(gold[..., 0].masked_fill(~mine, 0.0), axis)
     nll = (torch.log(s) + big - gold) * mask
+    if parts:
+        return nll.sum(), mask.sum()
     return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
 # ---------------------------------------------------------------------------
 # a rank's plan and its parameters
 # ---------------------------------------------------------------------------
-_Q, _KV, _FFN, _VOCAB = "q", "kv", "ffn", "vocab"
-#: leaf name -> (dim of one layer's leaf, the unit its block counts)
-_SPLIT = {"wq": (-1, _Q), "bq": (-1, _Q), "wk": (-1, _KV), "bk": (-1, _KV),
-          "wv": (-1, _KV), "bv": (-1, _KV), "wo": (0, _Q),
-          "w_up": (-1, _FFN), "w_gate": (-1, _FFN), "w_down": (0, _FFN),
-          "embed": (0, _VOCAB), "lm_head": (-1, _VOCAB)}
-
-
 class TensorParallel:
-    """One rank's share of the dense attention stack: its head block
-    (``heads``), FFN columns (``ffn``), vocabulary rows (``vocab``, None
-    where the head is replicated) and KV cache shard, the "model" axis its
-    reductions go through, and ``fetch``, which hands it parameters:
-    ``fetch(name, tensor, layer)`` with ``self.range(name)``."""
+    """One rank's share of an attention stack: its head block (``heads``),
+    FFN columns (``ffn``), experts and their columns (``experts``), shared
+    expert columns (``shared``), vocabulary rows (``vocab``, None where the
+    head is replicated) and KV or latent cache shard, the "model" axis its
+    reductions go through, the data axes (``data``: a ``DataAxes``, None
+    where they do not split the rows) its whole-batch sums go through, and
+    ``fetch``, which hands it parameters: ``fetch(tp, path, tensor,
+    layer)`` with ``tp.cuts(path)``."""
 
-    def __init__(self, cfg, axis, fetch):
+    def __init__(self, cfg, axis, fetch, data=None):
         if not tp_supported(cfg):
             raise ValueError(f"{cfg.name}: tensor parallelism covers the "
-                             f"dense attention stack only")
+                             f"attention stacks only")
         self.cfg, self.axis, self._fetch = cfg, axis, fetch
+        self.data = data if data is not None and data.size > 1 else None
         m, r = axis.size, axis.rank
         self._heads_all = head_split(cfg.num_heads, cfg.num_kv_heads, m)
         self.heads = self._heads_all[r]
         self.ffn = blocks(cfg.d_ff, m)[r]
+        moe = cfg.moe
+        self.experts = (expert_split(moe.num_experts, m, moe.d_expert)[r]
+                        if moe is not None else None)
+        self.shared = (blocks(moe.d_expert * moe.num_shared, m)[r]
+                       if moe is not None and moe.num_shared else None)
         V = cfg.padded_vocab
         self.vocab = ((r * V // m, (r + 1) * V // m)
                       if m > 1 and V % m == 0 else None)
@@ -419,6 +580,11 @@ class TensorParallel:
             lo = max(s.kv[0], seen)
             self._owned.append((lo, max(lo, s.kv[1])))
             seen = max(seen, s.kv[1])
+        if cfg.attention == "mla":
+            widths = (cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)
+            self.latent_layouts = tuple(latent_cache_layout(w, m)
+                                        for w in widths)
+            self.latent_dims = tuple(latent_shard(w, m, r) for w in widths)
         self._params = None
 
     # -- construction ---------------------------------------------------------
@@ -431,53 +597,114 @@ class TensorParallel:
         return tp
 
     @classmethod
-    def on_mesh(cls, cfg, mesh, params) -> "TensorParallel":
+    def on_mesh(cls, cfg, mesh, params,
+                rows_split: bool = False) -> "TensorParallel":
         """This rank's share on ``mesh`` of a DTensor tree laid out by
-        ``param_specs``: its "model" axis is the mesh's "model" group."""
+        ``param_specs``: its "model" axis is the mesh's "model" group; its
+        data axes the mesh's data groups where ``rows_split`` (the step's
+        rows split over them), else none (every data rank holds the same
+        rows and computes them alike)."""
         names = mesh.mesh_dim_names
         i = names.index("model")
         axis = GroupAxis(mesh.get_group(i), mesh.get_local_rank(i),
                          mesh.size(i))
-        tp = cls(cfg, axis, _MeshFetch(mesh))
+        data = None
+        if rows_split:
+            data = DataAxes([GroupAxis(mesh.get_group(j),
+                                       mesh.get_local_rank(j), mesh.size(j))
+                             for j, n in enumerate(names)
+                             if n != "model" and mesh.size(j) > 1])
+        tp = cls(cfg, axis, _MeshFetch(mesh), data)
         tp._params = params
         return tp
 
+    def for_config(self, cfg) -> "TensorParallel":
+        """The same rank's share of the same tree, split as ``cfg`` is (the
+        MTP block, a GQA block of the MTP config)."""
+        tp = TensorParallel(cfg, self.axis, self._fetch, self.data)
+        tp._params = self._params
+        return tp
+
     # -- ranges and parameters ------------------------------------------------
-    def range(self, name: str) -> Optional[Tuple[int, int, int]]:
-        """(dim, lo, hi) of this rank's block of one layer's leaf
-        ``name`` (or of ``embed`` / ``lm_head``), None for a leaf the rank
-        uses whole."""
-        if name not in _SPLIT:
-            return None
-        dim, unit = _SPLIT[name]
+    def cuts(self, path) -> Tuple[Tuple[int, int, int], ...]:
+        """((dim, lo, hi), ...): this rank's block of one layer's leaf at
+        ``path`` (keys from the layer: ``("attn", "wq")``, ``("moe",
+        "w_up")``), of ``("embed",)`` or ``("lm_head",)``; empty for a leaf
+        the rank uses whole. Dims are those of one layer's leaf."""
+        name = path[-1]
+        scope = path[-2] if len(path) > 1 else ""
+        if scope == "attn":
+            return self._attn_cuts(name)
+        if scope == "mlp":
+            dim = {"w_up": -1, "w_gate": -1, "w_down": 0}.get(name)
+            return () if dim is None else ((dim,) + self.ffn,)
+        if scope == "moe":
+            return self._expert_cuts(name)
+        if scope == "" and name in ("embed", "lm_head") and self.vocab:
+            return (({"embed": 0, "lm_head": -1}[name],) + self.vocab,)
+        return ()
+
+    def _attn_cuts(self, name):
+        (q0, q1), (k0, k1) = self.heads.q, self.heads.kv
+        if self.cfg.attention == "mla":
+            m = self.cfg.mla
+            width = {"w_uq": m.qk_nope_head_dim + m.qk_rope_head_dim,
+                     "w_uk": m.qk_nope_head_dim, "w_uv": m.v_head_dim,
+                     "wo": m.v_head_dim}.get(name)
+            if width is None:          # the latent projections and norms
+                return ()
+            return ((0 if name == "wo" else -1, q0 * width, q1 * width),)
         D = self.cfg.head_dim
-        if unit == _Q:
-            lo, hi = self.heads.q
-            return dim, lo * D, hi * D
-        if unit == _KV:
-            lo, hi = self.heads.kv
-            return dim, lo * D, hi * D
-        if unit == _FFN:
-            return (dim,) + self.ffn
-        if self.vocab is None:
-            return None
-        return (dim,) + self.vocab
+        if name in ("wq", "bq", "wo"):
+            return ((0 if name == "wo" else -1, q0 * D, q1 * D),)
+        if name in ("wk", "bk", "wv", "bv"):
+            return ((-1, k0 * D, k1 * D),)
+        return ()
 
-    def _leaf(self, name, t, layer=None):
-        return self._fetch(self, name, t, layer)
+    def _expert_cuts(self, name):
+        if name in ("w_up_sh", "w_gate_sh"):
+            return ((-1,) + self.shared,)
+        if name == "w_down_sh":
+            return ((0,) + self.shared,)
+        if name not in ("w_up", "w_gate", "w_down"):
+            return ()                          # the router: whole
+        moe = self.cfg.moe
+        (e0, e1), (c0, c1) = self.experts
+        out = []
+        if (e0, e1) != (0, moe.num_experts):
+            out.append((0, e0, e1))
+        if (c0, c1) != (0, moe.d_expert):
+            out.append((1 if name == "w_down" else 2, c0, c1))
+        return tuple(out)
 
-    def layer(self, run: int, j: int):
-        """Layer ``j`` of run ``run``: every leaf this rank's block of it."""
-        def walk(tree):
-            return {k: walk(v) if isinstance(v, dict) else
-                    self._leaf(k, v, j) for k, v in tree.items()}
-        return walk(self._params["runs"][run])
+    def _walk(self, tree, path, layer):
+        return {k: self._walk(v, path + (k,), layer) if isinstance(v, dict)
+                else self._fetch(self, path + (k,), v, layer)
+                for k, v in tree.items()}
 
-    def top(self, name: str) -> torch.Tensor:
-        return self._leaf(name, self._params[name])
+    def layer(self, *where):
+        """Layer ``j`` of run ``run`` (``layer(run, j)``), or the unstacked
+        block at a key path of the tree (``layer("mtp", "block")``): every
+        leaf this rank's block of it."""
+        if isinstance(where[0], int):
+            run, j = where
+            return self._walk(self._params["runs"][run], (), j)
+        tree = self._params
+        for k in where:
+            tree = tree[k]
+        return self._walk(tree, (), None)
+
+    def top(self, *path) -> torch.Tensor:
+        """A leaf outside the runs (``top("embed")``, ``top("mtp",
+        "proj")``)."""
+        t = self._params
+        for k in path:
+            t = t[k]
+        return self._fetch(self, path, t, None)
 
     def mask(self, mask):
-        """A layer's masks sliced to this rank's heads and FFN columns."""
+        """A layer's masks sliced to this rank's heads and FFN columns (the
+        expert mask stays whole: the router is)."""
         if not mask:
             return mask
         out = dict(mask)
@@ -502,6 +729,24 @@ class TensorParallel:
             return k, v
         idx = torch.tensor(self.heads.kv_of_q, device=k.device)
         return k.index_select(2, idx), v.index_select(2, idx)
+
+    # -- the whole batch ------------------------------------------------------
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data axes (forward and backward: see
+        ``_SumBatch``); as it is where they do not split the rows."""
+        return t if self.data is None else _SumBatch.apply(t, self.data)
+
+    def batch_count(self, t: torch.Tensor) -> torch.Tensor:
+        """An integer count summed over the data axes (no gradient)."""
+        return t if self.data is None else self.data.all_reduce(t)
+
+    def scatter_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """(data size, ...) -> this data rank's entry of the sum."""
+        return _ScatterSlots.apply(t, self.data)
+
+    def gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """(...) -> (data size, ...): every data rank's."""
+        return _GatherSlots.apply(t, self.data)
 
     # -- the vocabulary -------------------------------------------------------
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
@@ -603,22 +848,76 @@ class TensorParallel:
             [out[:, :, lo:hi] for lo, hi in qb],
             [(B, 1, nq, b - a) for a, b in dims]), dim=-1)
 
-def _narrow(t: torch.Tensor, rng) -> torch.Tensor:
-    if rng is None:
-        return t
-    dim, lo, hi = rng
-    dim %= t.dim()
-    if lo == 0 and hi == t.shape[dim]:
-        return t
-    return t.narrow(dim, lo, hi - lo)
+    # -- MLA's latent cache ---------------------------------------------------
+    def store_latent(self, ckv: torch.Tensor, krope: torch.Tensor):
+        """The whole latent and rotary key (..., width) as this rank's
+        cache shard: its slice of each leaf's last dim (no
+        communication: every rank holds them whole)."""
+        (a0, a1), (b0, b1) = self.latent_dims
+        return ckv[..., a0:a1], krope[..., b0:b1]
+
+    def _latent_reads(self, leaf: int):
+        """The dims of latent leaf ``leaf`` (0: ``ckv``, 1: ``krope``) each
+        rank scores: its shard where the leaf is split; where it is whole,
+        all of them on rank 0 and none elsewhere (its partial scores are
+        then summed once)."""
+        m = self.axis.size
+        width = (self.cfg.mla.kv_lora_rank,
+                 self.cfg.mla.qk_rope_head_dim)[leaf]
+        if self.latent_layouts[leaf] == "dims":
+            return [latent_shard(width, m, r) for r in range(m)]
+        return [(0, width)] + [(0, 0)] * (m - 1)
+
+    def latent_attention(self, q_lat: torch.Tensor, q_rope: torch.Tensor,
+                         cache, pos, scale: float) -> torch.Tensor:
+        """``mla_decode``'s scores, softmax and latent output, in fp32,
+        of this rank's heads (``q_lat`` (B, heads, kv_lora_rank) and
+        ``q_rope`` (B, heads, rope dim), float32) against this rank's shard
+        of the latent cache (``cache``: an ``MLACache`` of one layer, the
+        step's slot already written): o_lat (B, heads, kv_lora_rank)
+        float32. Where a leaf is split the queries go to it (module
+        docstring): every head's absorbed queries at this rank's dims (an
+        all-to-all), the partial scores all-reduced, the softmax on every
+        rank, the latent output at this rank's dims sent back to the ranks
+        whose heads they are (an all-to-all). Where both leaves are whole
+        each rank reads its own heads' scores where the cache lies."""
+        from repro_torch.models.layers.attention import (latent_attention,
+                                                         latent_scores)
+        if self.latent_layouts == ("whole", "whole"):
+            return latent_attention(q_lat, q_rope, cache, pos, scale)
+        B, nq = q_lat.shape[:2]
+        qb = [s.q for s in self._heads_all]
+        reads = [self._latent_reads(0), self._latent_reads(1)]
+        me = self.axis.rank
+        local = [c if lay == "dims" else c[..., slice(*rd[me])]
+                 for c, lay, rd in zip((cache.ckv, cache.krope),
+                                       self.latent_layouts, reads)]
+        qs = [torch.cat(self.axis.all_to_all(
+            [q[..., a:b] for a, b in rd],
+            [(B, hi - lo, rd[me][1] - rd[me][0]) for lo, hi in qb]), dim=1)
+            for q, rd in zip((q_lat, q_rope), reads)]
+        probs = latent_scores(qs[0], qs[1], local[0], local[1], pos, scale,
+                              partial_sum=self.axis.all_reduce)
+        o = torch.einsum("bhk,bkr->bhr", probs, local[0].to(torch.float32))
+        return torch.cat(self.axis.all_to_all(
+            [o[:, lo:hi] for lo, hi in qb],
+            [(B, nq, b - a) for a, b in reads[0]]), dim=-1)
 
 
-def _slice_leaf(tp: TensorParallel, name: str, t: torch.Tensor, layer):
+def _narrow(t: torch.Tensor, cuts) -> torch.Tensor:
+    for dim, lo, hi in cuts:
+        dim %= t.dim()
+        if lo != 0 or hi != t.shape[dim]:
+            t = t.narrow(dim, lo, hi - lo)
+    return t
+
+
+def _slice_leaf(tp: TensorParallel, path, t: torch.Tensor, layer):
     """A whole leaf's block for this rank (contiguous: the kernels read
     their operands' strides as their own)."""
     if layer is not None:
         t = t[layer]
-    return _narrow(t, tp.range(name)).contiguous()
+    return _narrow(t, tp.cuts(path)).contiguous()
 
 
 def contiguous_stride(shape) -> Tuple[int, ...]:
@@ -635,13 +934,20 @@ class _MeshFetch:
     """One leaf of a DTensor tree as a plain local tensor for this rank:
     one layer's slice of a stacked leaf (its placements one dim down),
     its data dims gathered (grad ``Partial``: the backward reduce-scatters
-    the gradient over them), its "model" dim kept where the local shard is
-    the rank's block (grad stays local to the shard), else gathered and
-    sliced (grad ``Partial`` over "model": the ranks' contributions
-    summed). A leaf the rank uses whole (a norm scale, a replicated head)
-    is gathered with a ``Replicate`` grad: every rank computes the same
-    gradient for it. Mesh dims of size 1 are left alone, so a one-rank
-    mesh reads views of the local tensors."""
+    the gradient over them). Its "model" dim: kept where the local shard
+    is the rank's block (grad stays local to the shard); where the leaf
+    is whole on every "model" rank (replicated: Mixtral's 8 experts on 16
+    ranks) and no cut falls on a data-sharded dim, cut first and only the
+    rank's block gathered over the data axes (the leaf's gradient then
+    ``Partial`` over "model": each rank's block's, summed where the step
+    lays the gradient out as the leaf, ``sum_model_partials``); else
+    gathered and cut (grad ``Partial`` over "model": the ranks'
+    contributions summed). An MoE leaf of fewer experts than ranks is cut
+    on two dims, its expert and its columns. A leaf the rank uses whole (a
+    norm scale, the router, a replicated head) is gathered with a
+    ``Replicate`` grad: every rank computes the same gradient for it.
+    Mesh dims of size 1 are left alone, so a one-rank mesh reads views of
+    the local tensors."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -649,49 +955,84 @@ class _MeshFetch:
         self.coord = mesh.get_coordinate()
         self._local = {}
 
-    def __call__(self, tp, name, t, layer):
+    def __call__(self, tp, path, t, layer):
         from torch.distributed.tensor import DTensor, Partial, Replicate, \
             Shard
+        names = self.mesh.mesh_dim_names
+        pl, shape = list(t.placements), tuple(t.shape)
+        if layer is not None:
+            pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                  for p in pl]
+            shape = shape[1:]
+        cuts = tp.cuts(path)
+        mi = names.index("model")
+        first = (bool(cuts) and self.sizes[mi] > 1
+                 and isinstance(pl[mi], Replicate)
+                 and not any(isinstance(p, Shard)
+                             and p.dim in {c[0] % len(shape) for c in cuts}
+                             for p in pl))
         # one local view a leaf for the whole step: its layers' gradients
         # then add up in one plain buffer, as the unsharded step's do,
         # where a view a layer would hold a stacked DTensor gradient each
         loc = self._local.get(id(t))
         if loc is None:
-            loc = self._local[id(t)] = t.to_local()
-        pl, shape = list(t.placements), tuple(t.shape)
+            grad = None
+            if first:
+                grad = list(t.placements)
+                grad[mi] = Partial()
+            loc = self._local[id(t)] = t.to_local(grad_placements=grad)
         if layer is not None:
             loc = loc[layer]
-            pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
-                  for p in pl]
-            shape = shape[1:]
-        rng = tp.range(name)
-        target, grad, cut = [], [], None
-        for i, (axis, p) in enumerate(zip(self.mesh.mesh_dim_names, pl)):
-            if self.sizes[i] == 1:
+        if first:
+            # the cut is local: every dim it cuts is whole on this rank
+            loc = _narrow(loc, cuts)
+            shape = tuple(loc.shape[d] if any(c[0] % len(shape) == d
+                                              for c in cuts) else n
+                          for d, n in enumerate(shape))
+            cuts = ()
+        target, grad, cut = [], [], ()
+        for i, (axis, p) in enumerate(zip(names, pl)):
+            if self.sizes[i] == 1 or (first and axis == "model"):
                 target.append(p)
                 grad.append(p)
             elif axis != "model":
                 target.append(Replicate())
                 grad.append(Partial())
-            elif rng is None:
+            elif not cuts:
                 target.append(Replicate())
                 grad.append(Replicate())
+            elif self._is_shard(p, cuts, shape, i):
+                target.append(p)
+                grad.append(p)
             else:
-                dim, lo, hi = rng
-                dim %= len(shape)
-                n = shape[dim] // self.sizes[i]
-                if (isinstance(p, Shard) and p.dim == dim
-                        and (self.coord[i] * n, self.coord[i] * n + n)
-                        == (lo, hi)):
-                    target.append(p)
-                    grad.append(p)
-                else:
-                    target.append(Replicate())
-                    grad.append(Partial())
-                    cut = rng
+                target.append(Replicate())
+                grad.append(Partial())
+                cut = cuts
         if target != pl or grad != pl:
             loc = DTensor.from_local(
                 loc, self.mesh, pl, run_check=False, shape=shape,
                 stride=contiguous_stride(shape)).redistribute(
                 self.mesh, target).to_local(grad_placements=grad)
-        return _narrow(loc, cut) if cut is not None else loc
+        return _narrow(loc, cut)
+
+    def _is_shard(self, p, cuts, shape, i) -> bool:
+        """Whether mesh dim ``i``'s shard (placement ``p``) is this rank's
+        one cut."""
+        from torch.distributed.tensor import Shard
+        if len(cuts) != 1 or not isinstance(p, Shard):
+            return False
+        dim, lo, hi = cuts[0]
+        dim %= len(shape)
+        n = shape[dim] // self.sizes[i]
+        return p.dim == dim and (self.coord[i] * n,
+                                 self.coord[i] * n + n) == (lo, hi)
+
+
+def sum_model_partials(grad, param):
+    """A parameter's gradient (a DTensor) laid out as the parameter is:
+    a gradient ``Partial`` over "model" (a leaf every "model" rank holds
+    whole and cuts its own block of, ``_MeshFetch``) summed over it; any
+    other as it is."""
+    if tuple(grad.placements) == tuple(param.placements):
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)

@@ -265,7 +265,8 @@ def test_counter_counts_the_split_routes_collectives_by_hand(no_group):
             tp = tpm.TensorParallel(cfg, axis, fetch)
             with analysis.TraceCounter(mesh) as layer:
                 # the leaf's columns are this rank's FFN block: kept local
-                y = tpm.copy_to_model(x, axis) @ fetch(tp, "w_up", w, 1)
+                y = tpm.copy_to_model(x, axis) @ fetch(tp, ("mlp", "w_up"),
+                                                       w, 1)
                 out = tpm.reduce_from_model(y @ torch.empty(8, 8), axis)
                 torch.autograd.grad(out.sum(), [x, w])
             with analysis.TraceCounter(mesh) as xent:
@@ -373,7 +374,7 @@ def test_split_route_divides_the_per_card_flops_over_model(shape, tmp_path,
     most 0.35x the FLOPs of the (1, 1) mesh (the even share is 0.25; each
     rank also computes the KV head its head reads, one of 2), its record
     says ``split`` and the "model" dim carries the all-reduces; the smoke
-    Mixtral's says ``replicated``."""
+    Mixtral's says ``split`` too."""
     one = dryrun.run_one("qwen2-7b", shape, False, str(tmp_path / "1"),
                          mesh_shape=(1, 1), smoke=True)
     four = dryrun.run_one("qwen2-7b", shape, False, str(tmp_path / "4"),
@@ -386,7 +387,26 @@ def test_split_route_divides_the_per_card_flops_over_model(shape, tmp_path,
     assert coll["bytes_by_mesh_dim"]["model"] > 0
     moe = dryrun.run_one("mixtral-8x7b", shape, False, str(tmp_path / "m"),
                          mesh_shape=(1, 4), smoke=True)
-    assert moe["model_axis"] == ROUTE_REPLICATED
+    assert moe["model_axis"] == ROUTE_SPLIT
+
+
+@pytest.mark.parametrize("arch,route", [
+    ("mixtral-8x7b", ROUTE_SPLIT), ("deepseek-v3-671b", ROUTE_SPLIT),
+    ("mamba2-2.7b", ROUTE_REPLICATED), ("zamba2-1.2b", ROUTE_REPLICATED)])
+def test_each_stack_records_its_route(arch, route, tmp_path, no_group):
+    """The smoke config's ``decode_32k`` cell on a fake (2, 2) mesh: the
+    record is ``ok`` and names the route its step took; on the split
+    route the MoE stacks' expert products split over "model" (the data
+    axes' reduce-scatter of the dispatch buffer and the "model"
+    all-reduces are counted), the Mamba2 stacks gather the whole tree."""
+    rec = dryrun.run_one(arch, "decode_32k", False, str(tmp_path),
+                         mesh_shape=(2, 2), smoke=True)
+    assert rec["status"] == "ok"
+    assert rec["model_axis"] == route
+    ops = rec["collectives"]["count_by_op"]
+    if route == ROUTE_SPLIT:
+        assert ops["reduce-scatter"] > 0 and ops["all-reduce"] > 0
+        assert rec["collectives"]["bytes_by_mesh_dim"]["model"] > 0
 
 
 def test_run_one_keeps_its_records_in_out_dir(tmp_path, monkeypatch,

@@ -1,4 +1,4 @@
-"""Tensor parallelism over "model" for the dense attention stack
+"""Tensor parallelism over "model" for the attention stacks
 (``repro_torch.sharding.tensor_parallel`` through ``launch.steps``' mesh
 steps) against the port's one-process steps and the reference's
 unsharded ``prefill``, ``decode_step`` and ``jax.value_and_grad`` of
@@ -9,13 +9,21 @@ results through files in ``tmp_path``) runs a (1, 4) and a (2, 2) ("data",
 "model") mesh for each case: the smoke Qwen2-7B (GQA with QKV biases,
 masks at ratio 0.5), Qwen2-VL-7B (M-RoPE, a vision prefix), gemma-7b
 (MHA, GeGLU, tied and scaled embeddings), nemotron-4-340b (``sq_relu``),
-HuBERT-XLarge (bidirectional, ``embeds`` input, all logits) and a
+HuBERT-XLarge (bidirectional, ``embeds`` input, all logits), a
 hand-made GQA config of 10 heads over 2 KV heads (masks at ratio 0.5),
 whose heads do not divide 4: its (1, 4) split gives ranks 3, 3, 2, 2
 heads, rank 1's crossing its KV groups unevenly (the repeated-KV route),
-and its KV cache lies on the head dim. Each case: the prefill's logits
-and cache, 4 decode steps (the cache written in place), and 2 AdamW
-steps (the loss, the first step's gradient, every parameter after).
+and its KV cache lies on the head dim; the smoke Mixtral-8x7B (4 experts:
+one a rank at (1, 4), two at (2, 2)); the smoke DeepSeek-V3 (MLA, sigmoid
+routing, a shared expert, a dense layer, the MTP head; masks at ratio 0.5
+with expert masks; its latent cache on its last dims); and a hand-made
+Mixtral of 2 experts, top-1, capacity factor 0.5 (two ranks an expert at
+(1, 4); on (2, 2) the whole batch's capacity binds where each data rank's
+would not: the dispatch-over-the-whole-batch fault's case). Each case:
+the prefill's logits and cache, 4 decode steps (the cache written in
+place), and 2 AdamW steps (the loss, the first step's gradient, every
+parameter after); the MoE cases also each MoE layer's ``drop_frac`` in
+the prefill.
 
 Tolerances (float32): the mesh's logits and caches within
 ``stack_tol`` of the one-process run's (the same sums split over ranks
@@ -25,15 +33,18 @@ leaf's largest entry plus 1e-4 of one step's lr, its gradient within
 ``GRAD_RTOL32`` of the reference's (as ``tests/test_torch_mesh.py`` and
 the training parity tests state). Against the reference: logits within
 ``stack_tol``, the loss within ``LOSS_RTOL32``, each gradient leaf within
-``GRAD_RTOL32`` of its largest entry. In-process: the head split of every
-registry config at "model" 1, 2 and 16, the routes, and the shares of a
-two-rank split run one after another in one process
-(``SequentialRanks``) against the one-process logits.
+``GRAD_RTOL32`` of its largest entry; ``drop_frac`` exactly the
+reference ``moe_forward``'s on the whole batch. In-process: the head and
+expert splits of every registry config at "model" 1, 2 and 16, MLA's
+per-leaf head ranges, the routes, and the shares of a split run one
+after another in one process (``SequentialRanks``) against the
+one-process logits.
 
 This file imports no JAX at module level: the spawned ranks import it by
 name."""
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -45,20 +56,32 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, \
     get_smoke_config
 from repro_torch.sharding.tensor_parallel import (
     ROUTE_REPLICATED, ROUTE_SPLIT, SequentialRanks, TensorParallel,
-    head_split, kv_cache_layout, mesh_route, tp_supported)
+    expert_split, head_split, kv_cache_layout, mesh_route, tp_supported)
 
-#: (name, registry arch, config overrides, masked)
+#: (name, registry arch, config overrides, masked); ``moe`` overrides
+#: fields of the config's ``MoEConfig``
 CASES = (("qwen2-7b", "qwen2-7b", {}, True),
          ("qwen2-vl-7b", "qwen2-vl-7b", {}, False),
          ("gemma-7b", "gemma-7b", {}, False),
          ("nemotron-4-340b", "nemotron-4-340b", {}, False),
          ("hubert-xlarge", "hubert-xlarge", {}, False),
          ("gqa-10-over-2", "qwen2-7b",
-          dict(num_heads=10, num_kv_heads=2, head_dim=32), True))
+          dict(num_heads=10, num_kv_heads=2, head_dim=32), True),
+         ("mixtral-8x7b", "mixtral-8x7b", {}, False),
+         ("deepseek-v3-671b", "deepseek-v3-671b", {}, True),
+         ("mixtral-2-experts", "mixtral-8x7b",
+          dict(moe=dict(num_experts=2, top_k=1, capacity_factor=0.5)),
+          False))
+#: the case whose whole-batch capacity binds where the per-rank one
+#: would not (the fault of a dispatch per data rank)
+FAULT_CASE = "mixtral-2-experts"
 NAMES = [c[0] for c in CASES]
 MESHES = ((1, 4), (2, 2))
 MESH_IDS = ["1x4", "2x2"]
 B, S, DECODE = 2, 8, 4
+#: the fault's case with microbatches: ``ACCUM`` of the rows of a batch of
+#: ``ACCUM_B`` (each microbatch split over the (2, 2) mesh's data ranks)
+ACCUM, ACCUM_B = 2, 4
 LR = 1e-3
 #: AdamW's eps near the gradients' size (as ``tests/test_torch_mesh.py``):
 #: an update moves with the gradient, not with the sign of an entry near 0
@@ -73,9 +96,19 @@ def _case(name):
     return next(c for c in CASES if c[0] == name)
 
 
+def _configured(cfg, over):
+    """``cfg`` in float32 with the case's overrides (``moe``: fields of its
+    ``MoEConfig``), for either package's config."""
+    over = dict(over)
+    moe = over.pop("moe", None)
+    if moe:
+        over["moe"] = dataclasses.replace(cfg.moe, **moe)
+    return cfg.replace(dtype="float32", **over)
+
+
 def _port_config(name):
     _, arch, over, _ = _case(name)
-    return get_smoke_config(arch).replace(dtype="float32", **over)
+    return _configured(get_smoke_config(arch), over)
 
 
 def _max_len(cfg) -> int:
@@ -87,20 +120,55 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t.clone()
+
+
 def _steps(cfg, params, masks, batch, tokens, mesh=None) -> dict:
     """The prefill, ``DECODE`` decode steps and 2 AdamW steps through the
     steps a launcher calls (on ``mesh``, or in one process); every tensor
     of the result whole (a DTensor gathered)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.sharding import specs as sh
+    p = params
+    if mesh is not None:
+        p = sh.distribute(params, sh.param_specs(params, cfg, mesh), mesh)
+    out = {}
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        prefill = make_prefill_step(cfg, max_len=_max_len(cfg), masks=masks,
+                                    device="cpu", mesh=mesh)
+        with _watch_moe() as moe_calls:
+            logits, cache = prefill(p, inputs)
+        # each MoE layer's input rows (this rank's) and drop_frac
+        out["moe"] = moe_calls
+        out["prefill"] = _whole(logits)
+        if cache is not None:
+            out["cache"] = [_whole(t) for t in _leaves(cache["runs"])]
+            decode = make_decode_step(cfg, masks=masks, device="cpu",
+                                      mesh=mesh)
+            out["decode"] = []
+            for t in tokens:
+                logits, cache = decode(p, cache, t)
+                out["decode"].append(_whole(logits))
+            out["cache_after"] = [_whole(t) for t in _leaves(cache["runs"])]
+    out.update(_train(cfg, params, masks, batch, mesh))
+    return out
+
+
+def _train(cfg, params, masks, batch, mesh=None, steps: int = 2,
+           grad_accum: int = 1) -> dict:
+    """``steps`` AdamW steps of ``batch`` in ``grad_accum`` microbatches
+    through ``make_train_step`` (on ``mesh``, or in one process): its
+    route, each step's metrics, the first step's gradient and the
+    parameters after, every tensor whole."""
     from torch.distributed.tensor import DTensor
-    from repro_torch.launch.steps import (make_decode_step,
-                                          make_prefill_step, make_train_step)
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw
     from repro_torch.optim.optimizers import Optimizer
     from repro_torch.optim.schedules import constant
     from repro_torch.sharding import specs as sh
-
-    def whole(t):
-        return t.full_tensor() if isinstance(t, DTensor) else t.clone()
     opt = adamw(constant(LR), eps=EPS)
     seen = []
 
@@ -113,27 +181,10 @@ def _steps(cfg, params, masks, batch, tokens, mesh=None) -> dict:
         ps = sh.param_specs(params, cfg, mesh)
         p = sh.distribute(params, ps, mesh)
         state = sh.distribute(state, sh.opt_state_specs(state, ps), mesh)
-    out = {}
-    inputs = {k: v for k, v in batch.items() if k != "labels"}
-    with torch.no_grad():
-        prefill = make_prefill_step(cfg, max_len=_max_len(cfg), masks=masks,
-                                    device="cpu", mesh=mesh)
-        logits, cache = prefill(p, inputs)
-        out["prefill"] = whole(logits)
-        if cache is not None:
-            out["cache"] = [whole(t) for t in _leaves(cache["runs"])]
-            decode = make_decode_step(cfg, masks=masks, device="cpu",
-                                      mesh=mesh)
-            out["decode"] = []
-            for t in tokens:
-                logits, cache = decode(p, cache, t)
-                out["decode"].append(whole(logits))
-            out["cache_after"] = [whole(t) for t in _leaves(cache["runs"])]
     step = make_train_step(cfg, Optimizer(opt.init, update), masks,
-                           device="cpu", mesh=mesh)
-    out["route"] = getattr(step, "route", None)
-    out["metrics"] = []
-    for i in range(2):
+                           grad_accum=grad_accum, device="cpu", mesh=mesh)
+    out = {"route": getattr(step, "route", None), "metrics": []}
+    for i in range(steps):
         p, state, m = step(p, state, batch)
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if i == 0:
@@ -143,9 +194,30 @@ def _steps(cfg, params, masks, batch, tokens, mesh=None) -> dict:
                                         run_check=False, shape=q.shape,
                                         stride=q.stride())
                      for t, q in zip(g, _leaves(p))]
-            out["grads"] = [whole(t) for t in g]
-    out["params"] = [whole(t) for t in _leaves(p)]
+            out["grads"] = [_whole(t) for t in g]
+    out["params"] = [_whole(t) for t in _leaves(p)]
     return out
+
+
+class _watch_moe:
+    """The stack's ``moe_forward`` calls while the context is open, as
+    (the input rows, ``drop_frac``)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tr
+        self.real, self.calls = tr.moe_forward, []
+
+        def watched(params, moe, x, *args, **kw):
+            out, metrics = self.real(params, moe, x, *args, **kw)
+            self.calls.append((x.detach().clone(),
+                               float(metrics.drop_frac)))
+            return out, metrics
+        tr.moe_forward = watched
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as tr
+        tr.moe_forward = self.real
 
 
 def _rank(rank: int, port: int, d: str) -> None:
@@ -165,6 +237,15 @@ def _rank(rank: int, port: int, d: str) -> None:
                              inp["tokens"], mesh)
                 if rank == 0:
                     torch.save(got, os.path.join(d, f"{name}.{sid}.pt"))
+        # the fault's case with microbatches: the (2, 2) mesh's microbatch
+        # must be the reference's rows, not every rank's i-th chunk
+        inp = torch.load(os.path.join(d, f"{FAULT_CASE}.in.pt"))
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        got = _train(_port_config(FAULT_CASE), inp["params"], inp["masks"],
+                     inp["accum_batch"], mesh, steps=1, grad_accum=ACCUM)
+        if rank == 0:
+            torch.save(got, os.path.join(d, f"{FAULT_CASE}.accum.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -196,7 +277,7 @@ def runs(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("tp"))
     out = {}
     for name, arch, over, masked in CASES:
-        cr = rreg.get_smoke_config(arch).replace(dtype="float32", **over)
+        cr = _configured(rreg.get_smoke_config(arch), over)
         pn = transformer_params_np(cr, seed=3)
         mn = None
         if masked:
@@ -213,6 +294,10 @@ def runs(tmp_path_factory):
                          for k, v in bn.items()},
                "tokens": [torch.from_numpy(t.astype(np.int64))
                           for t in tok]}
+        if name == FAULT_CASE:
+            acc = train_batch_np(cr, ACCUM_B, S, seed=8)
+            inp["accum_batch"] = {k: torch.from_numpy(np.asarray(v))
+                                  for k, v in acc.items()}
         torch.save(inp, os.path.join(d, f"{name}.in.pt"))
         out[name] = {"numpy": (cr, pn, mn, bn, tok),
                      "one": _steps(_port_config(name), inp["params"],
@@ -223,6 +308,9 @@ def runs(tmp_path_factory):
     for name in NAMES:
         for sid in MESH_IDS:
             out[name][sid] = torch.load(os.path.join(d, f"{name}.{sid}.pt"))
+    out[FAULT_CASE]["accum"] = torch.load(
+        os.path.join(d, f"{FAULT_CASE}.accum.pt"))
+    out[FAULT_CASE]["accum_batch"] = acc
     return out
 
 
@@ -544,18 +632,209 @@ def test_decode_sends_the_queries_not_the_cache(layout):
     _close(got[0], want, _stack_tol)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b",
-                                  "mamba2-2.7b", "zamba2-1.2b"])
-def test_other_stacks_name_the_replicated_route(arch):
+@pytest.mark.parametrize("arch,route", [
+    ("mixtral-8x7b", ROUTE_SPLIT), ("deepseek-v3-671b", ROUTE_SPLIT),
+    ("mamba2-2.7b", ROUTE_REPLICATED), ("zamba2-1.2b", ROUTE_REPLICATED)],
+    ids=["mixtral-8x7b", "deepseek-v3-671b", "mamba2-2.7b", "zamba2-1.2b"])
+def test_other_stacks_name_the_replicated_route(arch, route):
+    """The stacks beyond the dense attention stack name their route: the
+    MoE stacks (Mixtral's GQA, DeepSeek-V3's MLA and MTP head) the split
+    one since tensor parallelism covers them; Mamba2 and Zamba2 keep the
+    replicated one."""
     from repro_torch.launch.mesh import host_mesh
     from repro_torch.launch.steps import (make_decode_step,
                                           make_prefill_step, make_train_step)
     from repro_torch.optim import adamw
     from repro_torch.optim.schedules import constant
     cfg = get_smoke_config(arch)
+    assert mesh_route(cfg) == route
     with host_mesh("cpu") as mesh:
         steps = [make_prefill_step(cfg, device="cpu", mesh=mesh),
                  make_decode_step(cfg, device="cpu", mesh=mesh),
                  make_train_step(cfg, adamw(constant(1e-3)), device="cpu",
                                  mesh=mesh)]
-    assert [s.route for s in steps] == [ROUTE_REPLICATED] * 3
+    assert [s.route for s in steps] == [route] * 3
+
+
+@pytest.mark.parametrize("m", [1, 2, 16])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if get_config(a).moe is not None])
+def test_expert_split_of_every_registry_config(arch, m):
+    """Of each MoE config of the registry: every expert's every column on
+    exactly one rank: with at least as many experts as ranks whole experts
+    in contiguous blocks within one of each other (DeepSeek-V3's 256 on
+    16: 16 a rank); with fewer, each expert on a contiguous group of
+    ranks, its columns in blocks over the group (Mixtral-8x7B's 8 on 16:
+    two ranks an expert, 7,168 columns each); the rank's cuts of
+    ``w_up`` / ``w_gate`` (expert, columns) and ``w_down`` (expert, rows)
+    those blocks."""
+    cfg = get_config(arch)
+    E, de = cfg.moe.num_experts, cfg.moe.d_expert
+    split = expert_split(E, m, de)
+    assert len(split) == m
+    owners = np.zeros((E, de), np.int64)
+    for s in split:
+        owners[slice(*s.experts), slice(*s.cols)] += 1
+    assert (owners == 1).all()
+    assert [s.experts for s in split] == sorted(s.experts for s in split)
+    if E >= m:
+        sizes = [s.experts[1] - s.experts[0] for s in split]
+        assert max(sizes) - min(sizes) <= 1
+        assert all(s.cols == (0, de) for s in split)
+    else:
+        assert all(s.experts[1] - s.experts[0] == 1 for s in split)
+    if (arch, m) == ("mixtral-8x7b", 16):
+        assert split[3] == ((1, 2), (7168, 14336))
+    if (arch, m) == ("deepseek-v3-671b", 16):
+        assert split[5] == ((80, 96), (0, 2048))
+    axes = SequentialRanks(m).axes()
+    for r in (0, m - 1):
+        tp = TensorParallel(cfg, axes[r], None)
+        (e0, e1), (c0, c1) = split[r]
+        whole_e, whole_c = (e0, e1) == (0, E), (c0, c1) == (0, de)
+        want = (() if whole_e else ((0, e0, e1),))
+        assert tp.cuts(("moe", "w_up")) == want + (
+            () if whole_c else ((2, c0, c1),))
+        assert tp.cuts(("moe", "w_down")) == want + (
+            () if whole_c else ((1, c0, c1),))
+        assert tp.cuts(("moe", "w_router")) == ()
+        # the dense FFN's leaves of the same names cut on their columns
+        assert tp.cuts(("mlp", "w_up")) == ((-1,) + tp.ffn,)
+
+
+@pytest.mark.parametrize("m", [2, 3, 16])
+def test_mla_leaves_take_their_own_head_widths(m):
+    """DeepSeek-V3's MLA at "model" = m: ``w_uq`` by heads of 192 columns
+    (nope 128 + rope 64), ``w_uk`` of 128, ``w_uv`` of 128, ``wo`` by rows
+    of 128; the latent projections and norms whole; the latent cache's
+    ``ckv`` (512) and ``krope`` (64) on their last dims where m divides
+    them, else whole; the MTP block (GQA of the same heads) by
+    ``head_dim``."""
+    cfg = get_config("deepseek-v3-671b")
+    for r, axis in enumerate(SequentialRanks(m).axes()):
+        tp = TensorParallel(cfg, axis, None)
+        q0, q1 = tp.heads.q
+        assert tp.cuts(("attn", "w_uq")) == ((-1, 192 * q0, 192 * q1),)
+        assert tp.cuts(("attn", "w_uk")) == ((-1, 128 * q0, 128 * q1),)
+        assert tp.cuts(("attn", "w_uv")) == ((-1, 128 * q0, 128 * q1),)
+        assert tp.cuts(("attn", "wo")) == ((0, 128 * q0, 128 * q1),)
+        for name in ("w_dq", "w_dkv", "q_norm", "kv_norm"):
+            assert tp.cuts(("attn", name)) == ()
+        for width, dims, lay in zip((512, 64), tp.latent_dims,
+                                    tp.latent_layouts):
+            if width % m:
+                assert (lay, dims) == ("whole", (0, width))
+            else:
+                n = width // m
+                assert (lay, dims) == ("dims", (r * n, r * n + n))
+        mtp = tp.for_config(cfg.replace(attention="gqa"))
+        assert mtp.cuts(("attn", "wq")) == ((-1, 128 * q0, 128 * q1),)
+        assert mtp.cuts(("mlp", "w_down")) == ((0,) + mtp.ffn,)
+        assert tp.cuts(("mtp", "proj")) == tp.cuts(("mtp", "ln")) == ()
+
+
+def _reference_drops(cr, pn, h, n_data):
+    """``drop_frac`` of layer 0's MoE on the rows ``h`` (numpy): the
+    reference ``moe_forward``'s on the whole batch, and what each of
+    ``n_data`` data ranks would drop dispatching its rows alone (the
+    reference's routes of those rows, each expert keeping at most the
+    capacity of the rank's tokens)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers.moe import capacity, moe_forward, route
+    p = jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]),
+                               pn["runs"][0]["moe"])
+    x = jnp.asarray(h)
+    whole = float(moe_forward(p, cr.moe, x, cr.activation)[1].drop_frac)
+    E, k = cr.moe.num_experts, cr.moe.top_k
+    idx = np.asarray(route(p, cr.moe, x.reshape(-1, x.shape[-1]), None)[1])
+    per_rank = []
+    for part in np.split(idx, n_data):
+        counts = np.bincount(part.reshape(-1), minlength=E)
+        kept = np.minimum(counts, capacity(len(part), cr.moe)).sum()
+        per_rank.append(1.0 - kept / part.size)
+    return whole, per_rank
+
+
+def test_moe_dispatch_takes_the_whole_batch_on_the_data_axes(runs):
+    """The fault a dispatch per data rank made (the port's mesh steps
+    before the split route): on the (2, 2) mesh each data rank holds half
+    the rows, and the reference's capacity, slots and drops are the whole
+    batch's. On these inputs the whole batch's capacity binds where each
+    rank's would not, so the drops differ; the mesh's ``drop_frac`` of
+    every MoE layer is the reference's on the whole batch, and its loss,
+    ``moe_aux`` and first gradient are ``jax.value_and_grad`` of the
+    reference's ``loss_fn``."""
+    from repro_torch.interop import transformer_params_from_reference
+    from repro_torch.optim.optimizers import tree_map
+    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
+                              port_grad_leaves)
+    cr, pn = runs[FAULT_CASE]["numpy"][:2]
+    one, got = runs[FAULT_CASE]["one"], runs[FAULT_CASE]["2x2"]
+    h = one["moe"][0][0].numpy()
+    whole, per_rank = _reference_drops(cr, pn, h, 2)
+    assert whole > 0 and max(per_rank) == 0.0
+    assert len(got["moe"]) == len(one["moe"]) == cr.num_layers
+    assert got["moe"][0][1] == whole
+    for (_, g), (_, w) in zip(got["moe"], one["moe"]):
+        assert g == w
+    loss, metrics, grads = _reference(FAULT_CASE, runs, _reference_train)
+    for k in ("loss", "moe_aux", "moe_z"):
+        assert abs(got["metrics"][0][k] - metrics[k]) <= \
+            LOSS_RTOL32 * abs(metrics[k])
+    flat = iter(got["grads"])
+    tree = tree_map(lambda _: next(flat),
+                    transformer_params_from_reference(pn))
+    assert_grads_close32(port_grad_leaves(tree), grads)
+
+
+def _reference_microbatches(cr, pn, mn, bn, rows):
+    """The reference's train step in microbatches of ``rows`` (lists of
+    row indices of ``bn``): each microbatch's ``jax.value_and_grad`` of
+    ``loss_fn``, the metrics averaged and the gradients summed in fp32 and
+    divided, as its ``make_train_step`` does with ``grad_accum``."""
+    from torch_parity import reference_loss_and_grads
+    parts = [reference_loss_and_grads(
+        cr, pn, {k: np.asarray(v)[r] for k, v in bn.items()}, mn)
+        for r in rows]
+    metrics = {k: float(np.mean([m[k] for _, m, _ in parts]))
+               for k in parts[0][1]}
+    metrics["loss"] = float(np.mean([loss for loss, _, _ in parts]))
+    grads = [sum(np.asarray(g[i], np.float32) for _, _, g in parts)
+             / len(parts) for i in range(len(parts[0][2]))]
+    return metrics, grads
+
+
+def test_moe_microbatches_are_the_reference_rows_on_the_data_axes(runs):
+    """The fault's case with ``grad_accum`` = 2 on the (2, 2) mesh: the
+    mesh's microbatch i is the reference's contiguous chunk i of the whole
+    batch, each split over the data ranks, not the union of every data
+    rank's i-th chunk of its own rows (rows {0, 2} and {1, 3} of 4, whose
+    capacities, drops and balance losses differ on these inputs). The
+    loss, ``moe_aux``, ``moe_z`` and the gradient match the reference's
+    step in microbatches within ``LOSS_RTOL32`` / ``GRAD_RTOL32``."""
+    from repro_torch.interop import transformer_params_from_reference
+    from repro_torch.optim.optimizers import tree_map
+    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
+                              port_grad_leaves)
+    cr, pn, mn = runs[FAULT_CASE]["numpy"][:3]
+    bn, got = runs[FAULT_CASE]["accum_batch"], runs[FAULT_CASE]["accum"]
+    n = ACCUM_B // ACCUM
+    want, grads = _reference_microbatches(
+        cr, pn, mn, bn, [list(range(i * n, (i + 1) * n))
+                         for i in range(ACCUM)])
+    # a microbatch a data rank's i-th chunk of its own rows would make
+    per = ACCUM_B // 2
+    apart, _ = _reference_microbatches(
+        cr, pn, mn, bn, [[r * per + i for r in range(2)]
+                         for i in range(ACCUM)])
+    assert any(abs(apart[k] - want[k]) > LOSS_RTOL32 * abs(want[k])
+               for k in ("loss", "moe_aux"))
+    assert got["route"] == ROUTE_SPLIT
+    for k in ("loss", "moe_aux", "moe_z"):
+        assert abs(got["metrics"][0][k] - want[k]) <= \
+            LOSS_RTOL32 * abs(want[k])
+    flat = iter(got["grads"])
+    tree = tree_map(lambda _: next(flat),
+                    transformer_params_from_reference(pn))
+    assert_grads_close32(port_grad_leaves(tree), grads)
