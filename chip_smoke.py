@@ -295,14 +295,13 @@ Phases, each printing its own lines:
    and AdamW update on their own, and of one ``flash_attention_backward``
    at the run's shape. A ``train`` line each and a ``phase20`` line.
 21. mesh and examples — phase 20's T1 (Qwen2-VL-7B, 4 of 28 layers, masks
-   at ratio 0.5, one fixed batch of 1,024 vision + 1,024 text positions)
-   and T3 (DeepSeek-V3's dense MLA layer and its MTP block, 1,024 tokens,
-   bf16 moments) through the sharded train step
+   at ratio 0.5, one fixed batch of 1,024 vision + 1,024 text positions),
+   T3 (DeepSeek-V3's dense MLA layer and its MTP block, 1,024 tokens,
+   bf16 moments) and T5 (Zamba2-1.2B cut to 12 of 38 layers, two
+   invocations of its shared block, 2,048 tokens: its SSD heads and
+   shared block split) through the sharded train step
    (``make_train_step(mesh=...)``) on the split route of
-   ``sharding.tensor_parallel``, then phase 20's T5 (Zamba2-1.2B cut to
-   12 of 38 layers, two invocations of its shared block, 2,048 tokens:
-   its hybrid stack keeps the replicated route, the whole tree gathered,
-   which the Mamba2 stacks train through), each on the
+   ``sharding.tensor_parallel``, each on the
    ``(1, 1)`` host mesh of a one-rank NCCL group (``launch.mesh.
    host_mesh``; the parameters and AdamW state as DTensors placed by
    ``sharding.specs``): 2 steps with the launch counters zeroed just
@@ -356,16 +355,30 @@ Phases, each printing its own lines:
    (e) Mixtral-8x7B at 2 layers on "model" = 16 rank after rank (two
    ranks an expert, 7,168 columns each; its 8 KV heads on the head dim,
    the decode's queries sent to the cache), an R1 prefill and 2 decode
-   steps held as (d) (``tensor_parallel`` lines and a ``phase23`` line).
+   steps held as (d). Then the pruned Mamba2-2.7B at full width: (f) 8 of
+   its 64 layers, an R1 prefill and 4 decode steps through the mesh steps
+   on the one-rank mesh, bit-equal to the unsharded steps with the same
+   launches; (g) its "model" = 2 split rank after rank (40 SSD heads and
+   2,560 gated-norm columns a rank; the gated norm through the two split
+   entries, its row sums of squares added over the ranks) held as (b);
+   (h) 2 layers on "model" = 16 rank after rank (5 heads, 320 columns a
+   rank: the pod's split) held as (b) (``tensor_parallel`` lines and a
+   ``phase23`` line).
    Phase 3 holds the kernels at these shard
    shapes too: the bf16 ``masked_matmul`` at N = 9,472 and 1,184
    (Qwen2-7B's d_ff over 2 and 16 ranks), M = 2,048 and 1;
    ``flash_attention`` at 14 heads over 2 and 2 over 1 (D = 128) and
-   gemma-7b's 1 over 1 (D = 256).
+   gemma-7b's 1 over 1 (D = 256); the rmsnorm kernel's two split gated
+   entries (a rank's row sums of squares, and the normalization given the
+   whole row's) at Mamba2-2.7B's 2,048 x 320 (16 ranks) and 2,048 x 2,560
+   (2 ranks) and decode, fp32 and ragged cases; ``ssd_scan`` at a rank's
+   5 heads (B = 1, S = 2,048, P = 64, N = 128).
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
 phases 4, 11-15 and 21, counted where one thread launches; the
-transformer kernels' of phases 6, 8, 9 and 16-23; ``flash_attention_d80``, the D = 80
+transformer kernels' of phases 6, 8, 9 and 16-23, the rmsnorm kernel's two
+split gated entries those of phase 23 (g) and (h) at a 16-rank share's
+2,048 x 320; ``flash_attention_d80``, the D = 80
 instance over one HuBERT R1 prefill with phase 19's and T2's launches),
 the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -997,6 +1010,87 @@ def check_gated_rmsnorm(cases, eps: float = 1e-6):
         row["ok"] = ok = ok and hold_to_bound(row)
         rows.append(check_row("rmsnorm_gated", row, ok))
     return rows
+
+
+def check_gated_split(cases, eps: float = 1e-6):
+    """Phase 3: the rmsnorm kernel's two split entries (the gated norm of
+    a row split over "model" ranks) against their plain twins at each
+    (name, rows, d, row stride of z, dtype, width): x contiguous, z the
+    first d columns of a (rows, ld) projection (a rank's, as its Mamba2
+    block hands it in: ld = 901 at Mamba2-2.7B on 16 ranks, the scalar
+    route). The sum-of-squares entry's fp32 row sums within (d + 12) eps
+    of each sum (d squares added in another order); the normalize entry,
+    given the same whole-row sums (``width`` / d times the rank's), within
+    16 eps of each output (the gate as the gated entry's, the root and the
+    division) plus a bf16 spacing. No single PyTorch call computes
+    either: ``library_ms`` null. Returns (sumsq rows, stat rows)."""
+    import torch
+    from repro_torch.kernels.rmsnorm.ops import (_plan, gated_rmsnorm_stat,
+                                                 gated_sumsq)
+    from repro_torch.kernels.rmsnorm.ref import (gated_rmsnorm_stat_ref,
+                                                 gated_sumsq_ref)
+    eps32 = torch.finfo(torch.float32).eps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    sums, stats = [], []
+    for name, R, d, ld, dtype, width in cases:
+        dt = getattr(torch, dtype)
+        x = torch.randn(R, d, device="cuda", generator=gen).to(dt)
+        proj = (3 * torch.randn(R, ld, device="cuda", generator=gen)).to(dt)
+        z = proj[:, :d]
+        scale = (1 + 0.1 * torch.randn(d, device="cuda",
+                                       generator=gen)).to(dt)
+        w = x.element_size()
+        aligned = not (x.data_ptr() | z.data_ptr()) % 16 and not ld % (16 // w)
+        base = {"dtype": dtype, "rows": R, "d": d, "ldz": ld, "width": width,
+                "plan": _plan(R, d, dt, aligned, gated=True)[:2]}
+        got = gated_sumsq(x, z)
+        torch.cuda.synchronize()
+        want = gated_sumsq_ref(x, z)
+        err = (got - want).abs()
+        tol = (d + 12) * eps32 * want.abs()
+        ok = (bool((err <= tol).all()) and got.dtype == torch.float32
+              and tuple(got.shape) == (R,))
+        row = {"case": f"{name} sumsq", **base,
+               "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
+               "ms": time_ms(lambda: gated_sumsq(x, z)),
+               "plain_ms": time_ms(lambda: gated_sumsq_ref(x, z)),
+               "library_ms": None,
+               "device_ms": graph_ms(gated_sumsq, x, z)}
+        # x's and z's d columns read, the sums written; about 11
+        # operations an element (the gate's exp, divisions and products,
+        # the square-add)
+        set_bound(row, w * 2 * R * d + 4 * R, 11 * R * d, PEAK_FP32_FLOP_S)
+        row["ok"] = ok = ok and hold_to_bound(row)
+        sums.append(check_row("rmsnorm_gated_sumsq", row, ok))
+        ss = want * (width / d)
+        got = gated_rmsnorm_stat(x, z, scale, ss, width, eps)
+        torch.cuda.synchronize()
+        want = gated_rmsnorm_stat_ref(x, z, scale, ss, width, eps).float()
+        tol = 16 * eps32 * want.abs()
+        if dtype == "bfloat16":
+            tol = tol + BF16_SPACING * (want.abs() + tol)
+        err = (got.float() - want).abs()
+        ok = (bool((err <= tol).all()) and got.dtype == dt
+              and bool(torch.isfinite(got).all()))
+        row = {"case": f"{name} stat", **base,
+               "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
+               "ms": time_ms(lambda: gated_rmsnorm_stat(x, z, scale, ss,
+                                                        width, eps)),
+               "plain_ms": time_ms(lambda: gated_rmsnorm_stat_ref(
+                   x, z, scale, ss, width, eps)),
+               "library_ms": None,
+               "device_ms": graph_ms(
+                   lambda x, z, scale, ss: gated_rmsnorm_stat(
+                       x, z, scale, ss, width, eps), x, z, scale, ss)}
+        # x's and z's columns and the sums read, y written, the scale read
+        # once; about 12 operations an element
+        set_bound(row, w * (3 * R * d + d) + 4 * R, 12 * R * d,
+                  PEAK_FP32_FLOP_S)
+        row["ok"] = ok = ok and hold_to_bound(row)
+        stats.append(check_row("rmsnorm_gated_stat", row, ok))
+    return sums, stats
 
 
 def rmsnorm_plans(cases, eps: float = 1e-6):
@@ -1787,11 +1881,24 @@ def serve_tokens(cfg, params, masks, batch, plain: bool = False,
 def transformer_wrappers():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
-    from repro_torch.kernels.rmsnorm.ops import gated_rmsnorm, rmsnorm
+    from repro_torch.kernels.rmsnorm.ops import (gated_rmsnorm,
+                                                 gated_rmsnorm_stat,
+                                                 gated_sumsq, rmsnorm)
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     return {"rmsnorm": rmsnorm, "rmsnorm_gated": gated_rmsnorm,
+            "rmsnorm_gated_sumsq": gated_sumsq,
+            "rmsnorm_gated_stat": gated_rmsnorm_stat,
             "masked_matmul": masked_matmul,
             "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+
+
+def gated_launches(n: int, split: bool = False) -> dict:
+    """The gated norm's ``n`` launches by entry: the single entry's, or on
+    a split of more than one "model" rank the two split entries' (the row
+    sums of squares and the normalization, each ``n``)."""
+    return {"rmsnorm_gated": 0 if split else n,
+            "rmsnorm_gated_sumsq": n if split else 0,
+            "rmsnorm_gated_stat": n if split else 0}
 
 
 def zero_launches() -> None:
@@ -1813,7 +1920,7 @@ def read_launches() -> dict:
     return counts
 
 
-def expected_launches(cfg, steps: int = DECODE_STEPS):
+def expected_launches(cfg, steps: int = DECODE_STEPS, split: bool = False):
     """Kernel launches of one request (a prefill and ``steps`` decode
     steps) of ``cfg``'s pruned stack: an attention or MoE layer has two
     pre-norms and (prefill only) one flash attention, or, with MLA, two
@@ -1827,7 +1934,9 @@ def expected_launches(cfg, steps: int = DECODE_STEPS):
     FFN products, by ``masked_matmul`` entry: the prefill's (M = B*S rows)
     on the wgmma tiles, the decode steps' (M = B) on the GEMV. A non-gated
     FFN (HuBERT's GELU) has one masked product, the up product; a
-    bidirectional encoder serves its prefill alone."""
+    bidirectional encoder serves its prefill alone. On a rank of a split
+    over more than one "model" rank (``split``) a gated norm is the two
+    split entries (``gated_launches``)."""
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.models.layers.mlp import GATED
     from repro_torch.models.transformer import hybrid_split, layer_runs
@@ -1841,7 +1950,7 @@ def expected_launches(cfg, steps: int = DECODE_STEPS):
     shared = (hybrid_split(cfg, ssm)[0] if cfg.shared_attn_period else 0)
     prods = (2 if cfg.activation in GATED else 1) * ffn
     return {"rmsnorm": (2 * attn + 2 * mla + ssm + 2 * shared + 1) * steps,
-            "rmsnorm_gated": ssm * steps,
+            **gated_launches(ssm * steps, split),
             "masked_matmul": prods * steps,
             "flash_attention": attn - mla + shared, "ssd_scan": ssm,
             **dict.fromkeys(masked_matmul.route_launches, 0),
@@ -3823,7 +3932,7 @@ def expected_train_launches(cfg, steps: int = 1):
     mtp = 1 if cfg.mtp_depth else 0
     per_step = {"rmsnorm": (remat * (2 * attn + 2 * mla + ssm + 2 * shared)
                             + 1 + 3 * mtp),
-                "rmsnorm_gated": remat * ssm, "masked_matmul": prods,
+                **gated_launches(remat * ssm), "masked_matmul": prods,
                 "flash_attention": remat * (attn - mla + shared) + mtp,
                 "ssd_scan": remat * ssm,
                 **dict.fromkeys(masked_matmul.route_launches, 0),
@@ -4238,15 +4347,13 @@ def training_phase():
     return totals, by_run["T2"]
 
 
-#: phase 21's sharded steps: phase 20's runs by label, each with the mesh
-#: route it must take (T1's dense attention stack and T3's DeepSeek-V3
-#: dense MLA layer and MTP block the split one, T5's hybrid Zamba2 the
-#: replicated one) and its depth (None: phase 20's; T5 cut to 12 of 38
-#: layers, two invocations of its shared block, for the script's time:
-#: its two device profiles take ~20 s at full depth), and their number of
-#: steps
-MESH_RUNS = (("T1", "split", None), ("T3", "split", None),
-             ("T5", "replicated", 12))
+#: phase 21's sharded steps: phase 20's runs by label, each on the split
+#: route (T1's dense attention stack, T3's DeepSeek-V3 dense MLA layer and
+#: MTP block, T5's hybrid Zamba2: its SSD heads and shared block), and its
+#: depth (None: phase 20's; T5 cut to 12 of 38 layers, two invocations of
+#: its shared block, for the script's time: its two device profiles take
+#: ~20 s at full depth), and their number of steps
+MESH_RUNS = (("T1", None), ("T3", None), ("T5", 12))
 MESH_STEPS = 2
 #: phase 21's example twins and their arguments: the reference's defaults,
 #: but the serve's 8 int8 requests pipelined, a port the OS assigns, and
@@ -4315,21 +4422,19 @@ def check_card_mesh(mesh, shape=(1, 1)) -> None:
         raise AssertionError(f"host mesh {mesh} on {dist.get_backend()}")
 
 
-def mesh_train(label, route, cfg, params, masks, batch, optimizer):
+def mesh_train(label, cfg, params, masks, batch, optimizer):
     """A sharded run of phase 21 (``label``, phase 20's run) on the host
     mesh (a one-rank NCCL group it starts and destroys): the step must
-    take ``route`` (``"split"`` or ``"replicated"``); ``MESH_STEPS``
-    counted steps from ``params``, held against the unsharded step's,
-    then the step's device profile. Returns the ``train`` line's row and
-    the launches."""
+    take the split route; ``MESH_STEPS`` counted steps from ``params``,
+    held against the unsharded step's, then the step's device profile.
+    Returns the ``train`` line's row and the launches."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.sharding import specs as sh
-    from repro_torch.sharding.tensor_parallel import (ROUTE_REPLICATED,
-                                                      ROUTE_SPLIT)
-    want_route = {"split": ROUTE_SPLIT, "replicated": ROUTE_REPLICATED}[route]
+    from repro_torch.sharding.tensor_parallel import ROUTE_SPLIT
+    want_route = ROUTE_SPLIT
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
@@ -4348,7 +4453,7 @@ def mesh_train(label, route, cfg, params, masks, batch, optimizer):
         step = make_train_step(cfg, optimizer, masks, mesh=mesh)
         if step.route != want_route:
             raise AssertionError(f"sharded {label} ({cfg.name}) took "
-                                 f"{step.route!r}, not the {route} route")
+                                 f"{step.route!r}, not the split route")
         zero_launches()
         losses, walls = [], []
         for _ in range(MESH_STEPS):
@@ -4489,9 +4594,9 @@ def split_lines() -> None:
 
 
 def mesh_phase() -> dict:
-    """Phase 21: the sharded T1 and T5 steps on the host mesh against the
-    unsharded ones (``MESH_RUNS``: the split route and the replicated
-    one), the four example twins on the card, the transformer split lines
+    """Phase 21: the sharded T1, T3 and T5 steps on the host mesh against
+    the unsharded ones (``MESH_RUNS``, each on the split route), the four
+    example twins on the card, the transformer split lines
     and a ``phase21`` line. Returns the launches of the sharded steps and
     the twins, by kernel and route."""
     import importlib
@@ -4500,7 +4605,7 @@ def mesh_phase() -> dict:
     from repro_torch.optim.schedules import constant
     t0 = time.perf_counter()
     total, seconds = collections.Counter(), {}
-    for label, route, depth in MESH_RUNS:
+    for label, depth in MESH_RUNS:
         t_run = time.perf_counter()
         _, module, layers, _, B, T, _, moment_dtype = next(
             r for r in TRAIN_RUNS if r[0] == label)
@@ -4512,7 +4617,7 @@ def mesh_phase() -> dict:
                  layers=f"{layers} of {full.num_layers}", run=f"{label} mesh")
         optimizer = adamw(constant(TRAIN_LR),
                           moment_dtype=getattr(torch, moment_dtype))
-        row, launches = mesh_train(label, route, cfg, params, masks,
+        row, launches = mesh_train(label, cfg, params, masks,
                                    train_batch(cfg, B, T), optimizer)
         row.update(batch=B, tokens=T,
                    positions=T + (cfg.vision_tokens or 0))
@@ -4557,7 +4662,7 @@ def expected_split_launches(cfg, microbatches: int) -> dict:
     attn = sum(r.count for r in layer_runs(cfg) if r.kind != "ssm")
     ssm = cfg.num_layers - attn
     return {"rmsnorm": (2 * attn + ssm) * microbatches + 1,
-            "rmsnorm_gated": ssm * microbatches, "masked_matmul": 0,
+            **gated_launches(ssm * microbatches), "masked_matmul": 0,
             "flash_attention": attn * microbatches,
             "ssd_scan": ssm * microbatches,
             **dict.fromkeys(masked_matmul.route_launches, 0)}
@@ -4783,6 +4888,11 @@ TP_MOE_RUNS = (("mixtral_8x7b", 4), ("deepseek_v3_671b", 4))
 #: decode steps); the only run on the card of two ranks an expert and of a
 #: KV cache on the head dim (8 KV heads on 16 ranks)
 TP_WIDE = (2, 16, 2)
+#: (f) and (g): Mamba2-2.7B's layers kept (8 of 64, for the script's
+#: time); (h): its (layers, ranks) on "model" = 16, the pod's own split (5
+#: SSD heads and 320 gated-norm columns a rank)
+TP_MAMBA_LAYERS = 8
+TP_MAMBA_WIDE = (2, 16)
 
 
 def tp_one_rank(cfg, params, masks, batch, steps: int = DECODE_STEPS,
@@ -4897,7 +5007,7 @@ def tp_shares(cfg, params, masks, batch, m: int, steps: int) -> dict:
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
     launches = read_launches()
-    one = expected_launches(cfg, steps)
+    one = expected_launches(cfg, steps, split=m > 1)
     want = {k: m * v for k, v in one.items()}
     if launches != want:
         raise AssertionError(f"phase 23 split launches {launches}, "
@@ -4906,10 +5016,15 @@ def tp_shares(cfg, params, masks, batch, m: int, steps: int) -> dict:
         if not (torch.equal(tok, res[0][1]) and all(
                 torch.equal(a, b) for a, b in zip(out, res[0][0]))):
             raise AssertionError("phase 23: the ranks' logits differ")
-    shapes = [{"rank": tp.axis.rank, "heads": tp.heads.q,
-               "kv_heads": tp.heads.kv, "ffn": tp.ffn, "vocab": tp.vocab,
-               "kv_cache": tp.kv_layout} for tp in shares]
+    shapes = [{"rank": tp.axis.rank, "vocab": tp.vocab} for tp in shares]
     for row, tp in zip(shapes, shares):
+        if tp.heads is not None:
+            row.update(heads=tp.heads.q, kv_heads=tp.heads.kv, ffn=tp.ffn,
+                       kv_cache=tp.kv_layout)
+        if tp.ssd is not None:
+            row.update(ssd_heads=tp.ssd.q, groups=tp.ssd.kv,
+                       state_cache=tp.state_layout,
+                       conv_cache=tp.conv_layout)
         if cfg.moe is not None:
             row["experts"], row["expert_cols"] = tp.experts
         if cfg.attention == "mla":
@@ -5049,6 +5164,50 @@ def tp_wide(totals) -> None:
         "seconds": time.perf_counter() - t0}), flush=True)
 
 
+def tp_mamba(totals) -> None:
+    """Phase 23 (f)-(h): the pruned Mamba2-2.7B at full width: (f)
+    ``TP_MAMBA_LAYERS`` deep, an R1 request through the mesh steps on the
+    one-rank NCCL mesh against the unsharded steps (``tp_one_rank``); (g)
+    its ``TP_RANKS``-rank split rank after rank (40 SSD heads and 2,560
+    gated-norm columns a rank), held by ``tp_held``; (h) ``TP_MAMBA_WIDE``
+    layers on 16 ranks (5 heads, 320 columns, the gated norm through the
+    split entries and ``ssd_scan`` at 5 heads). A ``tensor_parallel``
+    line each; their launches added to ``totals``."""
+    import torch
+    from repro_torch.configs import mamba2_2p7b
+    full = mamba2_2p7b.CONFIG
+    for part, layers, m in (("f", TP_MAMBA_LAYERS, 1),
+                            ("g", TP_MAMBA_LAYERS, TP_RANKS),
+                            ("h",) + TP_MAMBA_WIDE):
+        if part != "g":
+            cfg = full.replace(num_layers=layers)
+            params, masks = model_setup(cfg, SEED)
+            describe(cfg, params, masks, of_layers=full.num_layers,
+                     run=f"tensor parallel {part}")
+            (_, batch), = request_batches(cfg, [TP_REQUEST])
+        t0 = time.perf_counter()
+        line = {"part": part, "model": cfg.name,
+                "layers": f"{layers} of {full.num_layers}",
+                "request": TP_REQUEST[0], "decode_steps": TP_DECODE_STEPS}
+        if part == "f":
+            row = tp_one_rank(cfg, params, masks, batch, TP_DECODE_STEPS,
+                              part)
+            totals.update(row["launches"])
+            totals.update(row["unsharded"]["launches"])
+        else:
+            split = tp_shares(cfg, params, masks, batch, m,
+                              TP_DECODE_STEPS)
+            totals.update(split["launches"])
+            row = tp_held(cfg, params, masks, batch, split,
+                          TP_DECODE_STEPS)
+            line["model_ranks"] = m
+            del params, masks, split
+            torch.cuda.empty_cache()
+        print("tensor_parallel " + json.dumps({
+            **line, **row, "seconds": time.perf_counter() - t0}),
+            flush=True)
+
+
 def tensor_parallel_phase() -> dict:
     """Phase 23: (a) the pruned Qwen2-7B at full width, ``TP_QWEN_LAYERS``
     deep, an R1 request through the mesh steps on the one-rank NCCL mesh,
@@ -5057,8 +5216,8 @@ def tensor_parallel_phase() -> dict:
     split run rank after rank on the card (``tp_shares``), held to the LM
     phases' rule (``tp_held``); (c) and (d) the same for the pruned
     Mixtral-8x7B and DeepSeek-V3 (``tp_moe_run``); (e) Mixtral-8x7B at
-    "model" = 16 (``tp_wide``). One ``tensor_parallel`` line each and a
-    ``phase23`` line. Returns the launches of the mesh runs and the
+    "model" = 16 (``tp_wide``); (f)-(h) Mamba2-2.7B (``tp_mamba``). One
+    ``tensor_parallel`` line each and a ``phase23`` line. Returns the launches of the mesh runs and the
     splits, by kernel and route."""
     import torch
     from repro_torch.configs import qwen2_7b
@@ -5089,10 +5248,13 @@ def tensor_parallel_phase() -> dict:
         tp_moe_run(module, layers, total)
     t_e = time.perf_counter()
     tp_wide(total)
+    t_f = time.perf_counter()
+    tp_mamba(total)
     print("phase23 " + json.dumps({
         "seconds": time.perf_counter() - t0,
         "seconds_a": t_b - t0, "seconds_b": t_c - t_b,
-        "seconds_cd": t_e - t_c, "seconds_e": time.perf_counter() - t_e,
+        "seconds_cd": t_e - t_c, "seconds_e": t_f - t_e,
+        "seconds_fh": time.perf_counter() - t_f,
         "launches": dict(total)}), flush=True)
     return dict(total)
 
@@ -5246,6 +5408,16 @@ def main() -> int:
          ("fp32", 1000, 5120, 10576, 0, "float32"),
          ("ragged", 33, 77, 77, 0, "bfloat16"),
          ("unaligned z", 300, 5120, 10576, 1, "bfloat16")])
+    # the gated norm of a rank's d_inner columns under tensor parallelism
+    # over "model": Mamba2-2.7B on 16 ranks (320 of 5,120, z in a 901-wide
+    # projection: the scalar route) and on 2 (2,560 of 5,120 in 5,416)
+    split_sums, split_stats = check_gated_split(
+        [("mamba2 tp16 R1", 2048, 320, 901, "bfloat16", 5120),
+         ("mamba2 tp16 decode rows 1", 1, 320, 901, "bfloat16", 5120),
+         ("mamba2 tp2 R1", 2048, 2560, 5416, "bfloat16", 5120),
+         ("aligned 320", 2048, 320, 640, "bfloat16", 5120),
+         ("fp32", 1000, 320, 901, "float32", 5120),
+         ("ragged", 33, 77, 77, "bfloat16", 200)])
     rmsnorm_plans([("qwen2 R1", 2048, d, False),
                    ("mamba2 R1", 2048, 2560, False),
                    ("zamba2 R1", 2048, 2048, False),
@@ -5302,7 +5474,10 @@ def main() -> int:
          ("s1", 2, 1, 80, 1, 64, 128, "bfloat16", "half"),
          ("all pruned", 1, 300, 16, 1, 64, 64, "bfloat16", "zeros"),
          ("fp32", 1, 1000, 16, 1, 64, 128, "float32", "half"),
-         ("fp32 d_state 64", 2, 300, 8, 2, 64, 64, "float32", "none")],
+         ("fp32 d_state 64", 2, 300, 8, 2, 64, 64, "float32", "none"),
+         # a rank's heads under tensor parallelism over "model":
+         # Mamba2-2.7B's 80 heads on 16 ranks, 5 each
+         ("mamba2 tp16 R1", 1, 2048, 5, 1, 64, 128, "bfloat16", "half")],
         profile_cases=("mamba2 R1", "zamba2 R1"))
     # the two Functions a Mamba2 block trains through, at the served R1
     # shapes of Mamba2-2.7B and Zamba2-1.2B
@@ -5470,9 +5645,18 @@ def main() -> int:
                      hubert_xlarge.CONFIG.num_layers,
                      htotals["flash_attention"]
                      + t2_launches["flash_attention"]),
+        kernel_entry("rmsnorm_gated_sumsq", split_sums,
+                     case(split_sums, "mamba2 tp16 R1 sumsq"),
+                     mcfg.num_layers, totals["rmsnorm_gated_sumsq"]),
+        kernel_entry("rmsnorm_gated_stat", split_stats,
+                     case(split_stats, "mamba2 tp16 R1 stat"),
+                     mcfg.num_layers, totals["rmsnorm_gated_stat"]),
         kernel_entry("ssd_scan", ssd_rows, case(ssd_rows, "mamba2 R1"),
                      mcfg.num_layers, totals["ssd_scan"],
-                     passes=case(ssd_rows, "mamba2 R1")[0]["passes_ms"])]
+                     passes=case(ssd_rows, "mamba2 R1")[0]["passes_ms"],
+                     rank_shape={k: case(ssd_rows, "mamba2 tp16 R1")[0][k]
+                                 for k in ("ms", "device_ms", "plain_ms",
+                                           "bound_ms")})]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

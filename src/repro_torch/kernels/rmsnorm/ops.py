@@ -1,6 +1,10 @@
-"""Wrappers of the fused RMSNorm's two entries, ``x (..., d)`` normalised
-row by row: ``rmsnorm`` (``x * rsqrt(mean(x²) + eps) * (scale + offset)``)
-and ``gated_rmsnorm`` (Mamba2's ``RMSNorm(x * silu(z)) * scale``).
+"""Wrappers of the fused RMSNorm's entries, ``x (..., d)`` normalised row
+by row: ``rmsnorm`` (``x * rsqrt(mean(x²) + eps) * (scale + offset)``)
+and ``gated_rmsnorm`` (Mamba2's ``RMSNorm(x * silu(z)) * scale``); and
+the gated norm of a row split over the ranks of an axis (Mamba2's
+``d_inner`` over "model"), ``split_gated_rmsnorm``: each rank's row sums
+of g² (``gated_sumsq``) all-reduced, then each rank's columns normalized
+by the whole row's mean (``gated_rmsnorm_stat``).
 
 On a CUDA tensor each launches the hand-written Hopper kernel
 (``csrc/rmsnorm.cu``) on the current stream, or raises; on a CPU tensor it
@@ -8,7 +12,8 @@ runs the plain version (``ref.rmsnorm_ref``, ``ref.gated_rmsnorm_ref``).
 There is no fallback from one to the other. ``_plan`` picks the launch
 before it: the threads a row gets, how many 16-byte slots of the row a
 lane holds in registers, and the vector or the scalar route.
-``rmsnorm.launches`` and ``gated_rmsnorm.launches`` count kernel launches.
+``rmsnorm.launches``, ``gated_rmsnorm.launches``, ``gated_sumsq.launches``
+and ``gated_rmsnorm_stat.launches`` count kernel launches.
 Unlike the reference's wrapper they pad nothing: the kernel masks the
 last rows and columns itself.
 
@@ -30,13 +35,21 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, needs_grad
-from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import (gated_rmsnorm_ref,
+                                             gated_rmsnorm_stat_ref,
+                                             gated_sumsq_ref, rmsnorm_ref)
 
-#: every C entry of csrc/rmsnorm.cu, by (gated, dtype)
+#: every C entry of csrc/rmsnorm.cu, by (gated, dtype); the split gated
+#: norm's two, by ("sumsq" or "stat", dtype): the row sums of g², and the
+#: normalization given them
 _ENTRIES = {(False, torch.float32): "rmsnorm_f32",
             (False, torch.bfloat16): "rmsnorm_bf16",
             (True, torch.float32): "rmsnorm_gated_f32",
-            (True, torch.bfloat16): "rmsnorm_gated_bf16"}
+            (True, torch.bfloat16): "rmsnorm_gated_bf16",
+            ("sumsq", torch.float32): "rmsnorm_gated_sumsq_f32",
+            ("sumsq", torch.bfloat16): "rmsnorm_gated_sumsq_bf16",
+            ("stat", torch.float32): "rmsnorm_gated_stat_f32",
+            ("stat", torch.bfloat16): "rmsnorm_gated_stat_bf16"}
 #: the plan every entry ends with: vec, threads a row, slots a lane
 _PLAN_ARGTYPES = [ctypes.c_int] * 3
 #: x, scale, y; rows, d; eps, scale_offset; the plan
@@ -45,9 +58,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
 #: x, z, scale, y; rows, d, ldx, ldz; eps; the plan
 _GATED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_float] + _PLAN_ARGTYPES)
+#: x, z, sumsq; rows, d, ldx, ldz; vec, threads a row
+_SUMSQ_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+#: x, z, scale, sumsq, y; rows, d, ldx, ldz; width, eps; vec, threads a row
+_STAT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 2)
 #: each entry's ctypes argument types (the stream is appended at launch)
-_SIGNATURES = {name: _GATED_ARGTYPES if gated else _ARGTYPES
-               for (gated, _), name in _ENTRIES.items()}
+_SIGNATURES = {name: {False: _ARGTYPES, True: _GATED_ARGTYPES,
+                     "sumsq": _SUMSQ_ARGTYPES, "stat": _STAT_ARGTYPES}[kind]
+               for (kind, _), name in _ENTRIES.items()}
 #: threads a block; a row gets one of ROW_THREADS of them
 THREADS = 256
 ROW_THREADS = (32, 64, 128, 256)
@@ -320,3 +339,156 @@ def _gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 
 
 gated_rmsnorm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the gated norm of a row split over ranks
+# ---------------------------------------------------------------------------
+def _gated_operands(name: str, x: torch.Tensor, z: torch.Tensor):
+    """(x, ldx, ldz, rows, d, vec, tpr) of a split entry's launch: z read in
+    place (``_row_stride``), x made contiguous where it is not one stride
+    a row; the plan's vector route and threads a row (``_plan``; the
+    split entries walk a row's slots in a loop and hold none)."""
+    _check(name, x, z)
+    d = x.shape[-1]
+    rows = math.prod(x.shape[:-1])
+    if z.shape != x.shape:
+        raise ValueError(f"{name}: z {tuple(z.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    ldz = _row_stride(z)
+    if ldz is None:
+        raise ValueError(f"{name}: z (strides {z.stride()}) needs a "
+                         f"contiguous last dim and rows one stride apart")
+    ldx = _row_stride(x)
+    if ldx is None:
+        x, ldx = x.contiguous(), d
+    if rows >= 2 ** 31 or max(ldx, ldz) >= 2 ** 31:
+        raise ValueError(f"{name}: rows and row strides must be below 2**31")
+    w = _slot(x.dtype)
+    aligned = (_aligned(x.data_ptr(), z.data_ptr()) and not ldx % w
+               and not ldz % w)
+    vec, tpr, _ = _plan(max(rows, 1), d, x.dtype, aligned, gated=True)
+    return x, ldx, ldz, rows, d, vec, tpr
+
+
+def gated_sumsq(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x, z (..., d) -> (...,) float32: each row's sum of g² (g = x *
+    silu(z), fp32 math), z read in place. The kernel's sum-of-squares
+    entry on a card tensor, the plain version (``gated_sumsq_ref``) on a
+    CPU one. No gradient: ``split_gated_rmsnorm`` differentiates it."""
+    if x.device.type == "cpu":
+        return gated_sumsq_ref(x, z)
+    x, ldx, ldz, rows, d, vec, tpr = _gated_operands("gated_sumsq", x, z)
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if rows == 0 or d == 0:
+        return out.zero_()
+    build.launch("rmsnorm", _ENTRIES["sumsq", x.dtype], _SUMSQ_ARGTYPES,
+                 x.device, x.data_ptr(), z.data_ptr(), out.data_ptr(), rows,
+                 d, ldx, ldz, vec, tpr)
+    gated_sumsq.launches += 1
+    return out
+
+
+gated_sumsq.launches = 0
+
+
+def gated_rmsnorm_stat(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                       sumsq: torch.Tensor, width: int,
+                       eps: float = 1e-6) -> torch.Tensor:
+    """x, z (..., d) of rows ``width`` wide, scale (d,), sumsq (...,)
+    float32 the whole rows' sums of g² -> g / sqrt(sumsq / width + eps) *
+    scale (..., d) in x's dtype, z read in place. The kernel's normalize
+    entry on card tensors, the plain version (``gated_rmsnorm_stat_ref``)
+    on CPU ones."""
+    if x.device.type == "cpu":
+        return gated_rmsnorm_stat_ref(x, z, scale, sumsq, width, eps)
+    x, ldx, ldz, rows, d, vec, tpr = _gated_operands("gated_rmsnorm_stat",
+                                                     x, z)
+    _check("gated_rmsnorm_stat", x, scale)
+    if tuple(scale.shape) != (d,) or tuple(sumsq.shape) != tuple(
+            x.shape[:-1]) or sumsq.dtype != torch.float32:
+        raise ValueError(f"gated_rmsnorm_stat: scale {tuple(scale.shape)} "
+                         f"and sumsq {tuple(sumsq.shape)} {sumsq.dtype} do "
+                         f"not match x {tuple(x.shape)}")
+    scale = scale.contiguous()
+    sumsq = sumsq.contiguous()
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if rows == 0 or d == 0:
+        return out
+    if vec > 1 and not _aligned(scale.data_ptr(), out.data_ptr()):
+        vec = 1
+    build.launch("rmsnorm", _ENTRIES["stat", x.dtype], _STAT_ARGTYPES,
+                 x.device, x.data_ptr(), z.data_ptr(), scale.data_ptr(),
+                 sumsq.data_ptr(), out.data_ptr(), rows, d, ldx, ldz,
+                 float(width), float(eps), vec, tpr)
+    gated_rmsnorm_stat.launches += 1
+    return out
+
+
+gated_rmsnorm_stat.launches = 0
+
+
+def split_gated_rmsnorm(x: torch.Tensor, z: torch.Tensor,
+                        scale: torch.Tensor, eps: float, axis, width: int,
+                        plain: bool = False) -> torch.Tensor:
+    """``gated_rmsnorm`` of this rank's d columns of rows ``width`` wide,
+    split over ``axis`` (an object with ``all_reduce``: the "model" axis
+    of ``sharding.tensor_parallel``): the row sums of g² all-reduced in
+    fp32, then this rank's columns normalized by the whole row's mean.
+    The kernel's two split entries (``plain``: their plain versions);
+    through ``_SplitGatedRMSNorm`` where autograd wants the output."""
+    if needs_grad(x, z, scale):
+        return _SplitGatedRMSNorm.apply(x, z, scale, eps, axis, width, plain)
+    return _split_forward(x, z, scale, eps, axis, width, plain)[0]
+
+
+def _split_forward(x, z, scale, eps, axis, width, plain):
+    sumsq = axis.all_reduce(gated_sumsq_ref(x, z) if plain
+                            else gated_sumsq(x, z))
+    stat = gated_rmsnorm_stat_ref if plain else gated_rmsnorm_stat
+    return stat(x, z, scale, sumsq, width, eps), sumsq
+
+
+def split_gated_rmsnorm_backward(x: torch.Tensor, z: torch.Tensor,
+                                 scale: torch.Tensor, sumsq: torch.Tensor,
+                                 g: torch.Tensor, width: int, eps: float,
+                                 row_sum) -> Tuple[torch.Tensor, torch.Tensor,
+                                                   torch.Tensor]:
+    """(dx, dz, dscale) of the split gated norm: ``gated_rmsnorm_backward``
+    with ``r`` from the whole rows' ``sumsq`` and ``mean(u·gw)`` the sum of
+    every rank's row sums (``row_sum``: the all-reduce) over ``width``;
+    ``dscale`` is this rank's columns'."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32, z32, g32 = x.to(acc), z.to(acc), g.to(acc)
+    sig = torch.sigmoid(z32)
+    s = z32 * sig
+    u = x32 * s
+    r = 1.0 / torch.sqrt(sumsq.to(acc)[..., None] / width + eps)
+    gw = g32 * scale.to(acc)
+    dot = row_sum(torch.sum(u * gw, dim=-1))[..., None] / width
+    du = r * (gw - u * (r * r) * dot)
+    dx = du * s
+    dz = du * x32 * sig * (1.0 + z32 * (1.0 - sig))
+    dscale = (g32 * u * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dz.to(z.dtype), dscale.to(scale.dtype)
+
+
+class _SplitGatedRMSNorm(torch.autograd.Function):
+    """``split_gated_rmsnorm`` as an autograd node: the forward's two
+    entries and the all-reduce between them; the backward is
+    ``split_gated_rmsnorm_backward``, its one all-reduce of the row sums
+    of u·gw through the same axis."""
+
+    @staticmethod
+    def forward(ctx, x, z, scale, eps, axis, width, plain):
+        out, sumsq = _split_forward(x, z, scale, eps, axis, width, plain)
+        ctx.save_for_backward(x, z, scale, sumsq)
+        ctx.eps, ctx.axis, ctx.width = eps, axis, width
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z, scale, sumsq = ctx.saved_tensors
+        dx, dz, dscale = split_gated_rmsnorm_backward(
+            x, z, scale, sumsq, g, ctx.width, ctx.eps, ctx.axis.all_reduce)
+        return dx, dz, dscale, None, None, None, None

@@ -23,14 +23,10 @@ reference's dispatch is off by default) once under a
 Each run writes ``experiments/dryrun/torch_<arch>_<shape>_<mesh>.json``
 (``torch_`` first: no reference record is ever written). A record's
 ``model_axis`` is the route its step took (``step.route``): ``split`` for
-the attention stacks (GQA or MLA, dense FFN or MoE), whose products split
-over "model" with one layer's FSDP dims gathered at a time and whose MoE
-dispatch is the whole batch's over the data axes
-(``sharding.tensor_parallel``), and ``replicated`` for the Mamba2 and
-Zamba2 stacks, whose steps gather the whole parameter tree on every rank
-and compute their rows whole, so every rank of a "model" group computes
-the same thing (per-card FLOPs up to 16x the reference's, the whole tree
-in the peak). The pod pipeline's
+every stack of the registry, whose products split over "model" with one
+layer's FSDP dims gathered at a time (heads, FFN columns, experts, SSD
+heads, the vocabulary) and whose MoE dispatch is the whole batch's over
+the data axes (``sharding.tensor_parallel``). The pod pipeline's
 stages are gathered whole (``PIPELINE_MODEL_AXIS``). Layers run as a
 Python loop, so nothing is counted once for many (``scan_counted`` is
 false).

@@ -19,34 +19,28 @@ sharded ones, the counterpart of the reference's ``jax.jit`` with
 (``sharding.specs.distribute`` by ``param_specs`` and
 ``opt_state_specs``), each rank reads its ``batch_specs`` rows of the
 batch, and each step names its route (``step.route``,
-``sharding.tensor_parallel.mesh_route``):
+``sharding.tensor_parallel.mesh_route``): the **split** route, for every
+stack of the registry (Qwen2-7B, Qwen2-VL-7B, gemma-7b, qwen1.5-4b,
+nemotron-4-340b, HuBERT-XLarge, Mixtral-8x7B, DeepSeek-V3, Mamba2-2.7B,
+Zamba2-1.2B). The products split over "model" (``sharding.
+tensor_parallel``: heads, FFN columns, experts, SSD heads, the
+vocabulary), each layer's parameters fetched one layer at a time with
+their data dims gathered, no copy of the whole tree; the MoE dispatch and
+the router and MTP losses are the whole batch's over the data axes, as
+the reference computes them. The train step differentiates the loss with
+respect to the DTensor leaves: a "model"-split leaf's gradient stays on
+its shard, and the data axes' reduction is the gather's backward (a
+reduce-scatter). The prefill writes each rank's cache shard as
+``cache_specs`` lays it out (KV heads or head dims, MLA latent dims, SSD
+state heads, conv channels), and the decode step writes the new slot or
+row into it in place and reads it where it lies: the queries, or a
+Mamba2 layer's conv rows, move, never the cache.
 
-* **split** — every attention stack (GQA or MLA, a dense FFN or MoE
-  layers, an MTP head: Qwen2-7B, Qwen2-VL-7B, gemma-7b, qwen1.5-4b,
-  nemotron-4-340b, HuBERT-XLarge, Mixtral-8x7B, DeepSeek-V3): the
-  products split over "model" (``sharding.tensor_parallel``: heads, FFN
-  columns, experts, the vocabulary), each layer's parameters fetched one
-  layer at a time with their data dims gathered, no copy of the whole
-  tree; the MoE dispatch and the router and MTP losses are the whole
-  batch's over the data axes, as the reference computes them. The
-  train step differentiates the loss with respect to the DTensor leaves:
-  a "model"-split leaf's gradient stays on its shard, and the data axes'
-  reduction is the gather's backward (a reduce-scatter). The prefill
-  writes each rank's KV (or MLA latent) cache shard as ``cache_specs``
-  lays it out, and the decode step writes the new slot into it in place
-  and attends where the cache lies: the queries move to it, never the
-  cache.
-* **replicated** — Mamba2 and Zamba2: each rank gathers the whole
-  parameter tree into local tensors and computes its rows whole, so
-  every rank of a "model" group computes the same rows again; the train
-  step reduces the gradients over the data axes to each parameter's
-  placements by hand.
-
-Either way each rank updates its own shards, AdamW's clip on the norm of
-the whole gradient; the prefill returns its logits and cache as DTensors
-(rows over the data axes, the cache laid out by ``cache_specs``), and the
-decode step writes the updated rows back into the DTensor cache's own
-shards in place.
+Each rank updates its own shards, AdamW's clip on the norm of the whole
+gradient; the prefill returns its logits and cache as DTensors (rows over
+the data axes, the cache laid out by ``cache_specs``), and the decode step
+writes the updated rows back into the DTensor cache's own shards in
+place.
 
 Every step takes ``backend``: ``"auto"`` (the kernels on the card) or
 ``"ref"`` (the plain versions, as the dry run traces them).
@@ -67,8 +61,7 @@ from repro_torch.sharding import specs as shard_specs
 from repro_torch.sharding.tensor_parallel import (TensorParallel,
                                                   contiguous_stride,
                                                   mesh_route,
-                                                  sum_model_partials,
-                                                  tp_supported)
+                                                  sum_model_partials)
 
 
 def _on(device: torch.device, tokens) -> torch.Tensor:
@@ -158,25 +151,22 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, masks=None,
     (``_microbatches``), sums their gradients in fp32, divides by
     ``grad_accum`` and casts each to its parameter's dtype, and averages
     the metrics: live activations shrink by the factor. With ``mesh`` the
-    step is the sharded one (``_tp_train_step`` for an attention stack,
-    else ``_sharded_train_step``; ``step.route`` names it): its
-    ``params`` and ``opt_state`` are DTensor trees on ``mesh`` and
-    ``batch`` the whole batch, which every rank holds."""
+    step is the sharded one (``_tp_train_step``; ``step.route`` names
+    it): its ``params`` and ``opt_state`` are DTensor trees on ``mesh``
+    and ``batch`` the whole batch, which every rank holds."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
     _check_card(cfg, dev)
+    if mesh is not None:
+        step = _tp_train_step(cfg, optimizer, masks, grad_accum, backend,
+                              dev, mesh)
+        step.route = mesh_route(cfg)
+        return step
 
     def grads_of(params, batch):
         return _accumulated(
             lambda p, mb: loss_and_grads(p, cfg, mb, masks, backend),
             params, batch, grad_accum)
-
-    if mesh is not None:
-        step = (_tp_train_step(cfg, optimizer, masks, grad_accum, backend,
-                               dev, mesh) if tp_supported(cfg) else
-                _sharded_train_step(cfg, optimizer, grads_of, dev, mesh))
-        step.route = mesh_route(cfg)
-        return step
 
     def train_step(params, opt_state, batch):
         metrics, grads = grads_of(params, batch_on(dev, cfg, batch))
@@ -243,32 +233,6 @@ def _rows_dtensor(t: torch.Tensor, mesh, bdim: int, split: bool):
                               run_check=False)
 
 
-def _mesh_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
-                       dev: torch.device, mesh):
-    """The prefill on ``mesh``: this rank's rows (all of them where the
-    data axes do not divide the batch), the parameters gathered whole,
-    the local prefill; logits as a DTensor of rows over the data
-    axes, the cache as a DTensor tree laid out by ``cache_specs`` (each
-    rank keeps its rows' slice on "model")."""
-    _check_mesh(mesh, dev)
-
-    def prefill_step(params, batch):
-        split = _rows_split(_batch_rows(cfg, batch), mesh)
-        local = batch_on(dev, cfg, _my_rows(batch, mesh, split))
-        whole = tree_map(lambda p: p.full_tensor(), params)
-        logits, cache = tr.prefill(whole, cfg, local, max_len=max_len,
-                                   masks=masks, backend=backend)
-        del whole
-        logits = _rows_dtensor(logits, mesh, 0, split)
-        if cache is None:
-            return logits, None
-        rows = shard_specs.tree_map_with_path(
-            lambda path, t: _rows_dtensor(t, mesh, _cache_bdim(path), split),
-            cache)
-        return logits, _laid_out(rows, cfg, mesh)
-    return prefill_step
-
-
 def _laid_out(cache, cfg: ModelConfig, mesh):
     """A DTensor cache redistributed to ``cache_specs``' layout."""
     specs = shard_specs.cache_specs(cache, cfg, mesh)
@@ -281,81 +245,6 @@ def _laid_out(cache, cfg: ModelConfig, mesh):
 def _batch_rows(cfg: ModelConfig, batch) -> int:
     name = "embeds" if cfg.embeds_input else "tokens"
     return torch.as_tensor(batch[name]).shape[0]
-
-
-def _mesh_decode_step(cfg: ModelConfig, masks, backend: str,
-                      dev: torch.device, mesh):
-    """The decode step on ``mesh`` over a DTensor cache (``cache_specs``):
-    each leaf is gathered to this rank's rows, whole on "model" (a
-    sequence sharded over "data", as ``long_500k``'s B = 1 lays it out,
-    gathered whole: context-parallel attention is not ported), the local
-    step runs on the gathered tensors, and each leaf's updated rows are
-    laid back out and copied into its own shards in place."""
-    _check_mesh(mesh, dev)
-
-    def decode_step(params, cache, tokens):
-        tokens = torch.as_tensor(tokens)
-        split = _rows_split(tokens.shape[0], mesh)
-        local_tok = _on(dev, _my_rows({"tokens": tokens}, mesh,
-                                      split)["tokens"])
-        held = shard_specs.tree_map_with_path(
-            lambda path, t: t.redistribute(
-                mesh, _rows_placements(mesh, _cache_bdim(path), split)),
-            cache)
-        local = shard_specs.tree_map_with_path(lambda _, t: t.to_local(),
-                                               held)
-        whole = tree_map(lambda p: p.full_tensor(), params)
-        logits, _ = tr.decode_step(whole, cfg, local, local_tok, masks=masks,
-                                   backend=backend)
-        del whole
-        _put_back(cache, held, mesh)
-        return (_rows_dtensor(logits, mesh, 0, split),
-                dict(cache, pos=cache["pos"] + 1))
-    return decode_step
-
-
-def _sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, grads_of,
-                        dev: torch.device, mesh):
-    """The train step on ``mesh``. Each rank takes its ``batch_specs``
-    slice of the batch, gathers the parameters whole, and computes the
-    loss and gradients of its slice (``grads_of``: the kernel path on the
-    card). A slice's share of the batch is its share of the labelled
-    tokens (the cross-entropy's denominator), so its gradients and metrics
-    are weighted by that share and summed over the data axes
-    (``Partial``), then laid out as each parameter is: the whole batch's
-    gradient of a loss that is a mean over the labelled tokens (the
-    Mamba2 and Zamba2 stacks this route serves). Each rank updates its
-    own shards as plain tensors; AdamW's clip takes the norm of the whole
-    gradient, each element counted once (``_mesh_sq_norm``). On a one-rank
-    mesh every gather and reduction is the identity, and the step gives
-    the unsharded step's bits."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    _check_mesh(mesh, dev)
-    names = mesh.mesh_dim_names
-    data, _ = shard_specs.mesh_axes(mesh)
-    n_data = _data_size(mesh)
-    partial = tuple(Partial() if n in data else Replicate() for n in names)
-
-    def weighted(t: torch.Tensor, share: torch.Tensor) -> torch.Tensor:
-        """``t`` times this rank's share, in float32 when the data axes
-        have more than one rank (the unsharded step's tensor itself when
-        they have one)."""
-        return t if n_data == 1 else t.to(torch.float32) * share
-
-    def train_step(params, opt_state, batch):
-        local, share = _my_batch(cfg, batch, mesh, dev)
-        whole = tree_map(lambda p: p.full_tensor(), params)
-        metrics, grads = grads_of(whole, local)
-        del whole
-
-        def reduce(g, p):
-            return DTensor.from_local(weighted(g, share), mesh, partial,
-                                      run_check=False).redistribute(
-                mesh, p.placements).to_local().to(p.dtype)
-        grads = tree_map(reduce, grads, params)
-        return _update_shards(optimizer, grads, params, opt_state, mesh) + (
-            _data_sum(metrics, share, mesh),)
-    return train_step
 
 
 def _my_batch(cfg: ModelConfig, batch, mesh, dev: torch.device):
@@ -417,15 +306,21 @@ def _update_shards(optimizer: Optimizer, grads, params, opt_state, mesh):
 
 
 def _kv_placements(mesh, tp, split: bool, name: str) -> tuple:
-    """Placements of a run's stacked cache leaf ``name``, a KV leaf (L, B,
-    S, heads, D) or an MLA leaf (L, B, S, width), holding this rank's rows
-    (over the data axes where ``split``) and its "model" shard
-    (``tp.kv_layout``, ``tp.latent_layouts``)."""
+    """Placements of a stacked cache leaf ``name``, a KV leaf (L, B, S,
+    heads, D), an MLA leaf (L, B, S, width), an SSD state (L, B, heads, P,
+    N) or a conv tail (L, B, K-1, channels), holding this rank's rows (over
+    the data axes where ``split``) and its "model" shard
+    (``tp.kv_layout``, ``tp.latent_layouts``, ``tp.state_layout``,
+    ``tp.conv_layout``)."""
     from torch.distributed.tensor import Replicate, Shard
     pl = list(_rows_placements(mesh, 1, split))
     if name in ("ckv", "krope"):
         lay = tp.latent_layouts[name == "krope"]
         dim = 3 if lay == "dims" else None
+    elif name == "state":
+        dim = 2 if tp.state_layout == "heads" else None
+    elif name == "conv":
+        dim = 3 if tp.conv_layout == "dims" else None
     else:
         dim = {"heads": 3, "dims": 4}.get(tp.kv_layout)
     pl[mesh.mesh_dim_names.index("model")] = (
@@ -442,7 +337,9 @@ def _tp_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
     "model"; logits as a DTensor of rows over the data axes, the cache as
     a DTensor tree laid out by ``cache_specs``, each rank's shard written
     from the KV heads the ranks computed (an MLA cache: its slice of the
-    latent every rank computed whole)."""
+    latent every rank computed whole; an SSM cache: the conv channels and
+    SSD heads the ranks computed, ``TensorParallel.store_conv`` and
+    ``store_state``)."""
     from torch.distributed.tensor import DTensor
     _check_mesh(mesh, dev)
 
@@ -465,6 +362,12 @@ def _tp_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
                 width = (cfg.mla.kv_lora_rank if name == "ckv"
                          else cfg.mla.qk_rope_head_dim)
                 shape = (t.shape[0], B, t.shape[2], width)
+            elif name == "state":
+                shape = (t.shape[0], B, cfg.ssm_heads) + tuple(t.shape[3:])
+            elif name == "conv":
+                shape = (t.shape[0], B, t.shape[2],
+                         cfg.d_inner + 2 * cfg.ssm.n_groups
+                         * cfg.ssm.d_state)
             else:
                 shape = (t.shape[0], B, t.shape[2], cfg.num_kv_heads,
                          cfg.head_dim)
@@ -606,16 +509,14 @@ def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None,
     ``embeds`` (B, S, d_model); a VLM config's also ``vision_embeds`` (B,
     V, d_model) and, optionally, ``mrope_positions`` (3, B, V + S). A
     bidirectional config returns (all logits (B, S, V), None). With
-    ``mesh`` the step is the sharded one (``_tp_prefill_step`` for an
-    attention stack, else ``_mesh_prefill_step``; ``step.route``
-    names it): ``params`` is a DTensor tree, ``batch`` the whole batch."""
+    ``mesh`` the step is the sharded one (``_tp_prefill_step``;
+    ``step.route`` names it): ``params`` is a DTensor tree, ``batch`` the
+    whole batch."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
     _check_card(cfg, dev)
     if mesh is not None:
-        make = (_tp_prefill_step if tp_supported(cfg)
-                else _mesh_prefill_step)
-        step = make(cfg, max_len, masks, backend, dev, mesh)
+        step = _tp_prefill_step(cfg, max_len, masks, backend, dev, mesh)
         step.route = mesh_route(cfg)
         return step
 
@@ -633,10 +534,9 @@ def make_decode_step(cfg: ModelConfig, masks=None,
     cache)``; the cache's tensors (KV or MLA latent slots, SSD states and
     conv windows) are updated in place. A bidirectional (encoder-only)
     config has no decode step and is refused. With ``mesh`` the step is
-    the sharded one (``_tp_decode_step`` for an attention stack, else
-    ``_mesh_decode_step``; ``step.route`` names it): ``params`` and
-    ``cache`` are DTensor trees (the mesh prefill's cache), ``tokens`` the
-    whole batch's."""
+    the sharded one (``_tp_decode_step``; ``step.route`` names it):
+    ``params`` and ``cache`` are DTensor trees (the mesh prefill's cache),
+    ``tokens`` the whole batch's."""
     tr.check_supported(cfg)
     if not cfg.causal:
         raise ValueError(f"{cfg.name}: a bidirectional encoder has no "
@@ -644,8 +544,7 @@ def make_decode_step(cfg: ModelConfig, masks=None,
                          f"position's logits")
     dev = resolve_device(device)
     if mesh is not None:
-        make = _tp_decode_step if tp_supported(cfg) else _mesh_decode_step
-        step = make(cfg, masks, backend, dev, mesh)
+        step = _tp_decode_step(cfg, masks, backend, dev, mesh)
         step.route = mesh_route(cfg)
         return step
 

@@ -13,10 +13,12 @@ import torch
 
 from repro_torch.kernels.rmsnorm.ops import gated_rmsnorm as _gated_kernel
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
+from repro_torch.kernels.rmsnorm.ops import \
+    split_gated_rmsnorm as _split_kernel
 from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref, rmsnorm_ref
 
 __all__ = ["rmsnorm_ref", "gated_rmsnorm_ref", "rmsnorm", "layernorm",
-           "gated_rmsnorm"]
+           "gated_rmsnorm", "split_gated_rmsnorm"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
@@ -45,3 +47,14 @@ def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     if backend == "ref":
         return gated_rmsnorm_ref(x, z, scale, eps)
     return _gated_kernel(x, z, scale, eps)
+
+
+def split_gated_rmsnorm(x: torch.Tensor, z: torch.Tensor,
+                        scale: torch.Tensor, eps: float, axis, width: int,
+                        backend: str = "auto") -> torch.Tensor:
+    """The gated norm of this rank's columns of rows ``width`` wide split
+    over ``axis`` (``kernels.rmsnorm.ops.split_gated_rmsnorm``): the
+    kernel's two split entries (``"auto"``) or their plain versions
+    (``"ref"``), the row sums of squares all-reduced between them."""
+    return _split_kernel(x, z, scale, eps, axis, width,
+                         plain=backend == "ref")

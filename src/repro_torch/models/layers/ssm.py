@@ -15,6 +15,19 @@ kernel there), then the same gated norm entry.
 
 Pruning hook: ``head_mask`` (ssm_heads,) zeroes pruned SSD heads, on the
 scan's output and on the skip term alike.
+
+Tensor parallelism: with ``tp`` (a ``sharding.tensor_parallel.
+TensorParallel``) the block is one rank's share of its SSD heads.
+``params`` hold the rank's leaves (``w_in``'s columns of its heads' z, x
+and dt and of its groups' B and C, the conv's channels of its x, B and C,
+its heads' ``A_log``, ``dt_bias``, ``D`` and ``norm_scale`` columns,
+``w_out``'s rows), the scan runs on its heads (each head's group's B and C
+repeated where the block crosses groups unevenly), the gated norm's mean
+of squares is the whole ``d_inner``'s (``split_gated_rmsnorm``: the row
+sums all-reduced), and the out product's partial sums are all-reduced.
+The cache holds the rank's shard of ``cache_specs``' layout: its writes
+and reads go through ``tp`` (``store_conv``, ``read_conv``,
+``write_conv``, ``store_state``, ``read_state``).
 """
 from __future__ import annotations
 
@@ -27,7 +40,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models.layers.init import normal, slot
-from repro_torch.models.layers.norms import gated_rmsnorm
+from repro_torch.models.layers.norms import (gated_rmsnorm,
+                                             split_gated_rmsnorm)
 
 
 class SSMCache(NamedTuple):
@@ -77,14 +91,31 @@ def init_ssm_params(gen: torch.Generator, cfg, dtype: torch.dtype,
     }
 
 
-def _split_proj(cfg, proj: torch.Tensor):
-    s = cfg.ssm
-    d_in = cfg.d_inner
-    gn = s.n_groups * s.d_state
+def _widths(cfg, tp):
+    """(heads, groups): the block's, or with ``tp`` the rank's (its head
+    block and the groups its heads read)."""
+    if tp is None:
+        return cfg.ssm_heads, cfg.ssm.n_groups
+    (h0, h1), (g0, g1) = tp.ssd.q, tp.ssd.kv
+    return h1 - h0, g1 - g0
+
+
+def _split_proj(proj: torch.Tensor, d_in: int, gn: int):
+    """(z, xBC, dt) of the packed input projection: z and x ``d_in`` wide,
+    B and C ``gn`` each, then dt."""
     z = proj[..., :d_in]
     xBC = proj[..., d_in:d_in + d_in + 2 * gn]
     dt = proj[..., d_in + d_in + 2 * gn:]
     return z, xBC, dt
+
+
+def _norm(y, z, scale, cfg, backend: str, tp):
+    """The gated norm: one entry, or with ``tp`` over more than one rank
+    the split form over its axis."""
+    if tp is None or tp.axis.size == 1:
+        return gated_rmsnorm(y, z, scale, cfg.norm_eps, backend=backend)
+    return split_gated_rmsnorm(y, z, scale, cfg.norm_eps, tp.axis,
+                               cfg.d_inner, backend=backend)
 
 
 def _causal_conv(xBC: torch.Tensor, conv_w: torch.Tensor,
@@ -100,25 +131,29 @@ def _causal_conv(xBC: torch.Tensor, conv_w: torch.Tensor,
 
 
 def ssm_forward(params, cfg, x: torch.Tensor, *, head_mask=None,
-                return_state: bool = False, backend: str = "auto"):
+                return_state: bool = False, backend: str = "auto", tp=None):
     """Full-sequence Mamba2 block. x (B,S,d_model) -> (B,S,d_model).
 
     With ``return_state``, also returns an SSMCache holding the rolling conv
     tail (raw pre-conv inputs, left-padded with zeros when S < d_conv - 1)
     and the final SSD state — what ``ssm_decode`` consumes to continue the
-    sequence."""
+    sequence (with ``tp``, the rank's shard of each)."""
     s = cfg.ssm
-    H, P = cfg.ssm_heads, s.head_dim
+    P, N = s.head_dim, s.d_state
+    H, G = _widths(cfg, tp)
+    d_in, gn = H * P, G * N
     Bsz, S = x.shape[:2]
+    if tp is not None:
+        x = tp.copy_in(x)
     proj = x @ params["w_in"]
-    z, xBC, dt = _split_proj(cfg, proj)
+    z, xBC, dt = _split_proj(proj, d_in, gn)
     xBC_raw = xBC
     xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"], s.d_conv)
-    d_in = cfg.d_inner
-    gn = s.n_groups * s.d_state
     xs = xBC[..., :d_in].reshape(Bsz, S, H, P)
-    Bm = xBC[..., d_in:d_in + gn].reshape(Bsz, S, s.n_groups, s.d_state)
-    Cm = xBC[..., d_in + gn:].reshape(Bsz, S, s.n_groups, s.d_state)
+    Bm = xBC[..., d_in:d_in + gn].reshape(Bsz, S, G, N)
+    Cm = xBC[..., d_in + gn:].reshape(Bsz, S, G, N)
+    if tp is not None:
+        Bm, Cm = tp.ssd_groups(Bm, 2), tp.ssd_groups(Cm, 2)
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     scan = ssd_scan_ref if backend == "ref" else ssd_scan
@@ -128,16 +163,20 @@ def ssm_forward(params, cfg, x: torch.Tensor, *, head_mask=None,
         skip = skip * head_mask[None, None, :, None]
     y = y + skip
     y = y.reshape(Bsz, S, d_in).to(x.dtype)
-    y = gated_rmsnorm(y, z, params["norm_scale"], cfg.norm_eps,
-                      backend=backend)
+    y = _norm(y, z, params["norm_scale"], cfg, backend, tp)
     out = y @ params["w_out"]
+    if tp is not None:
+        out = tp.reduce(out)
     if return_state:
         K = s.d_conv
         if S >= K - 1:
             tail = xBC_raw[:, S - (K - 1):]
         else:
             tail = F.pad(xBC_raw, (0, 0, K - 1 - S, 0))
-        return out, SSMCache(tail.to(x.dtype), state)
+        tail = tail.to(x.dtype)
+        if tp is not None:
+            tail, state = tp.store_conv(tail), tp.store_state(state)
+        return out, SSMCache(tail, state)
     return out
 
 
@@ -152,43 +191,57 @@ def init_ssm_cache(cfg, batch: int, dtype: torch.dtype,
 
 
 def ssm_decode(params, cfg, x: torch.Tensor, cache: SSMCache, *,
-               head_mask=None, backend: str = "auto"):
+               head_mask=None, backend: str = "auto", tp=None):
     """One-token decode. x (B,1,d_model) -> (out (B,1,d), new cache). The
     conv window and the state are float32, as in the reference; the new
     cache is returned as new tensors (the stack copies them into its
     stacked cache). ``backend="ref"`` runs the gated norm's plain
-    version."""
+    version. With ``tp`` the cache is the rank's shard: its conv channels
+    are read from the shards and its new row sent to them, its heads' state
+    read from and written to its state shard."""
     s = cfg.ssm
-    H, P = cfg.ssm_heads, s.head_dim
+    P, N = s.head_dim, s.d_state
+    H, G = _widths(cfg, tp)
+    d_in, gn = H * P, G * N
     B = x.shape[0]
     f32 = torch.float32
+    if tp is not None:
+        x = tp.copy_in(x)
     proj = x[:, 0] @ params["w_in"]                  # (B, proj_out)
-    z, xBC, dt = _split_proj(cfg, proj)
+    z, xBC, dt = _split_proj(proj, d_in, gn)
     # rolling conv state
-    hist = torch.cat([cache.conv, xBC[:, None]], dim=1)       # (B,K,Cd)
+    tail = cache.conv if tp is None else tp.read_conv(cache.conv)
+    hist = torch.cat([tail, xBC[:, None]], dim=1)             # (B,K,Cd)
     conv_out = torch.einsum("bkc,kc->bc", hist.to(f32),
                             params["conv_w"].to(f32))
     xBC = F.silu(conv_out + params["conv_b"].to(f32))
-    new_conv = hist[:, 1:].to(cache.conv.dtype)
+    if tp is None:
+        new_conv = hist[:, 1:].to(cache.conv.dtype)
+    else:
+        new_conv = tp.write_conv(cache.conv,
+                                 hist[:, -1:].to(cache.conv.dtype))
 
-    d_in = cfg.d_inner
-    gn = s.n_groups * s.d_state
     xs = xBC[..., :d_in].reshape(B, H, P)
-    Bm = xBC[..., d_in:d_in + gn].reshape(B, s.n_groups, s.d_state)
-    Cm = xBC[..., d_in + gn:].reshape(B, s.n_groups, s.d_state)
-    rep = H // s.n_groups
+    Bm = xBC[..., d_in:d_in + gn].reshape(B, G, N)
+    Cm = xBC[..., d_in + gn:].reshape(B, G, N)
+    if tp is not None:
+        Bm, Cm = tp.ssd_groups(Bm, 1), tp.ssd_groups(Cm, 1)
+    rep = H // Bm.shape[1]
     Bh = Bm.repeat_interleave(rep, dim=1)            # (B,H,N)
     Ch = Cm.repeat_interleave(rep, dim=1)
     dt = F.softplus(dt.to(f32) + params["dt_bias"])  # (B,H)
     A = -torch.exp(params["A_log"])
     decay = torch.exp(dt * A)                        # (B,H)
-    state = (cache.state * decay[..., None, None]
+    prev = cache.state if tp is None else tp.read_state(cache.state)
+    state = (prev * decay[..., None, None]
              + torch.einsum("bh,bhp,bhn->bhpn", dt, xs, Bh))
     y = (torch.einsum("bhpn,bhn->bhp", state, Ch)
          + params["D"][None, :, None] * xs)
     if head_mask is not None:
         y = y * head_mask[None, :, None]
     y = y.reshape(B, 1, d_in).to(x.dtype)
-    y = gated_rmsnorm(y, z[:, None], params["norm_scale"], cfg.norm_eps,
-                      backend=backend)
-    return y @ params["w_out"], SSMCache(new_conv, state)
+    y = _norm(y, z[:, None], params["norm_scale"], cfg, backend, tp)
+    out = y @ params["w_out"]
+    if tp is None:
+        return out, SSMCache(new_conv, state)
+    return tp.reduce(out), SSMCache(new_conv, tp.store_state(state))

@@ -387,15 +387,23 @@ def _attn_block(cfg, lp, x, angles, mask, backend, tp=None):
                            backend=backend, tp=tp), kv, None
 
 
-def _ssm_block(cfg, lp, x, mask, backend, collect_state: bool):
+def _ssm_block(cfg, lp, x, mask, backend, collect_state: bool, tp=None):
+    """A Mamba2 block: (x, its conv tail and final state where
+    ``collect_state``, else None). With ``tp`` the block is a rank's share
+    of its SSD heads and ``lp`` is (run, layer): the layer's parameters
+    are fetched here, inside its remat checkpoint (``_attn_block``), and
+    its head mask sliced to the rank's heads."""
+    if tp is not None:
+        lp, mask = tp.layer(*lp), tp.mask(mask)
     head_mask = None if mask is None else mask.get("ssm_head_mask")
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)
     if collect_state:
         o, st = ssm_lib.ssm_forward(lp["ssm"], cfg, h, head_mask=head_mask,
-                                    return_state=True, backend=backend)
+                                    return_state=True, backend=backend,
+                                    tp=tp)
         return x + o, st
     return x + ssm_lib.ssm_forward(lp["ssm"], cfg, h, head_mask=head_mask,
-                                   backend=backend), None
+                                   backend=backend, tp=tp), None
 
 
 def _shared_after(cfg: ModelConfig, count: int, j: int) -> Optional[int]:
@@ -421,7 +429,8 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
     and values of the shared block's invocation ``g``. With ``cfg.remat``
     and grad enabled each block runs under a non-reentrant checkpoint
     (the callbacks see its outputs, outside it). With ``tp`` each layer
-    is a tensor-parallel rank's share (``_attn_block``)."""
+    and the shared block is a tensor-parallel rank's share
+    (``_attn_block``, ``_ssm_block``)."""
     runs = layer_runs(cfg)
     masks = masks if masks is not None else [None] * len(runs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -446,13 +455,14 @@ def _run_stack(params, cfg: ModelConfig, x, angles, masks: Masks,
                     on_kv(r, j, kv)
                 continue
             x, st = block(_ssm_block, cfg, lp, x, mk, backend,
-                          on_state is not None)
+                          on_state is not None, tp)
             if on_state is not None:
                 on_state(r, j, st)
             g = _shared_after(cfg, run.count, j)
             if g is not None:      # the shared block: unpruned
-                x, (k, v), _ = block(_attn_block, cfg, params["shared"], x,
-                                     angles, None, backend)
+                shared = params["shared"] if tp is None else ("shared",)
+                x, (k, v), _ = block(_attn_block, cfg, shared, x, angles,
+                                     None, backend, tp)
                 if on_shared_kv is not None:
                     on_shared_kv(g, k, v)
     return x, {"moe_aux": aux, "moe_z": zl}
@@ -602,11 +612,12 @@ def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
     layers are stacked flat, in layer order (the reference splits them
     into (groups, period) and a tail). With ``tp`` a KV cache holds the
     rank's shard of the heads and head dims, an MLA cache its shard of
-    each leaf's last dim."""
+    each leaf's last dim, an SSM cache its shard of the conv channels and
+    of the state's heads."""
     dtype = getattr(torch, cfg.dtype)
     clen = cache_len_for(cfg, max_len)
     heads, dims = cfg.num_kv_heads, cfg.head_dim
-    if tp is not None:
+    if tp is not None and tp.heads is not None:
         heads = tp.kv_heads[1] - tp.kv_heads[0]
         dims = tp.kv_dims[1] - tp.kv_dims[0]
 
@@ -619,6 +630,10 @@ def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
     for run in layer_runs(cfg):
         if run.kind == "ssm":
             base = ssm_lib.init_ssm_cache(cfg, batch_size, dtype, device)
+            if tp is not None:
+                (c0, c1), (h0, h1) = tp.conv_dims, tp.state_heads
+                base = ssm_lib.SSMCache(base.conv[..., c0:c1],
+                                        base.state[:, h0:h1])
             caches.append(ssm_lib.SSMCache(*(
                 t.new_zeros((run.count,) + tuple(t.shape)) for t in base)))
         elif cfg.attention == "mla":
@@ -711,6 +726,8 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
             caches["runs"][r].state[j] = st.state
 
         def on_shared_kv(g, k, v):
+            if tp is not None:
+                k, v = tp.store_kv(k, v)
             caches["shared"].k[g, :, :S] = k
             caches["shared"].v[g, :, :S] = v
         callbacks = dict(on_kv=on_kv, on_state=on_state,
@@ -767,16 +784,18 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 o, nc = ssm_lib.ssm_decode(
                     lp["ssm"], cfg, h,
                     ssm_lib.SSMCache(rc.conv[j], rc.state[j]), head_mask=hm,
-                    backend=backend)
+                    backend=backend, tp=tp)
                 rc.conv[j].copy_(nc.conv)
                 rc.state[j].copy_(nc.state)
                 x = x + o
                 g = _shared_after(cfg, run.count, j)
                 if g is not None:      # the shared block's slot g
                     shared = cache["shared"]
-                    x = _attn_decode(cfg, params["shared"], x, angles,
+                    sp = (params["shared"] if tp is None
+                          else tp.layer("shared"))
+                    x = _attn_decode(cfg, sp, x, angles,
                                      KVCache(shared.k[g], shared.v[g]), pos,
-                                     None, backend)
+                                     None, backend, tp)
                 continue
             x = _attn_decode(cfg, lp, x, angles,
                              type(rc)(*(t[j] for t in rc)), pos, mk, backend,

@@ -1,8 +1,8 @@
-"""Tensor parallelism over the "model" mesh axis for every attention
-stack: GQA and MLA attention, the gated and non-gated FFN, the MoE layer
-(experts over "model", the dispatch over the whole batch), DeepSeek-V3's
-MTP head, and the vocabulary. Mamba2 layers and Zamba2's shared block are
-not split (``tp_supported``).
+"""Tensor parallelism over the "model" mesh axis for every stack of the
+registry: GQA and MLA attention, the gated and non-gated FFN, the MoE
+layer (experts over "model", the dispatch over the whole batch),
+DeepSeek-V3's MTP head, Mamba2's SSD heads, Zamba2's shared block, and
+the vocabulary.
 
 The reference has no counterpart: it lays its arrays out by
 ``param_specs`` and GSPMD splits every product over "model". The port's
@@ -30,6 +30,17 @@ local tensors and the reductions between the shares are explicit:
   group. The shared experts split as the FFN does; the router is used
   whole, so every rank routes alike. Each rank dispatches only to its own
   experts; the combine's fp32 partial sums are all-reduced over "model".
+* **SSD heads.** Mamba2's heads split into contiguous blocks as the q
+  heads do (``head_split`` over the B/C groups: 80 heads on 16 ranks are
+  5 each). A rank's block takes several ranges of ``w_in``'s columns (its
+  heads' z and x, the B and C of the groups they read, its heads' dt), the
+  conv's channels of its x, B and C, its heads' ``A_log``, ``dt_bias``,
+  ``D`` and ``norm_scale`` columns, and ``w_out``'s rows; a group's B and
+  C are computed on every rank whose heads read it. Where a block crosses
+  groups unevenly each head gets its group's B and C repeated
+  (``TensorParallel.ssd_groups``), as for KV heads. The gated norm's mean
+  of squares spans the whole ``d_inner``: each rank's row sums are
+  all-reduced (``kernels.rmsnorm.ops.split_gated_rmsnorm``).
 * **Vocabulary.** Where the vocabulary divides "model" (as ``param_specs``
   shards ``embed`` and ``lm_head``): the embedding lookup gives zeros for
   ids outside a rank's rows, then an all-reduce; the logits stay split,
@@ -85,6 +96,19 @@ never the cache; a replicated cache is read where it is. MLA's latent
 cache is the same: ``ckv`` and ``krope`` each on their last dim where it
 divides "model" (``latent_cache_layout``), else whole; its decode sends
 the absorbed queries to the latent dims the same way.
+
+Mamba2's cache keeps ``cache_specs``' layout too: the SSD state on its
+heads where they divide "model" (every rank's shard its own heads, and
+nothing moves), else whole, each rank writing its heads and the ranks'
+blocks exchanged; the conv tail on its channels in contiguous blocks where
+they divide "model", else whole. No rank's channels are a block, so the
+data moves, never the cache: the prefill sends each rank's channels of
+the tail to the shards that hold them (a group's B and C from the lowest
+rank that computes them), and a decode step reads its channels' rows from
+the shards and sends its new row to them (``Regather``: an all-to-all of
+the pieces, its backward the reverse). A leaf split on a dim in several
+ranges (``w_in``, ``conv_w``) reaches a rank the same way: its "model"
+shard is kept and the ranges it wants come to it by an all-to-all.
 """
 from __future__ import annotations
 
@@ -94,28 +118,43 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-#: what a step's record says of the "model" axis, by route
-ROUTE_SPLIT = "split: heads, FFN columns, experts, vocabulary"
-ROUTE_REPLICATED = ("replicated: every rank gathers the whole parameter "
-                    "tree and computes its data rows whole; tensor "
-                    "parallelism over 'model' is not ported for Mamba2 "
-                    "layers")
+#: what a step's record says of the "model" axis
+ROUTE_SPLIT = "split: heads, FFN columns, experts, SSD heads, vocabulary"
+
+
+def _attends(cfg) -> bool:
+    return cfg.attention in ("gqa", "mla") and bool(cfg.num_heads)
 
 
 def tp_supported(cfg) -> bool:
-    """Whether ``cfg`` is an attention stack: GQA or MLA attention and a
-    dense FFN or an MoE layer in every layer, with or without an MTP head;
-    no SSM layer and no shared block."""
-    return (cfg.arch_type in ("dense", "audio", "vlm", "moe")
-            and cfg.attention in ("gqa", "mla")
-            and not cfg.shared_attn_period and bool(cfg.num_heads))
+    """Whether ``cfg``'s stack splits over "model": an attention stack
+    (GQA or MLA attention and a dense FFN or an MoE layer in every layer,
+    with or without an MTP head), a Mamba2 stack, or a hybrid of Mamba2
+    layers and a shared GQA block. Every config of the registry is one."""
+    if cfg.arch_type in ("dense", "audio", "vlm", "moe"):
+        return _attends(cfg) and not cfg.shared_attn_period
+    if cfg.arch_type == "ssm":
+        return cfg.ssm is not None
+    if cfg.arch_type == "hybrid":
+        return cfg.ssm is not None and _attends(cfg)
+    return False
 
 
 def mesh_route(cfg) -> str:
-    """The route a mesh step takes for ``cfg``: ``ROUTE_SPLIT`` for an
-    attention stack, ``ROUTE_REPLICATED`` (the whole-tree gather) for
-    Mamba2 and Zamba2."""
-    return ROUTE_SPLIT if tp_supported(cfg) else ROUTE_REPLICATED
+    """The route a mesh step takes for ``cfg``: ``ROUTE_SPLIT``; a stack
+    tensor parallelism does not cover is refused."""
+    if not tp_supported(cfg):
+        raise ValueError(f"{cfg.name}: no mesh route for arch "
+                         f"{cfg.arch_type!r}")
+    return ROUTE_SPLIT
+
+
+def ffn_width(cfg) -> int:
+    """The FFN's columns: ``d_ff``, or a hybrid's shared block's default
+    (4 x d_model) where the config gives none."""
+    if cfg.d_ff:
+        return cfg.d_ff
+    return 4 * cfg.d_model if cfg.shared_attn_period else 0
 
 
 # ---------------------------------------------------------------------------
@@ -214,12 +253,222 @@ def latent_cache_layout(width: int, m: int) -> str:
     return "dims" if width % m == 0 else "whole"
 
 
-def latent_shard(width: int, m: int, rank: int) -> Tuple[int, int]:
-    """(lo, hi) of ``rank``'s shard of an MLA cache leaf's last dim."""
-    if latent_cache_layout(width, m) == "dims":
-        n = width // m
-        return rank * n, (rank + 1) * n
-    return 0, width
+Ranges = Tuple[Tuple[int, int], ...]
+
+
+def merged(ranges) -> Ranges:
+    """``ranges`` in order with each range that starts where the one
+    before ends joined to it, empty ones dropped."""
+    out: List[Tuple[int, int]] = []
+    for lo, hi in ranges:
+        if hi <= lo:
+            continue
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return tuple(out)
+
+
+def ssm_ranges(cfg, split: HeadSplit) -> dict:
+    """The ranges of each Mamba2 leaf a rank of SSD head block ``split``
+    (``head_split`` over the B/C groups) uses, on the leaf's split dim, in
+    the order the block reads them: ``w_in``'s columns (the heads' z and
+    x, the groups' B and C, the heads' dt: the packed layout of the
+    reference's ``_split_proj``), the conv's channels (x, B, C), the heads
+    (``A_log``, ``dt_bias``, ``D``) and their ``d_inner`` columns
+    (``norm_scale``, ``w_out``'s rows). Adjacent ranges are joined
+    (``merged``): on one rank each leaf is one whole range."""
+    s = cfg.ssm
+    P, N = s.head_dim, s.d_state
+    d_in, gn = cfg.d_inner, s.n_groups * s.d_state
+    (h0, h1), (g0, g1) = split.q, split.kv
+    x = (h0 * P, h1 * P)
+    b = (g0 * N, g1 * N)
+    return {
+        "w_in": merged([x, (d_in + x[0], d_in + x[1]),
+                        (2 * d_in + b[0], 2 * d_in + b[1]),
+                        (2 * d_in + gn + b[0], 2 * d_in + gn + b[1]),
+                        (2 * (d_in + gn) + h0, 2 * (d_in + gn) + h1)]),
+        "conv": merged([x, (d_in + b[0], d_in + b[1]),
+                        (d_in + gn + b[0], d_in + gn + b[1])]),
+        "heads": ((h0, h1),),
+        "inner": (x,)}
+
+
+def block_shard(n: int, m: int, rank: int) -> Tuple[int, int]:
+    """(lo, hi) of ``rank``'s shard of a dim of ``n`` split in ``m`` even
+    blocks where ``m`` divides it (``cache_specs``' and ``param_specs``'
+    rule: an MLA cache leaf's last dim, an SSD state's heads, a conv
+    tail's channels), else the whole dim (replicated)."""
+    if n % m:
+        return 0, n
+    return rank * (n // m), (rank + 1) * (n // m)
+
+
+def _cut_of(dim: int, ranges: Ranges, ranged: bool = False):
+    """One cut: ``(dim, ranges)``, the ranges joined in order on that dim,
+    where ``ranged`` or there are several; else ``(dim, lo, hi)``. A leaf
+    whose cut on some rank is several ranges takes the ranged form on
+    every rank, so that every rank fetches it alike."""
+    if ranged or len(ranges) > 1:
+        return (dim, ranges)
+    return (dim,) + ranges[0]
+
+
+def _cut_ranges(cut) -> Ranges:
+    return cut[1] if len(cut) == 2 else (cut[1:],)
+
+
+class _Piece(NamedTuple):
+    src: int          # the rank that sends it
+    dst: int          # the rank that wants it
+    src_off: int      # its offset in what ``src`` holds
+    dst_off: int      # its offset in what ``dst`` wants
+    n: int
+
+
+class Regather:
+    """Moving ranges of one dim between the ranks of an axis: rank r holds
+    ``have[r]`` (ranges of the dim, concatenated in order) and wants
+    ``want[r]``. Each unit a rank wants comes from itself where it holds
+    it and ``prefer_self`` (a read), else from the lowest rank that holds
+    it (a write: every copy of a unit several ranks computed is that one
+    rank's). ``__call__`` is one all-to-all of the pieces over the axis,
+    unless every piece stays on its rank; under autograd its backward
+    sends each piece's gradient back and adds it where the piece came
+    from."""
+
+    def __init__(self, have: Sequence[Ranges], want: Sequence[Ranges],
+                 prefer_self: bool = True):
+        self.m = len(have)
+        self.want_n = [sum(hi - lo for lo, hi in w) for w in want]
+        self.have_n = [sum(hi - lo for lo, hi in h) for h in have]
+        self.pieces: List[_Piece] = []
+        for dst, ranges in enumerate(want):
+            off = 0
+            for lo, hi in ranges:
+                for a, b, src, src_off in self._sources(have, lo, hi, dst,
+                                                        prefer_self):
+                    last = self.pieces[-1] if self.pieces else None
+                    if (last is not None and last.dst == dst
+                            and last.src == src
+                            and last.src_off + last.n == src_off
+                            and last.dst_off + last.n == off):
+                        self.pieces[-1] = last._replace(n=last.n + b - a)
+                    else:
+                        self.pieces.append(_Piece(src, dst, src_off, off,
+                                                  b - a))
+                    off += b - a
+        self.local = all(p.src == p.dst for p in self.pieces)
+        self.identity = [self.local and list(have[r]) == list(want[r])
+                         for r in range(self.m)]
+
+    @staticmethod
+    def _sources(have, lo, hi, dst, prefer_self):
+        """[(a, b, src, src_off)]: [lo, hi) cut where its source changes."""
+        cuts = {lo, hi}
+        for ranges in have:
+            for a, b in ranges:
+                cuts.update(c for c in (a, b) if lo < c < hi)
+        edges = sorted(cuts)
+        out = []
+        for a, b in zip(edges, edges[1:]):
+            holders = [r for r, ranges in enumerate(have)
+                       if any(x <= a and b <= y for x, y in ranges)]
+            if not holders:
+                raise ValueError(f"no rank holds [{a}, {b})")
+            src = dst if prefer_self and dst in holders else holders[0]
+            off = 0
+            for x, y in have[src]:
+                if x <= a and b <= y:
+                    out.append((a, b, src, off + a - x))
+                    break
+                off += y - x
+        return out
+
+    def __call__(self, t: torch.Tensor, dim: int, axis) -> torch.Tensor:
+        dim %= t.dim()
+        if self.identity[axis.rank]:
+            return t
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _RegatherFn.apply(t, self, dim, axis)
+        return self.forward(t, dim, axis)
+
+    def _moved(self, t, dim, axis, out_of, into, off_from, off_to,
+               total, tile: bool):
+        """Each piece of ``t`` this rank sends (``out_of(me, r)``: to rank
+        r, in order) sent, each it receives (``into(me, r)``: from rank
+        r) placed at ``off_to`` in a tensor of ``total`` on ``dim``: their
+        concatenation where they ``tile`` it, else their sum into zeros."""
+        me = axis.rank
+
+        def cat(parts):
+            if not parts:
+                shape = list(t.shape)
+                shape[dim] = 0
+                return t.new_zeros(shape)
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+        sent = [cat([t.narrow(dim, off_from(p), p.n) for p in out_of(me, r)])
+                for r in range(self.m)]
+        if self.local:
+            got = sent
+        else:
+            shapes = []
+            for r in range(self.m):
+                shape = list(t.shape)
+                shape[dim] = sum(p.n for p in into(me, r))
+                shapes.append(shape)
+            got = axis.all_to_all(sent, shapes)
+        placed = []
+        for r in range(self.m):
+            at = 0
+            for p in into(me, r):
+                placed.append((off_to(p), got[r].narrow(dim, at, p.n)))
+                at += p.n
+        placed.sort(key=lambda x: x[0])
+        if tile:
+            return cat([v for _, v in placed])
+        shape = list(t.shape)
+        shape[dim] = total
+        out = t.new_zeros(shape)
+        for o, v in placed:
+            out.narrow(dim, o, v.shape[dim]).add_(v)
+        return out
+
+    def _pieces(self, src: int, dst: int) -> List[_Piece]:
+        return [p for p in self.pieces if p.src == src and p.dst == dst]
+
+    def forward(self, t, dim, axis):
+        """The pieces this rank wants, in order (they tile its ranges)."""
+        return self._moved(t, dim, axis, self._pieces,
+                           lambda me, r: self._pieces(r, me),
+                           lambda p: p.src_off, lambda p: p.dst_off,
+                           self.want_n[axis.rank], tile=True)
+
+    def backward(self, g, dim, axis):
+        """The gradient of what this rank holds: each piece's gradient
+        from the rank that wanted it, added where the piece came from
+        (zero where no rank wanted it)."""
+        return self._moved(g, dim, axis,
+                           lambda me, r: self._pieces(r, me),
+                           self._pieces,
+                           lambda p: p.dst_off, lambda p: p.src_off,
+                           self.have_n[axis.rank], tile=False)
+
+
+class _RegatherFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, plan, dim, axis):
+        ctx.plan, ctx.dim, ctx.axis = plan, dim, axis
+        out = plan.forward(t, dim, axis)
+        # a piece kept as a view of the input leaves the node as a copy
+        base = t if t._base is None else t._base
+        return out.clone() if out is t or out._base is base else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.backward(g, ctx.dim, ctx.axis), None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -535,10 +784,12 @@ def vocab_xent(logits: torch.Tensor, labels: torch.Tensor, lo: int,
 # a rank's plan and its parameters
 # ---------------------------------------------------------------------------
 class TensorParallel:
-    """One rank's share of an attention stack: its head block (``heads``),
-    FFN columns (``ffn``), experts and their columns (``experts``), shared
-    expert columns (``shared``), vocabulary rows (``vocab``, None where the
-    head is replicated) and KV or latent cache shard, the "model" axis its
+    """One rank's share of a stack: its head block (``heads``, None
+    without attention), FFN columns (``ffn``), experts and their columns
+    (``experts``), shared expert columns (``shared``), SSD head block
+    (``ssd``: a ``HeadSplit`` over the B/C groups, None without Mamba2
+    layers), vocabulary rows (``vocab``, None where the head is
+    replicated) and KV, latent or SSM cache shard, the "model" axis its
     reductions go through, the data axes (``data``: a ``DataAxes``, None
     where they do not split the rows) its whole-batch sums go through, and
     ``fetch``, which hands it parameters: ``fetch(tp, path, tensor,
@@ -546,14 +797,16 @@ class TensorParallel:
 
     def __init__(self, cfg, axis, fetch, data=None):
         if not tp_supported(cfg):
-            raise ValueError(f"{cfg.name}: tensor parallelism covers the "
-                             f"attention stacks only")
+            raise ValueError(f"{cfg.name}: tensor parallelism has no split "
+                             f"of arch {cfg.arch_type!r}")
         self.cfg, self.axis, self._fetch = cfg, axis, fetch
         self.data = data if data is not None and data.size > 1 else None
         m, r = axis.size, axis.rank
-        self._heads_all = head_split(cfg.num_heads, cfg.num_kv_heads, m)
-        self.heads = self._heads_all[r]
-        self.ffn = blocks(cfg.d_ff, m)[r]
+        self.heads = self.ffn = self.ssd = None
+        if _attends(cfg):
+            self._init_attention(cfg, m, r)
+        if ffn_width(cfg):
+            self.ffn = blocks(ffn_width(cfg), m)[r]
         moe = cfg.moe
         self.experts = (expert_split(moe.num_experts, m, moe.d_expert)[r]
                         if moe is not None else None)
@@ -562,6 +815,13 @@ class TensorParallel:
         V = cfg.padded_vocab
         self.vocab = ((r * V // m, (r + 1) * V // m)
                       if m > 1 and V % m == 0 else None)
+        if cfg.ssm is not None:
+            self._init_ssm(cfg, m, r)
+        self._params = None
+
+    def _init_attention(self, cfg, m: int, r: int) -> None:
+        self._heads_all = head_split(cfg.num_heads, cfg.num_kv_heads, m)
+        self.heads = self._heads_all[r]
         self.kv_heads, self.kv_dims = kv_shard(cfg.num_kv_heads,
                                                cfg.head_dim, m, r)
         self.kv_layout = kv_cache_layout(cfg.num_kv_heads, cfg.head_dim, m)
@@ -584,8 +844,31 @@ class TensorParallel:
             widths = (cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)
             self.latent_layouts = tuple(latent_cache_layout(w, m)
                                         for w in widths)
-            self.latent_dims = tuple(latent_shard(w, m, r) for w in widths)
-        self._params = None
+            self.latent_dims = tuple(block_shard(w, m, r) for w in widths)
+
+    def _init_ssm(self, cfg, m: int, r: int) -> None:
+        """The SSD head blocks, each rank's leaf ranges (``ssm_ranges``),
+        the SSM cache's shards (``block_shard``: the state's heads, the
+        conv tail's channels) and the moves between them (``Regather``)."""
+        s = cfg.ssm
+        H, cdim = cfg.ssm_heads, cfg.d_inner + 2 * s.n_groups * s.d_state
+        self._ssd_all = head_split(H, s.n_groups, m)
+        self.ssd = self._ssd_all[r]
+        self._ssm_ranges = [ssm_ranges(cfg, sp) for sp in self._ssd_all]
+        self.state_heads = block_shard(H, m, r)
+        self.conv_dims = block_shard(cdim, m, r)
+        self.state_layout = "heads" if H % m == 0 else "whole"
+        self.conv_layout = "dims" if cdim % m == 0 else "whole"
+        chans = [rg["conv"] for rg in self._ssm_ranges]
+        shards = [(block_shard(cdim, m, i),) for i in range(m)]
+        heads = [sp.q for sp in self._ssd_all]
+        states = [(block_shard(H, m, i),) for i in range(m)]
+        self._conv_out = Regather(chans, shards, prefer_self=False)
+        self._conv_in = Regather(shards, chans)
+        self._state_out = Regather([(h,) for h in heads], states,
+                                   prefer_self=False)
+        self._state_in = Regather(states, [(h,) for h in heads])
+        self._fetches = {}
 
     # -- construction ---------------------------------------------------------
     @classmethod
@@ -640,6 +923,8 @@ class TensorParallel:
             return () if dim is None else ((dim,) + self.ffn,)
         if scope == "moe":
             return self._expert_cuts(name)
+        if scope == "ssm":
+            return self._ssm_cuts(name, self.axis.rank)
         if scope == "" and name in ("embed", "lm_head") and self.vocab:
             return (({"embed": 0, "lm_head": -1}[name],) + self.vocab,)
         return ()
@@ -660,6 +945,39 @@ class TensorParallel:
         if name in ("wk", "bk", "wv", "bv"):
             return ((-1, k0 * D, k1 * D),)
         return ()
+
+    def _ssm_cuts(self, name, rank: int):
+        """A Mamba2 leaf's cut for ``rank``'s SSD head block: ``w_in`` on
+        its columns, ``conv_w`` and ``conv_b`` on their channels (each in
+        several ranges where the rank holds more than one head and
+        another's groups), the per-head leaves on their heads,
+        ``norm_scale`` on its ``d_inner`` columns, ``w_out`` on its
+        rows."""
+        key, dim = {"w_in": ("w_in", -1), "conv_w": ("conv", -1),
+                    "conv_b": ("conv", -1), "A_log": ("heads", -1),
+                    "dt_bias": ("heads", -1), "D": ("heads", -1),
+                    "norm_scale": ("inner", -1),
+                    "w_out": ("inner", 0)}[name]
+        return (_cut_of(dim, self._ssm_ranges[rank][key],
+                        ranged=key in ("w_in", "conv")),)
+
+    def gather_ranges(self, t: torch.Tensor, path, shard: int
+                      ) -> torch.Tensor:
+        """``t``, this rank's contiguous block of ``shard`` entries on the
+        dim a leaf at ``path`` is cut on in several ranges (its "model"
+        shard), as the ranges this rank's cut names: each range from the
+        rank whose block holds it, by an all-to-all (``Regather``); the
+        backward sends each range's gradient back to its block."""
+        dim = self.cuts(path)[0][0]
+        key = (path[-1], shard)
+        plan = self._fetches.get(key)
+        if plan is None:
+            m = self.axis.size
+            plan = self._fetches[key] = Regather(
+                [((i * shard, (i + 1) * shard),) for i in range(m)],
+                [_cut_ranges(self._ssm_cuts(path[-1], i)[0])
+                 for i in range(m)])
+        return plan(t, dim, self.axis)
 
     def _expert_cuts(self, name):
         if name in ("w_up_sh", "w_gate_sh"):
@@ -712,6 +1030,8 @@ class TensorParallel:
             out["head_mask"] = out["head_mask"][slice(*self.heads.q)]
         if out.get("ffn_mask") is not None:
             out["ffn_mask"] = out["ffn_mask"][slice(*self.ffn)]
+        if out.get("ssm_head_mask") is not None:
+            out["ssm_head_mask"] = out["ssm_head_mask"][slice(*self.ssd.q)]
         return out
 
     # -- the layers' reductions -----------------------------------------------
@@ -729,6 +1049,43 @@ class TensorParallel:
             return k, v
         idx = torch.tensor(self.heads.kv_of_q, device=k.device)
         return k.index_select(2, idx), v.index_select(2, idx)
+
+    # -- Mamba2 -------------------------------------------------------------
+    def ssd_groups(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """B or C of the groups this rank's SSD heads read (on ``dim``) as
+        the scan takes them: as they are where each local head h reads
+        group h // (heads / groups), else one group a head, repeated (the
+        ``ssd_scan`` wrapper takes groups that divide the heads)."""
+        if self.ssd.grouped:
+            return t
+        idx = torch.tensor(self.ssd.kv_of_q, device=t.device)
+        return t.index_select(dim, idx)
+
+    def store_conv(self, tail: torch.Tensor) -> torch.Tensor:
+        """The conv tail of this rank's channels (..., K-1, channels) as
+        its cache shard (..., K-1, shard channels): each channel from the
+        lowest rank that computes it."""
+        return self._conv_out(tail, -1, self.axis)
+
+    def read_conv(self, shard: torch.Tensor) -> torch.Tensor:
+        """This rank's channels of the conv tail, read from the shards."""
+        return self._conv_in(shard, -1, self.axis)
+
+    def write_conv(self, shard: torch.Tensor, row: torch.Tensor
+                   ) -> torch.Tensor:
+        """The shard after a decode step: its rows moved up one, the new
+        row (..., 1, this rank's channels) of its channels last."""
+        return torch.cat([shard[..., 1:, :], self.store_conv(row)], dim=-2)
+
+    def store_state(self, state: torch.Tensor) -> torch.Tensor:
+        """The SSD state of this rank's heads (B, heads, P, N) as its cache
+        shard: as it is where the state splits on the heads, else every
+        rank's heads gathered."""
+        return self._state_out(state, 1, self.axis)
+
+    def read_state(self, shard: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of its state shard (no communication)."""
+        return self._state_in(shard, 1, self.axis)
 
     # -- the whole batch ------------------------------------------------------
     def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -865,7 +1222,7 @@ class TensorParallel:
         width = (self.cfg.mla.kv_lora_rank,
                  self.cfg.mla.qk_rope_head_dim)[leaf]
         if self.latent_layouts[leaf] == "dims":
-            return [latent_shard(width, m, r) for r in range(m)]
+            return [block_shard(width, m, r) for r in range(m)]
         return [(0, width)] + [(0, 0)] * (m - 1)
 
     def latent_attention(self, q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -905,10 +1262,16 @@ class TensorParallel:
 
 
 def _narrow(t: torch.Tensor, cuts) -> torch.Tensor:
-    for dim, lo, hi in cuts:
-        dim %= t.dim()
-        if lo != 0 or hi != t.shape[dim]:
-            t = t.narrow(dim, lo, hi - lo)
+    """``t`` cut by each of ``cuts`` (``(dim, lo, hi)``, or ``(dim,
+    ranges)``: the ranges joined in order on that dim)."""
+    for cut in cuts:
+        dim = cut[0] % t.dim()
+        ranges = _cut_ranges(cut)
+        if len(ranges) > 1:
+            t = torch.cat([t.narrow(dim, lo, hi - lo) for lo, hi in ranges],
+                          dim)
+        elif ranges[0] != (0, t.shape[dim]):
+            t = t.narrow(dim, ranges[0][0], ranges[0][1] - ranges[0][0])
     return t
 
 
@@ -940,9 +1303,12 @@ class _MeshFetch:
     ranks) and no cut falls on a data-sharded dim, cut first and only the
     rank's block gathered over the data axes (the leaf's gradient then
     ``Partial`` over "model": each rank's block's, summed where the step
-    lays the gradient out as the leaf, ``sum_model_partials``); else
-    gathered and cut (grad ``Partial`` over "model": the ranks'
-    contributions summed). An MoE leaf of fewer experts than ranks is cut
+    lays the gradient out as the leaf, ``sum_model_partials``); where the
+    rank's cut is several ranges of the dim the leaf is sharded on over
+    "model" (Mamba2's ``w_in`` and ``conv_w``), kept and the ranges
+    brought to the rank (``TensorParallel.gather_ranges``: an all-to-all,
+    the gradient sent back to the shards); else gathered and cut (grad
+    ``Partial`` over "model": the ranks' contributions summed). An MoE leaf of fewer experts than ranks is cut
     on two dims, its expert and its columns. A leaf the rank uses whole (a
     norm scale, the router, a replicated head) is gathered with a
     ``Replicate`` grad: every rank computes the same gradient for it.
@@ -990,7 +1356,7 @@ class _MeshFetch:
                                               for c in cuts) else n
                           for d, n in enumerate(shape))
             cuts = ()
-        target, grad, cut = [], [], ()
+        target, grad, cut, ranged = [], [], (), None
         for i, (axis, p) in enumerate(zip(names, pl)):
             if self.sizes[i] == 1 or (first and axis == "model"):
                 target.append(p)
@@ -1004,6 +1370,10 @@ class _MeshFetch:
             elif self._is_shard(p, cuts, shape, i):
                 target.append(p)
                 grad.append(p)
+            elif self._ranged(p, cuts, shape):
+                target.append(p)
+                grad.append(p)
+                ranged = shape[p.dim] // self.sizes[i]
             else:
                 target.append(Replicate())
                 grad.append(Partial())
@@ -1013,13 +1383,22 @@ class _MeshFetch:
                 loc, self.mesh, pl, run_check=False, shape=shape,
                 stride=contiguous_stride(shape)).redistribute(
                 self.mesh, target).to_local(grad_placements=grad)
+        if ranged is not None:
+            loc = tp.gather_ranges(loc, path, ranged)
         return _narrow(loc, cut)
+
+    @staticmethod
+    def _ranged(p, cuts, shape) -> bool:
+        """Whether the one cut is several ranges of the dim ``p`` shards."""
+        from torch.distributed.tensor import Shard
+        return (len(cuts) == 1 and len(cuts[0]) == 2
+                and isinstance(p, Shard) and p.dim == cuts[0][0] % len(shape))
 
     def _is_shard(self, p, cuts, shape, i) -> bool:
         """Whether mesh dim ``i``'s shard (placement ``p``) is this rank's
         one cut."""
         from torch.distributed.tensor import Shard
-        if len(cuts) != 1 or not isinstance(p, Shard):
+        if len(cuts) != 1 or len(cuts[0]) != 3 or not isinstance(p, Shard):
             return False
         dim, lo, hi = cuts[0]
         dim %= len(shape)

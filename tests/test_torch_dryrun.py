@@ -38,8 +38,7 @@ from repro_torch.launch import dryrun, dryrun_matrix
 from repro_torch.launch import specs as tspecs
 from repro_torch.roofline import analysis, hw
 from repro_torch.sharding import specs as sh
-from repro_torch.sharding.tensor_parallel import (ROUTE_REPLICATED,
-                                                  ROUTE_SPLIT)
+from repro_torch.sharding.tensor_parallel import ROUTE_SPLIT
 
 SHAPE_NAMES = tuple(tspecs.SHAPES)
 SMALL = (2, 2)
@@ -392,21 +391,27 @@ def test_split_route_divides_the_per_card_flops_over_model(shape, tmp_path,
 
 @pytest.mark.parametrize("arch,route", [
     ("mixtral-8x7b", ROUTE_SPLIT), ("deepseek-v3-671b", ROUTE_SPLIT),
-    ("mamba2-2.7b", ROUTE_REPLICATED), ("zamba2-1.2b", ROUTE_REPLICATED)])
+    ("mamba2-2.7b", ROUTE_SPLIT), ("zamba2-1.2b", ROUTE_SPLIT)],
+    ids=["mixtral-8x7b", "deepseek-v3-671b", "mamba2-2.7b", "zamba2-1.2b"])
 def test_each_stack_records_its_route(arch, route, tmp_path, no_group):
     """The smoke config's ``decode_32k`` cell on a fake (2, 2) mesh: the
-    record is ``ok`` and names the route its step took; on the split
-    route the MoE stacks' expert products split over "model" (the data
-    axes' reduce-scatter of the dispatch buffer and the "model"
-    all-reduces are counted), the Mamba2 stacks gather the whole tree."""
+    record is ``ok`` and names the route its step took, the split one for
+    every stack. The MoE stacks' expert products split over "model" (the
+    data axes' reduce-scatter of the dispatch buffer and the "model"
+    all-reduces are counted); the Mamba2 stacks' SSD heads split over
+    "model" (the out product's and the gated norm's all-reduces, the
+    all-to-alls that bring ``w_in``'s ranges and the conv rows)."""
     rec = dryrun.run_one(arch, "decode_32k", False, str(tmp_path),
                          mesh_shape=(2, 2), smoke=True)
     assert rec["status"] == "ok"
     assert rec["model_axis"] == route
     ops = rec["collectives"]["count_by_op"]
-    if route == ROUTE_SPLIT:
-        assert ops["reduce-scatter"] > 0 and ops["all-reduce"] > 0
-        assert rec["collectives"]["bytes_by_mesh_dim"]["model"] > 0
+    assert ops["all-reduce"] > 0
+    assert rec["collectives"]["bytes_by_mesh_dim"]["model"] > 0
+    if treg.get_config(arch).moe is not None:
+        assert ops["reduce-scatter"] > 0
+    else:
+        assert ops["all-to-all"] > 0
 
 
 def test_run_one_keeps_its_records_in_out_dir(tmp_path, monkeypatch,

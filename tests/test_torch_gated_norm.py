@@ -194,3 +194,71 @@ def test_gated_entries_take_z_and_row_strides():
         assert names == ["x", "z", "scale", "y", "rows", "d", "ldx", "ldz",
                          "eps", "vec", "tpr", "nv", "stream"]
         assert ops._SIGNATURES[ops._ENTRIES[False, dtype]] is ops._ARGTYPES
+
+
+@pytest.mark.parametrize("m", [2, 3])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_split_gated_norm_matches_reference_and_its_vjp(dtype, m):
+    """The gated norm of rows whose 200 columns are split over ``m`` ranks
+    in contiguous blocks (``blocks``: 67, 67, 66 at 3), z strided, run rank
+    after rank (``SequentialRanks``): each rank's row sums of g²
+    all-reduced, then its columns normalized
+    (``ops.split_gated_rmsnorm``, both backends of the layer's). The
+    ranks' outputs joined match the reference's ``gated_rmsnorm`` within
+    the whole row's tolerance; in float32 the gradients (each rank's dx,
+    dz and dscale of its columns, the backward's row sums of u·gw
+    all-reduced) joined match ``jax.vjp`` of it within ``GRAD_RTOL32`` of
+    each gradient's largest entry."""
+    import jax
+    from repro_torch.sharding.tensor_parallel import SequentialRanks, blocks
+    from torch_parity import GRAD_RTOL32
+    d = 200
+    x, z, s, tx, tz, ts = _inputs(33, d, dtype, "strided", seed=m)
+    want = to_f32(rnorms.gated_rmsnorm(jnp.asarray(x), jnp.asarray(z),
+                                       jnp.asarray(s), 1e-6))
+    cols = blocks(d, m)
+    grad = dtype == "float32"
+    gy = np.random.default_rng(7).standard_normal((33, d)).astype(np.float32)
+
+    def share(axis, backend):
+        lo, hi = cols[axis.rank]
+        xs, zs, ss = (t[..., lo:hi].detach().requires_grad_(grad)
+                      for t in (tx, tz, ts))
+        out = tnorms.split_gated_rmsnorm(xs, zs, ss, 1e-6, axis, d,
+                                         backend=backend)
+        if not grad:
+            return out, None
+        return out, torch.autograd.grad(
+            out, (xs, zs, ss), torch.from_numpy(gy[:, lo:hi]))
+    for backend in ("auto", "ref"):
+        ranks = SequentialRanks(m)
+        got = ranks.run([lambda a=a: share(a, backend)
+                         for a in ranks.axes()])
+        out = torch.cat([o for o, _ in got], dim=-1)
+        assert out.dtype == tx.dtype
+        assert np.abs(to_f32(out) - want).max() <= _tol(want, dtype)
+        if not grad:
+            continue
+        _, vjp = jax.vjp(lambda a, b, c: rnorms.gated_rmsnorm(a, b, c, 1e-6),
+                         jnp.asarray(x), jnp.asarray(z), jnp.asarray(s))
+        for i, w in enumerate(vjp(jnp.asarray(gy))):
+            g = torch.cat([gr[i] for _, gr in got], dim=-1).numpy()
+            w = np.asarray(w)
+            assert np.abs(g - w).max() <= GRAD_RTOL32 * np.abs(w).max()
+
+
+def test_split_entries_count_no_launch_on_the_cpu():
+    """On CPU tensors the split entries' wrappers run their plain twins
+    (``gated_sumsq_ref``, ``gated_rmsnorm_stat_ref``) and count no
+    launch; on one rank the pair is the whole gated norm."""
+    from repro_torch.kernels.rmsnorm.ref import (gated_rmsnorm_stat_ref,
+                                                 gated_sumsq_ref)
+    _, _, _, tx, tz, ts = _inputs(5, 64, "float32", "strided")
+    ops.gated_sumsq.launches = ops.gated_rmsnorm_stat.launches = 0
+    ss = ops.gated_sumsq(tx, tz)
+    assert torch.equal(ss, gated_sumsq_ref(tx, tz)) and ss.shape == (5,)
+    y = ops.gated_rmsnorm_stat(tx, tz, ts, ss, 64, 1e-6)
+    assert torch.equal(y, gated_rmsnorm_stat_ref(tx, tz, ts, ss, 64, 1e-6))
+    assert ops.gated_sumsq.launches == ops.gated_rmsnorm_stat.launches == 0
+    want = gated_rmsnorm_ref(tx, tz, ts, 1e-6)
+    assert torch.allclose(y, want, rtol=8 * EPS32, atol=0)

@@ -1,4 +1,4 @@
-"""Tensor parallelism over "model" for the attention stacks
+"""Tensor parallelism over "model" for every stack
 (``repro_torch.sharding.tensor_parallel`` through ``launch.steps``' mesh
 steps) against the port's one-process steps and the reference's
 unsharded ``prefill``, ``decode_step`` and ``jax.value_and_grad`` of
@@ -19,7 +19,12 @@ routing, a shared expert, a dense layer, the MTP head; masks at ratio 0.5
 with expert masks; its latent cache on its last dims); and a hand-made
 Mixtral of 2 experts, top-1, capacity factor 0.5 (two ranks an expert at
 (1, 4); on (2, 2) the whole batch's capacity binds where each data rank's
-would not: the dispatch-over-the-whole-batch fault's case). Each case:
+would not: the dispatch-over-the-whole-batch fault's case); the smoke
+Mamba2-2.7B (16 SSD heads, 4 a rank at (1, 4); masks at ratio 0.5), the
+smoke Zamba2-1.2B (its shared block on the GQA and FFN split), and a
+Mamba2 of 10 SSD heads over 2 B/C groups (masks at ratio 0.5), whose
+blocks (3, 3, 2, 2 heads at (1, 4)) cross groups unevenly and whose SSD
+state lies whole on every rank. Each case:
 the prefill's logits and cache, 4 decode steps (the cache written in
 place), and 2 AdamW steps (the loss, the first step's gradient, every
 parameter after); the MoE cases also each MoE layer's ``drop_frac`` in
@@ -34,11 +39,13 @@ leaf's largest entry plus 1e-4 of one step's lr, its gradient within
 the training parity tests state). Against the reference: logits within
 ``stack_tol``, the loss within ``LOSS_RTOL32``, each gradient leaf within
 ``GRAD_RTOL32`` of its largest entry; ``drop_frac`` exactly the
-reference ``moe_forward``'s on the whole batch. In-process: the head and
-expert splits of every registry config at "model" 1, 2 and 16, MLA's
-per-leaf head ranges, the routes, and the shares of a split run one
-after another in one process (``SequentialRanks``) against the
-one-process logits.
+reference ``moe_forward``'s on the whole batch. The 2-expert Mixtral and
+the Mamba2 case also take a ``grad_accum`` = 2 step on (2, 2).
+In-process: the head, expert and SSD-head splits of the registry
+configs at "model" 1, 2 and 16, MLA's per-leaf head ranges,
+``Regather``, the routes, and the shares of a split run one after
+another in one process (``SequentialRanks``) against the one-process
+logits.
 
 This file imports no JAX at module level: the spawned ranks import it by
 name."""
@@ -55,8 +62,8 @@ import torch.multiprocessing as mp
 from repro_torch.configs.registry import ARCH_IDS, get_config, \
     get_smoke_config
 from repro_torch.sharding.tensor_parallel import (
-    ROUTE_REPLICATED, ROUTE_SPLIT, SequentialRanks, TensorParallel,
-    expert_split, head_split, kv_cache_layout, mesh_route, tp_supported)
+    ROUTE_SPLIT, SequentialRanks, TensorParallel, expert_split, head_split,
+    kv_cache_layout, mesh_route, tp_supported)
 
 #: (name, registry arch, config overrides, masked); ``moe`` overrides
 #: fields of the config's ``MoEConfig``
@@ -71,10 +78,18 @@ CASES = (("qwen2-7b", "qwen2-7b", {}, True),
          ("deepseek-v3-671b", "deepseek-v3-671b", {}, True),
          ("mixtral-2-experts", "mixtral-8x7b",
           dict(moe=dict(num_experts=2, top_k=1, capacity_factor=0.5)),
-          False))
+          False),
+         ("mamba2-2.7b", "mamba2-2.7b", {}, True),
+         ("zamba2-1.2b", "zamba2-1.2b", {}, False),
+         ("mamba2-10-heads-2-groups", "mamba2-2.7b",
+          dict(d_model=160, ssm=dict(n_groups=2)), True))
 #: the case whose whole-batch capacity binds where the per-rank one
 #: would not (the fault of a dispatch per data rank)
 FAULT_CASE = "mixtral-2-experts"
+#: the Mamba2 case run with microbatches on (2, 2), its rows' shares of
+#: the labels uneven (the fault of microbatches cut from a rank's rows)
+SSM_FAULT_CASE = "mamba2-2.7b"
+ACCUM_CASES = (FAULT_CASE, SSM_FAULT_CASE)
 NAMES = [c[0] for c in CASES]
 MESHES = ((1, 4), (2, 2))
 MESH_IDS = ["1x4", "2x2"]
@@ -97,12 +112,13 @@ def _case(name):
 
 
 def _configured(cfg, over):
-    """``cfg`` in float32 with the case's overrides (``moe``: fields of its
-    ``MoEConfig``), for either package's config."""
+    """``cfg`` in float32 with the case's overrides (``moe`` and ``ssm``:
+    fields of its ``MoEConfig`` or ``SSMConfig``), for either package's
+    config."""
     over = dict(over)
-    moe = over.pop("moe", None)
-    if moe:
-        over["moe"] = dataclasses.replace(cfg.moe, **moe)
+    for sub in ("moe", "ssm"):
+        if over.get(sub):
+            over[sub] = dataclasses.replace(getattr(cfg, sub), **over[sub])
     return cfg.replace(dtype="float32", **over)
 
 
@@ -121,8 +137,11 @@ def _leaves(tree):
 
 
 def _whole(t):
+    """A copy of ``t`` whole: a DTensor gathered (a replicated one's
+    ``full_tensor`` is its local tensor, which a decode step then writes
+    in place)."""
     from torch.distributed.tensor import DTensor
-    return t.full_tensor() if isinstance(t, DTensor) else t.clone()
+    return (t.full_tensor() if isinstance(t, DTensor) else t).clone()
 
 
 def _steps(cfg, params, masks, batch, tokens, mesh=None) -> dict:
@@ -237,15 +256,18 @@ def _rank(rank: int, port: int, d: str) -> None:
                              inp["tokens"], mesh)
                 if rank == 0:
                     torch.save(got, os.path.join(d, f"{name}.{sid}.pt"))
-        # the fault's case with microbatches: the (2, 2) mesh's microbatch
-        # must be the reference's rows, not every rank's i-th chunk
-        inp = torch.load(os.path.join(d, f"{FAULT_CASE}.in.pt"))
-        mesh = init_device_mesh("cpu", (2, 2),
-                                mesh_dim_names=("data", "model"))
-        got = _train(_port_config(FAULT_CASE), inp["params"], inp["masks"],
-                     inp["accum_batch"], mesh, steps=1, grad_accum=ACCUM)
-        if rank == 0:
-            torch.save(got, os.path.join(d, f"{FAULT_CASE}.accum.pt"))
+        # the faults' cases with microbatches: the (2, 2) mesh's
+        # microbatch must be the reference's rows, not every rank's i-th
+        # chunk
+        for name in ACCUM_CASES:
+            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
+            mesh = init_device_mesh("cpu", (2, 2),
+                                    mesh_dim_names=("data", "model"))
+            got = _train(_port_config(name), inp["params"], inp["masks"],
+                         inp["accum_batch"], mesh, steps=1,
+                         grad_accum=ACCUM)
+            if rank == 0:
+                torch.save(got, os.path.join(d, f"{name}.accum.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -294,23 +316,26 @@ def runs(tmp_path_factory):
                          for k, v in bn.items()},
                "tokens": [torch.from_numpy(t.astype(np.int64))
                           for t in tok]}
-        if name == FAULT_CASE:
+        if name in ACCUM_CASES:
             acc = train_batch_np(cr, ACCUM_B, S, seed=8)
+            if name == SSM_FAULT_CASE:
+                # row 0 keeps 2 labels of 8: the rows' shares differ
+                acc["labels"][0, 2:] = -1
             inp["accum_batch"] = {k: torch.from_numpy(np.asarray(v))
                                   for k, v in acc.items()}
+            out[name] = {"accum_batch": acc}
         torch.save(inp, os.path.join(d, f"{name}.in.pt"))
-        out[name] = {"numpy": (cr, pn, mn, bn, tok),
-                     "one": _steps(_port_config(name), inp["params"],
-                                   inp["masks"], inp["batch"],
-                                   inp["tokens"])}
+        out.setdefault(name, {}).update(
+            numpy=(cr, pn, mn, bn, tok),
+            one=_steps(_port_config(name), inp["params"], inp["masks"],
+                       inp["batch"], inp["tokens"]))
     mp.start_processes(_rank, args=(free_port(), d), nprocs=4,
                        start_method="spawn")
     for name in NAMES:
         for sid in MESH_IDS:
             out[name][sid] = torch.load(os.path.join(d, f"{name}.{sid}.pt"))
-    out[FAULT_CASE]["accum"] = torch.load(
-        os.path.join(d, f"{FAULT_CASE}.accum.pt"))
-    out[FAULT_CASE]["accum_batch"] = acc
+    for name in ACCUM_CASES:
+        out[name]["accum"] = torch.load(os.path.join(d, f"{name}.accum.pt"))
     return out
 
 
@@ -378,6 +403,24 @@ def _reference(name, runs, fn):
     return _REFERENCE[key]
 
 
+def _reference_cache_leaves(cr, cache):
+    """The reference's cache leaves of its runs, as numpy, stacked as the
+    port's are: a hybrid's ssm run, ((groups, period, ...), tail), flat
+    over its layers."""
+    import jax
+    from torch_parity import to_f32
+    if not cr.shared_attn_period:
+        return [to_f32(c) for c in jax.tree_util.tree_leaves(cache["runs"])]
+    out = []
+    for rc in cache["runs"]:
+        parts = [p for p in rc if p is not None]
+        for f, nd in (("conv", 3), ("state", 4)):
+            out.append(np.concatenate(
+                [to_f32(getattr(p, f)).reshape(
+                    (-1,) + getattr(p, f).shape[-nd:]) for p in parts]))
+    return out
+
+
 def _reference_serve(cr, pn, mn, bn, tok):
     """The reference's prefill logits and cache leaves, and its decode
     steps' logits (dispatch off: its plain path)."""
@@ -393,8 +436,7 @@ def _reference_serve(cr, pn, mn, bn, tok):
     out = {"prefill": to_f32(logits)}
     if cache is None:
         return out
-    out["cache"] = [to_f32(c) for c in
-                    jax.tree_util.tree_leaves(cache["runs"])]
+    out["cache"] = _reference_cache_leaves(cr, cache)
     out["decode"] = []
     for t in tok:
         logits, cache = rtr.decode_step(j(pn), cr, cache, jnp.asarray(t),
@@ -447,15 +489,15 @@ def test_mesh_gradient_and_loss_match_reference(name, sid, runs):
 def test_head_split_of_every_registry_config(arch, m):
     """Contiguous q-head blocks covering every head once, sizes within one
     of each other, each with the KV heads its heads read (``h // group``)
-    and a map the kernel can take or a repeat; configs without GQA heads
-    take the replicated route and are refused."""
+    and a map the kernel can take or a repeat; every config takes the
+    split route, and one without attention heads (Mamba2) has no head
+    block."""
     cfg = get_config(arch)
-    if not tp_supported(cfg):
-        assert mesh_route(cfg) == ROUTE_REPLICATED
-        with pytest.raises(ValueError):
-            TensorParallel(cfg, SequentialRanks(m).axes()[0], None)
+    assert tp_supported(cfg) and mesh_route(cfg) == ROUTE_SPLIT
+    if cfg.attention not in ("gqa", "mla"):
+        assert TensorParallel(cfg, SequentialRanks(m).axes()[0],
+                              None).heads is None
         return
-    assert mesh_route(cfg) == ROUTE_SPLIT
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
     group = H // Hkv
     split = head_split(H, Hkv, m)
@@ -634,13 +676,13 @@ def test_decode_sends_the_queries_not_the_cache(layout):
 
 @pytest.mark.parametrize("arch,route", [
     ("mixtral-8x7b", ROUTE_SPLIT), ("deepseek-v3-671b", ROUTE_SPLIT),
-    ("mamba2-2.7b", ROUTE_REPLICATED), ("zamba2-1.2b", ROUTE_REPLICATED)],
+    ("mamba2-2.7b", ROUTE_SPLIT), ("zamba2-1.2b", ROUTE_SPLIT)],
     ids=["mixtral-8x7b", "deepseek-v3-671b", "mamba2-2.7b", "zamba2-1.2b"])
 def test_other_stacks_name_the_replicated_route(arch, route):
     """The stacks beyond the dense attention stack name their route: the
-    MoE stacks (Mixtral's GQA, DeepSeek-V3's MLA and MTP head) the split
-    one since tensor parallelism covers them; Mamba2 and Zamba2 keep the
-    replicated one."""
+    MoE stacks (Mixtral's GQA, DeepSeek-V3's MLA and MTP head), Mamba2
+    and Zamba2 (its shared block) the split one, since tensor parallelism
+    covers them all; no step takes a replicated route any more."""
     from repro_torch.launch.mesh import host_mesh
     from repro_torch.launch.steps import (make_decode_step,
                                           make_prefill_step, make_train_step)
@@ -838,3 +880,129 @@ def test_moe_microbatches_are_the_reference_rows_on_the_data_axes(runs):
     tree = tree_map(lambda _: next(flat),
                     transformer_params_from_reference(pn))
     assert_grads_close32(port_grad_leaves(tree), grads)
+
+
+def test_ssm_microbatches_are_the_reference_rows_on_the_data_axes(runs):
+    """The smoke Mamba2 with ``grad_accum`` = 2 on the (2, 2) mesh (B = 4,
+    row 0 keeping 2 of its 8 labels): microbatch i is the reference's
+    contiguous chunk i of the whole batch, each split over the data ranks.
+    The mesh steps that took each rank's rows first and cut those into
+    microbatches ran rows {0, 2} and {1, 3}, and with the rows' shares of
+    the labels uneven each microbatch's mean differs. The loss, ``xent``
+    and every gradient leaf match ``jax.value_and_grad`` of the
+    reference's ``loss_fn`` over its microbatches within ``LOSS_RTOL32`` /
+    ``GRAD_RTOL32``."""
+    from repro_torch.interop import transformer_params_from_reference
+    from repro_torch.optim.optimizers import tree_map
+    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
+                              port_grad_leaves)
+    cr, pn, mn = runs[SSM_FAULT_CASE]["numpy"][:3]
+    bn = runs[SSM_FAULT_CASE]["accum_batch"]
+    got = runs[SSM_FAULT_CASE]["accum"]
+    n = ACCUM_B // ACCUM
+    want, grads = _reference_microbatches(
+        cr, pn, mn, bn, [list(range(i * n, (i + 1) * n))
+                         for i in range(ACCUM)])
+    per = ACCUM_B // 2
+    apart, _ = _reference_microbatches(
+        cr, pn, mn, bn, [[r * per + i for r in range(2)]
+                         for i in range(ACCUM)])
+    assert abs(apart["loss"] - want["loss"]) > LOSS_RTOL32 * abs(want["loss"])
+    for k in ("loss", "xent"):
+        assert abs(got["metrics"][0][k] - want[k]) <= \
+            LOSS_RTOL32 * abs(want[k])
+    flat = iter(got["grads"])
+    tree = tree_map(lambda _: next(flat),
+                    transformer_params_from_reference(pn))
+    assert_grads_close32(port_grad_leaves(tree), grads)
+    assert got["route"] == ROUTE_SPLIT
+
+
+def _ranges(cut):
+    return cut[1] if len(cut) == 2 else (cut[1:],)
+
+
+@pytest.mark.parametrize("m", [1, 2, 16])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssm_split_of_the_registry_ssm_configs(arch, m):
+    """Each rank's SSD heads in contiguous blocks (Mamba2-2.7B's 80 heads
+    on 16 ranks: 5 each, 320 norm columns; Zamba2-1.2B's 64: 4 each). The
+    ranks' cuts of ``w_in`` tile its columns exactly once, but B's and
+    C's (one group: every rank holds them); the conv's channels likewise;
+    ``A_log``, ``dt_bias`` and ``D`` tile the heads, ``norm_scale`` and
+    ``w_out``'s rows the ``d_inner`` columns. On one rank every cut is
+    the whole leaf. The SSD state lies on its heads and the conv tail on
+    its channels (both divide 1, 2 and 16); the rank's shard of each."""
+    cfg = get_config(arch)
+    s = cfg.ssm
+    H, P, N = cfg.ssm_heads, s.head_dim, s.d_state
+    d_in, gn = cfg.d_inner, s.n_groups * N
+    cols, cdim = 2 * d_in + 2 * gn + H, d_in + 2 * gn
+    owners = {"w_in": np.zeros(cols, np.int64),
+              "conv_w": np.zeros(cdim, np.int64),
+              "A_log": np.zeros(H, np.int64),
+              "norm_scale": np.zeros(d_in, np.int64),
+              "w_out": np.zeros(d_in, np.int64)}
+    shared = {"w_in": slice(2 * d_in, 2 * d_in + 2 * gn),
+              "conv_w": slice(d_in, cdim)}
+    for r, axis in enumerate(SequentialRanks(m).axes()):
+        tp = TensorParallel(cfg, axis, None)
+        h0, h1 = tp.ssd.q
+        assert (h1 - h0) == H // m and h0 == r * (H // m)
+        assert tp.ssd.kv == (0, 1) and tp.ssd.grouped
+        for name, own in owners.items():
+            (cut,) = tp.cuts(("ssm", name))
+            assert cut[0] == (0 if name == "w_out" else -1)
+            for lo, hi in _ranges(cut):
+                own[lo:hi] += 1
+            if m == 1:
+                assert _ranges(cut) == ((0, len(own)),)
+        assert tp.cuts(("ssm", "conv_b")) == tp.cuts(("ssm", "conv_w"))
+        assert tp.cuts(("ssm", "D")) == tp.cuts(("ssm", "dt_bias")) == \
+            tp.cuts(("ssm", "A_log")) == ((-1, h0, h1),)
+        assert tp.cuts(("ssm", "norm_scale")) == ((-1, h0 * P, h1 * P),)
+        assert tp.cuts(("ln1",)) == ()
+        assert (tp.state_layout, tp.conv_layout) == ("heads", "dims")
+        assert tp.state_heads == (h0, h1)
+        assert tp.conv_dims == (r * cdim // m, (r + 1) * cdim // m)
+    for name, own in owners.items():
+        whole = np.ones(len(own), bool)
+        if name in shared:
+            assert (own[shared[name]] == m).all()
+            whole[shared[name]] = False
+        assert (own[whole] == 1).all()
+    if (arch, m) == ("mamba2-2.7b", 16):
+        tp = TensorParallel(cfg, SequentialRanks(16).axes()[3], None)
+        assert tp.ssd.q == (15, 20)
+        assert tp.cuts(("ssm", "w_in")) == ((-1, (
+            (960, 1280), (6080, 6400), (10240, 10496), (10511, 10516))),)
+
+
+@pytest.mark.parametrize("prefer_self", [True, False])
+def test_regather_moves_ranges_and_sums_their_gradients(prefer_self):
+    """``Regather`` on 3 ranks rank after rank: each rank holds a block of
+    a 10-wide dim and wants ranges crossing the blocks (two ranks wanting
+    the same columns); each gets exactly its ranges' values, from itself
+    where it holds them and ``prefer_self``, and the backward adds every
+    piece's gradient into the block it came from."""
+    from repro_torch.sharding.tensor_parallel import Regather
+    have = [((0, 4),), ((4, 7),), ((7, 10),)]
+    want = [((3, 5), (8, 10)), ((0, 2), (3, 5)), ((6, 9),)]
+    plan = Regather(have, want, prefer_self=prefer_self)
+    whole = torch.arange(20.0).reshape(2, 10)
+    ranks = SequentialRanks(3)
+
+    def share(axis):
+        lo, hi = have[axis.rank][0]
+        t = whole[:, lo:hi].clone().requires_grad_(True)
+        out = plan(t, -1, axis)
+        (g,) = torch.autograd.grad(out, t, torch.ones_like(out))
+        return out.detach(), g
+    got = ranks.run([lambda a=a: share(a) for a in ranks.axes()])
+    counts = torch.zeros(10)
+    for r, (out, _) in enumerate(got):
+        idx = [c for lo, hi in want[r] for c in range(lo, hi)]
+        assert torch.equal(out, whole[:, idx])
+        counts[idx] += 1
+    grads = torch.cat([g for _, g in got], dim=-1)
+    assert torch.equal(grads, counts.expand(2, 10))
