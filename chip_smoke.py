@@ -327,11 +327,12 @@ Phases, each printing its own lines:
    ``phase21`` line.
 22. split serve — two dry-run cells in subprocesses on the CPU, then the
    pipelined split (``core.partition.pod_pipeline``, one pod on a
-   one-rank NCCL mesh, 32 x 4,096 tokens in 8 microbatches) of Qwen2-7B
-   and Mamba2-2.7B at full width and depth against the prefill step on
-   the same batch: bit-equal, gaps to the fp32 plain run, wall and device
-   ms, peaks, launches (``split_serve`` lines, a ``dryrun`` line and a
-   ``phase22`` line).
+   one-rank NCCL mesh, its stage on the split route, 32 x 4,096 tokens in
+   8 microbatches) of Qwen2-7B and Mamba2-2.7B at full width and depth
+   against the prefill step on the same batch: bit-equal (held), gaps to
+   the fp32 plain run, wall and device ms, peaks beside PR 27's, launches,
+   the route of the step and of its dry run (``split_serve`` lines, a
+   ``dryrun`` line and a ``phase22`` line).
 23. tensor parallelism — the pruned Qwen2-7B at full width, 14 of its 28
    layers (``TP_QWEN_LAYERS``, for the script's time), on the split route
    (``sharding.tensor_parallel``): (a) an R1 prefill and
@@ -4649,6 +4650,9 @@ SPLIT_SERVE_MICROBATCHES = 8
 SPLIT_YARDSTICK_ROWS = 2
 #: the dry-run cell phase 22 traces on this machine, in a subprocess
 DRYRUN_CELL = ("qwen2-7b", "decode_32k", "pod")
+#: each split serve's peak GB when its stage was gathered whole (PR 27's
+#: run ``final27``), printed beside the split route's
+SPLIT_PEAK_GB_FINAL27 = {"qwen2_7b": 35.17, "mamba2_2p7b": 14.07}
 
 
 def expected_split_launches(cfg, microbatches: int) -> dict:
@@ -4693,12 +4697,14 @@ def finish_dryrun(proc, record: str) -> dict:
 def split_serve_model(cfg, mesh) -> dict:
     """One model of phase 22: the same batch through ``make_prefill_step``
     and through ``make_split_serve_step`` on ``mesh`` (one pod, the
-    reference's microbatches), both on the kernels; their last-position
-    logits held to each other and to fp32 (the LM-logits rule of PERF.md
-    §2, the bf16 and fp32 plain yardsticks run on the first
-    ``SPLIT_YARDSTICK_ROWS`` rows); wall and device ms of each, peaks,
-    the split step's launches. Returns the ``split_serve`` line's row and
-    the launches; ``split_serve_phase`` prints and holds the row."""
+    reference's microbatches, its stage on the split route), both on the
+    kernels; their last-position logits held to each other (bit for bit:
+    on one rank every fetch is a view and every reduction the identity)
+    and to fp32 (the LM-logits rule of PERF.md §2, the bf16 and fp32
+    plain yardsticks run on the first ``SPLIT_YARDSTICK_ROWS`` rows); wall
+    and device ms of each, peaks, the split step's launches. Returns the
+    ``split_serve`` line's row and the launches; ``split_serve_phase``
+    prints and holds the row."""
     import numpy as np
     import torch
     from repro_torch.core.partition import pod_pipeline as pp
@@ -4723,6 +4729,10 @@ def split_serve_model(cfg, mesh) -> dict:
     sp["runs"] = [pp.stack_stage_params(params, cfg, 1)]
     placed = sh.distribute(sp, pp.stage_param_specs(sp, cfg, mesh), mesh)
     step = pp.make_split_serve_step(cfg, 1, M, mesh)
+    route = step.route
+    if route != pp.ROUTE:
+        raise AssertionError(f"{cfg.name}: the split serve took route "
+                             f"{route!r}")
 
     def run_split():
         lg = step(placed, batch)
@@ -4780,6 +4790,7 @@ def split_serve_model(cfg, mesh) -> dict:
            "params": n_params, "batch": B,
            "prompt": S, "microbatches": M, "pods": 1,
            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "route": route,
            "bit_equal_to_prefill": bool(torch.equal(got, want)),
            "max_gap": gaps, "tol": tol, "max_gap_over_tol": worst,
            "launches": {k: v for k, v in launches.items() if v},
@@ -4803,7 +4814,8 @@ def beside_dryrun(row, dry_split) -> None:
     top = max(("t_compute_s", "t_memory_s", "t_collective_s"),
               key=terms.get)
     row["dryrun"] = {
-        "mesh": dry_split["mesh"], "dominant": terms["dominant"],
+        "mesh": dry_split["mesh"], "model_axis": dry_split["model_axis"],
+        "dominant": terms["dominant"],
         "largest_term_ms": 1e3 * terms[top],
         "t_compute_ms": 1e3 * terms["t_compute_s"],
         "t_memory_ms": 1e3 * terms["t_memory_s"],
@@ -4827,6 +4839,7 @@ def split_serve_phase() -> dict:
     import shutil
     import torch
     import torch.distributed as dist
+    from repro_torch.core.partition import pod_pipeline as pp
     from repro_torch.launch.mesh import host_mesh
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="dryrun_")
@@ -4843,6 +4856,7 @@ def split_serve_phase() -> dict:
                 cfg = importlib.import_module(
                     f"repro_torch.configs.{module}").CONFIG
                 row, launches = split_serve_model(cfg, mesh)
+                row["split_peak_gb_final27"] = SPLIT_PEAK_GB_FINAL27[module]
                 if module == "qwen2_7b":
                     beside_dryrun(row, finish_dryrun(served, os.path.join(
                         tmp, "torch_qwen2-7b_split_serve_1x1x1.json")))
@@ -4851,6 +4865,14 @@ def split_serve_phase() -> dict:
                     raise AssertionError(
                         f"{cfg.name}: split-serve logits off by "
                         f"{row['max_gap_over_tol']} of the tolerance")
+                if not row["bit_equal_to_prefill"]:
+                    raise AssertionError(f"{cfg.name}: the split serve is "
+                                         f"not the prefill's bits")
+                if module == "qwen2_7b" and \
+                        row["dryrun"]["model_axis"] != pp.ROUTE:
+                    raise AssertionError(
+                        f"the split serve's dry run took route "
+                        f"{row['dryrun']['model_axis']!r}")
                 total.update(launches)
                 torch.cuda.empty_cache()
         if dist.is_initialized():

@@ -12,18 +12,37 @@ as ``"collective-permute"`` bytes.
 
 Execution is the reference's SPMD microbatch pipeline (GPipe-style):
 requests are split into ``num_microbatches``; each tick every pod runs its
-stage on its current activation, then the activation (and its rotary
-angles) shifts one pod to the right. Ticks = microbatches + pods - 1
-(fill and drain; every pod computes every tick, as the reference's scan
-does). The last pod's result is all-reduced over "pod" in float32 with
-zeros from the others, the reference's ``psum``: every pod gets its bits.
+stage on its current activation, then the activation shifts one pod to
+the right. Ticks = microbatches + pods - 1 (fill and drain; every pod
+computes every tick, as the reference's scan does).
 
-What differs from the reference: inside a stage the reference shards the
-microbatch activation over ("data", "model"), so its hop moves 1/256th of
-the activation a chip. The port's stage computes on whole local tensors
-(its kernels take plain tensors), as its serve steps do: each rank gathers
-its pod's stage weights whole over "data" and "model" and computes the
-whole microbatch, and each rank's hop sends the whole microbatch.
+Inside a stage only "pod" is the pipeline's, as in the reference, whose
+shard_map makes "pod" alone manual: each rank computes its share of its
+pod's stage on the split route (``sharding.tensor_parallel``: heads, FFN
+columns, experts and SSD heads over "model"). A layer of the
+stage-stacked tree is the rank's own pod's entry with its FSDP dims
+gathered over "data" alone, once a step and kept for every tick
+(``TensorParallel.on_mesh(..., stage=True)``). A microbatch's rows split
+over "data" where they divide it (the MoE dispatch then over the whole
+microbatch on "data"), else every data rank runs them all. After a
+block's "model" reductions a rank's activation is the same on every
+"model" rank (and on every "data" rank where the rows are whole), so each
+rank sends only its (data, model) block of it, the reference's
+``P(None, "data", "model")`` shard: S over "data", d_model over "model"
+(d_model alone where the rows are split), and the next pod rebuilds the
+activation with all-gathers over "model" and "data" before its first
+layer. The rotary angles do not hop: every rank holds every
+microbatch's, and pod p takes microbatch t - p's at tick t. The last
+pod's blocks are all-reduced over "pod" in float32 with zeros from the
+others (the reference's ``psum``: every pod gets its bits), then gathered
+inside each pod. The embedding, the final norm and the head run on the
+same split (the vocabulary over "model"), the last position's logits
+gathered over "model".
+
+What differs from the reference: where a microbatch's rows do not divide
+"data" (B/M = 4 rows on 16 data ranks in the dry run's cells), every data
+rank computes them all; the reference's GSPMD would split the sequence
+instead (context parallelism, ROADMAP A8f).
 
 Scope, as the reference's: architectures whose layer stack is a single
 homogeneous run (dense GQA, pure MoE, pure SSM; zamba2's shared-block
@@ -32,7 +51,7 @@ n_pods == 0.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -43,6 +62,11 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.sharding import specs as sh
+from repro_torch.sharding.tensor_parallel import GroupAxis, TensorParallel
+
+#: what a split-serve step's ``route`` says: its stages on the split route
+#: (``sharding.tensor_parallel``), the hop and the result moved as slabs
+ROUTE = "split"
 
 
 def pipeline_supported(cfg: ModelConfig) -> bool:
@@ -92,53 +116,72 @@ def stage_param_specs(params, cfg: ModelConfig, mesh):
     return specs
 
 
-def _stage_apply(cfg: ModelConfig, stage_params, x: torch.Tensor,
+def _stage_apply(cfg: ModelConfig, tp, count: int, x: torch.Tensor,
                  angles: torch.Tensor, backend: str) -> torch.Tensor:
-    """This pod's layer range over x (one microbatch), layer by layer."""
+    """This pod's layer range over x (this rank's rows of one
+    microbatch), layer by layer, each block this rank's share of it
+    (``tp``: a stage's ``TensorParallel``)."""
     kind = tr.layer_runs(cfg)[0].kind
-    count = next(tr._leaves(stage_params)).shape[0]
     for j in range(count):
-        lp = tr._index(stage_params, j)
         if kind == "ssm":
-            x, _ = tr._ssm_block(cfg, lp, x, None, backend, False)
+            x, _ = tr._ssm_block(cfg, (0, j), x, None, backend, False, tp)
         else:
-            x, _, _ = tr._attn_block(cfg, lp, x, angles, None, backend)
+            x, _, _ = tr._attn_block(cfg, (0, j), x, angles, None, backend,
+                                     tp)
     return x
 
 
-def _full(t):
-    """A DTensor gathered whole; a plain tensor as it is."""
-    return t.full_tensor() if hasattr(t, "full_tensor") else t
+def _span(n: int, parts: int, i: int) -> Tuple[int, int]:
+    """Part ``i`` of ``n`` in ``parts`` equal parts; all of it where they
+    do not divide."""
+    if n % parts:
+        return 0, n
+    return i * n // parts, (i + 1) * n // parts
 
 
-def _my_stage(leaf, mesh, pod: int):
-    """This rank's stage of a stacked (n_pods, L/P, ...) leaf: of a
-    DTensor, its "pod" shard gathered whole over the other dims; of a
-    plain tensor, entry ``pod``."""
-    if not hasattr(leaf, "redistribute"):
-        return leaf[pod]
-    from torch.distributed.tensor import Replicate, Shard
-    pl = tuple(Shard(0) if n == "pod" else Replicate()
-               for n in mesh.mesh_dim_names)
-    return leaf.redistribute(mesh, pl).to_local()[0]
+class _Slab:
+    """This rank's (data, model) block of an activation (rows, S, d): the
+    reference's ``P(None, "data", "model")`` shard, S over "data" and d
+    over "model" (each where it divides); where the rows are split over
+    "data" already, d over "model" alone. ``cut`` takes the block;
+    ``join`` rebuilds the rank's activation from the blocks of its pod
+    (all-gathers over "model", then "data", on the block's dims)."""
+
+    def __init__(self, mesh, coord, rows_split: bool, S: int, d: int):
+        self.axes = {n: GroupAxis(mesh.get_group(n), coord[n], mesh.size(i))
+                     for i, n in ((1, "data"), (2, "model"))}
+        self.seq = ((0, S) if rows_split
+                    else _span(S, self.axes["data"].size, coord["data"]))
+        self.dims = _span(d, self.axes["model"].size, coord["model"])
+        self.gather = [(self.axes["model"], -1, self.dims != (0, d)),
+                       (self.axes["data"], -2, self.seq != (0, S))]
+
+    def cut(self, h: torch.Tensor) -> torch.Tensor:
+        (s0, s1), (e0, e1) = self.seq, self.dims
+        return h[..., s0:s1, e0:e1].contiguous()
+
+    def join(self, piece: torch.Tensor) -> torch.Tensor:
+        for axis, dim, split in self.gather:
+            if split:
+                piece = torch.cat(axis.all_gather(piece).unbind(0), dim=dim)
+        return piece
 
 
-def _hop(tensors: List[torch.Tensor], pod: int, n_pods: int, peers,
-         group) -> List[torch.Tensor]:
-    """Send ``tensors`` one pod right and receive the left pod's: what
-    this pod runs next tick (pod 0 receives nothing: zeros)."""
+def _hop(t: torch.Tensor, pod: int, n_pods: int, peers,
+         group) -> torch.Tensor:
+    """Send ``t`` one pod right and receive the left pod's: what this pod
+    runs next tick (pod 0 receives nothing: None)."""
     import torch.distributed as dist
     nxt, prev = peers
-    got = [torch.empty_like(t) for t in tensors]
-    ops = []
+    ops, got = [], None
     if pod < n_pods - 1:
-        ops += [dist.P2POp(dist.isend, t.contiguous(), nxt, group)
-                for t in tensors]
+        ops.append(dist.P2POp(dist.isend, t, nxt, group))
     if pod > 0:
-        ops += [dist.P2POp(dist.irecv, g, prev, group) for g in got]
+        got = torch.empty_like(t)
+        ops.append(dist.P2POp(dist.irecv, got, prev, group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return got if pod > 0 else [torch.zeros_like(t) for t in tensors]
+    return got
 
 
 def make_pipeline_forward(cfg: ModelConfig, n_pods: int,
@@ -146,11 +189,16 @@ def make_pipeline_forward(cfg: ModelConfig, n_pods: int,
                           backend: str = "auto"):
     """-> ``fn(stage_params, x, angles) -> y``: x (B, S, d_model) hidden
     states (the embedding and the head run outside), y (B, S, d_model)
-    after all L layers, the same on every pod. ``stage_params`` leaves are
-    (n_pods, L/P, ...) (``stack_stage_params``): DTensors sharded over
-    "pod", or plain tensors. B % num_microbatches == 0."""
+    after all L layers, the same bits on every rank. ``stage_params``
+    leaves are (n_pods, L/P, ...) DTensors (``stack_stage_params``, laid
+    out by ``stage_param_specs``), each rank's share of its pod's stage
+    taken by ``TensorParallel.on_mesh(..., stage=True)``.
+    B % num_microbatches == 0."""
     import torch.distributed as dist
-    if dict(zip(mesh.mesh_dim_names, mesh.shape)).get("pod") != n_pods:
+    if tuple(mesh.mesh_dim_names) != ("pod", "data", "model"):
+        raise ValueError(f"the pipeline runs on a (\"pod\", \"data\", "
+                         f"\"model\") mesh, not {mesh.mesh_dim_names}")
+    if mesh.size(0) != n_pods:
         raise ValueError(f"the mesh's pod axis is not {n_pods} wide: "
                          f"{mesh}")
     M = num_microbatches
@@ -158,13 +206,24 @@ def make_pipeline_forward(cfg: ModelConfig, n_pods: int,
     def pipelined(stage_params, x, angles):
         coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         pod = coord["pod"]
-        local = tree_map(lambda a: _my_stage(a, mesh, pod), stage_params)
-        B = x.shape[0]
+        B, S, d = x.shape
         if B % M:
             raise ValueError(f"{M} microbatches do not divide batch {B}")
-        mb = x.reshape((M, B // M) + tuple(x.shape[1:]))
-        # angles ride along with their microbatch (per-row M-RoPE safe)
-        amb = angles.reshape((M, B // M) + tuple(angles.shape[1:]))
+        b, n_data = B // M, mesh.size(1)
+        # a microbatch's rows split over "data" where they divide it, else
+        # every data rank runs them all
+        split = n_data > 1 and b % n_data == 0
+        tp = TensorParallel.on_mesh(cfg, mesh, {"runs": [stage_params]},
+                                    rows_split=split, stage=True)
+        rows = (slice(coord["data"] * b // n_data,
+                      (coord["data"] + 1) * b // n_data) if split
+                else slice(0, b))
+        mb = x.reshape((M, b) + tuple(x.shape[1:]))[:, rows]
+        # every rank holds every microbatch's angles: pod p takes
+        # microbatch t - p's at tick t, so they need not hop
+        amb = angles.reshape((M, b) + tuple(angles.shape[1:]))[:, rows]
+        count = next(tr._leaves(stage_params)).shape[1]
+        slab = _Slab(mesh, coord, split, S, d)
         group, peers = None, (None, None)
         if n_pods > 1:
             # this rank's ("data", "model") coordinate in every pod, pod
@@ -172,33 +231,42 @@ def make_pipeline_forward(cfg: ModelConfig, n_pods: int,
             group = mesh.get_group("pod")
             ranks = dist.get_process_group_ranks(group)
             peers = (ranks[min(pod + 1, n_pods - 1)], ranks[max(pod - 1, 0)])
-        state, state_a = torch.zeros_like(mb[0]), torch.zeros_like(amb[0])
-        outs = torch.zeros_like(mb)
+        state = None
+        outs = [None] * M
         for t in range(M + n_pods - 1):
+            i = t - pod                  # the microbatch this pod runs
+            live = 0 <= i < M
             if pod == 0:
-                x_in = mb[min(t, M - 1)] if t < M else torch.zeros_like(mb[0])
-                a_in = (amb[min(t, M - 1)] if t < M
-                        else torch.zeros_like(amb[0]))
+                x_in = mb[i] if live else torch.zeros_like(mb[0])
+            elif state is None:
+                x_in = torch.zeros_like(mb[0])
             else:
-                x_in, a_in = state, state_a
-            h = _stage_apply(cfg, local, x_in, a_in, backend)
+                x_in = slab.join(state)
+            a_in = amb[i] if live else torch.zeros_like(amb[0])
+            h = slab.cut(_stage_apply(cfg, tp, count, x_in, a_in, backend))
             if n_pods > 1:
-                # shift one pod to the right (the paper's T_TX hop)
-                state, state_a = _hop([h, a_in], pod, n_pods, peers, group)
+                # each rank's block one pod to the right (the paper's T_TX
+                # hop), to the same ("data", "model") coordinate there
+                state = _hop(h, pod, n_pods, peers, group)
             # the LAST pod emits microbatch t-(P-1) at tick t
-            out_idx = t - (n_pods - 1)
-            if pod == n_pods - 1 and out_idx >= 0:
-                outs[out_idx] = h
-        y = outs.reshape(x.shape)
+            if pod == n_pods - 1 and live:
+                outs[i] = h
         if n_pods == 1:
-            return y
-        # the last pod's result on every pod: a float32 sum with zeros
-        # from the others (the reference's psum), which keeps its bits
-        y32 = (y.to(torch.float32) if pod == n_pods - 1
-               else torch.zeros(y.shape, dtype=torch.float32,
-                                device=y.device))
-        dist.all_reduce(y32, group=group)
-        return y32.to(x.dtype)
+            y = torch.stack(outs)
+        else:
+            # the last pod's blocks on every pod: a float32 sum with zeros
+            # from the others (the reference's psum), which keeps its bits
+            y = (torch.stack(outs).to(torch.float32) if pod == n_pods - 1
+                 else torch.zeros((M,) + tuple(h.shape), dtype=torch.float32,
+                                  device=x.device))
+            dist.all_reduce(y, group=group)
+            y = y.to(x.dtype)
+        y = slab.join(y)
+        if split:
+            # every data rank's rows of each microbatch: (data, M, b/data,
+            # S, d) -> (M, b, S, d)
+            y = slab.axes["data"].all_gather(y).movedim(0, 1)
+        return y.reshape(x.shape)
 
     return pipelined
 
@@ -208,10 +276,13 @@ def make_split_serve_step(cfg: ModelConfig, n_pods: int,
                           device: DeviceLike = None, backend: str = "auto"):
     """-> ``step(params, batch) -> last-position logits (B, V)``: embed,
     the pod-pipelined stack, the final norm, the head, on the card unless
-    the caller passes ``device="cpu"``. ``params`` as from ``init_params``
-    but with ``params["runs"][0]`` restacked by ``stack_stage_params``
-    (leading (n_pods, L/P) dims); its other leaves DTensors (gathered
-    whole) or plain tensors."""
+    the caller passes ``device="cpu"``, each on this rank's share
+    (``TensorParallel.on_mesh``): the vocabulary-parallel embedding, the
+    stage split over "model", the head's vocabulary columns at the last
+    position, gathered over "model". ``params`` is a
+    DTensor tree as from ``init_params`` but with ``params["runs"][0]``
+    restacked by ``stack_stage_params`` (leading (n_pods, L/P) dims), laid
+    out by ``stage_param_specs``. ``step.route`` names the route."""
     tr.check_supported(cfg)
     dev = resolve_device(device)
     _check_card(cfg, dev)
@@ -222,16 +293,16 @@ def make_split_serve_step(cfg: ModelConfig, n_pods: int,
                                  backend)
 
     def step(params, batch):
-        whole = {k: tree_map(_full, v) for k, v in params.items()
-                 if k != "runs"}
         batch = batch_on(dev, cfg, batch)
-        x, B, S = tr.embed_inputs(whole, cfg, batch)
+        tp = TensorParallel.on_mesh(cfg, mesh, params)
+        x, B, S = tr.embed_inputs(params, cfg, batch, tp)
         angles = tr._angles_for(cfg, batch, B, S, 0, x.device)
         if angles is None:
             angles = torch.zeros((B, S, max(cfg.head_dim // 2, 1)),
                                  dtype=torch.float32, device=x.device)
         y = pipe(params["runs"][0], x, angles)
-        y = rmsnorm(y, whole["final_norm"], cfg.norm_eps, backend=backend)
-        return tr._lm_logits(whole, cfg, y[:, -1])
+        y = rmsnorm(y, tp.top("final_norm"), cfg.norm_eps, backend=backend)
+        return tp.gather_vocab(tr._lm_logits(params, cfg, y[:, -1], tp))
 
+    step.route = ROUTE
     return step

@@ -26,10 +26,11 @@ Each run writes ``experiments/dryrun/torch_<arch>_<shape>_<mesh>.json``
 every stack of the registry, whose products split over "model" with one
 layer's FSDP dims gathered at a time (heads, FFN columns, experts, SSD
 heads, the vocabulary) and whose MoE dispatch is the whole batch's over
-the data axes (``sharding.tensor_parallel``). The pod pipeline's
-stages are gathered whole (``PIPELINE_MODEL_AXIS``). Layers run as a
-Python loop, so nothing is counted once for many (``scan_counted`` is
-false).
+the data axes (``sharding.tensor_parallel``). A split serve's record
+says ``split`` too (``pod_pipeline.ROUTE``): each stage on that route
+over its pod's "data" and "model" ranks, the hop and the result moved as
+each rank's (data, model) block. Layers run as a Python loop, so nothing
+is counted once for many (``scan_counted`` is false).
 """
 from __future__ import annotations
 
@@ -62,9 +63,6 @@ from repro_torch.sharding.tensor_parallel import contiguous_stride
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun")
 
-#: what a split-serve record says of the "model" axis
-PIPELINE_MODEL_AXIS = ("replicated: every rank gathers its pod's stage "
-                       "whole and computes the whole microbatch")
 MEMORY_TRACKER = ("repro_torch.roofline.analysis.TraceCounter: the live "
                   "storages of the traced step on rank 0, its inputs "
                   "(the local shards, the whole batch) included")
@@ -180,6 +178,7 @@ def _memory_record(counter: TraceCounter) -> dict:
 def _collectives_record(coll) -> dict:
     return {"bytes_by_op": coll.bytes_by_op, "count_by_op": coll.count_by_op,
             "bytes_by_mesh_dim": coll.bytes_by_group,
+            "bytes_by_op_and_mesh_dim": coll.bytes_by_op_and_group,
             "link_bytes_per_s_by_mesh_dim": coll.rate_by_group}
 
 
@@ -330,8 +329,7 @@ def run_split_serve(arch: str, out_dir: str = OUT_DIR,
     mesh_name = _mesh_name(shape)
     rec = {"arch": arch, "mode": "split_serve", "mesh": mesh_name,
            "chips": math.prod(shape), "num_microbatches": num_microbatches,
-           "seq_len": seq_len, "batch": batch, "backend": "ref",
-           "model_axis": PIPELINE_MODEL_AXIS}
+           "seq_len": seq_len, "batch": batch, "backend": "ref"}
     params = tr.init_params(cfg, device="meta")
     sp = dict(params)
     sp["runs"] = [pp.stack_stage_params(params, cfg, n_pods)]
@@ -346,6 +344,7 @@ def run_split_serve(arch: str, out_dir: str = OUT_DIR,
                         batch_meta(cfg, batch, seq_len).items()}
             step = pp.make_split_serve_step(cfg, n_pods, num_microbatches,
                                             mesh, device="cpu", backend="ref")
+            rec["model_axis"] = step.route
             counter = TraceCounter(mesh)
             with counter, torch.no_grad():
                 counter.track(placed, batch_in)
@@ -368,8 +367,8 @@ def run_split_serve(arch: str, out_dir: str = OUT_DIR,
     rec["eq5_prediction"] = {k: v * batch for k, v in pred.items()
                              if k.startswith("T")}
     rec["boundary_bytes_model"] = batch * seq_len * cfg.d_model * 2
-    # what a card's hop moves: the whole microbatch and its angles each
-    # tick, where the reference's moves a 1/(data x model) shard of them
+    # what a card's hop moves: its (data, model) block of the microbatch
+    # each tick, as the reference's 1/(data x model) shard; no angles
     rec["hop"] = {
         "ticks": num_microbatches + n_pods - 1,
         "collective_permute_bytes_per_card":

@@ -27,7 +27,7 @@ usually under ``FakeTensorMode`` on a fake process group
   backward (the split route's "model" all-reduces, the reduce-scatter a
   per-layer gather's backward makes) dispatch through the mode like any
   other op and count alike. Bytes are also kept by the mesh dim whose
-  group carried them;
+  group carried them, and by op and mesh dim;
 * the peak of the live storages the step holds, its inputs included.
 
 **The collective term's rule.** A collective is priced on the links its
@@ -112,6 +112,9 @@ class CollectiveStats:
     bytes_by_group: Dict[str, int] = field(default_factory=dict)
     #: bytes/s each group's bytes are priced at (``link_rate``)
     rate_by_group: Dict[str, float] = field(default_factory=dict)
+    #: the same bytes by op, then by group
+    bytes_by_op_and_group: Dict[str, Dict[str, int]] = field(
+        default_factory=dict)
 
     @property
     def total_bytes(self) -> int:
@@ -129,6 +132,8 @@ class CollectiveStats:
         self.bytes_by_group[group] = self.bytes_by_group.get(group, 0) \
             + nbytes
         self.rate_by_group[group] = rate
+        by = self.bytes_by_op_and_group.setdefault(op, {})
+        by[group] = by.get(group, 0) + nbytes
 
 
 def link_rate(ranks) -> float:

@@ -880,13 +880,17 @@ class TensorParallel:
         return tp
 
     @classmethod
-    def on_mesh(cls, cfg, mesh, params,
-                rows_split: bool = False) -> "TensorParallel":
+    def on_mesh(cls, cfg, mesh, params, rows_split: bool = False,
+                stage: bool = False) -> "TensorParallel":
         """This rank's share on ``mesh`` of a DTensor tree laid out by
         ``param_specs``: its "model" axis is the mesh's "model" group; its
         data axes the mesh's data groups where ``rows_split`` (the step's
         rows split over them), else none (every data rank holds the same
-        rows and computes them alike)."""
+        rows and computes them alike). With ``stage`` the tree is a pod
+        pipeline's (``core.partition.pod_pipeline.stage_param_specs``):
+        ``runs[0]``'s leaves are (n_pods, L/P, ...) with the stage dim over
+        "pod", a layer is one of this rank's pod's own (``_MeshFetch``),
+        and "pod" is no data axis."""
         names = mesh.mesh_dim_names
         i = names.index("model")
         axis = GroupAxis(mesh.get_group(i), mesh.get_local_rank(i),
@@ -896,8 +900,9 @@ class TensorParallel:
             data = DataAxes([GroupAxis(mesh.get_group(j),
                                        mesh.get_local_rank(j), mesh.size(j))
                              for j, n in enumerate(names)
-                             if n != "model" and mesh.size(j) > 1])
-        tp = cls(cfg, axis, _MeshFetch(mesh), data)
+                             if n != "model" and mesh.size(j) > 1
+                             and not (stage and n == "pod")])
+        tp = cls(cfg, axis, _MeshFetch(mesh, stage), data)
         tp._params = params
         return tp
 
@@ -1313,23 +1318,45 @@ class _MeshFetch:
     norm scale, the router, a replicated head) is gathered with a
     ``Replicate`` grad: every rank computes the same gradient for it.
     Mesh dims of size 1 are left alone, so a one-rank mesh reads views of
-    the local tensors."""
+    the local tensors.
 
-    def __init__(self, mesh):
+    With ``stage`` a stacked leaf is a pod pipeline's stage-stacked one,
+    (n_pods, L/P, ...) with the stage dim ``Shard(0)`` over "pod": layer j
+    is entry j of this rank's own pod's shard, nothing moves over "pod",
+    and each layer fetched is kept for the fetch's life (a pipeline runs
+    every layer of its stage once a tick: each is gathered once a step)."""
+
+    def __init__(self, mesh, stage: bool = False):
         self.mesh = mesh
         self.sizes = tuple(mesh.shape)
         self.coord = mesh.get_coordinate()
+        self.stage = stage
         self._local = {}
+        self._kept = {}
 
     def __call__(self, tp, path, t, layer):
+        if not (self.stage and layer is not None):
+            return self._fetch(tp, path, t, layer)
+        key = (id(t), layer)
+        got = self._kept.get(key)
+        if got is None:
+            got = self._kept[key] = self._fetch(tp, path, t, layer)
+        return got
+
+    def _fetch(self, tp, path, t, layer):
         from torch.distributed.tensor import DTensor, Partial, Replicate, \
             Shard
         names = self.mesh.mesh_dim_names
         pl, shape = list(t.placements), tuple(t.shape)
+        staged = self.stage and layer is not None
         if layer is not None:
-            pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
-                  for p in pl]
-            shape = shape[1:]
+            # a layer's placements: its stacked dims dropped; a stage's
+            # "pod" shard is this rank's own pod, whole here
+            lead = 2 if staged else 1
+            pl = [Replicate() if staged and n == "pod"
+                  else Shard(p.dim - lead) if isinstance(p, Shard) else p
+                  for n, p in zip(names, pl)]
+            shape = shape[lead:]
         cuts = tp.cuts(path)
         mi = names.index("model")
         first = (bool(cuts) and self.sizes[mi] > 1
@@ -1348,7 +1375,7 @@ class _MeshFetch:
                 grad[mi] = Partial()
             loc = self._local[id(t)] = t.to_local(grad_placements=grad)
         if layer is not None:
-            loc = loc[layer]
+            loc = loc[0][layer] if staged else loc[layer]
         if first:
             # the cut is local: every dim it cuts is whole on this rank
             loc = _narrow(loc, cuts)
@@ -1358,7 +1385,8 @@ class _MeshFetch:
             cuts = ()
         target, grad, cut, ranged = [], [], (), None
         for i, (axis, p) in enumerate(zip(names, pl)):
-            if self.sizes[i] == 1 or (first and axis == "model"):
+            if self.sizes[i] == 1 or (first and axis == "model") \
+                    or (staged and axis == "pod"):
                 target.append(p)
                 grad.append(p)
             elif axis != "model":

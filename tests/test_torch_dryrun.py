@@ -445,29 +445,50 @@ def test_run_one_refuses_a_group_of_another_size(no_group):
                            mesh_shape=SMALL, smoke=True)
 
 
-def test_run_split_serve_counts_the_hop(tmp_path, no_group):
-    """Smoke Qwen2-7B on a (2, 2, 2) fake mesh, 8 rows of 64 tokens in 4
-    microbatches: rank 0 (pod 0) sends each of the 5 ticks' activation
-    (2, 64, d) and angles (2, 64, head_dim / 2) float32."""
+@pytest.mark.parametrize("batch", (8, 4))
+def test_run_split_serve_counts_the_hop(batch, tmp_path, no_group):
+    """Smoke Qwen2-7B on a (2, 2, 2) fake mesh, ``batch`` rows of 64
+    tokens in 4 microbatches: each stage on the split route, so rank 0
+    (pod 0) sends each of the 5 ticks its (data, model) block of the
+    activation, 1/4 of the microbatch's (batch / 4) x 64 x d (8 rows: a
+    microbatch's 2 rows split over "data", d over "model"; 4 rows: the
+    row whole, S over "data", d over "model"), and no angles; the last
+    pod's result reaches every pod as one float32 all-reduce over "pod"
+    of each rank's block, 1/4 of the whole result."""
     cfg = treg.get_smoke_config("qwen2-7b")
     rec = dryrun.run_split_serve("qwen2-7b", str(tmp_path),
-                                 num_microbatches=4, seq_len=64, batch=8,
-                                 mesh_shape=(2, 2, 2), smoke=True)
+                                 num_microbatches=4, seq_len=64,
+                                 batch=batch, mesh_shape=(2, 2, 2),
+                                 smoke=True)
     itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    per_tick = 2 * 64 * (cfg.d_model * itemsize + cfg.head_dim // 2 * 4)
+    per_tick = batch // 4 * 64 * cfg.d_model // 4 * itemsize
     coll = rec["collectives"]
+    assert rec["model_axis"] == "split"
     assert coll["bytes_by_op"]["collective-permute"] == 5 * per_tick
-    assert coll["count_by_op"]["collective-permute"] == 10
+    assert coll["count_by_op"]["collective-permute"] == 5
     assert rec["hop"] == {"ticks": 5,
                           "collective_permute_bytes_per_card": 5 * per_tick,
                           "activation_shards_in_reference": 4}
-    # the last pod's result reaches every pod: one float32 all-reduce
-    assert coll["count_by_op"]["all-reduce"] == 1
-    assert coll["bytes_by_op"]["all-reduce"] == 8 * 64 * cfg.d_model * 4
-    assert rec["boundary_bytes_model"] == 8 * 64 * cfg.d_model * 2
+    assert coll["bytes_by_op_and_mesh_dim"]["all-reduce"]["pod"] == \
+        batch * 64 * cfg.d_model * 4 // 4
+    assert rec["boundary_bytes_model"] == batch * 64 * cfg.d_model * 2
     assert set(rec["eq5_prediction"]) == {"T", "T_D", "T_TX", "T_S"}
     assert set(rec["roofline"]) == ROOFLINE_KEYS
-    assert _records(tmp_path) == ["torch_qwen2-7b_split_serve_2x2x2.json"]
+    assert _records(tmp_path) == [
+        "torch_qwen2-7b_split_serve_2x2x2.json"]
+
+
+def test_run_split_serve_splits_the_stage_over_model(tmp_path, no_group):
+    """The same serve on (2, 2, 2) and (2, 2, 1): rank 0's stage splits
+    over "model", so it computes at most 0.6 of the FLOPs it computes
+    where "model" has one rank."""
+    recs = [dryrun.run_split_serve("qwen2-7b", str(tmp_path),
+                                   num_microbatches=4, seq_len=64, batch=8,
+                                   mesh_shape=shape, smoke=True)
+            for shape in ((2, 2, 2), (2, 2, 1))]
+    split, whole = (r["cost_analysis"]["flops"] for r in recs)
+    assert split <= 0.6 * whole
+    assert recs[0]["collectives"]["bytes_by_mesh_dim"]["model"] > 0
 
 
 def test_main_traces_a_full_size_cell_on_the_production_mesh(tmp_path,

@@ -11,8 +11,12 @@ capacity raised so that nothing drops, two microbatches), held within
 reference's own ``tests/test_pod_pipeline.py`` intends; its multi-pod
 case cannot run on this host's JAX), and the mesh prefill and two decode
 steps of Qwen2-7B and Mamba2-2.7B on (2, 1) and (1, 2) ("data", "model")
-meshes against the one-process steps. On one rank the mesh steps give
-the unsharded steps' bits, and the one-pod pipeline matches the
+meshes against the one-process steps. One spawn of four ranks runs the
+same pipelines with each stage on the split route: on (2, 1, 2) the
+stage's heads, FFN columns, experts and SSD heads over "model" and the
+hop a half of the activation's d_model; on (2, 2, 1) a microbatch's rows
+over "data" (the MoE dispatch over both). On one rank the mesh steps
+give the unsharded steps' bits, and the one-pod pipeline matches the
 reference's passthrough.
 
 This file imports no JAX at module level: the spawned ranks import it by
@@ -40,6 +44,8 @@ from repro_torch.sharding import specs as sh
 PIPE_ARCHS = ("qwen2-7b", "mamba2-2.7b", "mixtral-8x7b")
 SERVE_ARCHS = ("qwen2-7b", "mamba2-2.7b")
 SERVE_MESHES = ((2, 1), (1, 2))
+#: the four-rank spawn's ("pod", "data", "model") meshes
+SPLIT_MESHES = ((2, 1, 2), (2, 2, 1))
 B, S, M = 4, 16, 2
 DECODE_STEPS = 2
 #: the reference test's bound on the pipelined logits against ``forward``
@@ -128,6 +134,29 @@ def _rank(rank: int, port: int, inputs: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+def _split_ranks(rank: int, port: int, inputs: str, out: str) -> None:
+    """A rank of the four-rank spawn: the two-pod pipeline of every
+    ``PIPE_ARCHS`` on each of ``SPLIT_MESHES``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=4)
+    try:
+        data = torch.load(inputs, weights_only=False)
+        got = {}
+        for shape in SPLIT_MESHES:
+            mesh = init_device_mesh("cpu", shape,
+                                    mesh_dim_names=("pod", "data", "model"))
+            for arch in PIPE_ARCHS:
+                params = transformer_params_from_reference(data[arch])
+                got[(arch, shape)] = _pipeline_logits(
+                    _cfg(arch), params, data["tokens"][arch], mesh, 2)
+        torch.save(got, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.fixture(scope="module")
 def shared():
     """Numpy parameters (``transformer_params_np``) and tokens of every
@@ -155,6 +184,37 @@ def two_ranks(shared, tmp_path_factory):
                        start_method="spawn")
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(2)]
+
+
+@pytest.fixture(scope="module")
+def four_ranks(shared, tmp_path_factory):
+    from torch_parity import free_port
+    out = str(tmp_path_factory.mktemp("split_pods"))
+    inputs = os.path.join(out, "inputs.pt")
+    torch.save({k: shared[k] for k in PIPE_ARCHS + ("tokens",)}, inputs)
+    mp.start_processes(_split_ranks, args=(free_port(), inputs, out),
+                       nprocs=4, start_method="spawn")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(4)]
+
+
+@pytest.fixture(scope="module")
+def reference_last(shared):
+    """The reference's ``forward`` logits at the last position, by arch."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as rreg
+    from repro.models import transformer as rtr
+    out = {}
+    for arch in PIPE_ARCHS:
+        cr = _no_drop(rreg.get_smoke_config(arch).replace(
+            dtype="float32", remat=False))
+        ref, _ = rtr.forward(jax.tree_util.tree_map(jnp.asarray,
+                                                    shared[arch]), cr,
+                             {"tokens": jnp.asarray(
+                                 shared["tokens"][arch].astype(np.int32))})
+        out[arch] = np.asarray(ref[:, -1])
+    return out
 
 
 def test_pipeline_supported_table_matches_reference():
@@ -240,25 +300,33 @@ def test_one_pod_passthrough_matches_reference(shared):
     assert np.abs(got - want).max() <= stack_tol(want, "float32")
 
 
-def test_two_pod_pipeline_matches_reference_forward(shared, two_ranks):
+def test_two_pod_pipeline_matches_reference_forward(two_ranks,
+                                                    reference_last):
     """Both pods' logits are the same bits, within 2e-3 of the
     reference's ``forward`` at the last position."""
-    import jax
-    import jax.numpy as jnp
-    from repro.configs import registry as rreg
-    from repro.models import transformer as rtr
     for arch in PIPE_ARCHS:
-        cr = _no_drop(rreg.get_smoke_config(arch).replace(
-            dtype="float32", remat=False))
-        ref, _ = rtr.forward(jax.tree_util.tree_map(jnp.asarray,
-                                                    shared[arch]), cr,
-                             {"tokens": jnp.asarray(
-                                 shared["tokens"][arch].astype(np.int32))})
-        want = np.asarray(ref[:, -1])
+        want = reference_last[arch]
         got = [r[arch] for r in two_ranks]
         assert torch.equal(got[0], got[1]), arch
         err = float(np.abs(got[0].numpy() - want).max())
         assert err < PIPE_ATOL, (arch, err)
+
+
+@pytest.mark.parametrize("shape", SPLIT_MESHES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", PIPE_ARCHS)
+def test_split_stage_pipeline_matches_reference_forward(arch, shape,
+                                                        four_ranks,
+                                                        reference_last):
+    """Each stage on the split route, two pods of two ranks: all four
+    ranks' logits are the same bits, within 2e-3 of the reference's
+    ``forward`` at the last position."""
+    got = [r[(arch, shape)] for r in four_ranks]
+    assert got[0].shape == reference_last[arch].shape
+    for g in got[1:]:
+        assert torch.equal(g, got[0])
+    err = float(np.abs(got[0].numpy() - reference_last[arch]).max())
+    assert err < PIPE_ATOL, err
 
 
 @pytest.mark.parametrize("shape", SERVE_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
