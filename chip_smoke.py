@@ -374,6 +374,24 @@ Phases, each printing its own lines:
    whole row's) at Mamba2-2.7B's 2,048 x 320 (16 ranks) and 2,048 x 2,560
    (2 ranks) and decode, fp32 and ragged cases; ``ssd_scan`` at a rank's
    5 heads (B = 1, S = 2,048, P = 64, N = 128).
+24. context parallelism — the sequence split over "data" = 2
+   (``sharding.context_parallel``), its two shares run one after another
+   on the card (``SequentialRanks``) at full width and B = 1: the pruned
+   Qwen2-7B at 4 of its 28 layers, Mamba2-2.7B at 4 of 64 (the SSD state
+   passed from the first share's block to the second's, each block
+   through the bf16 ``ssd_scan`` kernel) and DeepSeek-V3 at 1 dense and 1
+   MoE layer (MLA's latents gathered, the dispatch over the whole
+   request), an R1 prefill (1,024 positions a share, the second share's
+   queries through the flash kernel at ``q_offset`` 1,024) and 4 decode
+   steps (each share scoring its half of the cache's slots, the partial
+   softmaxes combined): both shares' logits bit-equal, launches twice one
+   request's, every logit row within phase 6's rule of the unsharded bf16
+   and fp32 plain runs teacher-forced with its tokens (the plain runs
+   taking the split's routes), wall and device ms (``context_parallel``
+   lines and a ``phase24`` line). Phase 3 holds the flash kernel at the
+   second share's shapes: 1,024 queries at ``q_offset`` 1,024 against
+   2,048 keys, Qwen2-7B's 28/4 heads causal, Mixtral-8x7B's 32/8 with its
+   window, a window of 512 that cuts the keys, and the fp32 entry.
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
 phases 4, 11-15 and 21, counted where one thread launches; the
@@ -1136,10 +1154,13 @@ def rmsnorm_plans(cases, eps: float = 1e-6):
              "device_ms": times}), flush=True)
 
 
-def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
-    """How many (query, key) pairs the mask lets through."""
+def attention_pairs(Sq: int, Sk: int, causal: bool, window,
+                    q_offset: int = 0) -> int:
+    """How many (query, key) pairs the mask lets through, query row i at
+    key position ``q_offset + i``."""
     import numpy as np
-    d = np.arange(Sq)[:, None] - np.arange(Sk)[None, :]
+    d = (np.arange(q_offset, q_offset + Sq)[:, None]
+         - np.arange(Sk)[None, :])
     ok = np.ones((Sq, Sk), bool)
     if causal:
         ok &= d >= 0
@@ -1150,8 +1171,11 @@ def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 def check_flash(cases):
     """Phase 3: the flash kernel against its plain version at each (name,
-    B, S, H, Hkv, D, causal, window, dtype); its device time from a CUDA
-    graph (``graph_ms``) held to the bound."""
+    B, S, H, Hkv, D, causal, window, dtype[, q_offset]): S keys and S -
+    q_offset queries, query row i at key position q_offset + i (a
+    sequence block's queries against the keys of every position before
+    them); its device time from a CUDA graph (``graph_ms``) held to the
+    bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.device import exact_fp32
@@ -1161,15 +1185,17 @@ def check_flash(cases):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
     with exact_fp32():
-        for name, B, S, H, Hkv, D, causal, window, dtype in cases:
+        for name, B, S, H, Hkv, D, causal, window, dtype, *rest in cases:
+            off = rest[0] if rest else 0
+            kw = dict(causal=causal, window=window, q_offset=off)
             dt = getattr(torch, dtype)
-            q = torch.randn(B, S, H, D, device="cuda", generator=gen).to(dt)
+            q = torch.randn(B, S - off, H, D, device="cuda",
+                            generator=gen).to(dt)
             k = torch.randn(B, S, Hkv, D, device="cuda", generator=gen).to(dt)
             v = torch.randn(B, S, Hkv, D, device="cuda", generator=gen).to(dt)
-            got = flash_attention(q, k, v, causal=causal, window=window)
+            got = flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            want = attention_ref(q, k, v, causal=causal,
-                                 window=window).float()
+            want = attention_ref(q, k, v, **kw).float()
             # tolerance: two float32 evaluations of the same softmax-
             # weighted sum (online over tiles against materialised) differ
             # by roundoff in the scores, exponentials and sums, a few eps
@@ -1186,13 +1212,14 @@ def check_flash(cases):
             ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
             # the library call: one scaled_dot_product_attention on the
             # (B, H, S, D) views, GQA by its own head grouping, the window
-            # as a boolean mask
+            # or the offset's diagonal as a boolean mask
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             mask = None
-            if window is not None:
-                dd = (torch.arange(S, device="cuda")[:, None]
+            if window is not None or off:
+                dd = (torch.arange(off, S, device="cuda")[:, None]
                       - torch.arange(S, device="cuda")[None, :])
-                mask = dd < window
+                mask = (dd < window if window is not None
+                        else torch.ones_like(dd, dtype=torch.bool))
                 if causal:
                     mask &= dd >= 0
 
@@ -1202,21 +1229,20 @@ def check_flash(cases):
                     is_causal=causal and mask is None, enable_gqa=True)
             row = {"case": name, "dtype": dtype, "B": B, "S": S, "H": H,
                    "Hkv": Hkv, "D": D, "causal": causal, "window": window,
+                   "q_offset": off,
                    "max_abs_err": float(err.max()),
                    "max_err_over_tol": float((err / tol.clamp_min(1e-30))
                                              .max()),
                    "ok": ok,
-                   "ms": time_ms(lambda: flash_attention(
-                       q, k, v, causal=causal, window=window)),
-                   "plain_ms": time_ms(lambda: attention_ref(
-                       q, k, v, causal=causal, window=window)),
+                   "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+                   "plain_ms": time_ms(lambda: attention_ref(q, k, v, **kw)),
                    "library_ms": time_ms(library),
                    "device_ms": graph_ms(
-                       lambda q, k, v: flash_attention(
-                           q, k, v, causal=causal, window=window), q, k, v)}
+                       lambda q, k, v: flash_attention(q, k, v, **kw),
+                       q, k, v)}
             # q, k, v read and the output written once; Q K^T and P V at 2
             # operations a multiply-add over the pairs the mask lets through
-            pairs = attention_pairs(S, S, causal, window)
+            pairs = attention_pairs(S - off, S, causal, window, off)
             set_bound(row, q.element_size() * (2 * q.numel() + 2 * k.numel()),
                       4 * B * H * D * pairs,
                       PEAK_FP32_FLOP_S if dtype == "float32"
@@ -2087,7 +2113,8 @@ def transformer_slice(cfg, params, masks, requests, to_fp32=None):
 def watch_moe():
     """Record each MoE layer call of the stack made while the block runs:
     yields a list that gains, a call, (params, MoEConfig, input, expert
-    mask, drop_frac, the tensor-parallel rank or 0). Storing references
+    mask, drop_frac, the tensor-parallel rank or 0, the sequence share or
+    0: ``context_parallel``'s data rank). Storing references
     costs the timed run nothing; ``routes_of`` recomputes the routes
     afterwards (``moe.route`` is deterministic, and a split's router is
     whole on every rank). The stack looks ``moe_forward`` up in its module
@@ -2099,7 +2126,8 @@ def watch_moe():
         out, metrics = inner(params, moe, x, activation,
                              expert_mask=expert_mask, tp=tp)
         calls.append((params, moe, x, expert_mask, metrics.drop_frac,
-                      0 if tp is None else tp.axis.rank))
+                      0 if tp is None else tp.axis.rank,
+                      0 if tp is None or tp.seq is None else tp.seq.rank))
         return out, metrics
     tr.moe_forward = watched
     try:
@@ -2147,7 +2175,7 @@ def routes_of(calls, n_requests: int):
     inputs it held."""
     from repro_torch.models.layers.moe import route
     out = [(route(p, moe, x.reshape(-1, x.shape[-1]), mask)[1], float(drop))
-           for p, moe, x, mask, drop, rank in calls if rank == 0]
+           for p, moe, x, mask, drop, rank, _ in calls if rank == 0]
     calls.clear()
     per = len(out) // max(n_requests, 1)
     return [out[i * per:(i + 1) * per] for i in range(n_requests)]
@@ -5281,6 +5309,139 @@ def tensor_parallel_phase() -> dict:
     return dict(total)
 
 
+#: phase 24: the data ranks of the sequence split, the decode steps, and
+#: (registry module, layers kept, dense layers kept or None)
+CP_RANKS = 2
+CP_DECODE_STEPS = 4
+CP_RUNS = (("qwen2_7b", 4, None), ("mamba2_2p7b", 4, None),
+           ("deepseek_v3_671b", 2, 1))
+
+
+def share_routes(cfg, calls, m: int):
+    """One request's routes (``routes_of``'s form) from a sequence split's
+    MoE calls (``watch_moe``): a prefill call's are the shares' blocks'
+    routes joined in share order (B = 1: the request's token order), a
+    decode step's the first share's (every share routes the same token).
+    Empties ``calls``."""
+    import torch
+    from repro_torch.models.layers.moe import route
+    shares = [[c for c in calls if c[6] == r] for r in range(m)]
+    L = moe_layer_count(cfg)
+    out = []
+    for i, first in enumerate(shares[0]):
+        made = [c[i] for c in shares] if i < L else [first]
+        idx = [route(p, moe, x.reshape(-1, x.shape[-1]), mask)[1]
+               for p, moe, x, mask, *_ in made]
+        out.append((torch.cat(idx), float(first[4])))
+    calls.clear()
+    return out
+
+
+def cp_shares(cfg, params, masks, batch, m: int, steps: int) -> dict:
+    """Phase 24: the ``m``-share sequence split of ``cfg`` over "data" on
+    the card, the shares run in turn (``SequentialRanks``,
+    ``context_parallel.sequential_shares``): an R1 prefill (each share its
+    block of the positions) and ``steps`` greedy decode steps (each share
+    its block of the cache's slots). Returns ``tp_shares``' dict (every
+    share's logits the same bits, launches ``m`` times one request's) with
+    the device ms of a second run and the shares' layout."""
+    import torch
+    from repro_torch.data.requests import batch_shape
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding.context_parallel import sequential_shares
+    from repro_torch.sharding.tensor_parallel import SequentialRanks
+    B, S = batch_shape(cfg, batch)
+    on_card = card_batch(cfg, batch)
+
+    def request(record):
+        ranks = SequentialRanks(m)
+        pre, dec = sequential_shares(cfg, params, ranks, S + steps)
+
+        def run(p, d):
+            lg, cache = tr.prefill(params, cfg, on_card, max_len=S + steps,
+                                   masks=masks, tp=p)
+            out, fed = [lg.float()], []
+            for _ in range(steps):
+                nxt = lg.argmax(-1, keepdim=True)
+                fed.append(nxt)
+                lg, cache = tr.decode_step(params, cfg, cache, nxt,
+                                           masks=masks, tp=d)
+                out.append(lg.float())
+            return out, torch.cat(fed, 1)
+        with torch.no_grad(), (watch_moe() if record
+                               else contextlib.nullcontext([])) as calls:
+            res = ranks.run([lambda p=p, d=d: run(p, d)
+                             for p, d in zip(pre, dec)])
+        torch.cuda.synchronize()
+        return res, calls
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, calls = request(True)
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    want = {k: m * v for k, v in expected_launches(cfg, steps).items()}
+    if launches != want:
+        raise AssertionError(f"phase 24 launches {launches}, expected "
+                             f"{want}")
+    for out, tok in res[1:]:
+        if not (torch.equal(tok, res[0][1]) and all(
+                torch.equal(a, b) for a, b in zip(out, res[0][0]))):
+            raise AssertionError("phase 24: the shares' logits differ")
+    routes = share_routes(cfg, calls, m)
+    prof = device_profile(lambda: request(False))
+    return {"logits": res[0][0], "tokens": res[0][1], "ms": ms,
+            "device_ms": prof["device_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "routes": routes, "launches": launches,
+            "shapes": [{"share": r, "positions": [r * S // m,
+                                                  (r + 1) * S // m],
+                        "q_offset": r * S // m,
+                        "cache_slots": [r * (S + steps) // m,
+                                        (r + 1) * (S + steps) // m]}
+                       for r in range(m)]}
+
+
+def context_parallel_phase() -> dict:
+    """Phase 24: for each of ``CP_RUNS`` (the pruned config at full width,
+    cut in depth, the MTP block released) a ``slice`` line and the
+    ``CP_RANKS``-share sequence split of an R1 request (``cp_shares``),
+    held by ``tp_held`` (every row within phase 6's rule of the unsharded
+    bf16 and fp32 plain runs, teacher-forced with the split's tokens and
+    routes); a ``context_parallel`` line each and a ``phase24`` line.
+    Returns the launches, by kernel and route."""
+    import importlib
+    import torch
+    t0 = time.perf_counter()
+    total = collections.Counter()
+    for module, layers, dense in CP_RUNS:
+        t1 = time.perf_counter()
+        full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+        cfg = full.replace(num_layers=layers)
+        if dense is not None:
+            cfg = cfg.replace(num_dense_layers=dense)
+        params, masks = model_setup(cfg, SEED)
+        params.pop("mtp", None)
+        describe(cfg, params, masks, of_layers=full.num_layers,
+                 run="context parallel")
+        (_, batch), = request_batches(cfg, [TP_REQUEST])
+        split = cp_shares(cfg, params, masks, batch, CP_RANKS,
+                          CP_DECODE_STEPS)
+        total.update(split["launches"])
+        held = tp_held(cfg, params, masks, batch, split, CP_DECODE_STEPS)
+        device = {k: split[k] for k in ("device_ms", "device_idle_share")}
+        del params, masks, split
+        torch.cuda.empty_cache()
+        print("context_parallel " + json.dumps({
+            "model": cfg.name, "layers": f"{layers} of {full.num_layers}",
+            "request": TP_REQUEST[0], "data_ranks": CP_RANKS,
+            "decode_steps": CP_DECODE_STEPS, **held, **device,
+            "seconds": time.perf_counter() - t1}), flush=True)
+    print("phase24 " + json.dumps({"seconds": time.perf_counter() - t0,
+                                   "launches": dict(total)}), flush=True)
+    return dict(total)
+
+
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                  **extra):
     """One kernel of the JSON line: times and bound summed over
@@ -5484,7 +5645,20 @@ def main() -> int:
          ("tp2 R1 14/2", 1, 2048, 14, 2, 128, True, None, "bfloat16"),
          ("tp16 R1 2/1", 1, 2048, 2, 1, 128, True, None, "bfloat16"),
          ("gemma tp16 R1 1/1 D256", 1, 2048, 1, 1, 256, True, None,
-          "bfloat16")])
+          "bfloat16"),
+         # context parallelism over "data" = 2: the second share's block
+         # of an R1 prefill (1,024 queries at q_offset 1,024) against the
+         # keys of every position before it, Qwen2-7B's heads causal,
+         # Mixtral-8x7B's (window 4,096), a window that cuts the keys; the
+         # fp32 entry at an offset
+         ("offset 1024 R1", 1, 2048, 28, 4, 128, True, None, "bfloat16",
+          1024),
+         ("offset 1024 mixtral", 1, 2048, 32, 8, 128, True, 4096,
+          "bfloat16", 1024),
+         ("offset 1024 window 512", 1, 2048, 28, 4, 128, True, 512,
+          "bfloat16", 1024),
+         ("offset 256 fp32", 1, 512, 28, 4, 128, True, None, "float32",
+          256)])
     # Mamba2-2.7B: 80 heads of 64, d_state 128; Zamba2-1.2B: 64 heads of
     # 64, d_state 64; one B/C group each
     ssd_rows = check_ssd(
@@ -5607,10 +5781,12 @@ def main() -> int:
     # 23. tensor parallelism over "model": the one-rank mesh and a
     # two-rank split's shares on the card
     ptotals = tensor_parallel_phase()
+    # 24. context parallelism over "data": a two-share sequence split
+    ctotals = context_parallel_phase()
     for name in totals:
         totals[name] += (xtotals[name] + dtotals[name] + vtotals[name]
                          + htotals[name] + ttotals[name] + mtotals[name]
-                         + stotals[name] + ptotals[name])
+                         + stotals[name] + ptotals[name] + ctotals[name])
     alex_routes.update({k: v for k, v in mtotals.items()
                         if k.startswith(("masked_matmul_f32",
                                          "masked_matmul_q8"))})
@@ -5660,7 +5836,11 @@ def main() -> int:
                      library=gated_rows[0]["library"]),
         kernel_entry("flash_attention", flash_rows,
                      case(flash_rows, "prefill R1"), L,
-                     totals["flash_attention"]),
+                     totals["flash_attention"],
+                     offset_shape={k: case(flash_rows, "offset 1024 R1")[0][k]
+                                   for k in ("q_offset", "ms", "device_ms",
+                                             "plain_ms", "bound_ms",
+                                             "library_ms")}),
         kernel_entry("flash_attention_d80",
                      [r for r in flash_rows if r["D"] == 80],
                      case(flash_rows, "hubert R1 D80"),

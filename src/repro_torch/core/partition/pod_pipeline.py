@@ -24,25 +24,24 @@ stage-stacked tree is the rank's own pod's entry with its FSDP dims
 gathered over "data" alone, once a step and kept for every tick
 (``TensorParallel.on_mesh(..., stage=True)``). A microbatch's rows split
 over "data" where they divide it (the MoE dispatch then over the whole
-microbatch on "data"), else every data rank runs them all. After a
-block's "model" reductions a rank's activation is the same on every
-"model" rank (and on every "data" rank where the rows are whole), so each
-rank sends only its (data, model) block of it, the reference's
-``P(None, "data", "model")`` shard: S over "data", d_model over "model"
-(d_model alone where the rows are split), and the next pod rebuilds the
-activation with all-gathers over "model" and "data" before its first
-layer. The rotary angles do not hop: every rank holds every
+microbatch on "data"), else its sequence where that divides it, as the
+reference's ``shard_acts`` keeps it (context parallelism,
+``sharding.context_parallel``: each data rank runs its block of the
+positions, K and V gathered over "data", the SSD state carried across
+the blocks, the MoE dispatch over the whole microbatch), else every data
+rank runs it all. After a block's "model" reductions a rank's activation
+is the same on every "model" rank, so each rank sends only its (data,
+model) block of it, the reference's ``P(None, "data", "model")`` shard:
+its S block (or its rows) on "data", d_model over "model", and the next
+pod rebuilds the rank's activation with an all-gather over "model"
+before its first layer (and over "data" where every data rank runs the
+whole microbatch). The rotary angles do not hop: every rank holds every
 microbatch's, and pod p takes microbatch t - p's at tick t. The last
 pod's blocks are all-reduced over "pod" in float32 with zeros from the
 others (the reference's ``psum``: every pod gets its bits), then gathered
 inside each pod. The embedding, the final norm and the head run on the
 same split (the vocabulary over "model"), the last position's logits
 gathered over "model".
-
-What differs from the reference: where a microbatch's rows do not divide
-"data" (B/M = 4 rows on 16 data ranks in the dry run's cells), every data
-rank computes them all; the reference's GSPMD would split the sequence
-instead (context parallelism, ROADMAP A8f).
 
 Scope, as the reference's: architectures whose layer stack is a single
 homogeneous run (dense GQA, pure MoE, pure SSM; zamba2's shared-block
@@ -62,6 +61,7 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.sharding import specs as sh
+from repro_torch.sharding.context_parallel import data_split
 from repro_torch.sharding.tensor_parallel import GroupAxis, TensorParallel
 
 #: what a split-serve step's ``route`` says: its stages on the split route
@@ -142,15 +142,16 @@ def _span(n: int, parts: int, i: int) -> Tuple[int, int]:
 class _Slab:
     """This rank's (data, model) block of an activation (rows, S, d): the
     reference's ``P(None, "data", "model")`` shard, S over "data" and d
-    over "model" (each where it divides); where the rows are split over
-    "data" already, d over "model" alone. ``cut`` takes the block;
-    ``join`` rebuilds the rank's activation from the blocks of its pod
-    (all-gathers over "model", then "data", on the block's dims)."""
+    over "model" (each where it divides); where the rows or the sequence
+    are split over "data" already (``local``: S is the rank's block), d
+    over "model" alone. ``cut`` takes the block; ``join`` rebuilds the
+    rank's activation from the blocks of its pod (all-gathers over
+    "model", then "data", on the block's dims)."""
 
-    def __init__(self, mesh, coord, rows_split: bool, S: int, d: int):
+    def __init__(self, mesh, coord, local: bool, S: int, d: int):
         self.axes = {n: GroupAxis(mesh.get_group(n), coord[n], mesh.size(i))
                      for i, n in ((1, "data"), (2, "model"))}
-        self.seq = ((0, S) if rows_split
+        self.seq = ((0, S) if local
                     else _span(S, self.axes["data"].size, coord["data"]))
         self.dims = _span(d, self.axes["model"].size, coord["model"])
         self.gather = [(self.axes["model"], -1, self.dims != (0, d)),
@@ -211,10 +212,11 @@ def make_pipeline_forward(cfg: ModelConfig, n_pods: int,
             raise ValueError(f"{M} microbatches do not divide batch {B}")
         b, n_data = B // M, mesh.size(1)
         # a microbatch's rows split over "data" where they divide it, else
-        # every data rank runs them all
-        split = n_data > 1 and b % n_data == 0
+        # its sequence where that does, else every data rank runs it all
+        mode = data_split(b, S, n_data)
+        split = mode == "rows"
         tp = TensorParallel.on_mesh(cfg, mesh, {"runs": [stage_params]},
-                                    rows_split=split, stage=True)
+                                    split=mode, stage=True)
         rows = (slice(coord["data"] * b // n_data,
                       (coord["data"] + 1) * b // n_data) if split
                 else slice(0, b))
@@ -222,8 +224,10 @@ def make_pipeline_forward(cfg: ModelConfig, n_pods: int,
         # every rank holds every microbatch's angles: pod p takes
         # microbatch t - p's at tick t, so they need not hop
         amb = angles.reshape((M, b) + tuple(angles.shape[1:]))[:, rows]
+        if tp.seq is not None:
+            mb, amb = tp.seq.cut(mb, 2), tp.seq.cut(amb, 2)
         count = next(tr._leaves(stage_params)).shape[1]
-        slab = _Slab(mesh, coord, split, S, d)
+        slab = _Slab(mesh, coord, mode != "whole", mb.shape[2], d)
         group, peers = None, (None, None)
         if n_pods > 1:
             # this rank's ("data", "model") coordinate in every pod, pod
@@ -266,6 +270,8 @@ def make_pipeline_forward(cfg: ModelConfig, n_pods: int,
             # every data rank's rows of each microbatch: (data, M, b/data,
             # S, d) -> (M, b, S, d)
             y = slab.axes["data"].all_gather(y).movedim(0, 1)
+        elif tp.seq is not None:
+            y = tp.seq.gather(y, 2)       # every data rank's S block
         return y.reshape(x.shape)
 
     return pipelined

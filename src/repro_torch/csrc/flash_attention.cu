@@ -3,6 +3,11 @@
 //     q, out (B, Sq, H, D)     k, v (B, Sk, Hkv, D)      row-major,
 // all float32 (flash_attention_f32) or all bfloat16 (flash_attention_bf16),
 // D = 64, 80, 128, 192 or 256. Query head h reads KV head h / (H / Hkv).
+// Query row i sits at key position q_offset + i: 0 for self-attention, a
+// sequence block's first position where the block's queries attend the
+// keys of every position before it (context parallelism); the causal and
+// window masks and the tile skips compare positions, so q_offset = 0 is
+// the kernel it was before the offset.
 // Scores, softmax and the output accumulator are float32; the output is
 // rounded once.
 //
@@ -92,7 +97,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
              int H, int Hkv, int seq_k, float scale, int causal,
-             int has_window, int window) {
+             int has_window, int window, int q_offset) {
   constexpr int DT = D / RG;   // output columns per thread
   extern __shared__ float smem[];
   float* Qt = smem;                   // [D][BQ + 1], pre-scaled
@@ -104,6 +109,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / RG;
   const int tx = tid % RG;
   const int q_start = blockIdx.x * BQ;
+  const int p_start = q_offset + q_start;   // the tile's first position
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -136,8 +142,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // tile-level skip, the reference's test: wholly in the future (causal)
     // or wholly behind every query's window
     bool relevant = true;
-    if (causal) relevant = k_start <= q_start + BQ - 1;
-    if (has_window) relevant = relevant && (k_start + BK - 1 > q_start - window);
+    if (causal) relevant = k_start <= p_start + BQ - 1;
+    if (has_window) relevant = relevant && (k_start + BK - 1 > p_start - window);
     if (!relevant) continue;   // uniform over the block
 
     __syncthreads();   // the previous tile's Kt, Vs and Pt are consumed
@@ -170,7 +176,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
-      const int q_pos = q_start + ty * TR + i;
+      const int q_pos = p_start + ty * TR + i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < TC; ++j) {
@@ -231,7 +237,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch_d(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
              int H, int Hkv, int seq_k, float scale, int causal,
-             int has_window, int window, cudaStream_t stream) {
+             int has_window, int window, int q_offset, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -239,29 +245,30 @@ int launch_d(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, Sq, Sk, H, Hkv, seq_k, scale, causal, has_window, window);
+      q, k, v, o, Sq, Sk, H, Hkv, seq_k, scale, causal, has_window, window,
+      q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Sk,
            int H, int Hkv, int D, int seq_k, float scale, int causal,
-           int has_window, int window, cudaStream_t stream) {
+           int has_window, int window, int q_offset, cudaStream_t stream) {
   if (D == 64)
     return launch_d<T, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                           causal, has_window, window, stream);
+                           causal, has_window, window, q_offset, stream);
   if (D == 80)
     return launch_d<T, 80>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                           causal, has_window, window, stream);
+                           causal, has_window, window, q_offset, stream);
   if (D == 128)
     return launch_d<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                            causal, has_window, window, stream);
+                            causal, has_window, window, q_offset, stream);
   if (D == 192)
     return launch_d<T, 192>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                            causal, has_window, window, stream);
+                            causal, has_window, window, q_offset, stream);
   if (D == 256)
     return launch_d<T, 256>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                            causal, has_window, window, stream);
+                            causal, has_window, window, q_offset, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -295,6 +302,15 @@ __host__ __device__ constexpr int blocks_per_sm() {
   return q_in_registers<D>() ? 2 : 1;
 }
 }  // namespace mma_tiles
+
+// A copy of v the compiler cannot see through: a value computed from it in
+// the KV loop is computed there, not hoisted and kept in a register across
+// the loop (at D = 256 the loop holds 255 registers a thread already)
+__device__ __forceinline__ int opaque(int v) {
+  int r;
+  asm volatile("mov.b32 %0, %1;" : "=r"(r) : "r"(v));
+  return r;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -378,7 +394,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int Hkv,
                  int seq_k, float scale, int causal, int has_window,
-                 int window) {
+                 int window, int q_offset) {
   // block-scope names hide the fp32 kernel's BQ and THREADS
   using mma_tiles::BQ; using mma_tiles::BKV; using mma_tiles::THREADS;
   constexpr int CH = D / 8;        // 16-byte chunks a row
@@ -391,7 +407,8 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // blocks start in the order x, y, z: query tiles on z, last tile first,
   // so the longest causal rows of every head start first and the short
-  // tiles fill the last wave
+  // tiles fill the last wave (at any q_offset: a later tile's rows see
+  // at least the keys an earlier tile's do)
   const int q_start = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (H / Hkv);
@@ -404,9 +421,9 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   // the KV tiles the reference's skip test keeps (kernel.py:53-60, at this
   // kernel's tile sizes) form the range kt_lo .. kt_hi
   int kt_lo = 0, kt_hi = (seq_k + BKV - 1) / BKV - 1;
-  if (causal) kt_hi = min(kt_hi, (q_start + BQ - 1) / BKV);
+  if (causal) kt_hi = min(kt_hi, (q_start + q_offset + BQ - 1) / BKV);
   if (has_window) {
-    const int t = q_start - window - BKV + 1;   // relevant iff k_start > t
+    const int t = q_start + q_offset - window - BKV + 1;   // iff k_start > t
     if (t >= 0) kt_lo = t / BKV + 1;
   }
 
@@ -449,7 +466,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
   float m_run[2] = {NEG_INF, NEG_INF};   // rows g and g + 8
   float l_run[2] = {0.0f, 0.0f};         // this thread's share of the row sum
-  const int q_g = q_start + warp * 16 + lane / 4;
+  const int q_g = q_start + warp * 16 + lane / 4;   // row g
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int buf = (kt - kt_lo) & 1;
@@ -483,20 +500,23 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     }
 
     // scale the fp32 scores; mask only tiles that cross the diagonal, the
-    // window's edge or seq_k
+    // window's edge or seq_k. The masks compare rows with keys in the rows'
+    // frame (key position - q_offset), so the offset costs one register a
+    // tile and none a score
     const int k0 = kt * BKV;
     const bool edge = k0 + BKV > seq_k ||
-                      (causal && k0 + BKV - 1 > q_start) ||
-                      (has_window && q_start + BQ - 1 - k0 >= window);
+                      (causal && k0 + BKV - 1 > q_start + q_offset) ||
+                      (has_window && q_start + q_offset + BQ - 1 - k0 >= window);
+    const int off = opaque(q_offset), k0r = k0 - off;
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * scale;
         if (edge) {
-          const int kp = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+          const int kp = k0r + j * 8 + (lane % 4) * 2 + (e & 1);
           const int qp = q_g + (e >= 2 ? 8 : 0);
-          bool ok = kp < seq_k;
+          bool ok = kp + off < seq_k;
           if (causal) ok = ok && qp >= kp;
           if (has_window) ok = ok && (qp - kp < window);
           if (!ok) x = NEG_INF;
@@ -577,7 +597,8 @@ template <int D>
 int launch_mma_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Sq,
                  int Sk, int H, int Hkv, int seq_k, float scale, int causal,
-                 int has_window, int window, cudaStream_t stream) {
+                 int has_window, int window, int q_offset,
+                 cudaStream_t stream) {
   using mma_tiles::BQ; using mma_tiles::THREADS;
   constexpr size_t smem = mma_tiles::smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -586,29 +607,31 @@ int launch_mma_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
   flash_kernel_mma<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, Sq, Sk, H, Hkv, seq_k, scale, causal, has_window, window);
+      q, k, v, o, Sq, Sk, H, Hkv, seq_k, scale, causal, has_window, window,
+      q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Sq, int Sk,
                int H, int Hkv, int D, int seq_k, float scale, int causal,
-               int has_window, int window, cudaStream_t stream) {
+               int has_window, int window, int q_offset,
+               cudaStream_t stream) {
   if (D == 64)
     return launch_mma_d<64>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                            causal, has_window, window, stream);
+                            causal, has_window, window, q_offset, stream);
   if (D == 80)
     return launch_mma_d<80>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                            causal, has_window, window, stream);
+                            causal, has_window, window, q_offset, stream);
   if (D == 128)
     return launch_mma_d<128>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                             causal, has_window, window, stream);
+                             causal, has_window, window, q_offset, stream);
   if (D == 192)
     return launch_mma_d<192>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                             causal, has_window, window, stream);
+                             causal, has_window, window, q_offset, stream);
   if (D == 256)
     return launch_mma_d<256>(q, k, v, o, B, Sq, Sk, H, Hkv, seq_k, scale,
-                             causal, has_window, window, stream);
+                             causal, has_window, window, q_offset, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -621,9 +644,10 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int B, int Sq,
                                    int Sk, int H, int Hkv, int D, int seq_k,
                                    float scale, int causal, int has_window,
-                                   int window, cudaStream_t stream) {
+                                   int window, int q_offset,
+                                   cudaStream_t stream) {
   return launch<float>(q, k, v, o, B, Sq, Sk, H, Hkv, D, seq_k, scale,
-                       causal, has_window, window, stream);
+                       causal, has_window, window, q_offset, stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
@@ -632,7 +656,7 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     int B, int Sq, int Sk, int H, int Hkv,
                                     int D, int seq_k, float scale, int causal,
                                     int has_window, int window,
-                                    cudaStream_t stream) {
+                                    int q_offset, cudaStream_t stream) {
   return launch_mma(q, k, v, o, B, Sq, Sk, H, Hkv, D, seq_k, scale, causal,
-                    has_window, window, stream);
+                    has_window, window, q_offset, stream);
 }

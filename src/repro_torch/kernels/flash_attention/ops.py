@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
-             + [ctypes.c_int] * 3)
+             + [ctypes.c_int] * 4)
 HEAD_DIMS = (64, 80, 128, 192, 256)
 
 
@@ -67,31 +67,38 @@ def _check_cuda_operands(q: torch.Tensor, k: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None,
-                    seq_k: Optional[int] = None) -> torch.Tensor:
+                    seq_k: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Model layout in/out: q (B,Sq,H,D), k/v (B,Sk,Hkv,D) -> (B,Sq,H,D).
 
-    Query and key positions are 0..S-1; keys at or past ``seq_k`` (default
-    Sk, the true key length) are masked. fp32 scores, softmax and
-    accumulator; output in q's dtype. Through ``_FlashAttention`` where
-    autograd wants the output."""
+    Key positions are 0..Sk-1 and query row i sits at ``q_offset + i`` (0
+    for self-attention; a sequence block's first position where its
+    queries attend the keys of every position before it); keys at or past
+    ``seq_k`` (default Sk, the true key length) are masked. fp32 scores,
+    softmax and accumulator; output in q's dtype. Through
+    ``_FlashAttention`` where autograd wants the output."""
     Sk = k.shape[1]
     seq_k = Sk if seq_k is None else int(seq_k)
     if not 0 <= seq_k <= Sk:
         raise ValueError(f"flash_attention: seq_k {seq_k} outside 0..{Sk}")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if needs_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, window, scale, seq_k)
-    return _flash_attention(q, k, v, causal, window, scale, seq_k)
+        return _FlashAttention.apply(q, k, v, causal, window, scale, seq_k,
+                                     q_offset)
+    return _flash_attention(q, k, v, causal, window, scale, seq_k, q_offset)
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, g: torch.Tensor, causal: bool,
                              window: Optional[int], scale: float,
-                             seq_k: int):
+                             seq_k: int, q_offset: int = 0):
     """(dQ, dK, dV) of ``flash_attention`` for the output gradient ``g``,
     one KV head at a time so that the (Sq, Sk) float32 buffers hold one
     group's heads: P recomputed in fp32 from Q and K under the forward's
-    causal, window and ``seq_k`` masks, ``dV = Pᵀ dO``, ``dP = dO Vᵀ``,
+    causal, window and ``seq_k`` masks at its ``q_offset``, ``dV = Pᵀ dO``, ``dP = dO Vᵀ``,
     ``dS = P∘(dP − rowsum(P∘dP))``, ``dQ = scale·dS K``, ``dK =
     scale·dSᵀ Q``; a KV head's dK and dV summed over its group. Keys at or
     past ``seq_k`` get zero. The products run in fp32 with TF32 off
@@ -104,7 +111,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dq = torch.empty((B, Sq, H, D), dtype=f32, device=q.device)
     dk = torch.zeros((B, Sk, Hkv, D), dtype=f32, device=q.device)
     dv = torch.zeros((B, Sk, Hkv, v.shape[-1]), dtype=f32, device=q.device)
-    d = (torch.arange(Sq, device=q.device)[:, None]
+    d = (torch.arange(q_offset, q_offset + Sq, device=q.device)[:, None]
          - torch.arange(seq_k, device=q.device)[None, :])
     ok = torch.ones((Sq, seq_k), dtype=torch.bool, device=q.device)
     if causal:
@@ -140,27 +147,28 @@ class _FlashAttention(torch.autograd.Function):
     ``flash_attention_backward``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, seq_k):
+    def forward(ctx, q, k, v, causal, window, scale, seq_k, q_offset):
         ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, window, scale, seq_k)
-        return _flash_attention(q, k, v, causal, window, scale, seq_k)
+        ctx.args = (causal, window, scale, seq_k, q_offset)
+        return _flash_attention(q, k, v, causal, window, scale, seq_k,
+                                q_offset)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         return (*flash_attention_backward(q, k, v, g, *ctx.args),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool, window: Optional[int], scale: float,
-                     seq_k: int) -> torch.Tensor:
+                     seq_k: int, q_offset: int = 0) -> torch.Tensor:
     """The serving path: the kernel on card tensors, the plain version on
     CPU ones."""
     Sk = k.shape[1]
     if q.device.type == "cpu":
         return attention_ref(q, k[:, :seq_k], v[:, :seq_k], causal=causal,
-                             window=window, scale=scale)
+                             window=window, scale=scale, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check_cuda_operands(q, k, v)
@@ -173,7 +181,7 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Sk, H, k.shape[2], D, seq_k, float(scale),
                  int(causal), int(window is not None),
-                 int(window) if window is not None else 0)
+                 int(window) if window is not None else 0, q_offset)
     flash_attention.launches += 1
     return out
 

@@ -13,11 +13,13 @@ NEG_INF = -2.0 ** 30
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, window: Optional[int] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None,
+                  q_offset: int = 0) -> torch.Tensor:
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) with H % Hkv == 0 -> (B,Sq,H,D).
 
-    Positions are 0..S-1 on both sides (self-attention; Sq == Sk assumed
-    for the masked cases). fp32 math (float64 for float64 operands, which
+    Key positions are 0..Sk-1 and query row i sits at ``q_offset + i``
+    (0 for self-attention; a sequence block's first position where its
+    queries attend every key before them). fp32 math (float64 for float64 operands, which
     gradient checks use), output in q's dtype. The (B, H, Sq,
     Sk) scores are scaled and masked in place and released once the
     softmax is taken (the same numbers as out-of-place ops give): at 8192
@@ -29,7 +31,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.promote_types(q.dtype, torch.float32)
     qg = q.to(acc).reshape(B, Sq, Hkv, group, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(acc)).mul_(scale)
-    d = (torch.arange(Sq, device=q.device)[:, None]
+    d = (torch.arange(q_offset, q_offset + Sq, device=q.device)[:, None]
          - torch.arange(Sk, device=q.device)[None, :])
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

@@ -30,7 +30,12 @@ the data axes (``sharding.tensor_parallel``). A split serve's record
 says ``split`` too (``pod_pipeline.ROUTE``): each stage on that route
 over its pod's "data" and "model" ranks, the hop and the result moved as
 each rank's (data, model) block. Layers run as a Python loop, so nothing
-is counted once for many (``scan_counted`` is false).
+is counted once for many (``scan_counted`` is false). A record's
+``data_split`` says how its batch lies over the data axes
+(``sharding.context_parallel.data_split``): ``"rows"``, ``"sequence"``
+(context parallelism: a decode step's cache slots, or a prefill's or a
+pod stage's positions, over the data axes, B = 1 at ``long_500k`` and a
+split serve's microbatch of B/M rows) or ``"whole"``.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from repro_torch.roofline import hw
 from repro_torch.roofline.analysis import (TraceCounter, model_flops,
                                            terms_from_trace)
 from repro_torch.sharding import specs as sh
+from repro_torch.sharding.context_parallel import data_split
 from repro_torch.sharding.tensor_parallel import contiguous_stride
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -205,8 +211,10 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     mesh_name = _mesh_name(shape)
     chips = math.prod(shape) if mesh_shape else (
         hw.MULTI_MESH_CARDS if multi_pod else hw.SINGLE_MESH_CARDS)
+    S, B = SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-           "grad_accum": grad_accum, "chips": chips}
+           "grad_accum": grad_accum, "chips": chips,
+           "data_split": data_split(B, S, math.prod(shape[:-1]))}
     ok, why = supported(cfg, shape_name)
     if not ok:
         rec["status"] = "skipped"
@@ -242,7 +250,6 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                     out = step(params, state, batch)
                 del state
             elif mode == "prefill":
-                S, _ = SHAPES[shape_name]
                 batch = {k: _fake(v) for k, v in specs["batch"].items()}
                 step = make_prefill_step(cfg, max_len=S, device="cpu",
                                          mesh=mesh, backend="ref")
@@ -329,7 +336,9 @@ def run_split_serve(arch: str, out_dir: str = OUT_DIR,
     mesh_name = _mesh_name(shape)
     rec = {"arch": arch, "mode": "split_serve", "mesh": mesh_name,
            "chips": math.prod(shape), "num_microbatches": num_microbatches,
-           "seq_len": seq_len, "batch": batch, "backend": "ref"}
+           "seq_len": seq_len, "batch": batch, "backend": "ref",
+           "data_split": data_split(batch // num_microbatches, seq_len,
+                                    shape[1])}
     params = tr.init_params(cfg, device="meta")
     sp = dict(params)
     sp["runs"] = [pp.stack_stage_params(params, cfg, n_pods)]

@@ -36,6 +36,14 @@ state heads, conv channels), and the decode step writes the new slot or
 row into it in place and reads it where it lies: the queries, or a
 Mamba2 layer's conv rows, move, never the cache.
 
+The data axes take a batch as ``batch_specs`` does
+(``sharding.context_parallel.data_split``): its rows where they divide
+them, else its sequence where that divides them (context parallelism:
+each rank its block of the positions, the cache's slots over the data
+axes, ``sharding.context_parallel``), else every rank holds everything.
+A serving step takes all three; the train step takes rows or whole and
+refuses a batch the reference would split by its sequence.
+
 Each rank updates its own shards, AdamW's clip on the norm of the whole
 gradient; the prefill returns its logits and cache as DTensors (rows over
 the data axes, the cache laid out by ``cache_specs``), and the decode step
@@ -58,6 +66,7 @@ from repro_torch.models import transformer as tr
 from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
                                           value_and_grad)
 from repro_torch.sharding import specs as shard_specs
+from repro_torch.sharding.context_parallel import cache_max_len, data_split
 from repro_torch.sharding.tensor_parallel import (TensorParallel,
                                                   contiguous_stride,
                                                   mesh_route,
@@ -193,7 +202,9 @@ def _check_mesh(mesh, dev: torch.device) -> None:
 
 def _my_rows(batch, mesh, split: bool):
     """This rank's rows of every input of ``batch`` where ``split``, else
-    all of them (``mrope_positions`` holds its rows on dim 1)."""
+    all of them (``mrope_positions`` holds its rows on dim 1; a sequence
+    split's block is cut by the stack, ``transformer.embed_inputs``, after
+    a VLM's vision prefix is joined)."""
     def rows(name, t):
         t = torch.as_tensor(t)
         bdim = 1 if name == "mrope_positions" else 0
@@ -247,6 +258,20 @@ def _batch_rows(cfg: ModelConfig, batch) -> int:
     return torch.as_tensor(batch[name]).shape[0]
 
 
+def _batch_positions(cfg: ModelConfig, batch) -> int:
+    """The sequence length the stack runs (a VLM's vision prefix
+    counted)."""
+    name = "embeds" if cfg.embeds_input else "tokens"
+    return torch.as_tensor(batch[name]).shape[1] + (cfg.vision_tokens or 0)
+
+
+def _data_split(cfg: ModelConfig, batch, mesh) -> str:
+    """``"rows"``, ``"sequence"`` or ``"whole"``: how ``batch`` lies over
+    the mesh's data axes (``context_parallel.data_split``)."""
+    return data_split(_batch_rows(cfg, batch), _batch_positions(cfg, batch),
+                      _data_size(mesh))
+
+
 def _my_batch(cfg: ModelConfig, batch, mesh, dev: torch.device):
     """(this rank's rows of ``batch`` on ``dev``, their share of the
     labelled tokens): the share divided in float64 and rounded once, as a
@@ -255,10 +280,11 @@ def _my_batch(cfg: ModelConfig, batch, mesh, dev: torch.device):
     n_data = _data_size(mesh)
     B = _batch_rows(cfg, batch)
     if n_data > 1 and B % n_data:
-        # the reference would split the sequence instead, which needs
-        # context parallelism
+        # the reference would split the sequence instead: context
+        # parallelism serves, but its train step is not ported
         raise ValueError(f"batch {B} does not divide the data axes "
-                         f"({n_data}); a sequence split is not ported")
+                         f"({n_data}); the train step on a sequence split "
+                         f"is not ported (ROADMAP A8f-2)")
     local = batch_on(dev, cfg, _my_rows(batch, mesh, n_data > 1))
     f64 = torch.float64
     total = (torch.as_tensor(batch["labels"]) >= 0).sum().to(dev, f64)
@@ -305,15 +331,18 @@ def _update_shards(optimizer: Optimizer, grads, params, opt_state, mesh):
              for k, v in new_state.items()})
 
 
-def _kv_placements(mesh, tp, split: bool, name: str) -> tuple:
+def _kv_placements(mesh, tp, split: bool, name: str,
+                   slots: bool = False) -> tuple:
     """Placements of a stacked cache leaf ``name``, a KV leaf (L, B, S,
     heads, D), an MLA leaf (L, B, S, width), an SSD state (L, B, heads, P,
     N) or a conv tail (L, B, K-1, channels), holding this rank's rows (over
-    the data axes where ``split``) and its "model" shard
+    the data axes where ``split``), or its block of the slots S (where
+    ``slots``: a sequence split's), and its "model" shard
     (``tp.kv_layout``, ``tp.latent_layouts``, ``tp.state_layout``,
     ``tp.conv_layout``)."""
     from torch.distributed.tensor import Replicate, Shard
-    pl = list(_rows_placements(mesh, 1, split))
+    pl = [Shard(2) if slots and isinstance(p, Shard) else p
+          for p in _rows_placements(mesh, 1, split or slots)]
     if name in ("ckv", "krope"):
         lay = tp.latent_layouts[name == "krope"]
         dim = 3 if lay == "dims" else None
@@ -330,38 +359,56 @@ def _kv_placements(mesh, tp, split: bool, name: str) -> tuple:
 
 def _tp_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
                      dev: torch.device, mesh):
-    """The prefill on ``mesh`` on the split route: this rank's rows (all
-    of them where the data axes do not divide the batch), its share of
-    every product (``TensorParallel.on_mesh``; the MoE dispatch over the
-    data axes where they split the rows), the last logits gathered over
-    "model"; logits as a DTensor of rows over the data axes, the cache as
-    a DTensor tree laid out by ``cache_specs``, each rank's shard written
-    from the KV heads the ranks computed (an MLA cache: its slice of the
-    latent every rank computed whole; an SSM cache: the conv channels and
-    SSD heads the ranks computed, ``TensorParallel.store_conv`` and
-    ``store_state``)."""
-    from torch.distributed.tensor import DTensor
+    """The prefill on ``mesh`` on the split route: this rank's rows where
+    they divide the data axes, else its block of the sequence where that
+    does (``context_parallel``), else everything; its share of every
+    product (``TensorParallel.on_mesh``; the MoE dispatch over the data
+    axes where they split the rows or the sequence), the last logits
+    gathered over "model"; logits as a DTensor of rows over the data axes
+    (a bidirectional config's of the sequence block where the sequence is
+    split), the cache as a DTensor tree laid out by ``cache_specs``, each
+    rank's shard written from the KV heads the ranks computed (an MLA
+    cache: its slice of the latent every rank computed whole; an SSM
+    cache: the conv channels and SSD heads the ranks computed,
+    ``TensorParallel.store_conv`` and ``store_state``) and, on a sequence
+    split, each leaf's slots placed where ``cache_specs`` lays them (its
+    block of S over the data axes where they divide it) as the ranks took
+    them from the gathered keys: no leaf moves."""
+    from torch.distributed.tensor import DTensor, Shard
     _check_mesh(mesh, dev)
 
     def prefill_step(params, batch):
         B = _batch_rows(cfg, batch)
-        split = _rows_split(B, mesh)
+        mode = _data_split(cfg, batch, mesh)
+        split = mode == "rows"
         local = batch_on(dev, cfg, _my_rows(batch, mesh, split))
-        tp = TensorParallel.on_mesh(cfg, mesh, params, rows_split=split)
-        logits, cache = tr.prefill(params, cfg, local, max_len=max_len,
+        S_max = max_len or _batch_positions(cfg, batch)
+        tp = TensorParallel.on_mesh(cfg, mesh, params, split=mode,
+                                    max_len=S_max)
+        logits, cache = tr.prefill(params, cfg, local, max_len=S_max,
                                    masks=masks, backend=backend, tp=tp)
-        logits = _rows_dtensor(logits, mesh, 0, split)
+        if mode == "sequence" and not cfg.causal:
+            pl = [Shard(1) if isinstance(p, Shard) else p
+                  for p in _rows_placements(mesh, 0, True)]
+            shape = (B, logits.shape[1] * tp.seq.n) + tuple(logits.shape[2:])
+            logits = DTensor.from_local(logits, mesh, pl, run_check=False,
+                                        shape=shape,
+                                        stride=contiguous_stride(shape))
+        else:
+            logits = _rows_dtensor(logits, mesh, 0, split)
         if cache is None:
             return logits, None
-
         def placed(path, t):
             name = shard_specs.path_keys(path)[-1]
             if name == "pos":
                 return _rows_dtensor(t, mesh, 0, split)
+            lay = _slot_layout(tp.seq, name)
+            S_all = t.shape[2] if lay is None else lay.count
+            on_slots = lay is not None and lay.split
             if name in ("ckv", "krope"):
                 width = (cfg.mla.kv_lora_rank if name == "ckv"
                          else cfg.mla.qk_rope_head_dim)
-                shape = (t.shape[0], B, t.shape[2], width)
+                shape = (t.shape[0], B, S_all, width)
             elif name == "state":
                 shape = (t.shape[0], B, cfg.ssm_heads) + tuple(t.shape[3:])
             elif name == "conv":
@@ -369,26 +416,55 @@ def _tp_prefill_step(cfg: ModelConfig, max_len, masks, backend: str,
                          cfg.d_inner + 2 * cfg.ssm.n_groups
                          * cfg.ssm.d_state)
             else:
-                shape = (t.shape[0], B, t.shape[2], cfg.num_kv_heads,
+                shape = (t.shape[0], B, S_all, cfg.num_kv_heads,
                          cfg.head_dim)
             return DTensor.from_local(
-                t, mesh, _kv_placements(mesh, tp, split, name),
+                t, mesh, _kv_placements(mesh, tp, split, name, on_slots),
                 run_check=False, shape=shape,
                 stride=contiguous_stride(shape))
         rows = shard_specs.tree_map_with_path(placed, cache)
+        if mode == "sequence":
+            return logits, rows        # cache_specs' layout already
         return logits, _laid_out(rows, cfg, mesh)
     return prefill_step
+
+
+def _slot_layout(seq, name: str):
+    """The sequence split's layout (a ``context_parallel.Slots``) of the
+    slots of cache leaf ``name``: an MLA leaf's ``seq.latent``, a KV
+    leaf's ``seq.kv``; None for a leaf without slots or without a
+    split."""
+    if seq is None or name in ("pos", "state", "conv"):
+        return None
+    return seq.latent if name in ("ckv", "krope") else seq.kv
+
+
+def _check_slots(cache, seq) -> None:
+    """Refuse a cache whose leaves do not hold this rank's slots of the
+    split's layout (``_slot_layout``)."""
+    def check(path, t):
+        lay = _slot_layout(seq, shard_specs.path_keys(path)[-1])
+        if lay is not None and t.to_local().shape[2] != lay.hi - lay.lo:
+            raise ValueError(f"cache leaf {shard_specs.path_keys(path)} "
+                             f"holds {t.to_local().shape[2]} slots here; "
+                             f"the sequence split lays out "
+                             f"{lay.hi - lay.lo} of {lay.count}")
+    shard_specs.tree_map_with_path(check, cache)
 
 
 def _tp_decode_step(cfg: ModelConfig, masks, backend: str,
                     dev: torch.device, mesh):
     """The decode step on ``mesh`` on the split route, over a DTensor
-    cache (``cache_specs``): each leaf laid out to this rank's rows on the
-    data axes, its "model" shard kept; the local step on this rank's
-    share (``TensorParallel.decode_attention`` writes the new slot into
-    the shard and attends where the cache lies), the logits gathered over
-    "model"; each leaf's updated rows laid back out and copied into its
-    own shards in place."""
+    cache (``cache_specs``). Where the tokens' rows divide the data axes,
+    each leaf laid out to this rank's rows (as ``cache_specs`` lays it),
+    its "model" shard kept, and laid back out and copied into its own
+    shards in place after the step; else every leaf stays where it lies,
+    a KV or MLA leaf's slots split over the data axes where they divide
+    them (``context_parallel``: the slot's owner writes it, the ranks'
+    partial softmaxes combined), and no leaf moves. The local step runs on
+    this rank's share (``TensorParallel.decode_attention`` writes the new
+    slot into the shard and attends where the cache lies), the logits
+    gathered over "model"."""
     _check_mesh(mesh, dev)
     mi = mesh.mesh_dim_names.index("model")
 
@@ -402,13 +478,19 @@ def _tp_decode_step(cfg: ModelConfig, masks, backend: str,
             want = list(_rows_placements(mesh, _cache_bdim(path), split))
             want[mi] = t.placements[mi]
             return t.redistribute(mesh, tuple(want))
-        held = shard_specs.tree_map_with_path(rows, cache)
+        held = (shard_specs.tree_map_with_path(rows, cache) if split
+                else cache)
         local = shard_specs.tree_map_with_path(lambda _, t: t.to_local(),
                                                held)
-        tp = TensorParallel.on_mesh(cfg, mesh, params, rows_split=split)
+        mode = ("rows" if split else
+                "slots" if _data_size(mesh) > 1 else "whole")
+        tp = TensorParallel.on_mesh(cfg, mesh, params, split=mode,
+                                    max_len=cache_max_len(cache))
+        _check_slots(cache, tp.seq)
         logits, _ = tr.decode_step(params, cfg, local, local_tok,
                                    masks=masks, backend=backend, tp=tp)
-        _put_back(cache, held, mesh)
+        if split:
+            _put_back(cache, held, mesh)
         return (_rows_dtensor(logits, mesh, 0, split),
                 dict(cache, pos=cache["pos"] + 1))
     return decode_step
@@ -458,8 +540,8 @@ def _tp_train_step(cfg: ModelConfig, optimizer: Optimizer, masks,
     n_data = _data_size(mesh)
 
     def tp_of(leaves):
-        return TensorParallel.on_mesh(cfg, mesh, leaves,
-                                      rows_split=n_data > 1)
+        return TensorParallel.on_mesh(
+            cfg, mesh, leaves, split="rows" if n_data > 1 else "whole")
 
     def grads_of(p, mb):
         local, share = _my_batch(cfg, mb, mesh, dev)

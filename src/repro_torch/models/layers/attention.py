@@ -34,6 +34,7 @@ from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.layers.rope import apply_rope
 from repro_torch.sharding.constraints import data_axes_spec, maybe_constrain
+from repro_torch.sharding.context_parallel import partial_softmax
 from repro_torch.sharding.specs import P
 
 NEG_INF = -2.0 ** 30
@@ -130,13 +131,16 @@ def naive_attention(q, k, v, mask, scale):
 
 
 def decode_attention(q, k_cache, v_cache, valid_len, q_pos, window, scale,
-                     partial_sum=None):
+                     partial_sum=None, k_offset: int = 0, combine=None):
     """Single-step decode: q (B,1,H,D) against (B,Smax,Hkv,D) cache.
 
     ``valid_len`` (B,) — number of filled cache slots; positions are
     0..valid_len-1 (or a rolling window layout handled by the caller).
     ``partial_sum``, where given, sums the float32 scores over the ranks
-    that each hold a part of the head dim (D here is that part)."""
+    that each hold a part of the head dim (D here is that part).
+    ``combine``, where given, joins the partial softmaxes of the ranks
+    that each hold a block of the slots (``SeqSplit.combine``; the cache
+    here is the block starting at slot ``k_offset``)."""
     B, _, H, D = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
     group = H // Hkv
@@ -144,10 +148,14 @@ def decode_attention(q, k_cache, v_cache, valid_len, q_pos, window, scale,
     logits = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.to(torch.float32))
     if partial_sum is not None:
         logits = partial_sum(logits)
-    kpos = torch.arange(Smax, device=q.device)[None]
+    kpos = torch.arange(k_offset, k_offset + Smax, device=q.device)[None]
     ok = kpos < valid_len[:, None]
     if window is not None:
         ok &= kpos > (q_pos[:, None] - window)
+    if combine is not None:
+        p, m, l = partial_softmax(logits, ok[:, None, None])
+        acc = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32))
+        return combine(m, l, acc).reshape(B, 1, H, D).to(q.dtype)
     logits = torch.where(ok[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.to(torch.float32))
@@ -298,26 +306,44 @@ def gqa_forward(params, cfg, x, angles, *, head_mask=None,
     rank's head block: the attention runs on its heads (KV heads repeated
     where the block crosses KV groups unevenly), ``head_mask`` is its
     heads', and the out product's partial sum is reduced over "model";
-    (k, v) are the KV heads the rank computed."""
+    (k, v) are the KV heads the rank computed. Where ``tp.seq`` splits
+    the positions over the data axes (``sharding.context_parallel``), x is
+    this rank's block of them: K and V are all-gathered, cut to the keys
+    the block's queries can see, and attended at the block's offset;
+    (k, v) are then the whole sequence's."""
     B, S, _ = x.shape
+    seq = None if tp is None else tp.seq_tokens
     if tp is not None:
         x = tp.copy_in(x)
     q, k, v = _qkv(params, cfg, x, angles, S)
-    ka, va = (k, v) if tp is None else tp.kv_for_q(k, v)
+    offset, k0, S_all = 0, 0, S
+    ka, va = k, v
+    if seq is not None:
+        k, v = seq.gather(torch.stack([k, v]), 2).unbind(0)
+        S_all = k.shape[1]
+        offset = seq.block(S)[0]
+        k0, k1 = seq.keys(offset, S, cfg.causal, cfg.sliding_window)
+        ka, va = k[:, k0:k1], v[:, k0:k1]
+    if tp is not None:
+        ka, va = tp.kv_for_q(ka, va)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    if backend == "ref" and S > cfg.naive_attn_max:
-        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    if backend == "ref" and S_all > cfg.naive_attn_max:
+        qpos = torch.arange(offset, offset + S, device=x.device)[None] \
+            .expand(B, S)
+        kpos = torch.arange(k0, k0 + ka.shape[1], device=x.device)[None] \
+            .expand(B, ka.shape[1])
         if cfg.attn_head_atomic:
             q = maybe_constrain(q, P(data_axes_spec(), None, "model", None))
-            out = chunked_attention_ha(q, ka, va, pos, pos, cfg.causal,
+            out = chunked_attention_ha(q, ka, va, qpos, kpos, cfg.causal,
                                        cfg.sliding_window, scale)
         else:
-            out = chunked_attention(q, ka, va, pos, pos, cfg.causal,
+            out = chunked_attention(q, ka, va, qpos, kpos, cfg.causal,
                                     cfg.sliding_window, scale)
     else:
         attend = attention_ref if backend == "ref" else flash_attention
+        extra = {} if seq is None else {"q_offset": offset - k0}
         out = attend(q, ka, va, causal=cfg.causal,
-                     window=cfg.sliding_window, scale=scale)
+                     window=cfg.sliding_window, scale=scale, **extra)
     if head_mask is not None:
         out = out * head_mask[None, None, :, None].to(out.dtype)
     out = out.reshape(B, S, -1) @ params["wo"]
@@ -335,12 +361,15 @@ def gqa_decode(params, cfg, x, angles, cache: KVCache, pos, *,
     same tensors: a decode step copies no cache. With ``tp`` the cache is
     the rank's shard of the layer's (``TensorParallel.decode_attention``
     writes it and attends the rank's heads) and the out product's partial
-    sum is reduced over "model"."""
+    sum is reduced over "model". Where ``tp.seq`` splits the sequence over
+    the data axes, the slot and the window are taken in the global slots
+    of its layout (``tp.seq.kv``)."""
     B = x.shape[0]
     if tp is not None:
         x = tp.copy_in(x)
     q, k, v = _qkv(params, cfg, x, angles, 1)
-    cache_len = cache.k.shape[1]
+    seq = None if tp is None else tp.seq
+    cache_len = cache.k.shape[1] if seq is None else seq.kv.count
     slot = (pos % cache_len).long()
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if cfg.sliding_window is not None and cache_len <= cfg.sliding_window:
@@ -423,27 +452,42 @@ def mla_forward(params, cfg, x, angles, *, head_mask=None,
     of them); ``params`` hold the rank's columns of ``w_uq``, ``w_uk``,
     ``w_uv`` and rows of ``wo``, ``head_mask`` its heads'; the out
     product's partial sum is reduced over "model"; (ckv, k_rope) are
-    whole."""
+    whole. Where ``tp.seq`` splits the positions over the data axes, x is
+    this rank's block: the latents (not the expanded K and V) are
+    all-gathered, cut to the keys the block's queries can see and
+    expanded there; (ckv, k_rope) are then the whole sequence's."""
     m = cfg.mla
     B, S, _ = x.shape
+    seq = None if tp is None else tp.seq_tokens
     q_lat, ckv, k_rope = _mla_latents(params, cfg, x, angles, backend)
-    qc, cc, kc = ((q_lat, ckv, k_rope) if tp is None else
-                  (tp.copy_in(q_lat), tp.copy_in(ckv), tp.copy_in(k_rope)))
+    offset, k0, S_all = 0, 0, S
+    ck, kr = ckv, k_rope
+    if seq is not None:
+        ckv, k_rope = seq.gather(torch.cat([ckv, k_rope], -1), 1).split(
+            [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+        S_all = ckv.shape[1]
+        offset = seq.block(S)[0]
+        k0, k1 = seq.keys(offset, S, cfg.causal, None)
+        ck, kr = ckv[:, k0:k1], k_rope[:, k0:k1]
+    qc, cc, kc = ((q_lat, ck, kr) if tp is None else
+                  (tp.copy_in(q_lat), tp.copy_in(ck), tp.copy_in(kr)))
     q_nope, q_rope = _mla_queries(params, cfg, qc, angles)
     H = q_nope.shape[2]
-    k_nope = (cc @ params["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
-    vv = (cc @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    Sk = cc.shape[1]
+    k_nope = (cc @ params["w_uk"]).reshape(B, Sk, H, m.qk_nope_head_dim)
+    vv = (cc @ params["w_uv"]).reshape(B, Sk, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, kc[:, :, None].expand(
-        B, S, H, m.qk_rope_head_dim)], -1)
+        B, Sk, H, m.qk_rope_head_dim)], -1)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    pos = torch.arange(S, device=x.device)
-    if S > cfg.naive_attn_max:
-        bpos = pos[None].expand(B, S)
-        out = chunked_attention(q, k, vv, bpos, bpos, cfg.causal, None,
+    qpos = torch.arange(offset, offset + S, device=x.device)
+    kpos = torch.arange(k0, k0 + Sk, device=x.device)
+    if S_all > cfg.naive_attn_max:
+        out = chunked_attention(q, k, vv, qpos[None].expand(B, S),
+                                kpos[None].expand(B, Sk), cfg.causal, None,
                                 scale)
     else:
-        mask = _band_mask(pos, pos, cfg.causal, None)
+        mask = _band_mask(qpos, kpos, cfg.causal, None)
         out = naive_attention(q, k, vv, mask, scale)
     if head_mask is not None:
         out = out * head_mask[None, None, :, None].to(out.dtype)
@@ -452,12 +496,15 @@ def mla_forward(params, cfg, x, angles, *, head_mask=None,
 
 
 def latent_scores(q_lat, q_rope, ckv, krope, pos, scale: float,
-                  partial_sum=None):
+                  partial_sum=None, k_offset: Optional[int] = None):
     """The absorbed decode's attention weights (B, heads, Smax), float32:
     ``q_lat`` (B, heads, r) against ``ckv`` (B, Smax, r) plus ``q_rope``
     against ``krope``, times ``scale``, slots past ``pos`` masked, a
     softmax. ``partial_sum``, where given, sums the scores over the ranks
-    that each hold a part of the latent dims (r here is that part)."""
+    that each hold a part of the latent dims (r here is that part). With
+    ``k_offset`` (the cache here the block of the slots from there, a
+    sequence split's) the softmax is this block's part, ``(p, m, l)`` of
+    ``partial_softmax``, for ``SeqSplit.combine``."""
     f32 = torch.float32
     s_lat = torch.einsum("bhr,bkr->bhk", q_lat, ckv.to(f32))
     s_rope = torch.einsum("bhd,bkd->bhk", q_rope, krope.to(f32))
@@ -465,19 +512,32 @@ def latent_scores(q_lat, q_rope, ckv, krope, pos, scale: float,
     if partial_sum is not None:
         logits = partial_sum(logits)
     logits = logits * scale
-    ok = torch.arange(ckv.shape[1], device=ckv.device)[None] < (
+    at = 0 if k_offset is None else k_offset
+    ok = torch.arange(at, at + ckv.shape[1], device=ckv.device)[None] < (
         pos[:, None] + 1)
+    if k_offset is not None:
+        return partial_softmax(logits, ok[:, None])
     logits = torch.where(ok[:, None], logits, NEG_INF)
     return torch.softmax(logits, dim=-1)
 
 
-def latent_attention(q_lat, q_rope, cache: MLACache, pos,
-                     scale: float) -> torch.Tensor:
+def latent_attention(q_lat, q_rope, cache: MLACache, pos, scale: float,
+                     seq=None) -> torch.Tensor:
     """The absorbed decode's latent output o_lat (B, heads, r), float32:
     ``latent_scores`` of the heads' queries against the whole latent cache
-    of one layer (the step's slot already written), times ``cache.ckv``."""
-    probs = latent_scores(q_lat, q_rope, cache.ckv, cache.krope, pos, scale)
-    return torch.einsum("bhk,bkr->bhr", probs, cache.ckv.to(torch.float32))
+    of one layer (the step's slot already written), times ``cache.ckv``.
+    Where ``seq`` (a ``SeqSplit``) splits the latent slots
+    (``seq.latent``), the cache is this rank's block of them and the
+    ranks' partial softmaxes are combined."""
+    f32 = torch.float32
+    if seq is None or not seq.latent.split:
+        probs = latent_scores(q_lat, q_rope, cache.ckv, cache.krope, pos,
+                              scale)
+        return torch.einsum("bhk,bkr->bhr", probs, cache.ckv.to(f32))
+    p, m, l = latent_scores(q_lat, q_rope, cache.ckv, cache.krope, pos,
+                            scale, k_offset=seq.latent.lo)
+    return seq.combine(m, l, torch.einsum("bhk,bkr->bhr", p,
+                                          cache.ckv.to(f32)))
 
 
 def mla_decode(params, cfg, x, angles, cache: MLACache, pos, *,
@@ -495,7 +555,10 @@ def mla_decode(params, cfg, x, angles, cache: MLACache, pos, *,
     rank's shard of the layer's latent cache, ``params`` the rank's heads
     (``mla_forward``), and the scores go where the cache lies
     (``TensorParallel.latent_attention``); the out product's partial sum
-    is reduced over "model"."""
+    is reduced over "model". Where ``tp.seq`` splits the sequence over the
+    data axes, the slot is taken in the global slots of its layout
+    (``tp.seq.latent``; only the slot's owner writes it where they lie
+    split)."""
     m = cfg.mla
     B = x.shape[0]
     f32 = torch.float32
@@ -505,16 +568,25 @@ def mla_decode(params, cfg, x, angles, cache: MLACache, pos, *,
     H = q_nope.shape[2]
     wuk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32), wuk.to(f32))
-    cache_len = cache.ckv.shape[1]
+    seq = None if tp is None else tp.seq
+    cache_len = cache.ckv.shape[1] if seq is None else seq.latent.count
     at = (pos % cache_len).long()
     rows = torch.arange(B, device=x.device)
     if tp is not None:
         ckv_new, krope_new = tp.store_latent(ckv_new, krope_new)
-    cache.ckv[rows, at] = ckv_new[:, 0]
-    cache.krope[rows, at] = krope_new[:, 0]
+    if seq is not None and seq.latent.split:
+        seq.owner_write(cache.ckv, at, ckv_new[:, 0], seq.latent)
+        seq.owner_write(cache.krope, at, krope_new[:, 0], seq.latent)
+    else:
+        cache.ckv[rows, at] = ckv_new[:, 0]
+        cache.krope[rows, at] = krope_new[:, 0]
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    attend = latent_attention if tp is None else tp.latent_attention
-    o_lat = attend(q_lat, q_rope[:, 0].to(f32), cache, pos, scale)
+    if tp is None:
+        o_lat = latent_attention(q_lat, q_rope[:, 0].to(f32), cache, pos,
+                                 scale)
+    else:
+        o_lat = tp.latent_attention(q_lat, q_rope[:, 0].to(f32), cache, pos,
+                                    scale)
     wuv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bhr,rhd->bhd", o_lat, wuv.to(f32))
     if head_mask is not None:

@@ -158,7 +158,7 @@ class _Whole:
     """The share of a layer that holds every expert whole and every row of
     the batch: ``moe_forward`` without a split, each of the split's
     exchanges the identity."""
-    data = None
+    data = seq = None
 
     def __init__(self, moe):
         self.experts = ((0, moe.num_experts), (0, moe.d_expert))
@@ -184,7 +184,11 @@ def moe_forward(params, moe, x: torch.Tensor, activation: str, *,
     assignment's position within its expert counts the lower data ranks'
     assignments first (their rows come first; one all-gather of E counts),
     and the balance loss, z-loss and ``drop_frac`` are means over every
-    token (``tp.batch_sum``). The dispatch buffer is the reference's
+    token (``tp.batch_sum``). Where the data axes split the sequence
+    instead (``tp.seq``), the lower ranks' tokens come first only within a
+    row: an assignment's position counts every token of the earlier rows
+    and the same row's tokens on the lower ranks (one all-gather of each
+    (row, expert) count). The dispatch buffer is the reference's
     ``eb`` at this rank's experts, its C slots padded to a multiple of the
     data ranks and laid out (data rank, expert, slot block, d): each rank
     writes its own kept rows at their global slots, zeros elsewhere; a
@@ -214,7 +218,19 @@ def moe_forward(params, moe, x: torch.Tensor, activation: str, *,
     aux, z = _router_losses(moe, logits, idx, T, tp.batch_sum)
     C = capacity(T, moe)
     se, st, sp, counts, pos = _by_expert(idx, probs, E)
-    if data is not None:
+    if data is not None and tp.seq is not None:
+        # (b, s) order: the earlier rows' tokens (every rank's, less this
+        # rank's, which ``pos`` counts), then the same row's lower ranks'
+        row = st // S
+        mine = torch.zeros(B * E, dtype=torch.long, device=dev).scatter_add_(
+            0, row * E + se, torch.ones_like(se)).view(B, E)
+        every = data.all_gather(mine)                       # (n, B, E)
+        rows = every.sum(0)
+        before = (torch.cumsum(rows, 0) - rows) - (torch.cumsum(mine, 0)
+                                                   - mine)
+        pos = pos + (before + every[:data.rank].sum(0))[row, se]
+        counts = rows.sum(0)
+    elif data is not None:
         every = data.all_gather(counts)                     # (n, E)
         pos = pos + every[:data.rank].sum(0)[se]
         counts = every.sum(0)

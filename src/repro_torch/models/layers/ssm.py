@@ -28,6 +28,14 @@ sums all-reduced), and the out product's partial sums are all-reduced.
 The cache holds the rank's shard of ``cache_specs``' layout: its writes
 and reads go through ``tp`` (``store_conv``, ``read_conv``,
 ``write_conv``, ``store_state``, ``read_state``).
+
+Context parallelism: where ``tp.seq`` splits the positions over the data
+axes (``sharding.context_parallel``), x is this rank's block of them. The
+causal conv takes the ``d_conv - 1`` raw rows before the block from the
+ranks below (``SeqSplit.halo``); the scan runs on the block from a zero
+state, and the incoming state's part is added from the ranks' final states
+and decays folded in rank order (``SeqSplit.ssd_carry``); every rank keeps
+the whole sequence's final state and conv tail.
 """
 from __future__ import annotations
 
@@ -119,12 +127,17 @@ def _norm(y, z, scale, cfg, backend: str, tp):
 
 
 def _causal_conv(xBC: torch.Tensor, conv_w: torch.Tensor,
-                 conv_b: torch.Tensor, d_conv: int) -> torch.Tensor:
+                 conv_b: torch.Tensor, d_conv: int,
+                 halo=None) -> torch.Tensor:
     """Depthwise causal conv1d. xBC (B,S,Cd), conv_w (K,Cd). The taps are
     multiplied and summed one at a time in xBC's dtype (one rounding per
     tap in a bf16 model, as the reference's ``sum``), then the bias, then
-    SiLU in float32."""
-    pad = F.pad(xBC, (0, 0, d_conv - 1, 0))
+    SiLU in float32. ``halo`` (B, K-1, Cd), where given, is the rows
+    before xBC (a sequence block's), else zeros."""
+    if halo is None:
+        pad = F.pad(xBC, (0, 0, d_conv - 1, 0))
+    else:
+        pad = torch.cat([halo.to(xBC.dtype), xBC], dim=1)
     S = xBC.shape[1]
     out = sum(pad[:, i:i + S] * conv_w[i] for i in range(d_conv))
     return F.silu((out + conv_b).to(torch.float32)).to(xBC.dtype)
@@ -137,18 +150,24 @@ def ssm_forward(params, cfg, x: torch.Tensor, *, head_mask=None,
     With ``return_state``, also returns an SSMCache holding the rolling conv
     tail (raw pre-conv inputs, left-padded with zeros when S < d_conv - 1)
     and the final SSD state — what ``ssm_decode`` consumes to continue the
-    sequence (with ``tp``, the rank's shard of each)."""
+    sequence (with ``tp``, the rank's shard of each; with ``tp.seq``, the
+    whole sequence's)."""
     s = cfg.ssm
     P, N = s.head_dim, s.d_state
     H, G = _widths(cfg, tp)
     d_in, gn = H * P, G * N
     Bsz, S = x.shape[:2]
+    seq = None if tp is None else tp.seq_tokens
     if tp is not None:
         x = tp.copy_in(x)
     proj = x @ params["w_in"]
     z, xBC, dt = _split_proj(proj, d_in, gn)
     xBC_raw = xBC
-    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"], s.d_conv)
+    halo = tail = None
+    if seq is not None:
+        halo, tail = seq.halo(xBC_raw, s.d_conv - 1)
+    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"], s.d_conv,
+                       halo)
     xs = xBC[..., :d_in].reshape(Bsz, S, H, P)
     Bm = xBC[..., d_in:d_in + gn].reshape(Bsz, S, G, N)
     Cm = xBC[..., d_in + gn:].reshape(Bsz, S, G, N)
@@ -158,6 +177,9 @@ def ssm_forward(params, cfg, x: torch.Tensor, *, head_mask=None,
     A = -torch.exp(params["A_log"])
     scan = ssd_scan_ref if backend == "ref" else ssd_scan
     y, state = scan(xs, dt, A, Bm, Cm, head_mask, s.chunk_size)
+    if seq is not None:
+        Ch = Cm.repeat_interleave(H // Cm.shape[2], dim=2)
+        y, state = seq.ssd_carry(y, state, dt, A, Ch, head_mask)
     skip = params["D"][None, None, :, None] * xs.to(torch.float32)
     if head_mask is not None:
         skip = skip * head_mask[None, None, :, None]
@@ -169,10 +191,9 @@ def ssm_forward(params, cfg, x: torch.Tensor, *, head_mask=None,
         out = tp.reduce(out)
     if return_state:
         K = s.d_conv
-        if S >= K - 1:
-            tail = xBC_raw[:, S - (K - 1):]
-        else:
-            tail = F.pad(xBC_raw, (0, 0, K - 1 - S, 0))
+        if tail is None:            # else the sequence's, from the halo
+            tail = (xBC_raw[:, S - (K - 1):] if S >= K - 1
+                    else F.pad(xBC_raw, (0, 0, K - 1 - S, 0)))
         tail = tail.to(x.dtype)
         if tp is not None:
             tail, state = tp.store_conv(tail), tp.store_state(state)

@@ -301,15 +301,25 @@ def embed_inputs(params, cfg: ModelConfig, batch,
     """(x (B, S, d_model), B, S): an audio config's frame embeddings in
     ``cfg.dtype``; a VLM config's vision embeddings, cast to the embedding
     table's dtype first, then its text tokens' embeddings (S counts
-    both); else the tokens' embeddings."""
+    both); else the tokens' embeddings. Where ``tp.seq`` splits the
+    positions over the data axes, x and S are this rank's block of the
+    whole sequence: the tokens cut before their embedding where they are
+    the only input, a VLM's vision prefix joined before the cut."""
+    seq = None if tp is None else tp.seq_tokens
     if cfg.embeds_input:                   # audio: stubbed conv frontend
         x = batch["embeds"].to(getattr(torch, cfg.dtype))
+        if seq is not None:
+            x = seq.cut(x, 1)
     elif cfg.vision_tokens:                # vlm: vision prefix + text
         emb = _embed(params, batch["tokens"], tp)
         vis = batch["vision_embeds"].to(emb.dtype)        # (B, V, d)
         x = torch.cat([vis, emb], dim=1)
+        if seq is not None:
+            x = seq.cut(x, 1)
     else:
-        x = _embed(params, batch["tokens"], tp)
+        tokens = batch["tokens"]
+        x = _embed(params, tokens if seq is None else seq.cut(tokens, 1),
+                   tp)
     B, S = x.shape[:2]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -326,13 +336,16 @@ def _rope_dim(cfg: ModelConfig) -> int:
 def _angles_for(cfg: ModelConfig, batch, B: int, S: int, offset, device):
     """Rotary angles (B, S, rope_dim // 2) of positions ``offset`` ..
     ``offset + S - 1``; M-RoPE's from ``batch["mrope_positions"]`` where
-    the batch has them."""
+    the batch has them (their positions ``offset`` .. ``offset + S - 1``:
+    a sequence block's)."""
     if cfg.rope_mode == "none":
         return None
     if cfg.rope_mode == "mrope":
         pos = batch.get("mrope_positions")
         if pos is None:
             pos = text_mrope_positions(B, S, offset, device)
+        else:
+            pos = pos[..., offset:offset + S]
         return mrope_angles(pos, _rope_dim(cfg), cfg.rope_theta,
                             cfg.mrope_sections)
     pos = positions_for(B, S, offset, device).expand(B, S)
@@ -476,11 +489,12 @@ def forward(params, cfg: ModelConfig, batch, masks: Masks = None,
     """tokens (B,S) -> (logits (B,S,V), {"moe_aux", "moe_z", "hidden"}).
     With ``tp`` (a ``sharding.tensor_parallel.TensorParallel``) every
     parameter comes through it and the logits are the rank's vocabulary
-    columns where the vocabulary is split."""
+    columns where the vocabulary is split (and its block of the positions
+    where ``tp.seq`` splits them)."""
     check_supported(cfg)
     _check_backend(backend)
     x, B, S = embed_inputs(params, cfg, batch, tp)
-    angles = _angles_for(cfg, batch, B, S, 0, x.device)
+    angles = _angles_for(cfg, batch, B, S, _offset(tp, S), x.device)
     x, aux = _run_stack(params, cfg, x, angles, masks, backend, tp=tp)
     x = rmsnorm(x, _top(params, "final_norm", tp), cfg.norm_eps,
                 backend=backend)
@@ -601,6 +615,13 @@ def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
+def _offset(tp, S: int) -> int:
+    """The first position of a step's ``S`` (its sequence block's where
+    ``tp.seq`` splits them)."""
+    seq = None if tp is None else tp.seq_tokens
+    return 0 if seq is None else seq.block(S)[0]
+
+
 def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
                  device: torch.device, tp=None) -> Dict[str, Any]:
     """{"runs": [KVCache((count, B, clen, Hkv, D) x2) for an attention run,
@@ -613,13 +634,23 @@ def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
     into (groups, period) and a tail). With ``tp`` a KV cache holds the
     rank's shard of the heads and head dims, an MLA cache its shard of
     each leaf's last dim, an SSM cache its shard of the conv channels and
-    of the state's heads."""
+    of the state's heads; where ``tp.seq`` splits the slots over the data
+    axes, a KV or MLA leaf holds the rank's block of them."""
     dtype = getattr(torch, cfg.dtype)
     clen = cache_len_for(cfg, max_len)
     heads, dims = cfg.num_kv_heads, cfg.head_dim
     if tp is not None and tp.heads is not None:
         heads = tp.kv_heads[1] - tp.kv_heads[0]
         dims = tp.kv_dims[1] - tp.kv_dims[0]
+    seq = None if tp is None else tp.seq
+
+    def local(n, leaf):
+        """A leaf's slots here: ``n``, or this rank's of the split's
+        layout ``leaf`` (``"kv"`` or ``"latent"``)."""
+        if seq is None:
+            return n
+        lay = getattr(seq, leaf)
+        return lay.hi - lay.lo
 
     def kv(n, length):
         return KVCache(*(torch.zeros(
@@ -640,15 +671,16 @@ def _zero_caches(cfg: ModelConfig, batch_size: int, max_len: int,
             widths = ((cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)
                       if tp is None else
                       tuple(hi - lo for lo, hi in tp.latent_dims))
+            slots = local(max_len, "latent")
             caches.append(MLACache(*(torch.zeros(
-                (run.count, batch_size, max_len, width), dtype=dtype,
+                (run.count, batch_size, slots, width), dtype=dtype,
                 device=device) for width in widths)))
         else:
-            caches.append(kv(run.count, clen))
+            caches.append(kv(run.count, local(clen, "kv")))
     out: Dict[str, Any] = {"runs": caches}
     if cfg.shared_attn_period:
         out["shared"] = kv(max(cfg.num_layers // cfg.shared_attn_period, 1),
-                           max_len)
+                           local(max_len, "kv"))
     return out
 
 
@@ -691,32 +723,51 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
     bidirectional config (no decode). Each layer's keys and values, or its
     conv tail and SSD state, are written into the cache as the layer
     finishes. With ``tp`` the cache holds the rank's shard
-    (``TensorParallel.store_kv``) and the logits are gathered whole."""
+    (``TensorParallel.store_kv``) and the logits are gathered whole. Where
+    ``tp.seq`` splits the positions over the data axes, each rank runs its
+    block of them; each cache leaf holds the rank's slots
+    (``SeqSplit.cache_slots``, taken from the whole sequence's keys every
+    rank gathered), the last logits are the last rank's on every rank
+    (``SeqSplit.last``), and a bidirectional config's logits are the
+    rank's block."""
     check_supported(cfg)
     _check_backend(backend)
+    seq = None if tp is None else tp.seq_tokens
     x, B, S = embed_inputs(params, cfg, batch, tp)
-    angles = _angles_for(cfg, batch, B, S, 0, x.device)
-    max_len = max_len or S
+    angles = _angles_for(cfg, batch, B, S, _offset(tp, S), x.device)
+    S_all = S if seq is None else S * seq.n
+    max_len = max_len or S_all
     callbacks = {}
     if cfg.causal:
+        if seq is not None and seq.max_len != max_len:
+            raise ValueError(f"prefill max_len={max_len} is not the "
+                             f"sequence split's {seq.max_len}")
         has_kv = cfg.shared_attn_period or any(
             run.kind != "ssm" for run in layer_runs(cfg))
-        if has_kv and max_len < S and cfg.sliding_window is None:
+        if has_kv and max_len < S_all and cfg.sliding_window is None:
             raise ValueError(
-                f"prefill max_len={max_len} < prefill length {S} "
+                f"prefill max_len={max_len} < prefill length {S_all} "
                 "(vision or audio prefix tokens count toward max_len)")
         caches = _zero_caches(cfg, B, max_len, x.device, tp)
 
         def on_kv(r, j, kv):
             dst = caches["runs"][r]
             if cfg.attention == "mla":        # (ckv, k_rope) at max_len
+                if seq is not None:
+                    kv = [seq.cache_slots(t, seq.latent, 1) for t in kv]
                 if tp is not None:
                     kv = tp.store_latent(*kv)
-                dst.ckv[j, :, :S] = kv[0]
-                dst.krope[j, :, :S] = kv[1]
+                n = kv[0].shape[1]
+                dst.ckv[j, :, :n] = kv[0]
+                dst.krope[j, :, :n] = kv[1]
                 return
+            if seq is not None:
+                kv = [seq.cache_slots(t, seq.kv, 1) for t in kv]
             if tp is not None:
                 kv = tp.store_kv(*kv)
+            if seq is not None:
+                dst.k[j], dst.v[j] = kv
+                return
             kc, vc = _kv_to_cache(cfg, *kv, max_len)
             dst.k[j] = kc
             dst.v[j] = vc
@@ -726,10 +777,13 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
             caches["runs"][r].state[j] = st.state
 
         def on_shared_kv(g, k, v):
+            if seq is not None:
+                k, v = (seq.cache_slots(t, seq.kv, 1) for t in (k, v))
             if tp is not None:
                 k, v = tp.store_kv(k, v)
-            caches["shared"].k[g, :, :S] = k
-            caches["shared"].v[g, :, :S] = v
+            n = k.shape[1]
+            caches["shared"].k[g, :, :n] = k
+            caches["shared"].v[g, :, :n] = v
         callbacks = dict(on_kv=on_kv, on_state=on_state,
                          on_shared_kv=on_shared_kv)
     x, _ = _run_stack(params, cfg, x, angles, masks, backend, tp=tp,
@@ -739,8 +793,10 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
     whole = (lambda t: t) if tp is None else tp.gather_vocab
     if not cfg.causal:
         return whole(_lm_logits(params, cfg, x, tp)), None
-    logits = whole(_lm_logits(params, cfg, x[:, -1], tp))
-    caches["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    last = x[:, -1] if seq is None else seq.last(x[:, -1])
+    logits = whole(_lm_logits(params, cfg, last, tp))
+    caches["pos"] = torch.full((B,), S_all, dtype=torch.int32,
+                               device=x.device)
     return logits, caches
 
 
@@ -754,7 +810,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     ``mla_decode``, each Mamba2 layer's conv window and state copied over);
     the returned cache holds them and the advanced positions. With ``tp``
     the cache holds the rank's shard (``prefill`` with ``tp``) and the
-    logits are gathered whole."""
+    logits are gathered whole; where ``tp.seq`` splits the slots over the
+    data axes (its layout: ``SeqSplit.kv`` and ``SeqSplit.latent``), a KV
+    or MLA leaf holds the rank's block, and each attention combines the
+    ranks' partial softmaxes."""
     check_supported(cfg)
     _check_backend(backend)
     pos = cache["pos"]
@@ -811,9 +870,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
 def _attn_decode(cfg, lp, x, angles, kv, pos, mask, backend, tp=None):
     """One token through an attention or MoE block; its key and value (a
     ``KVCache``), or its latent and rotary key (an ``MLACache``), go into
-    slot ``pos`` of ``kv``, in place. An MoE block dispatches the step's B
-    tokens as one ``moe_forward`` (capacity ``capacity(B)``, at least 8
-    slots an expert)."""
+    slot ``pos`` of ``kv``, in place (in the global slots of ``tp.seq``'s
+    layout where it splits the sequence). An MoE block dispatches the
+    step's B tokens as one ``moe_forward`` (capacity ``capacity(B)``, at
+    least 8 slots an expert)."""
     mask = mask or {}
     split = {} if tp is None else {"tp": tp}
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps, backend=backend)

@@ -54,10 +54,12 @@ local tensors and the reductions between the shares are explicit:
   output of a row product (``reduce_from_model``).
 
 Every "model" reduction goes through one seam, an *axis* with ``rank``,
-``size``, ``all_reduce``, ``all_gather`` and ``all_to_all``: ``GroupAxis`` over a process
-group (a mesh's "model" group), or ``SequentialRanks``, which runs the
-shares of an n-rank split in one process one after another, each reduction
-adding the shares in rank order (the card's split checks, and tests).
+``size``, ``all_reduce``, ``all_gather``, ``all_to_all`` and
+``reduce_scatter``: ``GroupAxis`` over a process group (a mesh's "model"
+group), or ``SequentialRanks``, which runs the shares of an n-rank split
+in one process one after another, each reduction adding the shares in
+rank order (the card's split checks, and tests). The data axes' exchanges
+go through the same seam (``DataAxes`` on a mesh).
 
 **The whole batch.** Where a mesh's data axes split the rows, the MoE
 dispatch and the losses that are not a mean of per-row terms are the whole
@@ -655,6 +657,11 @@ class _SequentialAxis:
                                  f"from rank {r}, got {tuple(t.shape)}")
         return got
 
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (size, ...) summed over the ranks in rank order; entry
+        ``rank`` of the sum."""
+        return self.all_reduce(t)[self.rank]
+
 
 # ---------------------------------------------------------------------------
 # the two autograd Functions
@@ -791,16 +798,19 @@ class TensorParallel:
     layers), vocabulary rows (``vocab``, None where the head is
     replicated) and KV, latent or SSM cache shard, the "model" axis its
     reductions go through, the data axes (``data``: a ``DataAxes``, None
-    where they do not split the rows) its whole-batch sums go through, and
-    ``fetch``, which hands it parameters: ``fetch(tp, path, tensor,
-    layer)`` with ``tp.cuts(path)``."""
+    where they do not split the rows) its whole-batch sums go through, the
+    sequence split over the data axes (``seq``: a
+    ``context_parallel.SeqSplit``, None where the positions and the cache's
+    slots are whole), and ``fetch``, which hands it parameters:
+    ``fetch(tp, path, tensor, layer)`` with ``tp.cuts(path)``."""
 
-    def __init__(self, cfg, axis, fetch, data=None):
+    def __init__(self, cfg, axis, fetch, data=None, seq=None):
         if not tp_supported(cfg):
             raise ValueError(f"{cfg.name}: tensor parallelism has no split "
                              f"of arch {cfg.arch_type!r}")
         self.cfg, self.axis, self._fetch = cfg, axis, fetch
         self.data = data if data is not None and data.size > 1 else None
+        self.seq = seq if seq is not None and seq.n > 1 else None
         m, r = axis.size, axis.rank
         self.heads = self.ffn = self.ssd = None
         if _attends(cfg):
@@ -872,44 +882,67 @@ class TensorParallel:
 
     # -- construction ---------------------------------------------------------
     @classmethod
-    def sliced(cls, cfg, params, axis) -> "TensorParallel":
+    def sliced(cls, cfg, params, axis, data=None,
+               seq=None) -> "TensorParallel":
         """The share of rank ``axis.rank`` of a whole (plain) parameter
-        tree: each leaf sliced to the rank's block, no communication."""
-        tp = cls(cfg, axis, _slice_leaf)
+        tree: each leaf sliced to the rank's block, no communication;
+        ``data`` and ``seq`` as the constructor's."""
+        tp = cls(cfg, axis, _slice_leaf, data, seq)
         tp._params = params
         return tp
 
     @classmethod
-    def on_mesh(cls, cfg, mesh, params, rows_split: bool = False,
-                stage: bool = False) -> "TensorParallel":
+    def on_mesh(cls, cfg, mesh, params, split: str = "whole",
+                stage: bool = False,
+                max_len: Optional[int] = None) -> "TensorParallel":
         """This rank's share on ``mesh`` of a DTensor tree laid out by
-        ``param_specs``: its "model" axis is the mesh's "model" group; its
-        data axes the mesh's data groups where ``rows_split`` (the step's
-        rows split over them), else none (every data rank holds the same
-        rows and computes them alike). With ``stage`` the tree is a pod
-        pipeline's (``core.partition.pod_pipeline.stage_param_specs``):
-        ``runs[0]``'s leaves are (n_pods, L/P, ...) with the stage dim over
-        "pod", a layer is one of this rank's pod's own (``_MeshFetch``),
-        and "pod" is no data axis."""
+        ``param_specs``: its "model" axis is the mesh's "model" group. How
+        the step lies over the mesh's data groups (``split``, a
+        ``context_parallel.data_split`` word or ``"slots"``): ``"rows"``,
+        its rows split over them (``data``: the whole-batch sums go
+        through them); ``"sequence"``, its positions split over them
+        (``data``, and ``seq`` with ``tokens``); ``"slots"``, a decode
+        step whose cache's slots may lie over them (``seq`` without
+        ``tokens``, its layout made from the cache's ``max_len``, the
+        slots before a window, as the prefill's; no ``data``: every
+        rank holds the step's tokens); ``"whole"``, none (every data rank
+        holds the same rows and computes them alike). With ``stage`` the
+        tree is a pod pipeline's
+        (``core.partition.pod_pipeline.stage_param_specs``): ``runs[0]``'s
+        leaves are (n_pods, L/P, ...) with the stage dim over "pod", a
+        layer is one of this rank's pod's own (``_MeshFetch``), and "pod"
+        is no data axis."""
+        from repro_torch.sharding.context_parallel import SeqSplit
         names = mesh.mesh_dim_names
         i = names.index("model")
         axis = GroupAxis(mesh.get_group(i), mesh.get_local_rank(i),
                          mesh.size(i))
-        data = None
-        if rows_split:
+        data = seq = None
+        if split != "whole":
             data = DataAxes([GroupAxis(mesh.get_group(j),
                                        mesh.get_local_rank(j), mesh.size(j))
                              for j, n in enumerate(names)
                              if n != "model" and mesh.size(j) > 1
                              and not (stage and n == "pod")])
-        tp = cls(cfg, axis, _MeshFetch(mesh, stage), data)
+        if split in ("sequence", "slots"):
+            seq = SeqSplit(data, tokens=split == "sequence", cfg=cfg,
+                           max_len=max_len)
+        tp = cls(cfg, axis, _MeshFetch(mesh, stage),
+                 None if split == "slots" else data, seq)
         tp._params = params
         return tp
+
+    @property
+    def seq_tokens(self):
+        """``seq`` where it splits the step's positions (a prefill's or a
+        pod stage's), else None."""
+        return self.seq if self.seq is not None and self.seq.tokens else None
 
     def for_config(self, cfg) -> "TensorParallel":
         """The same rank's share of the same tree, split as ``cfg`` is (the
         MTP block, a GQA block of the MTP config)."""
-        tp = TensorParallel(cfg, self.axis, self._fetch, self.data)
+        tp = TensorParallel(cfg, self.axis, self._fetch, self.data,
+                            self.seq)
         tp._params = self._params
         return tp
 
@@ -1176,22 +1209,36 @@ class TensorParallel:
         layer: (B, Smax, shard heads, shard dims)), in place, and return
         ``decode_attention`` of this rank's q heads (B, 1, heads, D). A
         cache split on the head dim is not moved: the queries go to it
-        (module docstring)."""
+        (module docstring). Where ``seq`` splits the cache's slots
+        (``seq.kv``) over the data axes, ``slot``, ``valid`` and the window
+        are in those global slots, the shard is this rank's block of them,
+        only the slot's owner writes it, and the ranks' partial softmaxes
+        are combined (``context_parallel.SeqSplit.combine``)."""
         from repro_torch.models.layers.attention import decode_attention
         rows = torch.arange(k.shape[0], device=k.device)
         if not self.kv_local:
             k, v = self._to_shard(torch.stack([k, v]), 2).unbind(0)
-        cache.k[rows, slot] = k
-        cache.v[rows, slot] = v
+        extra = {}
+        lay = None if self.seq is None else self.seq.kv
+        if lay is not None and lay.split:
+            self.seq.owner_write(cache.k, slot, k, lay)
+            self.seq.owner_write(cache.v, slot, v, lay)
+            extra = dict(k_offset=lay.lo,
+                         combine=self.seq.combine)
+        else:
+            cache.k[rows, slot] = k
+            cache.v[rows, slot] = v
         if self.kv_layout == "dims" and not self.kv_local:
-            return self._dims_attention(q, cache, valid, pos, window, scale)
+            return self._dims_attention(q, cache, valid, pos, window, scale,
+                                        **extra)
         k0, k1 = self.heads.kv
         kc, vc = (c if self.kv_local else c.narrow(2, k0, k1 - k0)
                   for c in (cache.k, cache.v))
         return decode_attention(q, *self.kv_for_q(kc, vc), valid, pos,
-                                window, scale)
+                                window, scale, **extra)
 
-    def _dims_attention(self, q, cache, valid, pos, window, scale):
+    def _dims_attention(self, q, cache, valid, pos, window, scale,
+                        **extra):
         """Decode attention on a cache split on the head dim: every q head
         at this rank's dims (an all-to-all of the queries), its partial
         scores summed over "model" inside ``decode_attention``, then each
@@ -1205,7 +1252,8 @@ class TensorParallel:
             [q[..., a:b] for a, b in dims],
             [(B, 1, hi - lo, e1 - e0) for lo, hi in qb]), dim=2)
         out = decode_attention(qa, cache.k, cache.v, valid, pos, window,
-                               scale, partial_sum=self.axis.all_reduce)
+                               scale, partial_sum=self.axis.all_reduce,
+                               **extra)
         return torch.cat(self.axis.all_to_all(
             [out[:, :, lo:hi] for lo, hi in qb],
             [(B, 1, nq, b - a) for a, b in dims]), dim=-1)
@@ -1242,11 +1290,16 @@ class TensorParallel:
         all-to-all), the partial scores all-reduced, the softmax on every
         rank, the latent output at this rank's dims sent back to the ranks
         whose heads they are (an all-to-all). Where both leaves are whole
-        each rank reads its own heads' scores where the cache lies."""
+        each rank reads its own heads' scores where the cache lies. Where
+        ``seq`` splits the latent slots (``seq.latent``) over the data
+        axes, the softmax is each rank's block's part, combined over
+        them."""
         from repro_torch.models.layers.attention import (latent_attention,
                                                          latent_scores)
+        seq = (self.seq if self.seq is not None and self.seq.latent.split
+               else None)
         if self.latent_layouts == ("whole", "whole"):
-            return latent_attention(q_lat, q_rope, cache, pos, scale)
+            return latent_attention(q_lat, q_rope, cache, pos, scale, seq)
         B, nq = q_lat.shape[:2]
         qb = [s.q for s in self._heads_all]
         reads = [self._latent_reads(0), self._latent_reads(1)]
@@ -1258,9 +1311,18 @@ class TensorParallel:
             [q[..., a:b] for a, b in rd],
             [(B, hi - lo, rd[me][1] - rd[me][0]) for lo, hi in qb]), dim=1)
             for q, rd in zip((q_lat, q_rope), reads)]
-        probs = latent_scores(qs[0], qs[1], local[0], local[1], pos, scale,
-                              partial_sum=self.axis.all_reduce)
-        o = torch.einsum("bhk,bkr->bhr", probs, local[0].to(torch.float32))
+        if seq is None:
+            probs = latent_scores(qs[0], qs[1], local[0], local[1], pos,
+                                  scale, partial_sum=self.axis.all_reduce)
+            o = torch.einsum("bhk,bkr->bhr", probs,
+                             local[0].to(torch.float32))
+        else:
+            p, mx, lsum = latent_scores(
+                qs[0], qs[1], local[0], local[1], pos, scale,
+                partial_sum=self.axis.all_reduce,
+                k_offset=seq.latent.lo)
+            o = seq.combine(mx, lsum, torch.einsum(
+                "bhk,bkr->bhr", p, local[0].to(torch.float32)))
         return torch.cat(self.axis.all_to_all(
             [o[:, lo:hi] for lo, hi in qb],
             [(B, nq, b - a) for a, b in reads[0]]), dim=-1)

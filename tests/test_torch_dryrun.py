@@ -15,8 +15,8 @@ against the reference's tables and counts.
   DTensor's all-gather and a ``batch_isend_irecv`` send count the bytes
   computed by hand, a matmul its FLOPs, the live storages their peak.
 * ``run_one`` and ``run_split_serve`` at smoke size on small fake meshes
-  write records with the reference's keys into the directory given and
-  nowhere else; every arch's train, prefill and decode steps trace under
+  write records with the reference's keys (and the port's
+  ``data_split``) into the directory given and nowhere else; every arch's train, prefill and decode steps trace under
   ``FakeTensorMode`` (the MoE count, M-RoPE band ids, the train step's
   token share and ``init_params``' fill read no value of a fake tensor).
 """
@@ -43,6 +43,7 @@ from repro_torch.sharding.tensor_parallel import ROUTE_SPLIT
 SHAPE_NAMES = tuple(tspecs.SHAPES)
 SMALL = (2, 2)
 RECORD_KEYS = {"arch", "shape", "mesh", "grad_accum", "chips", "status",
+               "data_split",
                "scan_counted", "trace_s", "backend", "token_dtype",
                "model_axis", "memory_analysis", "analytic_memory",
                "cost_analysis", "collectives", "roofline", "params_total",
@@ -436,6 +437,59 @@ def test_run_one_keeps_its_records_in_out_dir(tmp_path, monkeypatch,
     assert _records(out) == ["torch_mixtral-8x7b_long_500k_2x2x2.json",
                              "torch_qwen2-7b_train_4k_2x2.json"]
     assert _records(cwd) == [] and _records(tmp_path) == ["cwd", "out"]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x7b",
+                                  "deepseek-v3-671b"])
+def test_long_decode_moves_no_cache_leaf_over_data(arch, tmp_path,
+                                                   no_group):
+    """The smoke config's ``long_500k`` decode (B = 1, 524,288 slots) on
+    a fake (2, 2) mesh: the row does not divide "data", so the cache's
+    slots lie in halves over it (``cache_specs``) and stay there. Every
+    byte the step moves over "data" together is less than one layer's KV
+    or latent leaf on a rank (the partial softmaxes and a layer's
+    parameters move, never the cache); the record says ``sequence``."""
+    rec = dryrun.run_one(arch, "long_500k", False, str(tmp_path),
+                         mesh_shape=(2, 2), smoke=True)
+    assert rec["status"] == "ok" and rec["data_split"] == "sequence"
+    cfg = treg.get_smoke_config(arch)
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    slots = tspecs.SHAPES["long_500k"][0] // 2
+    # a rank's half of ckv's dims, or of a KV leaf's heads (or dims)
+    width = (cfg.mla.kv_lora_rank if cfg.attention == "mla"
+             else cfg.num_kv_heads * cfg.head_dim) // 2
+    leaf = slots * width * itemsize
+    data = rec["collectives"]["bytes_by_mesh_dim"]["data"]
+    assert 0 < data < leaf
+
+
+@pytest.mark.parametrize("shape", SHAPE_NAMES)
+def test_only_long_500k_and_split_serves_split_the_sequence(shape):
+    """On the production meshes' data axes (16 on a pod, 32 on two) every
+    shape's batch divides them but ``long_500k``'s one row, whose 524,288
+    positions split instead; a split serve's microbatch (32 rows in 8, on
+    a pod's "data" = 16) splits its 4,096 positions. So of the 66 records
+    only the 8 ``long_500k`` ones and the 8 split serves change layout."""
+    from repro_torch.sharding.context_parallel import data_split
+    S, B = tspecs.SHAPES[shape]
+    want = "sequence" if shape == "long_500k" else "rows"
+    assert [data_split(B, S, n) for n in (16, 32)] == [want, want]
+    assert data_split(32 // 8, 4096, 16) == "sequence"
+
+
+def test_a_batch_that_divides_keeps_its_rows(tmp_path, no_group):
+    """``decode_32k`` (128 rows) on the fake (2, 2) mesh splits its rows
+    over "data" as before; a split serve's microbatch of 2 rows on 2 data
+    ranks too, of 1 row its sequence."""
+    rec = dryrun.run_one("qwen2-7b", "decode_32k", False, str(tmp_path),
+                         mesh_shape=(2, 2), smoke=True)
+    assert rec["data_split"] == "rows"
+    for batch, split in ((8, "rows"), (4, "sequence")):
+        rec = dryrun.run_split_serve("qwen2-7b", str(tmp_path),
+                                     num_microbatches=4, seq_len=64,
+                                     batch=batch, mesh_shape=(2, 2, 2),
+                                     smoke=True)
+        assert rec["data_split"] == split
 
 
 def test_run_one_refuses_a_group_of_another_size(no_group):

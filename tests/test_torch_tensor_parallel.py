@@ -41,6 +41,17 @@ the training parity tests state). Against the reference: logits within
 ``GRAD_RTOL32`` of its largest entry; ``drop_frac`` exactly the
 reference ``moe_forward``'s on the whole batch. The 2-expert Mixtral and
 the Mamba2 case also take a ``grad_accum`` = 2 step on (2, 2).
+The same spawn runs the sequence split over "data" (context
+parallelism, ``sharding.context_parallel``): a B = 1 prefill and 4
+decode steps of the smoke Qwen2-7B, Mixtral-8x7B, DeepSeek-V3, Mamba2-2.7B
+and Zamba2-1.2B on the (2, 2) mesh through the mesh steps (each data
+rank its block of the 16 positions and of the cache's 20 slots), within
+``stack_tol`` of the one-process steps and of the reference's jitted
+``prefill`` / ``decode_step``, and the train step's refusal of such a
+batch; and the same steps at a cache of 21 slots, which the data ranks do
+not divide (every rank holds each leaf whole, as ``cache_specs`` lays it
+out), for Qwen2-7B, a Mixtral whose window of 24 lies between the 16
+positions and twice the 21 slots, DeepSeek-V3 and Zamba2-1.2B.
 In-process: the head, expert and SSD-head splits of the registry
 configs at "model" 1, 2 and 16, MLA's per-leaf head ranges,
 ``Regather``, the routes, and the shares of a split run one after
@@ -90,10 +101,23 @@ FAULT_CASE = "mixtral-2-experts"
 #: the labels uneven (the fault of microbatches cut from a rank's rows)
 SSM_FAULT_CASE = "mamba2-2.7b"
 ACCUM_CASES = (FAULT_CASE, SSM_FAULT_CASE)
+#: the cases served on a sequence split over the (2, 2) mesh's "data":
+#: B = 1 row of ``CP_S`` positions
+CP_CASES = ("qwen2-7b", "mixtral-8x7b", "deepseek-v3-671b", "mamba2-2.7b",
+            "zamba2-1.2b")
+CP_S = 16
+#: the cases served on a sequence split at ``CP_S + DECODE + 1`` slots,
+#: which 2 data ranks do not divide, with their config overrides: the
+#: Mixtral's window between ``CP_S`` and twice the slots
+CP_WHOLE = {"qwen2-7b": {}, "mixtral-8x7b": {"sliding_window": 24},
+            "deepseek-v3-671b": {}, "zamba2-1.2b": {}}
 NAMES = [c[0] for c in CASES]
 MESHES = ((1, 4), (2, 2))
 MESH_IDS = ["1x4", "2x2"]
 B, S, DECODE = 2, 8, 4
+#: (case, slots) of every sequence split run against the reference
+CP_RUNS = ([(n, CP_S + DECODE) for n in CP_CASES]
+           + [(n, CP_S + DECODE + 1) for n in CP_WHOLE])
 #: the fault's case with microbatches: ``ACCUM`` of the rows of a batch of
 #: ``ACCUM_B`` (each microbatch split over the (2, 2) mesh's data ranks)
 ACCUM, ACCUM_B = 2, 4
@@ -173,6 +197,48 @@ def _steps(cfg, params, masks, batch, tokens, mesh=None) -> dict:
                 out["decode"].append(_whole(logits))
             out["cache_after"] = [_whole(t) for t in _leaves(cache["runs"])]
     out.update(_train(cfg, params, masks, batch, mesh))
+    return out
+
+
+def _sequence_steps(cfg, params, batch, tokens, mesh=None,
+                    max_len: int = CP_S + DECODE,
+                    train: bool = True) -> dict:
+    """A prefill (the cache at ``max_len`` slots) and ``DECODE`` decode
+    steps of a batch whose one row does not divide the mesh's data axes
+    (on ``mesh``: the sequence split), every tensor whole; and, on
+    ``mesh`` with ``train``, whether its train step refuses the
+    batch."""
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.sharding import specs as sh
+    p = params
+    if mesh is not None:
+        p = sh.distribute(params, sh.param_specs(params, cfg, mesh), mesh)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg, max_len=max_len,
+                                          device="cpu", mesh=mesh)(p, inputs)
+        out = {"prefill": _whole(logits),
+               "cache": [_whole(t) for t in _leaves(cache["runs"])],
+               "decode": []}
+        decode = make_decode_step(cfg, device="cpu", mesh=mesh)
+        for t in tokens:
+            logits, cache = decode(p, cache, t)
+            out["decode"].append(_whole(logits))
+        out["cache_after"] = [_whole(t) for t in _leaves(cache["runs"])]
+    if mesh is not None and train:
+        opt = adamw(constant(LR), eps=EPS)
+        state = opt.init(params)
+        state = sh.distribute(state, sh.opt_state_specs(
+            state, sh.param_specs(params, cfg, mesh)), mesh)
+        step = make_train_step(cfg, opt, device="cpu", mesh=mesh)
+        try:
+            step(p, state, batch)
+            out["train_refused"] = None
+        except ValueError as e:
+            out["train_refused"] = str(e)
     return out
 
 
@@ -268,6 +334,23 @@ def _rank(rank: int, port: int, d: str) -> None:
                          grad_accum=ACCUM)
             if rank == 0:
                 torch.save(got, os.path.join(d, f"{name}.accum.pt"))
+        # B = 1: the sequence split over "data"
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        for name in CP_CASES:
+            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
+            got = _sequence_steps(_port_config(name), inp["params"],
+                                  inp["cp_batch"], inp["cp_tokens"], mesh)
+            if rank == 0:
+                torch.save(got, os.path.join(d, f"{name}.cp.pt"))
+        for name, over in CP_WHOLE.items():
+            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
+            got = _sequence_steps(_port_config(name).replace(**over),
+                                  inp["params"], inp["cp_batch"],
+                                  inp["cp_tokens"], mesh,
+                                  max_len=CP_S + DECODE + 1, train=False)
+            if rank == 0:
+                torch.save(got, os.path.join(d, f"{name}.cpw.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -324,6 +407,22 @@ def runs(tmp_path_factory):
             inp["accum_batch"] = {k: torch.from_numpy(np.asarray(v))
                                   for k, v in acc.items()}
             out[name] = {"accum_batch": acc}
+        if name in CP_CASES:
+            cp_bn = train_batch_np(cr, 1, CP_S, seed=7)
+            inp["cp_batch"] = {k: torch.from_numpy(np.asarray(v))
+                               for k, v in cp_bn.items()}
+            inp["cp_tokens"] = [torch.from_numpy(t[:1].astype(np.int64))
+                                for t in tok]
+            cp = out.setdefault(name, {})
+            cp["cp_numpy"] = (cp_bn, tok[:, :1])
+            cp["cp_one"] = _sequence_steps(
+                _port_config(name), inp["params"], inp["cp_batch"],
+                inp["cp_tokens"])
+            if name in CP_WHOLE:
+                cp["cpw_one"] = _sequence_steps(
+                    _port_config(name).replace(**CP_WHOLE[name]),
+                    inp["params"], inp["cp_batch"], inp["cp_tokens"],
+                    max_len=CP_S + DECODE + 1, train=False)
         torch.save(inp, os.path.join(d, f"{name}.in.pt"))
         out.setdefault(name, {}).update(
             numpy=(cr, pn, mn, bn, tok),
@@ -336,6 +435,10 @@ def runs(tmp_path_factory):
             out[name][sid] = torch.load(os.path.join(d, f"{name}.{sid}.pt"))
     for name in ACCUM_CASES:
         out[name]["accum"] = torch.load(os.path.join(d, f"{name}.accum.pt"))
+    for name in CP_CASES:
+        out[name]["cp"] = torch.load(os.path.join(d, f"{name}.cp.pt"))
+    for name in CP_WHOLE:
+        out[name]["cpw"] = torch.load(os.path.join(d, f"{name}.cpw.pt"))
     return out
 
 
@@ -387,6 +490,51 @@ def test_mesh_train_steps_match_one_process(name, sid, runs):
     for g, w in zip(got["params"], want["params"]):
         tol = PARAM_ULPS * EPS32 * float(w.abs().max()) + UPDATE_RTOL * LR
         _close(g, w, lambda _: tol)
+
+
+def _check_sequence_steps(got, want) -> None:
+    """The prefill's logits and cache and the decode steps' logits and
+    cache of ``_sequence_steps`` within ``stack_tol`` of ``want``'s."""
+    _close(got["prefill"], want["prefill"], _stack_tol)
+    assert len(got["decode"]) == len(want["decode"]) == DECODE
+    for key in ("cache", "cache_after"):
+        assert len(got[key]) == len(want[key])
+        for g, w in zip(got[key], want[key]):
+            _close(g, w, _stack_tol)
+    for g, w in zip(got["decode"], want["decode"]):
+        _close(g, w, _stack_tol)
+
+
+@pytest.mark.parametrize("name", CP_CASES)
+def test_mesh_sequence_split_matches_one_process(name, runs):
+    """B = 1 on the (2, 2) mesh: the row does not divide "data", so each
+    data rank prefills its block of the 16 positions and holds its block
+    of the cache's 20 slots (``cache_specs``); the prefill's logits and
+    cache and 4 decode steps' logits and cache within ``stack_tol`` of the
+    one-process steps."""
+    _check_sequence_steps(runs[name]["cp"], runs[name]["cp_one"])
+
+
+@pytest.mark.parametrize("name", list(CP_WHOLE))
+def test_mesh_sequence_split_keeps_slots_it_does_not_divide_whole(name,
+                                                                  runs):
+    """B = 1 on the (2, 2) mesh at a cache of 21 slots, which the 2 data
+    ranks do not divide: each data rank prefills its block of the 16
+    positions but holds every leaf's 21 slots whole (``cache_specs``),
+    placed so (each leaf gathers to 21 slots, not 42) and read so by the
+    decode steps (every rank writes the slot and attends all of them; the
+    Mixtral's window of 24 against its 21 rolling slots, not against 42):
+    within ``stack_tol`` of the one-process steps."""
+    _check_sequence_steps(runs[name]["cpw"], runs[name]["cpw_one"])
+
+
+@pytest.mark.parametrize("name", CP_CASES)
+def test_mesh_train_step_refuses_a_sequence_split(name, runs):
+    """The train step on the (2, 2) mesh refuses the B = 1 batch the
+    reference would split by its sequence: its context parallelism is
+    ROADMAP A8f-2."""
+    why = runs[name]["cp"]["train_refused"]
+    assert why is not None and "A8f-2" in why
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +603,45 @@ def test_mesh_serving_matches_reference(name, sid, runs):
         _close(g, w, _stack_tol)
     for g, w in zip(got.get("decode", []), want.get("decode", [])):
         _close(g, w, _stack_tol)
+
+
+def _reference_sequence_serve(cr, bn, tok, pn, max_len):
+    """The reference's jitted prefill (the cache at ``max_len`` slots)
+    and decode steps on one row: its logits and cache leaves as
+    ``_sequence_steps`` gives them."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import transformer as rtr
+    from torch_parity import to_f32
+    j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    prefill = jax.jit(lambda p, b: rtr.prefill(p, cr, b, max_len=max_len))
+    decode = jax.jit(lambda p, c, t: rtr.decode_step(p, cr, c, t))
+    inputs = {k: v for k, v in bn.items() if k != "labels"}
+    logits, cache = prefill(j(pn), j(inputs))
+    out = {"prefill": to_f32(logits),
+           "cache": _reference_cache_leaves(cr, cache), "decode": []}
+    for t in tok:
+        logits, cache = decode(j(pn), cache, jnp.asarray(t, jnp.int32))
+        out["decode"].append(to_f32(logits))
+    out["cache_after"] = _reference_cache_leaves(cr, cache)
+    return out
+
+
+@pytest.mark.parametrize("name,slots", CP_RUNS,
+                         ids=[f"{n}-{k}" for n, k in CP_RUNS])
+def test_mesh_sequence_split_matches_reference(name, slots, runs):
+    """The sequence split's mesh run on the (2, 2) mesh (a cache of 20
+    slots, split over "data", or of 21, whole on every data rank): the
+    prefill's logits and cache and 4 decode steps' logits and cache within
+    ``stack_tol`` of the reference's unsharded ``prefill`` and
+    ``decode_step`` on the same row and tokens."""
+    cr, pn = runs[name]["numpy"][:2]
+    whole = slots != CP_S + DECODE
+    if whole:
+        cr = cr.replace(**CP_WHOLE[name])
+    want = _reference_sequence_serve(cr, *runs[name]["cp_numpy"], pn,
+                                     slots)
+    _check_sequence_steps(runs[name]["cpw" if whole else "cp"], want)
 
 
 def _reference_train(cr, pn, mn, bn, tok):
