@@ -392,10 +392,33 @@ Phases, each printing its own lines:
    second share's shapes: 1,024 queries at ``q_offset`` 1,024 against
    2,048 keys, Qwen2-7B's 28/4 heads causal, Mixtral-8x7B's 32/8 with its
    window, a window of 512 that cuts the keys, and the fp32 entry.
+25. the train step on a sequence split — "data" = 2 at B = 1 and 2,048
+   tokens (1,024 positions a share; the second share's flash forward,
+   and its backward in PyTorch ops, at ``q_offset`` 1,024), full width,
+   masks at ratio 0.5: the pruned Qwen2-7B at 4 of its 28 layers,
+   Mamba2-2.7B at 4 of 64 (each block's ``ssd_scan``, the state carried
+   and the conv's halo, and their backwards), DeepSeek-V3's first (dense
+   MLA) layer and its MTP block (MLA's latents gathered, the MTP shift
+   across the blocks' boundary) and Mixtral-8x7B at 2 of 32 (the
+   dispatch over the whole request and its backward). The two shares run
+   in two processes on the card (``cp_train_worker``) joined by a gloo
+   group (gloo takes the card's tensors and stages them through host
+   memory itself), each the share's loss and gradient
+   (``launch.steps.share_loss_and_grads``) with no optimizer update: a
+   ``device_profile`` of it, then once more with the launch counters
+   zeroed just before and read just after (each share one unsharded
+   train step's launches, ``expected_train_launches``); the shares'
+   weighted metrics all-reduced (both shares' the same bits); share 1's
+   gradient handed to share 0 in the card's memory, and the loss and
+   every gradient leaf summed over the shares within phase 20's rule of
+   the unsharded step (twice the bf16 plain run's gap to the fp32 plain
+   run, plus one bf16 spacing), the unsharded kernel path's gap beside
+   it; wall and device ms, idle share and peak GB a share
+   (``context_parallel_train`` lines and a ``phase25`` line).
 
 It then prints the kernels' JSON line (the ``masked_matmul`` launches of
 phases 4, 11-15 and 21, counted where one thread launches; the
-transformer kernels' of phases 6, 8, 9 and 16-23, the rmsnorm kernel's two
+transformer kernels' of phases 6, 8, 9 and 16-25, the rmsnorm kernel's two
 split gated entries those of phase 23 (g) and (h) at a 16-rank share's
 2,048 x 320; ``flash_attention_d80``, the D = 80
 instance over one HuBERT R1 prefill with phase 19's and T2's launches),
@@ -5442,6 +5465,214 @@ def context_parallel_phase() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the train step on a "data" = 2 sequence split
+# ---------------------------------------------------------------------------
+#: phase 25's runs: (registry module, layers kept). DeepSeek-V3's is phase
+#: 20's T3: its first (dense MLA) layer and the MTP block
+CP_TRAIN_RUNS = (("qwen2_7b", 4), ("mamba2_2p7b", 4),
+                 ("deepseek_v3_671b", 1), ("mixtral_8x7b", 2))
+#: phase 25's batch: one row of 2,048 tokens, 1,024 positions a share
+CP_TRAIN_TOKENS = 2048
+
+
+def cp_train_check(cfg, params, masks, batch, whole, parts) -> dict:
+    """Phase 20's rule for phase 25's split (rank 0): the fp32 plain run
+    of the unsharded step on a float32 copy (TF32 off), then the bf16
+    plain run's and the unsharded kernel path's gaps to it, one gradient
+    tree held at a time; each metric of ``whole`` (the shares' weighted
+    metrics summed) and each leaf of the shares' gradients ``parts``
+    summed in fp32 within twice the bf16 plain run's gap plus one bf16
+    spacing (the relative L2 gap of a leaf), no leaf skipped (a leaf the
+    loss never reads zero). Returns the line's fields."""
+    import torch
+    from repro_torch.device import exact_fp32
+    from repro_torch.models import transformer as tr
+    params32 = tr.cast_params(params, torch.float32)
+    cfg32 = cfg.replace(dtype="float32")
+    with exact_fp32():
+        m32, g32 = train_grads(cfg32, params32, masks,
+                               card_batch(cfg32, batch), "ref")
+    del params32
+    torch.cuda.empty_cache()
+    g32 = dict(_named_leaves(g32))
+    norms = {name: float(f.norm()) for name, f in g32.items()}
+
+    def gaps(tree):
+        """Each leaf's relative L2 gap to the fp32 run's (where that is
+        zero: its largest entry)."""
+        return {name: (float((g.float() - g32[name]).norm()) / norms[name]
+                       if norms[name] else float(g.abs().max()))
+                for name, g in tree}
+    b = card_batch(cfg, batch)
+    mp, gp = train_grads(cfg, params, masks, b, "ref")
+    plain = gaps(_named_leaves(gp))
+    del gp
+    mk, gk = train_grads(cfg, params, masks, b, "auto")
+    unsharded = gaps(_named_leaves(gk))
+    del gk
+    split = gaps((name, sum(t.float() for t in ts)) for name, *ts in zip(
+        *([n for n, _ in _named_leaves(parts[0])],
+          *[[t for _, t in _named_leaves(g)] for g in parts])))
+    del g32
+    torch.cuda.empty_cache()
+    metrics, worst = {}, 0.0
+    for k, f in m32.items():
+        tol = 2 * abs(mp[k] - f) + BF16_SPACING * abs(f)
+        gap = abs(whole[k] - f)
+        metrics[k] = {"split": whole[k], "unsharded": mk[k],
+                      "plain_bf16": mp[k], "fp32": f, "gap": gap,
+                      "unsharded_gap": abs(mk[k] - f), "tol": tol}
+        worst = max(worst, gap / tol if tol else float(gap > 0) * 1e9)
+    leaves = {}
+    for name, gap in split.items():
+        if norms[name]:
+            tol = 2 * plain[name] + BF16_SPACING
+            ratio = gap / tol
+        else:                   # a leaf the loss never reads: zero
+            tol, ratio = 0.0, 0.0 if gap == 0.0 else float("inf")
+        leaves[name] = {"gap": gap, "unsharded_gap": unsharded[name],
+                        "plain_gap": plain[name], "tol": tol}
+        worst = max(worst, ratio)
+    row = {"metrics": metrics, "grad_gaps": leaves,
+           "max_gap_over_tol": worst}
+    if worst > 1.0:
+        raise AssertionError(f"phase 25: {cfg.name}'s split off the "
+                             f"unsharded step by {worst} of the tolerance: "
+                             f"{json.dumps(row)}")
+    return row
+
+
+def cp_train_run(module: str, layers: int, axis, queue) -> dict | None:
+    """One run of phase 25 on share ``axis.rank`` (both processes alike):
+    ``module``'s config pruned at ratio 0.5 (``model_setup``, the same
+    seeded weights in both), its depth cut to ``layers``, one row of
+    ``CP_TRAIN_TOKENS`` tokens; the share's loss and gradient
+    (``launch.steps.share_loss_and_grads``: its block of the positions,
+    the exchanges over ``axis``) profiled (``device_profile``), then once
+    more with the launch counters zeroed just before and read just after
+    (``expected_train_launches``: one unsharded step's) and the peak
+    memory reset before it; the shares' weighted metrics all-reduced.
+    Share 1 sends its gradient (the card's memory, through ``queue``),
+    metrics and figures to share 0, which holds them to the unsharded step
+    (``cp_train_check``) and returns the run's line (share 1: None)."""
+    import importlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.steps import share_loss_and_grads
+    full = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+    cfg = full.replace(num_layers=layers)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params, masks = model_setup(cfg, SEED)
+    batch_np = train_batch(cfg, 1, CP_TRAIN_TOKENS)
+    batch = card_batch(cfg, batch_np)
+
+    def step():
+        out = share_loss_and_grads(cfg, params, batch, axis, masks)
+        torch.cuda.synchronize()
+        return out
+    prof = device_profile(step)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics, grads, share = step()
+    ms = 1e3 * (time.perf_counter() - t1)
+    launches = read_launches()
+    want = expected_train_launches(cfg)
+    if launches != want:
+        raise AssertionError(f"phase 25 share {axis.rank} launches "
+                             f"{launches}, expected {want}")
+    keys = sorted(metrics)
+    whole = axis.all_reduce(torch.stack(
+        [metrics[k].to(torch.float32) * share for k in keys])).cpu()
+    L = CP_TRAIN_TOKENS // axis.size
+    mine = {"share": axis.rank, "positions": [axis.rank * L,
+                                              (axis.rank + 1) * L],
+            "q_offset": axis.rank * L, "share_of_labels": float(share),
+            "loss": float(metrics["loss"]), "wall_ms": ms,
+            "device_ms": prof["device_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "profiled_wall_ms": prof["wall_ms"], "by_kind": prof["by_kind"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+    if axis.rank:
+        queue.put({"grads": grads, "whole": whole, "share": mine})
+        dist.barrier()                  # share 0 is done with the gradient
+        return None
+    other = queue.get()
+    if not torch.equal(other["whole"], whole):
+        raise AssertionError("phase 25: the shares' losses differ")
+    check = cp_train_check(cfg, params, masks, batch_np,
+                           dict(zip(keys, whole.tolist())),
+                           [grads, other["grads"]])
+    shares = [mine, other["share"]]
+    del other, grads, params
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": f"{layers} of {full.num_layers}"
+            + (" + mtp" if cfg.mtp_depth else ""), "batch": 1,
+            "tokens": CP_TRAIN_TOKENS, "data_ranks": axis.size,
+            "losses_same_bits": True, "shares": shares, **check,
+            "seconds": time.perf_counter() - t0}
+
+
+def cp_train_worker(rank: int, port: int, out_dir: str, queue) -> None:
+    """One of phase 25's two processes on the card: a gloo group of both
+    as the data seam (``tensor_parallel.GroupAxis``: gloo takes the card's
+    tensors and stages them through host memory itself), then every run
+    of ``CP_TRAIN_RUNS`` as its share; share 0 writes the runs' lines to
+    ``out_dir``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.sharding.tensor_parallel import GroupAxis
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=CP_RANKS,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        axis = GroupAxis(dist.group.WORLD, rank, CP_RANKS)
+        runs = [cp_train_run(module, layers, axis, queue)
+                for module, layers in CP_TRAIN_RUNS]
+        if rank == 0:
+            with open(os.path.join(out_dir, "phase25.json"), "w") as f:
+                json.dump(runs, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def context_parallel_train_phase() -> dict:
+    """Phase 25: the train step on a "data" = 2 sequence split, its two
+    shares in two processes on the card (``cp_train_worker``: CUDA
+    autograd runs every backward node of one process on one device
+    thread, so two shares of one process would wait on each other there,
+    and NCCL refuses two ranks on one card); a ``context_parallel_train``
+    line each run and a ``phase25`` line. Returns the shares' launches,
+    by kernel and route."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    queue = mp.get_context("spawn").SimpleQueue()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(cp_train_worker, args=(free_port(), d, queue),
+                           nprocs=CP_RANKS, start_method="spawn")
+        with open(os.path.join(d, "phase25.json")) as f:
+            runs = json.load(f)
+    total = collections.Counter()
+    for run in runs:
+        for share in run["shares"]:
+            total.update(share["launches"])
+        print("context_parallel_train " + json.dumps(run), flush=True)
+    print("phase25 " + json.dumps({"seconds": time.perf_counter() - t0,
+                                   "axis": "gloo, card tensors",
+                                   "launches": dict(total)}), flush=True)
+    return dict(total)
+
+
 def kernel_entry(name, rows, main_rows, scale: int, launches: int,
                  **extra):
     """One kernel of the JSON line: times and bound summed over
@@ -5783,10 +6014,13 @@ def main() -> int:
     ptotals = tensor_parallel_phase()
     # 24. context parallelism over "data": a two-share sequence split
     ctotals = context_parallel_phase()
+    # 25. the train step on a two-share sequence split, two processes
+    ktotals = context_parallel_train_phase()
     for name in totals:
         totals[name] += (xtotals[name] + dtotals[name] + vtotals[name]
                          + htotals[name] + ttotals[name] + mtotals[name]
-                         + stotals[name] + ptotals[name] + ctotals[name])
+                         + stotals[name] + ptotals[name] + ctotals[name]
+                         + ktotals[name])
     alex_routes.update({k: v for k, v in mtotals.items()
                         if k.startswith(("masked_matmul_f32",
                                          "masked_matmul_q8"))})

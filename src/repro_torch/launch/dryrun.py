@@ -21,7 +21,9 @@ reference's dispatch is off by default) once under a
 (unfused), collective bytes by op and mesh dim, the live storages' peak.
 
 Each run writes ``experiments/dryrun/torch_<arch>_<shape>_<mesh>.json``
-(``torch_`` first: no reference record is ever written). A record's
+(``torch_`` first: no reference record is ever written; a train step in
+``grad_accum`` > 1 microbatches adds ``_ga<grad_accum>``, beside the
+record of one). A record's
 ``model_axis`` is the route its step took (``step.route``): ``split`` for
 every stack of the registry, whose products split over "model" with one
 layer's FSDP dims gathered at a time (heads, FFN columns, experts, SSD
@@ -31,11 +33,13 @@ says ``split`` too (``pod_pipeline.ROUTE``): each stage on that route
 over its pod's "data" and "model" ranks, the hop and the result moved as
 each rank's (data, model) block. Layers run as a Python loop, so nothing
 is counted once for many (``scan_counted`` is false). A record's
-``data_split`` says how its batch lies over the data axes
-(``sharding.context_parallel.data_split``): ``"rows"``, ``"sequence"``
-(context parallelism: a decode step's cache slots, or a prefill's or a
-pod stage's positions, over the data axes, B = 1 at ``long_500k`` and a
-split serve's microbatch of B/M rows) or ``"whole"``.
+``data_split`` says how its batch (a train step's microbatch) lies over
+the data axes (``sharding.context_parallel.data_split``): ``"rows"``,
+``"sequence"`` (context parallelism: a decode step's cache slots, or a
+prefill's, a pod stage's or a train microbatch's positions, over the data
+axes, B = 1 at ``long_500k``, a split serve's microbatch of B/M rows, a
+``train_4k`` microbatch of B/16 rows at ``grad_accum`` 16) or
+``"whole"``.
 """
 from __future__ import annotations
 
@@ -212,9 +216,11 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     chips = math.prod(shape) if mesh_shape else (
         hw.MULTI_MESH_CARDS if multi_pod else hw.SINGLE_MESH_CARDS)
     S, B = SHAPES[shape_name]
+    # a train step's microbatch lies over the data axes as its own rows do
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "grad_accum": grad_accum, "chips": chips,
-           "data_split": data_split(B, S, math.prod(shape[:-1]))}
+           "data_split": data_split(B // grad_accum, S,
+                                    math.prod(shape[:-1]))}
     ok, why = supported(cfg, shape_name)
     if not ok:
         rec["status"] = "skipped"
@@ -301,7 +307,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         "moment_dtype": (str(moment_dtype).removeprefix("torch.")
                          if mode == "train" else None),
     })
-    _write(rec, out_dir, f"torch_{arch}_{shape_name}_{mesh_name}.json")
+    accum = f"_ga{grad_accum}" if grad_accum > 1 else ""
+    _write(rec, out_dir, f"torch_{arch}_{shape_name}_{mesh_name}{accum}.json")
     return rec
 
 

@@ -94,7 +94,8 @@ def _cell(rec) -> str:
 
 def summary(out_dir: str) -> str:
     """The ``ok`` records of ``out_dir`` as markdown tables, one a mesh
-    (a row an arch, a column a shape) and one of the split serves."""
+    (a row an arch, a column a shape), one of the split serves and one of
+    the train steps in microbatches (``grad_accum`` > 1)."""
     recs = []
     for name in sorted(os.listdir(out_dir)):
         if name.startswith("torch_") and name.endswith(".json"):
@@ -102,6 +103,8 @@ def summary(out_dir: str) -> str:
                 rec = json.load(f)
             if rec.get("status", "ok") == "ok":
                 recs.append(rec)
+    accum = [r for r in recs if r.get("grad_accum", 1) > 1]
+    recs = [r for r in recs if r.get("grad_accum", 1) == 1]
     out = []
     for mesh in dict.fromkeys(r["mesh"] for r in recs if "shape" in r):
         out += [f"| {mesh} | " + " | ".join(SHAPES) + " |",
@@ -121,6 +124,13 @@ def summary(out_dir: str) -> str:
         out += [f"| {r['arch']} | {r['mesh']} | {_cell(r)} | "
                 f"{r['hop']['activation_shards_in_reference']} |"
                 for r in splits]
+    if accum:
+        out += ["", "| in microbatches | mesh | grad_accum | data_split | "
+                "FLOPs; bytes; collectives; dominant; peak |",
+                "|---|---|---|---|---|"]
+        out += [f"| {r['arch']} {r['shape']} | {r['mesh']} | "
+                f"{r['grad_accum']} | {r['data_split']} | {_cell(r)} |"
+                for r in accum]
     return "\n".join(out)
 
 

@@ -41,8 +41,10 @@ The data axes take a batch as ``batch_specs`` does
 them, else its sequence where that divides them (context parallelism:
 each rank its block of the positions, the cache's slots over the data
 axes, ``sharding.context_parallel``), else every rank holds everything.
-A serving step takes all three; the train step takes rows or whole and
-refuses a batch the reference would split by its sequence.
+Every step takes all three: the train step differentiates through the
+sequence split's exchanges (each all-gather's backward a reduce-scatter
+over the data axes), and on a whole batch weights each rank's loss by
+1/n.
 
 Each rank updates its own shards, AdamW's clip on the norm of the whole
 gradient; the prefill returns its logits and cache as DTensors (rows over
@@ -66,10 +68,11 @@ from repro_torch.models import transformer as tr
 from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
                                           value_and_grad)
 from repro_torch.sharding import specs as shard_specs
-from repro_torch.sharding.context_parallel import cache_max_len, data_split
+from repro_torch.sharding.context_parallel import (SeqSplit, cache_max_len,
+                                                   data_split, label_share)
 from repro_torch.sharding.tensor_parallel import (TensorParallel,
                                                   contiguous_stride,
-                                                  mesh_route,
+                                                  data_axes, mesh_route,
                                                   sum_model_partials)
 
 
@@ -126,6 +129,29 @@ def loss_and_grads(params, cfg: ModelConfig, batch, masks=None,
         return total if share is None else total.to(torch.float32) * share
     _, grads = value_and_grad(loss, params)
     return {k: v.detach() for k, v in out["metrics"].items()}, grads
+
+
+def share_loss_and_grads(cfg: ModelConfig, params, batch, axis,
+                         masks=None, backend: str = "auto"):
+    """(metrics, grads, share) of one data rank's share of a train step on
+    a sequence split over ``axis`` (a data seam: a ``tensor_parallel``
+    ``DataAxes``, a ``SequentialRanks`` rank, or any axis with ``rank``,
+    ``size``, ``all_gather``, ``all_reduce`` and ``reduce_scatter``), of a
+    whole (plain) tree ``params`` and the whole ``batch``, "model" whole:
+    ``loss_and_grads`` of the rank's block (``TensorParallel.sliced`` with
+    ``SeqSplit(axis)``) weighted by its share of the labelled tokens
+    (``context_parallel.label_share``). The ranks' gradients sum to the
+    whole batch's, and their metrics, each times its share, to its
+    metrics."""
+    from repro_torch.sharding.tensor_parallel import SequentialRanks
+    model = SequentialRanks(1).axes()[0]
+    share = label_share(cfg, batch["labels"], SeqSplit(axis))
+    metrics, grads = loss_and_grads(
+        params, cfg, batch, masks, backend,
+        tp_of=lambda p: TensorParallel.sliced(cfg, p, model, data=axis,
+                                              seq=SeqSplit(axis)),
+        share=share)
+    return metrics, grads, share
 
 
 def _accumulated(grads_of, params, batch, grad_accum: int):
@@ -272,20 +298,23 @@ def _data_split(cfg: ModelConfig, batch, mesh) -> str:
                       _data_size(mesh))
 
 
-def _my_batch(cfg: ModelConfig, batch, mesh, dev: torch.device):
-    """(this rank's rows of ``batch`` on ``dev``, their share of the
-    labelled tokens): the share divided in float64 and rounded once, as a
-    float32 tensor times a Python float rounds it; a tensor, so that a
-    traced step reads no value."""
-    n_data = _data_size(mesh)
-    B = _batch_rows(cfg, batch)
-    if n_data > 1 and B % n_data:
-        # the reference would split the sequence instead: context
-        # parallelism serves, but its train step is not ported
-        raise ValueError(f"batch {B} does not divide the data axes "
-                         f"({n_data}); the train step on a sequence split "
-                         f"is not ported (ROADMAP A8f-2)")
-    local = batch_on(dev, cfg, _my_rows(batch, mesh, n_data > 1))
+def _my_batch(cfg: ModelConfig, batch, mesh, dev: torch.device, mode: str):
+    """(what this rank holds of ``batch`` on ``dev``, its share of the
+    loss) as the batch lies over the data axes (``mode``, a
+    ``context_parallel.data_split`` word): ``"rows"``, its rows, the share
+    their labelled tokens over the whole batch's; ``"sequence"``, every
+    row (the stack cuts its block of the positions), the share its
+    block's labelled tokens (a VLM's labels padded over the vision
+    prefix, as ``loss_fn`` cuts them) over the whole batch's;
+    ``"whole"``, everything, the share 1/n. The share is divided in
+    float64 and rounded once, as a float32 tensor times a Python float
+    rounds it; a tensor, so that a traced step reads no value."""
+    local = batch_on(dev, cfg, _my_rows(batch, mesh, mode == "rows"))
+    if mode == "whole":
+        return local, torch.tensor(1.0 / _data_size(mesh), device=dev)
+    if mode == "sequence":
+        return local, label_share(cfg, local["labels"],
+                                  SeqSplit(data_axes(mesh)))
     f64 = torch.float64
     total = (torch.as_tensor(batch["labels"]) >= 0).sum().to(dev, f64)
     share = ((local["labels"] >= 0).sum().to(f64)
@@ -512,41 +541,48 @@ def _put_back(cache, held, mesh) -> None:
 
 def _tp_train_step(cfg: ModelConfig, optimizer: Optimizer, masks,
                    grad_accum: int, backend: str, dev: torch.device, mesh):
-    """The train step on ``mesh`` on the split route. Each rank takes its
-    ``batch_specs`` rows and differentiates the loss of its share
-    (``TensorParallel.on_mesh``: each layer's data dims gathered inside
-    the layer's remat checkpoint, the products split over "model", the
-    vocabulary-parallel cross-entropy) with respect to the DTensor
-    parameters themselves: a "model"-split leaf's gradient stays on its
-    shard, and the gather's backward reduce-scatters the gradient over
-    the data axes. The loss is weighted by this rank's share of the
-    labelled tokens first where the data axes have more than one rank (in
-    float32; on one rank the unsharded step's loss itself), so the
-    reduction gives the whole batch's gradient of the cross-entropy; the
-    router losses and the MTP loss are the whole batch's on every rank
-    (``TensorParallel.batch_sum``), and the shares summing to 1, their
-    gradient is the whole batch's too. With ``grad_accum`` microbatches
-    the whole batch is cut into the unsharded step's microbatches first
-    and each rank takes its rows of each, so a microbatch's whole-batch
-    sums (the MoE dispatch's capacity, slots and drops, the balance
-    losses) run over the reference's rows; a rank's share is then its
-    share of the microbatch's labelled tokens, the local gradients sum in
-    fp32 and divide, as the unsharded step does. The metrics are weighted
-    and summed over the data axes; AdamW updates each rank's own shards,
-    its clip on the whole gradient's norm (``_mesh_sq_norm``). On a
-    one-rank mesh every fetch is a view and every reduction the identity:
-    the unsharded step's bits."""
+    """The train step on ``mesh`` on the split route. Each rank takes what
+    ``batch_specs`` gives it of the batch (``_my_batch``: its rows where
+    they divide the data axes, else every row and its block of the
+    positions where those divide them, else everything) and
+    differentiates the loss of its share (``TensorParallel.on_mesh``: each
+    layer's data dims gathered inside the layer's remat checkpoint, the
+    products split over "model", the vocabulary-parallel cross-entropy;
+    on a sequence split K and V, MLA's latents, the conv's halo and the
+    SSD state exchanged over the data axes, each exchange's backward
+    sending the gradient back to the ranks it came from) with respect to
+    the DTensor parameters themselves: a "model"-split leaf's gradient
+    stays on its shard, and the gather's backward reduce-scatters the
+    gradient over the data axes. The loss is weighted by this rank's share
+    first where the data axes have more than one rank (in float32; on one
+    rank the unsharded step's loss itself): its share of the labelled
+    tokens where the rows or the sequence are split, so the reduction
+    gives the whole batch's gradient of the cross-entropy, and 1/n where
+    every rank holds the whole batch; the router losses and the MTP loss
+    are the whole batch's on every rank (``TensorParallel.batch_sum``),
+    and the shares summing to 1, their gradient is the whole batch's too.
+    With ``grad_accum`` microbatches the whole batch is cut into the
+    unsharded step's microbatches first and each microbatch lies over the
+    data axes as its own rows and positions do (16 rows over 32 data
+    ranks: a sequence split), so a microbatch's whole-batch sums (the MoE
+    dispatch's capacity, slots and drops, the balance losses) run over the
+    reference's rows; a rank's share is then its share of the
+    microbatch's, the local gradients sum in fp32 and divide, as the
+    unsharded step does. The metrics are weighted and summed over the data
+    axes; AdamW updates each rank's own shards, its clip on the whole
+    gradient's norm (``_mesh_sq_norm``). On a one-rank mesh every fetch is
+    a view and every reduction the identity: the unsharded step's bits."""
     _check_mesh(mesh, dev)
     n_data = _data_size(mesh)
 
-    def tp_of(leaves):
-        return TensorParallel.on_mesh(
-            cfg, mesh, leaves, split="rows" if n_data > 1 else "whole")
-
     def grads_of(p, mb):
-        local, share = _my_batch(cfg, mb, mesh, dev)
-        m, g = loss_and_grads(p, cfg, local, masks, backend, tp_of=tp_of,
-                              share=share if n_data > 1 else None)
+        mode = _data_split(cfg, mb, mesh)
+        local, share = _my_batch(cfg, mb, mesh, dev, mode)
+        m, g = loss_and_grads(
+            p, cfg, local, masks, backend,
+            tp_of=lambda leaves: TensorParallel.on_mesh(cfg, mesh, leaves,
+                                                        split=mode),
+            share=share if n_data > 1 else None)
         return _data_sum(m, share, mesh), tree_map(
             lambda t, q: sum_model_partials(t, q).to_local(), g, p)
 

@@ -531,9 +531,24 @@ def _mtp_loss(params, cfg: ModelConfig, batch, hidden: torch.Tensor,
     labels two ahead, -1 past the end. With ``tp``: the vocabulary-
     parallel embedding, head and cross-entropy, the block on the MTP
     config's split (``tp.for_config``), and where the data axes split the
-    rows the whole batch's mean (``_whole_xent``)."""
+    rows or the sequence the whole batch's mean (``_whole_xent``).
+
+    Where ``tp.seq`` splits the positions, ``hidden`` is this rank's
+    block and every rank holds the whole batch's tokens and labels: the
+    MTP sequence of S - 1 positions is padded to S (a last position whose
+    next token is 0 and whose label is -1; under the causal mask no
+    earlier query reads it), so that it splits as the stack's does, and
+    each rank takes its block of the next tokens and of the labels two
+    ahead; the block attends at its offset (K and V gathered)."""
+    seq = None if tp is None else tp.seq_tokens
+    if seq is not None and (cfg.vision_tokens or not cfg.causal):
+        raise ValueError(f"{cfg.name}: the MTP loss on a sequence split "
+                         f"takes a causal text stack")
     h = hidden
-    emb_next = _embed(params, batch["tokens"].clamp_min(0), tp)
+    tokens = batch["tokens"]
+    if seq is not None:             # the block's next tokens, 0 past the end
+        tokens = seq.cut(F.pad(tokens[:, 1:], (0, 1)), 1)
+    emb_next = _embed(params, tokens.clamp_min(0), tp)
     if cfg.scale_embeddings:
         emb_next = emb_next * torch.tensor(math.sqrt(cfg.d_model),
                                            dtype=emb_next.dtype)
@@ -541,12 +556,14 @@ def _mtp_loss(params, cfg: ModelConfig, batch, hidden: torch.Tensor,
         h = h[:, cfg.vision_tokens:]
     mtp = (params["mtp"] if tp is None else
            {"proj": tp.top("mtp", "proj"), "ln": tp.top("mtp", "ln")})
-    hcat = torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1) @ mtp["proj"]
+    if seq is None:                 # position t: h_t and token t + 1's
+        h, emb_next = h[:, :-1], emb_next[:, 1:]
+    hcat = torch.cat([h, emb_next], dim=-1) @ mtp["proj"]
     B2, S2 = hcat.shape[:2]
     mtp_cfg = cfg.replace(attention="gqa") if cfg.attention == "mla" else cfg
     if mtp_cfg.rope_mode == "mrope":
         mtp_cfg = mtp_cfg.replace(rope_mode="standard")
-    ang = _angles_for(mtp_cfg, {}, B2, S2, 0, hcat.device)
+    ang = _angles_for(mtp_cfg, {}, B2, S2, _offset(tp, S2), hcat.device)
     if tp is None:
         hcat = _attn_block(mtp_cfg, params["mtp"]["block"], hcat, ang,
                            None, backend)[0]
@@ -554,16 +571,19 @@ def _mtp_loss(params, cfg: ModelConfig, batch, hidden: torch.Tensor,
         hcat = _attn_block(mtp_cfg, ("mtp", "block"), hcat, ang, None,
                            backend, tp.for_config(mtp_cfg))[0]
     hcat = rmsnorm(hcat, mtp["ln"], cfg.norm_eps, backend=backend)
-    labels = F.pad(batch["labels"][:, 2:], (0, 1), value=-1)[:, :S2]
+    if seq is None:
+        labels = F.pad(batch["labels"][:, 2:], (0, 1), value=-1)[:, :S2]
+    else:
+        labels = seq.cut(F.pad(batch["labels"][:, 2:], (0, 2), value=-1), 1)
     return _whole_xent(_lm_logits(params, cfg, hcat, tp), labels, tp)
 
 
 def _whole_xent(logits: torch.Tensor, labels: torch.Tensor,
                 tp=None) -> torch.Tensor:
     """``softmax_xent`` (with ``tp``, the vocabulary-parallel one where the
-    vocabulary is split); where ``tp``'s data axes split the rows, the
-    whole batch's: the sum of every rank's terms over the count of every
-    rank's labels (``tp.batch_sum``)."""
+    vocabulary is split); where ``tp``'s data axes split the rows or the
+    sequence, the whole batch's: the sum of every rank's terms over the
+    count of every rank's labels (``tp.batch_sum``)."""
     if tp is not None and tp.vocab is not None:
         total, count = vocab_xent(logits, labels, tp.vocab[0], tp.axis,
                                   parts=True)
@@ -586,11 +606,16 @@ def loss_fn(params, cfg: ModelConfig, batch, masks: Masks = None,
     is split; the router losses and the MTP loss are the whole batch's
     where the data axes split the rows (``moe_forward``, ``_mtp_loss``),
     the cross-entropy this rank's rows' own (a step weights it by the
-    rank's share of the labels)."""
+    rank's share of the labels). Where ``tp.seq`` splits the positions,
+    every rank holds the whole batch and the cross-entropy is its block's:
+    the labels cut as the inputs are, after a VLM's pad over its vision
+    prefix; the router and MTP losses are the whole sequence's."""
     logits, aux = forward(params, cfg, batch, masks, backend, tp)
     labels = batch["labels"]
     if cfg.vision_tokens:
         labels = F.pad(labels, (cfg.vision_tokens, 0), value=-1)
+    if tp is not None and tp.seq_tokens is not None:
+        labels = tp.seq_tokens.cut(labels, 1)
     if tp is None or tp.vocab is None:
         loss = softmax_xent(logits, labels)
     else:

@@ -86,11 +86,13 @@ _COLLECTIVE_OF = {
     "c10d.alltoall_base_": "all-to-all",
     "c10d.send": "collective-permute",
 }
-#: ops that move nothing a card counts: allocations, waits, receives
+#: ops that move nothing a card counts: allocations, waits, receives, and
+#: ``prim.device``, a read of a tensor's device (``torch.as_tensor`` of a
+#: tensor makes one)
 _NO_BYTES = {"aten.empty", "aten.empty_strided", "aten.empty_like",
              "aten.new_empty", "aten.new_empty_strided",
              "_c10d_functional.wait_tensor", "c10d.recv_",
-             "c10d.recv_any_source_", "c10d.barrier"}
+             "c10d.recv_any_source_", "c10d.barrier", "prim.device"}
 
 
 def shape_bytes(t_or_dtype, shape: Optional[Tuple[int, ...]] = None) -> int:

@@ -1,6 +1,6 @@
-"""Context parallelism over the data axes for serving: the sequence split
-the reference's layout asks for where a batch's rows do not divide the
-data axes.
+"""Context parallelism over the data axes for serving and training: the
+sequence split the reference's layout asks for where a batch's rows do
+not divide the data axes.
 
 The reference's ``batch_specs`` shards a batch's sequence over the data
 axes when its rows do not divide them (``sharding/specs.py``), its
@@ -50,6 +50,22 @@ process), each standing for what GSPMD does at that op:
   every rank keeps the sequence's last rows as the conv tail.
 * **The last position** (``SeqSplit.last``): the last rank's hidden
   state, all-gathered and taken whole, the same bits on every rank.
+* **Training.** Every exchange of a block's positions is differentiable:
+  each all-gather's backward reduce-scatters the gradient over the data
+  axes (``tensor_parallel.all_gather_grad``), so the part of dK and dV
+  (MLA's latents) that a later block's queries put on a key goes back to
+  the rank that holds it, the halo's and the conv tail's gradient to the
+  ranks whose rows they were, the folded SSD states' and log-decays' to
+  the ranks below. The ranks make the same collective calls in the
+  backward as in the forward: rank 0's halo (zeros) and its zero
+  incoming state stay in its graph. Each rank's cross-entropy is its
+  block's (``transformer.loss_fn`` cuts the labels as the inputs), its
+  loss weighted by its share of the labelled tokens (``label_share``),
+  so the gradients summed over the data axes (the FSDP gather's
+  reduce-scatter) are the whole batch's; the router, z and MTP losses are
+  the whole sequence's (``TensorParallel.batch_sum``). Under
+  ``torch.no_grad`` every exchange computes what it did for serving
+  alone, to the bit.
 
 On one data rank no ``SeqSplit`` is made: the steps are the unsharded
 ones.
@@ -59,6 +75,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.sharding.tensor_parallel import all_gather_grad
 
 
 def data_split(rows: int, seq: int, n: int) -> str:
@@ -144,8 +163,10 @@ class SeqSplit:
         return t.narrow(dim, lo, hi - lo)
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's block of ``t`` joined in rank order on ``dim``."""
-        return torch.cat(self.axis.all_gather(t).unbind(0), dim=dim)
+        """Every rank's block of ``t`` joined in rank order on ``dim``; the
+        backward reduce-scatters the gradient over the data axes, each
+        block's part back to the rank whose block it was."""
+        return torch.cat(all_gather_grad(t, self.axis).unbind(0), dim=dim)
 
     def keys(self, offset: int, local: int, causal: bool,
              window: Optional[int]) -> Tuple[int, int]:
@@ -220,19 +241,17 @@ class SeqSplit:
         """(halo, tail) of a block's raw conv inputs ``raw`` (B, local,
         C): the ``width`` rows before this block (zeros before the
         sequence) and the sequence's last ``width`` rows (every rank's),
-        from one all-gather of each rank's last rows."""
-        w = min(raw.shape[1], width)
-        got = self.axis.all_gather(raw[:, raw.shape[1] - w:])  # (n,B,w,C)
-
-        def last_rows(parts):
-            rows = (torch.cat(list(parts.unbind(0)), dim=1) if len(parts)
-                    else raw.new_zeros((raw.shape[0], 0, raw.shape[2])))
-            if rows.shape[1] < width:
-                rows = torch.cat([raw.new_zeros(
-                    (raw.shape[0], width - rows.shape[1], raw.shape[2])),
-                    rows], dim=1)
-            return rows[:, rows.shape[1] - width:]
-        return last_rows(got[:self.rank]), last_rows(got)
+        from one all-gather of each rank's last rows; the backward
+        reduce-scatters their gradient to the ranks whose rows they were
+        (rank 0's halo, all zeros, still joins it)."""
+        B, L, C = raw.shape
+        w = min(L, width)
+        got = all_gather_grad(raw[:, L - w:], self.axis)       # (n,B,w,C)
+        rows = torch.cat([raw.new_zeros((B, width, C)),
+                          got.transpose(0, 1).reshape(B, self.n * w, C)],
+                         dim=1)
+        lo = self.rank * w
+        return rows[:, lo:lo + width], rows[:, self.n * w:]
 
     def ssd_carry(self, y: torch.Tensor, state: torch.Tensor,
                   dt: torch.Tensor, A: torch.Tensor, Ch: torch.Tensor,
@@ -243,12 +262,16 @@ class SeqSplit:
         ``A`` (H,), ``Ch`` (B, local, H, N) each head's C. The blocks'
         states and log-decays sum(dt A) are all-gathered and folded in
         rank order; the part C_t . (exp(cumsum dt A)_t h_in) is float32
-        and masked by ``head_mask`` as the scan's output is."""
+        and masked by ``head_mask`` as the scan's output is. The backward
+        reduce-scatters the folded states' and log-decays' gradient to the
+        ranks whose blocks they were; under autograd rank 0 adds a zero
+        part, so that its backward joins that reduce-scatter."""
         B, H = state.shape[:2]
         f32 = torch.float32
         cum = torch.cumsum(dt.to(f32) * A.to(f32), dim=1)   # (B, local, H)
-        got = self.axis.all_gather(torch.cat(
-            [state.reshape(B, H, -1).to(f32), cum[:, -1, :, None]], -1))
+        got = all_gather_grad(torch.cat(
+            [state.reshape(B, H, -1).to(f32), cum[:, -1, :, None]], -1),
+            self.axis)
         h, h_in = None, None
         for r in range(self.n):
             if r == self.rank:
@@ -257,12 +280,28 @@ class SeqSplit:
             h = st if h is None else (h * torch.exp(got[r, ..., -1])
                                       [..., None, None] + st)
         if h_in is None:                    # rank 0: nothing comes in
-            return y, h
+            if not got.requires_grad:
+                return y, h
+            h_in = got[:0].sum(0)[..., :-1].reshape(state.shape)
         part = torch.einsum("blhn,bhpn->blhp", Ch.to(f32)
                             * torch.exp(cum)[..., None], h_in)
         if head_mask is not None:
             part = part * head_mask.to(f32)[None, None, :, None]
         return y + part, h
+
+
+def label_share(cfg, labels: torch.Tensor, seq: SeqSplit) -> torch.Tensor:
+    """One data rank's share of a train step's loss on a sequence split:
+    its block's labelled tokens over the whole batch's, ``labels`` (B, S)
+    the whole batch's (a VLM's padded with -1 over its vision prefix
+    first, as ``transformer.loss_fn`` cuts them); divided in float64 and
+    rounded once to float32. The shares sum to 1."""
+    f64 = torch.float64
+    total = (labels >= 0).sum().to(f64)
+    if cfg.vision_tokens:
+        labels = F.pad(labels, (cfg.vision_tokens, 0), value=-1)
+    mine = (seq.cut(labels, 1) >= 0).sum().to(f64)
+    return (mine / total.clamp_min(1.0)).to(torch.float32)
 
 
 def partial_softmax(logits: torch.Tensor, ok: torch.Tensor):

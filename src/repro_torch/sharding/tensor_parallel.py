@@ -61,7 +61,8 @@ in one process one after another, each reduction adding the shares in
 rank order (the card's split checks, and tests). The data axes' exchanges
 go through the same seam (``DataAxes`` on a mesh).
 
-**The whole batch.** Where a mesh's data axes split the rows, the MoE
+**The whole batch.** Where a mesh's data axes split the rows (or, on a
+sequence split, the positions: ``sharding.context_parallel``), the MoE
 dispatch and the losses that are not a mean of per-row terms are the whole
 batch's, as the reference computes them on the global batch: the data
 axes (``DataAxes``, "pod" major) carry an all-gather of each rank's expert
@@ -634,6 +635,11 @@ class SequentialRanks:
 
 
 class _SequentialAxis:
+    """One rank of ``SequentialRanks``. A reduction's or gather's result
+    is one tensor that every rank reads; each rank gets its own view of
+    it, so that an autograd Function's output (``_SumBatch``,
+    ``_GatherSlots``) joins that rank's graph alone."""
+
     def __init__(self, ranks: SequentialRanks, rank: int):
         self.ranks, self.rank, self.size = ranks, rank, ranks.size
 
@@ -643,10 +649,12 @@ class _SequentialAxis:
             for s in ts[1:]:
                 out = torch.maximum(out, s) if op == "max" else out + s
             return out
-        return self.ranks.exchange(self.rank, t, combine)
+        out = self.ranks.exchange(self.rank, t, combine)
+        return out.view(out.shape)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        return self.ranks.exchange(self.rank, t, torch.stack)
+        out = self.ranks.exchange(self.rank, t, torch.stack)
+        return out.view(out.shape)
 
     def all_to_all(self, parts, shapes) -> List[torch.Tensor]:
         sent = self.ranks.exchange(self.rank, list(parts), list)
@@ -749,6 +757,25 @@ class _GatherSlots(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.data.reduce_scatter(g), None
+
+
+def all_gather_grad(t: torch.Tensor, axis) -> torch.Tensor:
+    """(axis.size, *t.shape): every rank's ``t`` in rank order (an
+    all-gather); the backward reduce-scatters the gradient, each rank's
+    part back to the rank whose ``t`` it was (``_GatherSlots``)."""
+    return _GatherSlots.apply(t, axis)
+
+
+def data_axes(mesh, stage: bool = False) -> "DataAxes":
+    """The mesh's data groups, every dim but "model" of more than one
+    rank ("pod" too, unless ``stage``: a pod pipeline's), as one
+    ``DataAxes``."""
+    names = mesh.mesh_dim_names
+    return DataAxes([GroupAxis(mesh.get_group(j), mesh.get_local_rank(j),
+                               mesh.size(j))
+                     for j, n in enumerate(names)
+                     if n != "model" and mesh.size(j) > 1
+                     and not (stage and n == "pod")])
 
 
 # ---------------------------------------------------------------------------
@@ -919,11 +946,7 @@ class TensorParallel:
                          mesh.size(i))
         data = seq = None
         if split != "whole":
-            data = DataAxes([GroupAxis(mesh.get_group(j),
-                                       mesh.get_local_rank(j), mesh.size(j))
-                             for j, n in enumerate(names)
-                             if n != "model" and mesh.size(j) > 1
-                             and not (stage and n == "pod")])
+            data = data_axes(mesh, stage)
         if split in ("sequence", "slots"):
             seq = SeqSplit(data, tokens=split == "sequence", cfg=cfg,
                            max_len=max_len)
@@ -1141,7 +1164,7 @@ class TensorParallel:
 
     def gather_slots(self, t: torch.Tensor) -> torch.Tensor:
         """(...) -> (data size, ...): every data rank's."""
-        return _GatherSlots.apply(t, self.data)
+        return all_gather_grad(t, self.data)
 
     # -- the vocabulary -------------------------------------------------------
     def embed(self, ids: torch.Tensor) -> torch.Tensor:

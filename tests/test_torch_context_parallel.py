@@ -1,4 +1,4 @@
-"""Context parallelism over the data axes for serving
+"""Context parallelism over the data axes for serving and training
 (``repro_torch.sharding.context_parallel``) in one process: the data
 ranks of a sequence split are one ``SequentialRanks`` seam (their shares
 run one after another, every exchange in rank order; no spawn), on the
@@ -36,6 +36,15 @@ same numpy arrays as the reference (``tests/torch_parity.py``).
   at shifted query positions, causal, windowed and not causal, and the
   offset backward against ``jax.vjp`` of it, within 64 eps of the largest
   entry (float32).
+
+* The train step on a sequence split: the 7 configs (Mixtral with a
+  window of 6 that crosses the blocks) at B = 1 over 2 and 4 shares
+  (``launch.steps.share_loss_and_grads``), the loss within
+  ``LOSS_RTOL32`` and every gradient leaf, summed over the shares, within
+  ``GRAD_RTOL32`` of the reference's ``jax.value_and_grad`` of
+  ``loss_fn`` on the whole batch; each exchange's backward (the K/V
+  gather, the conv halo, the SSD carry) against autograd of the unsplit
+  function, within 64 eps of the largest entry.
 
 Float32 configs throughout: ``stack_tol`` is 64 eps of the largest logit
 (the same sums in other orders: the partial softmaxes combined, the
@@ -455,3 +464,213 @@ def test_flash_backward_at_an_offset_matches_reference_vjp(case):
                     q_offset=off).backward(tg)
     for a, b in zip(leaves, want):
         assert _tight(a.grad, b)
+
+
+# ---------------------------------------------------------------------------
+# the train step on a sequence split
+# ---------------------------------------------------------------------------
+#: (name, registry arch, config overrides, positions S) of the sequence
+#: split's train step, B = 1, float32, masks at ratios in [0.3, 0.8): the
+#: Mixtral's window of 6 crosses the blocks (8 and 4 positions); the
+#: Qwen2-VL's S counts its text, its 16 vision tokens come first
+TRAIN_CASES = (("qwen2-7b", "qwen2-7b", {}, 16),
+               ("qwen2-vl-7b", "qwen2-vl-7b", {}, 16),
+               ("hubert-xlarge", "hubert-xlarge", {}, 16),
+               ("mixtral-window-6", "mixtral-8x7b", dict(sliding_window=6),
+                16),
+               ("deepseek-v3-671b", "deepseek-v3-671b", {}, 16),
+               ("mamba2-2.7b", "mamba2-2.7b", {}, 40),
+               ("zamba2-1.2b", "zamba2-1.2b", {}, 16))
+
+_TRAIN: dict = {}
+
+
+def _train_setup(case):
+    """The case's port config, params, masks and batch, and the
+    reference's loss and gradient leaves (``jax.value_and_grad`` of its
+    ``loss_fn`` on the whole batch): made once a case."""
+    from repro_torch.interop import (transformer_masks_from_reference,
+                                     transformer_params_from_reference)
+    from torch_parity import (port_batch, reference_loss_and_grads,
+                              train_batch_np, train_setup)
+    name, arch, over, S = case
+    if name not in _TRAIN:
+        cr, ct, pn, mn = train_setup(arch, **over)
+        bn = train_batch_np(cr, 1, S)
+        _TRAIN[name] = dict(
+            cfg=ct, params=transformer_params_from_reference(pn),
+            masks=transformer_masks_from_reference(mn),
+            batch=port_batch(bn),
+            ref=reference_loss_and_grads(cr, pn, bn, mn))
+    return _TRAIN[name]
+
+
+def _train_split(setup, n: int):
+    """(loss, gradient tree) of the ``n``-share sequence split's train
+    step (``launch.steps.share_loss_and_grads`` a share, the shares run in
+    turn): each share's loss times its share summed, the shares'
+    gradients summed in rank order."""
+    from repro_torch.launch.steps import share_loss_and_grads
+    from repro_torch.optim.optimizers import tree_map
+    ranks = SequentialRanks(n)
+    res = ranks.run([lambda a=a: share_loss_and_grads(
+        setup["cfg"], setup["params"], setup["batch"], a, setup["masks"])
+        for a in ranks.axes()])
+    assert abs(sum(float(s) for *_, s in res) - 1.0) <= 4 * EPS32
+    loss = sum(float(m["loss"]) * float(s) for m, _, s in res)
+    grads = res[0][1]
+    for _, g, _ in res[1:]:
+        grads = tree_map(torch.add, grads, g)
+    return loss, grads
+
+
+@pytest.mark.parametrize("n", SHARES)
+@pytest.mark.parametrize("name", [c[0] for c in TRAIN_CASES])
+def test_sequence_split_trains_the_whole_batch(name, n):
+    """The case's train step over ``n`` sequence shares: the loss (each
+    share's times its share of the labels, summed) within ``LOSS_RTOL32``
+    of the reference's ``jax.value_and_grad`` of ``loss_fn`` on the whole
+    batch, and every gradient leaf (the shares' summed) within
+    ``GRAD_RTOL32`` of its largest entry: K and V (MLA's latents, the MTP
+    block's) gathered with their gradient reduce-scattered back, the
+    conv's halo and the SSD state's carry likewise, the cross-entropy each
+    block's own, the router, z and MTP losses the whole sequence's."""
+    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
+                              port_grad_leaves)
+    setup = _train_setup(next(c for c in TRAIN_CASES if c[0] == name))
+    loss, grads = _train_split(setup, n)
+    want, _, want_grads = setup["ref"]
+    assert abs(loss - want) <= LOSS_RTOL32 * abs(want)
+    assert_grads_close32(port_grad_leaves(grads), want_grads)
+
+
+def _shares_grads(n: int, whole, cut, shared, share_fn):
+    """Each of ``n`` sequential shares' gradients of its inputs: ``cut``
+    (tensors whose dim 1 is the sequence, each share its block) joined in
+    rank order, ``shared`` (every share's whole) summed over the shares;
+    beside autograd's of the unsplit ``whole(*cut, *shared)``, a scalar.
+    ``share_fn(seq, *blocks, *shared)`` is a share's weighted loss."""
+    ranks = SequentialRanks(n)
+    leaves = [t.clone().requires_grad_(True) for t in cut + shared]
+    want = torch.autograd.grad(whole(*leaves), leaves)
+
+    def share(a):
+        seq = SeqSplit(a)
+        mine = [t.detach().requires_grad_(True)
+                for t in [seq.cut(t, 1) for t in cut] + list(shared)]
+        return torch.autograd.grad(share_fn(seq, *mine), mine)
+    with torch.enable_grad():
+        got = ranks.run([lambda a=a: share(a) for a in ranks.axes()])
+    parts = list(zip(*got))
+    return ([torch.cat(p, 1) for p in parts[:len(cut)]]
+            + [sum(p) for p in parts[len(cut):]]), want
+
+
+@pytest.mark.parametrize("n", SHARES)
+def test_kv_gather_sends_each_blocks_gradient_back_to_its_share(n):
+    """The fault a plain all-gather of K and V makes in a train step: a
+    later share's queries read an earlier share's keys, and that part of
+    dK, dV must reach the share that holds the block. ``SeqSplit.gather``
+    reduce-scatters the gathered keys' gradient over the data axes: dQ,
+    dK and dV of causal attention over ``n`` shares (each block's queries
+    at its offset against the gathered keys, plain twin) are autograd's
+    of the unsplit attention, within 64 eps of the largest entry. Without
+    the reduce-scatter each share keeps only its own queries' part of its
+    keys' gradient."""
+    rng = np.random.default_rng(13)
+    B, S, H, Hkv, D = 1, 12, 4, 2, 8
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(shape)
+                                   .astype(np.float32))
+                  for shape in ((B, S, H, D), (B, S, Hkv, D),
+                                (B, S, Hkv, D), (B, S, H, D)))
+
+    def whole(q, k, v, g):
+        return (attention_ref(q, k, v, causal=True) * g).sum()
+
+    def share(seq, q, k, v, g):
+        L = q.shape[1]
+        lo, hi = seq.block(L)
+        kk, vv = seq.gather(torch.stack([k, v]), 2).unbind(0)
+        out = attention_ref(q, kk[:, :hi], vv[:, :hi], causal=True,
+                            q_offset=lo)
+        return (out * g).sum()
+    got, want = _shares_grads(n, whole, (q, k, v, g), (), share)
+    for a, b in zip(got[:3], want[:3]):
+        assert _tight(a, b)
+
+
+@pytest.mark.parametrize("S,n", [(12, 2), (8, 4)])
+def test_conv_halo_sends_the_gradient_to_the_rows_it_came_from(S, n):
+    """``SeqSplit.halo``'s backward: the causal conv (``ssm._causal_conv``,
+    4 taps) of each share's block with the halo of the 3 raw rows before
+    it, and the sequence's last 3 rows (the tail every share holds,
+    weighted 1/n a share), give the input, taps and bias the unsplit
+    conv's gradients within 64 eps; at 8 positions over 4 shares a block
+    of 2 rows takes its halo from two shares below. Its forward under
+    autograd is the bits of its forward without it."""
+    from repro_torch.models.layers.ssm import _causal_conv
+    rng = np.random.default_rng(17)
+    K, C = 4, 6
+    raw, g = (torch.from_numpy(rng.standard_normal((1, S, C))
+                               .astype(np.float32)) for _ in range(2))
+    gt = torch.from_numpy(rng.standard_normal((1, K - 1, C))
+                          .astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, C)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((C,)).astype(np.float32))
+
+    def whole(raw, g, w, b):
+        out = _causal_conv(raw, w, b, K)
+        return (out * g).sum() + (raw[:, S - (K - 1):] * gt).sum()
+
+    def share(seq, raw, g, w, b):
+        halo, tail = seq.halo(raw, K - 1)
+        with torch.no_grad():
+            assert torch.equal(seq.halo(raw, K - 1)[0], halo)
+        out = _causal_conv(raw, w, b, K, halo)
+        return (out * g).sum() + (tail * gt).sum() / seq.n
+    got, want = _shares_grads(n, whole, (raw, g), (w, b), share)
+    for a, c in zip(got, want):
+        assert _tight(a, c)
+
+
+@pytest.mark.parametrize("n", SHARES)
+def test_ssd_carry_sends_the_state_gradient_to_the_shares_below(n):
+    """``SeqSplit.ssd_carry``'s backward: each share's block scanned from
+    a zero state (``ssd_scan_ref``, chunk 4; 2 heads of 3 over 1 group,
+    one head masked), the blocks' states and log-decays folded in rank
+    order, and the whole sequence's final state (every share's, weighted
+    1/n) give x, dt, A, B and C the unsplit scan's gradients within 64
+    eps of the largest entry. Rank 0, whose block takes no state, still
+    joins the backward's reduce-scatter; its forward under autograd is
+    the bits of its forward without it."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    rng = np.random.default_rng(19)
+    B, S, H, G, P, N, chunk = 1, 16, 2, 1, 3, 4, 4
+    mask = torch.tensor([1.0, 0.0])
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+    x, Bm, Cm, gy = f32(B, S, H, P), f32(B, S, G, N), f32(B, S, G, N), \
+        f32(B, S, H, P)
+    dt = torch.from_numpy(rng.uniform(0.1, 0.6, (B, S, H))
+                          .astype(np.float32))
+    A = -torch.from_numpy(rng.uniform(0.5, 1.5, (H,)).astype(np.float32))
+    gs = f32(B, H, P, N)
+
+    def whole(x, dt, Bm, Cm, gy, A):
+        y, state = ssd_scan_ref(x, dt, A, Bm, Cm, mask, chunk)
+        return (y * gy).sum() + (state * gs).sum()
+
+    def share(seq, x, dt, Bm, Cm, gy, A):
+        y, state = ssd_scan_ref(x, dt, A, Bm, Cm, mask, chunk)
+        Ch = Cm.repeat_interleave(H // G, dim=2)
+        y2, h = seq.ssd_carry(y, state, dt, A, Ch, mask)
+        with torch.no_grad():
+            y0, h0 = seq.ssd_carry(y, state, dt, A, Ch, mask)
+        assert torch.equal(y0, y2) and torch.equal(h0, h)
+        return (y2 * gy).sum() + (h * gs).sum() / seq.n
+    got, want = _shares_grads(n, whole, (x, dt, Bm, Cm, gy), (A,),
+                               share)
+    for a, c in zip(got, want):
+        assert _tight(a, c)

@@ -418,8 +418,10 @@ def test_each_stack_records_its_route(arch, route, tmp_path, no_group):
 def test_run_one_keeps_its_records_in_out_dir(tmp_path, monkeypatch,
                                              no_group):
     """A decode cell on (2, 2, 2), a skipped cell (no record), a train
-    cell with ``grad_accum`` 2: only their records appear, in
-    ``out_dir``; nothing lands in the working directory."""
+    cell with ``grad_accum`` 2 (its record named ``_ga2``, apart from one
+    at ``grad_accum`` 1; its microbatch's 128 rows split over "data"):
+    only their records appear, in ``out_dir``; nothing lands in the
+    working directory."""
     out, cwd = tmp_path / "out", tmp_path / "cwd"
     cwd.mkdir()
     monkeypatch.chdir(cwd)
@@ -434,8 +436,9 @@ def test_run_one_keeps_its_records_in_out_dir(tmp_path, monkeypatch,
     rec = dryrun.run_one("qwen2-7b", "train_4k", False, str(out),
                          mesh_shape=SMALL, smoke=True, grad_accum=2)
     assert rec["grad_accum"] == 2 and rec["moment_dtype"] == "float32"
+    assert rec["data_split"] == "rows"
     assert _records(out) == ["torch_mixtral-8x7b_long_500k_2x2x2.json",
-                             "torch_qwen2-7b_train_4k_2x2.json"]
+                             "torch_qwen2-7b_train_4k_2x2_ga2.json"]
     assert _records(cwd) == [] and _records(tmp_path) == ["cwd", "out"]
 
 
@@ -636,3 +639,47 @@ def test_plain_gqa_chunks_above_naive_attn_max_as_the_reference(window):
     assert np.abs(got.numpy() - want).max() <= stack_tol(want, "float32")
     assert np.abs(gk.numpy() - np.asarray(wk)).max() <= stack_tol(
         np.asarray(wk), "float32")
+
+
+def test_counter_prices_a_device_read_at_no_bytes(no_group):
+    """``prim.device``, the metadata read of a tensor's device, moves no
+    byte: ``torch.as_tensor`` of a (1024, 1024) fp32 fake DTensor's shard
+    (a step's ``as_tensor`` of its inputs makes the read) and of the
+    DTensor itself add 0 bytes under ``TraceCounter``, where the shard's
+    read once counted 3 x its 4 MiB. An elementwise op on the same shard
+    still counts its operand and its result."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    with dryrun.fake_group(4):
+        mesh = dryrun._mesh_of(SMALL)
+        with FakeTensorMode():
+            d = DTensor.from_local(torch.empty(1024, 1024), mesh,
+                                   [Replicate(), Shard(0)], run_check=False)
+            with analysis.TraceCounter(mesh) as read:
+                torch.as_tensor(d.to_local())
+                torch.as_tensor(d)
+            with analysis.TraceCounter(mesh) as scaled:
+                d.to_local() * 2
+    assert read.bytes_accessed == 0
+    assert scaled.bytes_accessed == 2 * 4 * 1024 * 1024
+
+
+def test_a_microbatch_lies_over_the_data_axes_as_its_rows_do(
+        tmp_path, monkeypatch, no_group):
+    """``train_4k`` cut to 4 rows of 64 tokens, the smoke Qwen2-7B on a
+    fake (2, 2) mesh: in one step the 4 rows split over "data"; in 4
+    microbatches each microbatch's one row does not, so its 64 positions
+    do (``data_split`` "sequence": each data rank every row's block of
+    32, K and V all-gathered over "data"), the record written beside the
+    first as ``_ga4``. Rank 0's block attends only its own 32 keys, so
+    its FLOPs fall below the row split's."""
+    monkeypatch.setitem(tspecs.SHAPES, "train_4k", (64, 4))
+    one = dryrun.run_one("qwen2-7b", "train_4k", False, str(tmp_path),
+                         mesh_shape=SMALL, smoke=True)
+    four = dryrun.run_one("qwen2-7b", "train_4k", False, str(tmp_path),
+                          mesh_shape=SMALL, smoke=True, grad_accum=4)
+    assert one["status"] == four["status"] == "ok"
+    assert (one["data_split"], four["data_split"]) == ("rows", "sequence")
+    assert _records(tmp_path) == ["torch_qwen2-7b_train_4k_2x2.json",
+                                  "torch_qwen2-7b_train_4k_2x2_ga4.json"]
+    assert four["cost_analysis"]["flops"] < one["cost_analysis"]["flops"]

@@ -47,11 +47,16 @@ decode steps of the smoke Qwen2-7B, Mixtral-8x7B, DeepSeek-V3, Mamba2-2.7B
 and Zamba2-1.2B on the (2, 2) mesh through the mesh steps (each data
 rank its block of the 16 positions and of the cache's 20 slots), within
 ``stack_tol`` of the one-process steps and of the reference's jitted
-``prefill`` / ``decode_step``, and the train step's refusal of such a
-batch; and the same steps at a cache of 21 slots, which the data ranks do
-not divide (every rank holds each leaf whole, as ``cache_specs`` lays it
-out), for Qwen2-7B, a Mixtral whose window of 24 lies between the 16
-positions and twice the 21 slots, DeepSeek-V3 and Zamba2-1.2B.
+``prefill`` / ``decode_step``, and 2 AdamW steps of the same batch (each
+data rank its block of the positions) held to the one-process steps and
+to the reference's ``jax.value_and_grad`` and ``make_train_step``; the
+same train steps for DeepSeek-V3 at ``grad_accum`` 2 (each microbatch of
+1 row a sequence split) and for Qwen2-7B on 15 positions (a batch
+neither split divides, whole on both data ranks); and the serving steps
+at a cache of 21 slots, which the data ranks do not divide (every rank
+holds each leaf whole, as ``cache_specs`` lays it out), for Qwen2-7B, a
+Mixtral whose window of 24 lies between the 16 positions and twice the
+21 slots, DeepSeek-V3 and Zamba2-1.2B.
 In-process: the head, expert and SSD-head splits of the registry
 configs at "model" 1, 2 and 16, MLA's per-leaf head ranges,
 ``Regather``, the routes, and the shares of a split run one after
@@ -115,6 +120,13 @@ NAMES = [c[0] for c in CASES]
 MESHES = ((1, 4), (2, 2))
 MESH_IDS = ["1x4", "2x2"]
 B, S, DECODE = 2, 8, 4
+#: the train step's other splits over the (2, 2) mesh's "data", by key:
+#: (case, rows, positions, grad_accum). "cp_accum": 2 rows in 2
+#: microbatches, each of 1 row, so each a sequence split; "cp_whole": 1
+#: row of an odd count of positions, which neither split divides, so
+#: every data rank holds it whole
+CP_TRAIN = {"cp_accum": ("deepseek-v3-671b", 2, CP_S, 2),
+            "cp_whole": ("qwen2-7b", 1, CP_S - 1, 1)}
 #: (case, slots) of every sequence split run against the reference
 CP_RUNS = ([(n, CP_S + DECODE) for n in CP_CASES]
            + [(n, CP_S + DECODE + 1) for n in CP_WHOLE])
@@ -205,13 +217,9 @@ def _sequence_steps(cfg, params, batch, tokens, mesh=None,
                     train: bool = True) -> dict:
     """A prefill (the cache at ``max_len`` slots) and ``DECODE`` decode
     steps of a batch whose one row does not divide the mesh's data axes
-    (on ``mesh``: the sequence split), every tensor whole; and, on
-    ``mesh`` with ``train``, whether its train step refuses the
-    batch."""
-    from repro_torch.launch.steps import (make_decode_step,
-                                          make_prefill_step, make_train_step)
-    from repro_torch.optim import adamw
-    from repro_torch.optim.schedules import constant
+    (on ``mesh``: the sequence split), every tensor whole; with ``train``,
+    also 2 AdamW steps of the batch (``_train``)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.sharding import specs as sh
     p = params
     if mesh is not None:
@@ -228,17 +236,8 @@ def _sequence_steps(cfg, params, batch, tokens, mesh=None,
             logits, cache = decode(p, cache, t)
             out["decode"].append(_whole(logits))
         out["cache_after"] = [_whole(t) for t in _leaves(cache["runs"])]
-    if mesh is not None and train:
-        opt = adamw(constant(LR), eps=EPS)
-        state = opt.init(params)
-        state = sh.distribute(state, sh.opt_state_specs(
-            state, sh.param_specs(params, cfg, mesh)), mesh)
-        step = make_train_step(cfg, opt, device="cpu", mesh=mesh)
-        try:
-            step(p, state, batch)
-            out["train_refused"] = None
-        except ValueError as e:
-            out["train_refused"] = str(e)
+    if train:
+        out["train"] = _train(cfg, params, None, batch, mesh)
     return out
 
 
@@ -351,6 +350,12 @@ def _rank(rank: int, port: int, d: str) -> None:
                                   max_len=CP_S + DECODE + 1, train=False)
             if rank == 0:
                 torch.save(got, os.path.join(d, f"{name}.cpw.pt"))
+        for key, (name, _, _, accum) in CP_TRAIN.items():
+            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
+            got = _train(_port_config(name), inp["params"], None, inp[key],
+                         mesh, grad_accum=accum)
+            if rank == 0:
+                torch.save(got, os.path.join(d, f"{name}.{key}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -418,6 +423,14 @@ def runs(tmp_path_factory):
             cp["cp_one"] = _sequence_steps(
                 _port_config(name), inp["params"], inp["cp_batch"],
                 inp["cp_tokens"])
+            for key, (_, rows, positions, accum) in (
+                    (k, v) for k, v in CP_TRAIN.items() if v[0] == name):
+                bn_k = train_batch_np(cr, rows, positions, seed=9)
+                inp[key] = {k: torch.from_numpy(np.asarray(v))
+                            for k, v in bn_k.items()}
+                cp[key + "_numpy"] = bn_k
+                cp[key + "_one"] = _train(_port_config(name), inp["params"],
+                                          None, inp[key], grad_accum=accum)
             if name in CP_WHOLE:
                 cp["cpw_one"] = _sequence_steps(
                     _port_config(name).replace(**CP_WHOLE[name]),
@@ -439,6 +452,8 @@ def runs(tmp_path_factory):
         out[name]["cp"] = torch.load(os.path.join(d, f"{name}.cp.pt"))
     for name in CP_WHOLE:
         out[name]["cpw"] = torch.load(os.path.join(d, f"{name}.cpw.pt"))
+    for key, (name, *_) in CP_TRAIN.items():
+        out[name][key] = torch.load(os.path.join(d, f"{name}.{key}.pt"))
     return out
 
 
@@ -478,10 +493,12 @@ def test_mesh_decode_steps_match_one_process(name, sid, runs):
         _close(g, w, _stack_tol)
 
 
-@pytest.mark.parametrize("sid", MESH_IDS)
-@pytest.mark.parametrize("name", NAMES)
-def test_mesh_train_steps_match_one_process(name, sid, runs):
-    got, want = runs[name][sid], runs[name]["one"]
+def _hold_to_one_process(got, want) -> None:
+    """A mesh's train steps (``_train``) against the one-process steps':
+    each step's metrics within ``METRIC_RTOL``, the parameters after them
+    within ``PARAM_ULPS`` of a leaf's largest entry plus ``UPDATE_RTOL``
+    of one step's lr."""
+    assert len(got["metrics"]) == len(want["metrics"])
     for gm, wm in zip(got["metrics"], want["metrics"]):
         assert set(gm) == set(wm)
         for k, v in wm.items():
@@ -490,6 +507,12 @@ def test_mesh_train_steps_match_one_process(name, sid, runs):
     for g, w in zip(got["params"], want["params"]):
         tol = PARAM_ULPS * EPS32 * float(w.abs().max()) + UPDATE_RTOL * LR
         _close(g, w, lambda _: tol)
+
+
+@pytest.mark.parametrize("sid", MESH_IDS)
+@pytest.mark.parametrize("name", NAMES)
+def test_mesh_train_steps_match_one_process(name, sid, runs):
+    _hold_to_one_process(runs[name][sid], runs[name]["one"])
 
 
 def _check_sequence_steps(got, want) -> None:
@@ -528,13 +551,88 @@ def test_mesh_sequence_split_keeps_slots_it_does_not_divide_whole(name,
     _check_sequence_steps(runs[name]["cpw"], runs[name]["cpw_one"])
 
 
+def _reference_adamw(cr, pn, bn, grad_accum: int, steps: int = 2):
+    """The reference's ``make_train_step`` with AdamW (``LR``, eps
+    ``EPS``) for ``steps`` steps of ``bn``: each step's metrics, and the
+    parameters after them as numpy leaves in its tree's order."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch import steps as rsteps
+    from repro.optim import adamw as radamw
+    from repro.optim import constant as rconstant
+    from torch_parity import to_f32
+    j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    opt = radamw(rconstant(LR), eps=EPS)
+    step = rsteps.make_train_step(cr, opt, None, grad_accum)
+    p, metrics = j(pn), []
+    state = opt.init(p)
+    for _ in range(steps):
+        p, state, m = step(p, state, j(bn))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, [to_f32(a) for a in jax.tree_util.tree_leaves(p)]
+
+
+def _check_sequence_train(got, one, cr, pn, bn, grad_accum: int) -> None:
+    """The mesh's 2 AdamW steps of ``bn`` (``_train``, ``grad_accum``
+    microbatches) held to the one-process steps (``_hold_to_one_process``)
+    and to the reference: the first step's loss within ``LOSS_RTOL32``
+    and gradient within ``GRAD_RTOL32`` of ``jax.value_and_grad`` of its
+    ``loss_fn`` (over its microbatches), each step's loss within
+    ``LOSS_RTOL32`` of its ``make_train_step``'s and the parameters after
+    the 2 steps within the one-process tolerance of its."""
+    from repro_torch.interop import transformer_params_from_reference
+    from repro_torch.optim.optimizers import tree_map
+    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
+                              port_grad_leaves)
+    assert got["route"] == ROUTE_SPLIT
+    _hold_to_one_process(got, one)
+    rows = np.asarray(bn["labels"]).shape[0]
+    first, grads = _reference_microbatches(
+        cr, pn, None, bn, np.array_split(np.arange(rows), grad_accum))
+    assert abs(got["metrics"][0]["loss"] - first["loss"]) <= \
+        LOSS_RTOL32 * abs(first["loss"])
+    like = transformer_params_from_reference(pn)
+
+    def as_reference(flat):
+        flat = iter(flat)
+        return port_grad_leaves(tree_map(lambda _: next(flat), like))
+    assert_grads_close32(as_reference(got["grads"]), grads)
+    metrics, params = _reference_adamw(cr, pn, bn, grad_accum)
+    for gm, wm in zip(got["metrics"], metrics):
+        assert abs(gm["loss"] - wm["loss"]) <= LOSS_RTOL32 * abs(wm["loss"])
+    for g, w in zip(as_reference(got["params"]), params):
+        tol = PARAM_ULPS * EPS32 * float(np.abs(w).max()) + UPDATE_RTOL * LR
+        _close(g, w, lambda _: tol)
+
+
 @pytest.mark.parametrize("name", CP_CASES)
 def test_mesh_train_step_refuses_a_sequence_split(name, runs):
-    """The train step on the (2, 2) mesh refuses the B = 1 batch the
-    reference would split by its sequence: its context parallelism is
-    ROADMAP A8f-2."""
-    why = runs[name]["cp"]["train_refused"]
-    assert why is not None and "A8f-2" in why
+    """(Named for the refusal it held until the train step took a
+    sequence split.) B = 1 on the (2, 2) mesh: the row does not divide
+    "data", so each data rank trains its block of the 16 positions (K and
+    V, MLA's latents, the conv's halo and the SSD state exchanged, each
+    exchange's gradient sent back) weighted by its share of the labels;
+    2 AdamW steps held by ``_check_sequence_train`` to the one-process
+    steps and to the reference's."""
+    cr, pn = runs[name]["numpy"][:2]
+    _check_sequence_train(runs[name]["cp"]["train"],
+                          runs[name]["cp_one"]["train"], cr, pn,
+                          runs[name]["cp_numpy"][0], 1)
+
+
+@pytest.mark.parametrize("key", list(CP_TRAIN))
+def test_mesh_train_step_takes_sequence_microbatches_and_whole_batches(
+        key, runs):
+    """On the (2, 2) mesh: DeepSeek-V3's 2 rows in ``grad_accum`` = 2
+    microbatches of 1 row, each microbatch a sequence split of its own
+    (its MoE dispatch, router and MTP losses the microbatch's); and
+    Qwen2-7B's one row of 15 positions, which neither the rows nor the
+    positions split, held whole on both data ranks, each rank's loss
+    weighted 1/2. 2 AdamW steps each, held by ``_check_sequence_train``."""
+    name, *_, accum = CP_TRAIN[key]
+    cr, pn = runs[name]["numpy"][:2]
+    _check_sequence_train(runs[name][key], runs[name][key + "_one"], cr, pn,
+                          runs[name][key + "_numpy"], accum)
 
 
 # ---------------------------------------------------------------------------
