@@ -5468,12 +5468,22 @@ def context_parallel_phase() -> dict:
 # ---------------------------------------------------------------------------
 # phase 25: the train step on a "data" = 2 sequence split
 # ---------------------------------------------------------------------------
-#: phase 25's runs: (registry module, layers kept). DeepSeek-V3's is phase
-#: 20's T3: its first (dense MLA) layer and the MTP block
-CP_TRAIN_RUNS = (("qwen2_7b", 4), ("mamba2_2p7b", 4),
-                 ("deepseek_v3_671b", 1), ("mixtral_8x7b", 2))
-#: phase 25's batch: one row of 2,048 tokens, 1,024 positions a share
-CP_TRAIN_TOKENS = 2048
+#: phase 25's runs: (registry module, layers kept, rows, tokens a row, how
+#: the batch lies over "data"). DeepSeek-V3's is phase 20's T3: its first
+#: (dense MLA) layer and the MTP block. A sequence split's one row of
+#: 2,048 tokens is 1,024 positions a share; the rows split's 2 rows of
+#: 1,024 one row a share
+CP_TRAIN_RUNS = (("qwen2_7b", 4, 1, 2048, "sequence"),
+                 ("mamba2_2p7b", 4, 1, 2048, "sequence"),
+                 ("deepseek_v3_671b", 1, 1, 2048, "sequence"),
+                 ("mixtral_8x7b", 2, 1, 2048, "sequence"),
+                 ("mixtral_8x7b", 2, 2, 1024, "rows"))
+#: phase 25's MoE run (DeepSeek-V3's layer 0 and MTP block are dense)
+#: before the MoE dispatch's all-to-all, when a reduce-scatter of every
+#: slot and an all-gather of the outputs crossed "data" (``p33a``, NVIDIA
+#: H100 80GB HBM3, 700.00 W): share 0 / 1 wall and device ms
+CP_TRAIN_SLOT_EXCHANGE_MS = {
+    "mixtral-8x7b": {"wall_ms": [904.8, 903.0], "device_ms": [84.90, 92.43]}}
 
 
 def cp_train_check(cfg, params, masks, batch, whole, parts) -> dict:
@@ -5543,13 +5553,15 @@ def cp_train_check(cfg, params, masks, batch, whole, parts) -> dict:
     return row
 
 
-def cp_train_run(module: str, layers: int, axis, queue) -> dict | None:
+def cp_train_run(module: str, layers: int, rows: int, tokens: int,
+                 split: str, axis, queue) -> dict | None:
     """One run of phase 25 on share ``axis.rank`` (both processes alike):
     ``module``'s config pruned at ratio 0.5 (``model_setup``, the same
-    seeded weights in both), its depth cut to ``layers``, one row of
-    ``CP_TRAIN_TOKENS`` tokens; the share's loss and gradient
+    seeded weights in both), its depth cut to ``layers``, ``rows`` rows of
+    ``tokens`` tokens; the share's loss and gradient
     (``launch.steps.share_loss_and_grads``: its block of the positions,
-    the exchanges over ``axis``) profiled (``device_profile``), then once
+    or its row, as ``split`` says; the exchanges over ``axis``) profiled
+    (``device_profile``), then once
     more with the launch counters zeroed just before and read just after
     (``expected_train_launches``: one unsharded step's) and the peak
     memory reset before it; the shares' weighted metrics all-reduced.
@@ -5565,11 +5577,12 @@ def cp_train_run(module: str, layers: int, axis, queue) -> dict | None:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params, masks = model_setup(cfg, SEED)
-    batch_np = train_batch(cfg, 1, CP_TRAIN_TOKENS)
+    batch_np = train_batch(cfg, rows, tokens)
     batch = card_batch(cfg, batch_np)
 
     def step():
-        out = share_loss_and_grads(cfg, params, batch, axis, masks)
+        out = share_loss_and_grads(cfg, params, batch, axis, masks,
+                                   split=split)
         torch.cuda.synchronize()
         return out
     prof = device_profile(step)
@@ -5587,10 +5600,14 @@ def cp_train_run(module: str, layers: int, axis, queue) -> dict | None:
     keys = sorted(metrics)
     whole = axis.all_reduce(torch.stack(
         [metrics[k].to(torch.float32) * share for k in keys])).cpu()
-    L = CP_TRAIN_TOKENS // axis.size
-    mine = {"share": axis.rank, "positions": [axis.rank * L,
-                                              (axis.rank + 1) * L],
-            "q_offset": axis.rank * L, "share_of_labels": float(share),
+    if split == "rows":
+        b = rows // axis.size
+        part = {"rows": [axis.rank * b, (axis.rank + 1) * b]}
+    else:
+        L = tokens // axis.size
+        part = {"positions": [axis.rank * L, (axis.rank + 1) * L],
+                "q_offset": axis.rank * L}
+    mine = {"share": axis.rank, **part, "share_of_labels": float(share),
             "loss": float(metrics["loss"]), "wall_ms": ms,
             "device_ms": prof["device_ms"],
             "device_idle_share": prof["device_idle_share"],
@@ -5611,11 +5628,41 @@ def cp_train_run(module: str, layers: int, axis, queue) -> dict | None:
     del other, grads, params
     dist.barrier()
     torch.cuda.empty_cache()
+    before = (CP_TRAIN_SLOT_EXCHANGE_MS.get(cfg.name)
+              if (rows, tokens, split) == (1, 2048, "sequence") else None)
+    if before is not None:
+        before = {**before, "run": "p33a"}
     return {"model": cfg.name, "layers": f"{layers} of {full.num_layers}"
-            + (" + mtp" if cfg.mtp_depth else ""), "batch": 1,
-            "tokens": CP_TRAIN_TOKENS, "data_ranks": axis.size,
+            + (" + mtp" if cfg.mtp_depth else ""), "batch": rows,
+            "tokens": tokens, "split": split, "data_ranks": axis.size,
             "losses_same_bits": True, "shares": shares, **check,
+            "slot_exchange_ms": before,
             "seconds": time.perf_counter() - t0}
+
+
+def gloo_all_to_all_check(axis) -> dict:
+    """Ragged bf16 rows of the card through gloo's ``all_to_all_single``
+    (``tensor_parallel.all_to_all_rows``, what the MoE dispatch's
+    exchange calls): rank r sends ``sizes[r][q]`` rows of 4,096 to rank
+    q, zero-sized parts among them; each rank's rows arrive in rank order
+    with their values, on the card. Returns the sizes."""
+    import torch
+    from repro_torch.sharding.tensor_parallel import all_to_all_rows
+    sizes = [[3, 0], [5, 2]]
+    me = axis.rank
+
+    def rows(src, dst):
+        return torch.full((sizes[src][dst], 4096), 10.0 * src + dst,
+                          dtype=torch.bfloat16, device="cuda")
+    got = all_to_all_rows([axis], torch.cat([rows(me, q) for q in range(
+        axis.size)]), sizes)
+    want = torch.cat([rows(r, me) for r in range(axis.size)])
+    if got.device.type != "cuda" or not torch.equal(got, want):
+        raise AssertionError(f"phase 25: gloo's all-to-all of card rows "
+                             f"on rank {me} gave {got.shape} on "
+                             f"{got.device}")
+    return {"sizes": sizes, "dtype": "bfloat16", "device": "cuda",
+            "delivered": True}
 
 
 def cp_train_worker(rank: int, port: int, out_dir: str, queue) -> None:
@@ -5634,11 +5681,11 @@ def cp_train_worker(rank: int, port: int, out_dir: str, queue) -> None:
                             timeout=datetime.timedelta(seconds=600))
     try:
         axis = GroupAxis(dist.group.WORLD, rank, CP_RANKS)
-        runs = [cp_train_run(module, layers, axis, queue)
-                for module, layers in CP_TRAIN_RUNS]
+        ragged = gloo_all_to_all_check(axis)
+        runs = [cp_train_run(*run, axis, queue) for run in CP_TRAIN_RUNS]
         if rank == 0:
             with open(os.path.join(out_dir, "phase25.json"), "w") as f:
-                json.dump(runs, f)
+                json.dump({"runs": runs, "gloo_all_to_all": ragged}, f)
     finally:
         dist.destroy_process_group()
 
@@ -5661,7 +5708,8 @@ def context_parallel_train_phase() -> dict:
         mp.start_processes(cp_train_worker, args=(free_port(), d, queue),
                            nprocs=CP_RANKS, start_method="spawn")
         with open(os.path.join(d, "phase25.json")) as f:
-            runs = json.load(f)
+            out = json.load(f)
+    runs = out["runs"]
     total = collections.Counter()
     for run in runs:
         for share in run["shares"]:
@@ -5669,6 +5717,7 @@ def context_parallel_train_phase() -> dict:
         print("context_parallel_train " + json.dumps(run), flush=True)
     print("phase25 " + json.dumps({"seconds": time.perf_counter() - t0,
                                    "axis": "gloo, card tensors",
+                                   "gloo_all_to_all": out["gloo_all_to_all"],
                                    "launches": dict(total)}), flush=True)
     return dict(total)
 

@@ -39,7 +39,15 @@ the data axes (``sharding.context_parallel.data_split``): ``"rows"``,
 prefill's, a pod stage's or a train microbatch's positions, over the data
 axes, B = 1 at ``long_500k``, a split serve's microbatch of B/M rows, a
 ``train_4k`` microbatch of B/16 rows at ``grad_accum`` 16) or
-``"whole"``.
+``"whole"``. An MoE record's ``moe_dispatch_sizes`` says where the sizes
+of its dispatch's all-to-all over the data axes came from: a real step
+reads each layer's expert counts to the host, a traced one has no counts
+to read, so each (data rank, row, expert) takes its even share of the
+top-k assignments, capped by the capacity (``"balanced"``:
+``models.layers.moe._exchange_plan``). Its ``moe_forward`` is the MoE
+layers' forward calls' part of the counts (``calls``, ``flops``,
+``bytes_accessed``; a train step's backward through them not included).
+Dense records have neither key.
 """
 from __future__ import annotations
 
@@ -138,6 +146,34 @@ def fake_group(world: int) -> Iterator[None]:
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def moe_forward_share(cfg) -> Iterator[Optional[dict]]:
+    """While open, the stack's MoE layers' forward calls each counted by a
+    ``TraceCounter`` of their own inside the step's: the dict it yields
+    sums their ``calls``, ``flops`` and ``bytes_accessed`` (a train step's
+    backward through them not included). None, and nothing patched, for a
+    config without MoE layers."""
+    if cfg.moe is None:
+        yield None
+        return
+    real, share = tr.moe_forward, {"calls": 0, "flops": 0,
+                                   "bytes_accessed": 0}
+
+    def counted(*args, **kwargs):
+        inner = TraceCounter()
+        with inner:
+            out = real(*args, **kwargs)
+        share["calls"] += 1
+        share["flops"] += inner.flops
+        share["bytes_accessed"] += inner.bytes_accessed
+        return out
+    tr.moe_forward = counted
+    try:
+        yield share
+    finally:
+        tr.moe_forward = real
+
+
 def _mesh_of(shape: Tuple[int, ...]):
     from torch.distributed.device_mesh import init_device_mesh
     names = ("data", "model") if len(shape) == 2 else ("pod", "data",
@@ -234,7 +270,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         opt_moment_dtype == "bfloat16"
         or (opt_moment_dtype is None and cfg.d_model >= 7168)) \
         else torch.float32
-    with fake_group(rec["chips"]):
+    with fake_group(rec["chips"]), moe_forward_share(cfg) as moe_share:
         mesh = _mesh_of(shape)
         t0 = time.time()
         with FakeTensorMode():
@@ -307,6 +343,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         "moment_dtype": (str(moment_dtype).removeprefix("torch.")
                          if mode == "train" else None),
     })
+    if moe_share is not None:
+        rec["moe_dispatch_sizes"] = "balanced"
+        rec["moe_forward"] = moe_share
     accum = f"_ga{grad_accum}" if grad_accum > 1 else ""
     _write(rec, out_dir, f"torch_{arch}_{shape_name}_{mesh_name}{accum}.json")
     return rec
@@ -349,7 +388,7 @@ def run_split_serve(arch: str, out_dir: str = OUT_DIR,
     params = tr.init_params(cfg, device="meta")
     sp = dict(params)
     sp["runs"] = [pp.stack_stage_params(params, cfg, n_pods)]
-    with fake_group(rec["chips"]):
+    with fake_group(rec["chips"]), moe_forward_share(cfg) as moe_share:
         mesh = _mesh_of(shape)
         t0 = time.time()
         with FakeTensorMode():
@@ -374,6 +413,9 @@ def run_split_serve(arch: str, out_dir: str = OUT_DIR,
                             "bytes_accessed_unfused": True}
     rec["collectives"] = _collectives_record(coll)
     rec["roofline"] = terms.as_dict()
+    if moe_share is not None:
+        rec["moe_dispatch_sizes"] = "balanced"
+        rec["moe_forward"] = moe_share
     # Eq. 5 prediction for the same split (layer c = L/2)
     costs = transformer_layer_costs(cfg, seq_len)
     pred = split_latency(costs, cfg.num_layers // 2,

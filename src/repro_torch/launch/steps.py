@@ -132,24 +132,38 @@ def loss_and_grads(params, cfg: ModelConfig, batch, masks=None,
 
 
 def share_loss_and_grads(cfg: ModelConfig, params, batch, axis,
-                         masks=None, backend: str = "auto"):
-    """(metrics, grads, share) of one data rank's share of a train step on
-    a sequence split over ``axis`` (a data seam: a ``tensor_parallel``
-    ``DataAxes``, a ``SequentialRanks`` rank, or any axis with ``rank``,
-    ``size``, ``all_gather``, ``all_reduce`` and ``reduce_scatter``), of a
-    whole (plain) tree ``params`` and the whole ``batch``, "model" whole:
-    ``loss_and_grads`` of the rank's block (``TensorParallel.sliced`` with
-    ``SeqSplit(axis)``) weighted by its share of the labelled tokens
-    (``context_parallel.label_share``). The ranks' gradients sum to the
-    whole batch's, and their metrics, each times its share, to its
-    metrics."""
+                         masks=None, backend: str = "auto",
+                         split: str = "sequence"):
+    """(metrics, grads, share) of one data rank's share of a train step
+    split over ``axis`` (a data seam: a ``tensor_parallel`` ``DataAxes``,
+    a ``SequentialRanks`` rank, or any axis with ``rank``, ``size``,
+    ``all_gather``, ``all_reduce``, ``reduce_scatter`` and
+    ``all_to_all``), of a whole (plain) tree ``params`` and the whole
+    ``batch``, "model" whole: ``loss_and_grads`` of the rank's part
+    weighted by its share of the labelled tokens. ``split`` is how the
+    batch lies over ``axis``: ``"sequence"``, each rank its block of the
+    positions (``TensorParallel.sliced`` with ``SeqSplit(axis)``, the share
+    ``context_parallel.label_share``), or ``"rows"``, each rank its
+    contiguous rows (``mrope_positions`` on dim 1). The ranks' gradients
+    sum to the whole batch's, and their metrics, each times its share, to
+    its metrics."""
     from repro_torch.sharding.tensor_parallel import SequentialRanks
     model = SequentialRanks(1).axes()[0]
-    share = label_share(cfg, batch["labels"], SeqSplit(axis))
+    if split == "rows":
+        seq = None
+        rows = batch["labels"].shape[0] // axis.size
+        cut = slice(axis.rank * rows, (axis.rank + 1) * rows)
+        mine = {k: v[:, cut] if k == "mrope_positions" else v[cut]
+                for k, v in batch.items()}
+        share = _rows_share(mine["labels"], batch["labels"])
+        batch = mine
+    else:
+        seq = SeqSplit(axis)
+        share = label_share(cfg, batch["labels"], seq)
     metrics, grads = loss_and_grads(
         params, cfg, batch, masks, backend,
         tp_of=lambda p: TensorParallel.sliced(cfg, p, model, data=axis,
-                                              seq=SeqSplit(axis)),
+                                              seq=seq),
         share=share)
     return metrics, grads, share
 
@@ -315,11 +329,18 @@ def _my_batch(cfg: ModelConfig, batch, mesh, dev: torch.device, mode: str):
     if mode == "sequence":
         return local, label_share(cfg, local["labels"],
                                   SeqSplit(data_axes(mesh)))
+    return local, _rows_share(local["labels"],
+                              torch.as_tensor(batch["labels"]))
+
+
+def _rows_share(mine: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """A data rank's share of the loss where the rows split: its rows'
+    labelled tokens (``mine``) over the whole batch's (``labels``, counted
+    where they lie), divided in float64 and rounded once to float32."""
     f64 = torch.float64
-    total = (torch.as_tensor(batch["labels"]) >= 0).sum().to(dev, f64)
-    share = ((local["labels"] >= 0).sum().to(f64)
-             / total.clamp_min(1.0)).to(torch.float32)
-    return local, share
+    total = (labels >= 0).sum().to(mine.device, f64)
+    return ((mine >= 0).sum().to(f64)
+            / total.clamp_min(1.0)).to(torch.float32)
 
 
 def _data_sum(metrics, share, mesh):

@@ -25,10 +25,13 @@ from __future__ import annotations
 import math
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.models.layers.init import normal, slot
 from repro_torch.models.layers.mlp import GATED, _act
+from repro_torch.sharding.tensor_parallel import transposed
 
 
 class MoEMetrics(NamedTuple):
@@ -154,6 +157,47 @@ def route(params, moe, x2d: torch.Tensor,
     return (probs, idx) + _router_losses(moe, logits, idx, x2d.shape[0])
 
 
+def _exchange_plan(local: torch.Tensor, tokens: int, moe, e0: int, C: int,
+                   Cb: int, rank: int):
+    """What the all-to-all of the kept rows moves, from the counts every
+    data rank holds after their all-gather: ``local`` (n, rows, El), the
+    assignments each rank's ``tokens`` tokens of a row send to each of this
+    rank's experts (one "row" a rank where the rows split, each row where
+    the sequence does). An expert's slots go to the (row, rank) blocks in
+    that order, each block its consecutive slots; data rank q computes
+    slots [q Cb, (q + 1) Cb) below the capacity C.
+
+    Returns (``sizes``: ``sizes[r][q]`` the rows rank r sends rank q, its
+    kept rows whose slot lies in q's block; ``at``: where each row this
+    rank receives goes in its block, the slot e * Cb + j, in the order the
+    rows come: by source, expert, slot). One host read of ``local``.
+    Under fake tensors (the dry run) there is nothing to read, and the
+    counts are a balanced routing's: each (rank, row, expert) its even
+    share of the row's top-k assignments, capped by the capacity."""
+    n, R, El = local.shape
+    if is_fake(local):
+        E, k = moe.num_experts, moe.top_k
+        even = tokens * k // E + (np.arange(E) < tokens * k % E)
+        counts = np.broadcast_to(even[e0:e0 + El], (n, R, El))
+    else:
+        counts = local.cpu().numpy()
+    seg = counts.transpose(1, 0, 2).reshape(R * n, El)  # (row, rank) order
+    ends = np.cumsum(seg, 0)
+    lo = np.arange(n) * Cb
+    first = np.maximum((ends - seg)[..., None], lo)   # (R * n, El, n)
+    cnt = np.clip(np.minimum(ends[..., None], np.minimum(lo + Cb, C))
+                  - first, 0, None)
+    sizes = cnt.reshape(R, n, El, n).sum((0, 2))
+
+    def here(t):            # rank ``rank``'s column, by (source, expert, row)
+        return t[..., rank].reshape(R, n, El).transpose(1, 2, 0).reshape(-1)
+    lens = here(cnt)
+    starts = here(first - lo[rank] + (np.arange(El) * Cb)[:, None])
+    at = np.repeat(starts - (np.cumsum(lens) - lens), lens) \
+        + np.arange(lens.sum())
+    return sizes.tolist(), at
+
+
 class _Whole:
     """The share of a layer that holds every expert whole and every row of
     the batch: ``moe_forward`` without a split, each of the split's
@@ -190,12 +234,16 @@ def moe_forward(params, moe, x: torch.Tensor, activation: str, *,
     and the same row's tokens on the lower ranks (one all-gather of each
     (row, expert) count). The dispatch buffer is the reference's
     ``eb`` at this rank's experts, its C slots padded to a multiple of the
-    data ranks and laid out (data rank, expert, slot block, d): each rank
-    writes its own kept rows at their global slots, zeros elsewhere; a
-    reduce-scatter over the data axes (exact: one rank writes each slot)
-    gives each rank its block of slots, the expert products run on the
-    block, and an all-gather returns the outputs. Slots of other ranks'
-    experts go to the drop bin.
+    data ranks and cut in blocks: data rank q computes slots [q Cb, (q +
+    1) Cb) of each expert. Each rank sends each of its kept rows once, to
+    the rank whose block holds its slot (``tp.send_rows``: an all-to-all
+    over the data axes, the rows by (destination, expert, slot), the sizes
+    from the gathered counts, one host read a layer: ``_exchange_plan``);
+    the receiver writes them into a zeroed (El, Cb, d) block at the slots
+    the same counts give (no index travels), the expert products run on
+    the block, and the outputs go back to the rows' ranks by the reverse
+    all-to-all. Without data axes the block is the whole buffer, and
+    nothing is read to the host.
 
     The router runs outside the split region on the replicated rows, so
     every rank routes alike and the aux and z losses' gradients count
@@ -245,16 +293,35 @@ def moe_forward(params, moe, x: torch.Tensor, activation: str, *,
     slot = torch.where(mine, ((pos // Cb) * El + se - e0) * Cb + pos % Cb, N)
     mine_x = mine[:, None].to(x.dtype)
     xs, sp = tp.copy_in(x2d), tp.copy_in(sp)
-    buf = torch.zeros((N + 1, d), dtype=x.dtype, device=dev)
-    buf[slot] = xs[st] * mine_x
-    eb = buf[:-1].reshape(n, El, Cb, d)
-    eb = eb[0] if data is None else tp.scatter_slots(eb)  # (El, Cb, d)
+    if data is None:
+        buf = torch.zeros((N + 1, d), dtype=x.dtype, device=dev)
+        buf[slot] = xs[st] * mine_x
+        eb = buf[:-1].view(El, Cb, d)
+    else:
+        # (n, rows, El): each rank's assignments (a row's, on a sequence
+        # split) to this rank's experts, in slot order
+        local = every[..., e0:e1] if tp.seq is not None \
+            else every[:, None, e0:e1]
+        sizes, at = _exchange_plan(local, Tl // local.shape[1], moe, e0, C,
+                                   Cb, data.rank)
+        # this rank's kept rows by (destination, expert, slot): ``slot``'s
+        # order
+        sent = torch.argsort(slot)[:sum(sizes[data.rank])]
+        at = torch.as_tensor(at, device=dev)
+        got = tp.send_rows(xs[st[sent]], sizes)
+        eb = torch.zeros((El * Cb, d), dtype=x.dtype, device=dev) \
+            .index_copy(0, at, got).view(El, Cb, d)
     h = _act(torch.bmm(eb, params["w_up"]), activation)
     if activation in GATED:
         h = h * torch.bmm(eb, params["w_gate"])
     ob = torch.bmm(h, params["w_down"])
-    ob = ob[None] if data is None else tp.gather_slots(ob)
-    gathered = ob.reshape(N, d)[slot.clamp(max=N - 1)] * mine_x
+    if data is None:
+        gathered = ob.reshape(N, d)[slot.clamp(max=N - 1)] * mine_x
+    else:
+        back = tp.send_rows(ob.reshape(El * Cb, d).index_select(0, at),
+                            transposed(sizes))
+        gathered = torch.zeros((Tl * k, d), dtype=x.dtype,
+                               device=dev).index_copy(0, sent, back)
     out = torch.zeros((Tl, d), dtype=torch.float32, device=dev).index_add_(
         0, st, gathered.to(torch.float32) * sp[:, None])
     out = tp.reduce(out).to(x.dtype)

@@ -66,9 +66,10 @@ sequence split, the positions: ``sharding.context_parallel``), the MoE
 dispatch and the losses that are not a mean of per-row terms are the whole
 batch's, as the reference computes them on the global batch: the data
 axes (``DataAxes``, "pod" major) carry an all-gather of each rank's expert
-counts (capacity and each assignment's slot in global order), the
-reduce-scatter of the dispatch buffer's slots to the rank that computes
-them and the all-gather of the expert outputs back, and the sums of the
+counts (capacity and each assignment's slot in global order), an
+all-to-all of each kept row to the rank that computes its slot and of
+its output back (``all_to_all_rows``: each row crosses once each way,
+axis by axis over "pod" and "data"), and the sums of the
 balance loss, the z-loss and the MTP loss (``batch_sum``: all-reduced
 forward and backward, so that with each rank's loss weighted by its share
 of the labels the gradient is the whole batch's).
@@ -115,6 +116,7 @@ shard is kept and the ranges it wants come to it by an all-to-all.
 """
 from __future__ import annotations
 
+import functools
 import math
 import threading
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -560,6 +562,93 @@ class DataAxes:
             t = a.reduce_scatter(t.reshape((a.size, -1) + blk))
         return t[0]
 
+    def all_to_all_rows(self, x: torch.Tensor,
+                        sizes: Sequence[Sequence[int]]) -> torch.Tensor:
+        """``all_to_all_rows`` over these axes."""
+        return all_to_all_rows(self.axes, x, sizes)
+
+
+def all_to_all_rows(axes: Sequence, x: torch.Tensor,
+                    sizes: Sequence[Sequence[int]]) -> torch.Tensor:
+    """Ragged rows to ranks over data ``axes`` (major first, each with
+    ``rank``, ``size`` and ``all_to_all``; ranks numbered as ``DataAxes``
+    numbers them): ``x`` holds this rank's rows for rank 0, then rank 1,
+    ...; ``sizes[r][q]`` is how many rows rank r sends rank q (every rank
+    passes the same matrix). Returns the rows every rank sent here, in rank
+    order. A rank's own rows stay local. Over several axes the rows move
+    axis by axis, the minor one first (``_route``): a row crosses each axis
+    where its source and its destination differ, once, and no other."""
+    dims = tuple(a.size for a in axes)
+    me = 0
+    for a in axes:
+        me = me * a.size + a.rank
+    rest = tuple(x.shape[1:])
+    # the non-empty (source, destination) blocks this rank holds, in order
+    held = [(me, t) for t in range(len(sizes)) if sizes[me][t]]
+    for j, sent, came in _route(dims, me):
+        at, cuts = 0, {}
+        for o, t in held:
+            cuts[(o, t)] = (at, sizes[o][t])
+            at += sizes[o][t]
+        got = axes[j].all_to_all(
+            [_rows(x, [cuts[b] for b in blks if b in cuts], rest)
+             for blks in sent],
+            [(sum(sizes[o][t] for o, t in blks),) + rest for blks in came])
+        pieces = {}
+        for part, blks in zip(got, came):
+            at = 0
+            for o, t in blks:
+                if sizes[o][t]:
+                    pieces[(o, t)] = part.narrow(0, at, sizes[o][t])
+                    at += sizes[o][t]
+        held = sorted(pieces)
+        x = (torch.cat([pieces[b] for b in held]) if held
+             else x.new_empty((0,) + rest))
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _route(dims: Tuple[int, ...], me: int):
+    """``all_to_all_rows``' stages for rank ``me`` of a grid of ``dims``
+    (major first): (axis, the (source, destination) blocks sent to each
+    coordinate of the axis, those received from each), the minor axis
+    first. Before the stage over an axis a rank holds the blocks whose
+    source shares its coordinates on the axes not yet crossed and whose
+    destination shares them on the axes crossed; it sends each block to
+    the destination's coordinate on the axis. Every list is ordered by
+    (source, destination)."""
+    n = math.prod(dims)
+    strides = [math.prod(dims[j + 1:]) for j in range(len(dims))]
+    coord = [[g // s % m for s, m in zip(strides, dims)] for g in range(n)]
+    crossed: set = set()
+
+    def held_by(y: int):
+        return [(o, t) for o in range(n) for t in range(n)
+                if all((coord[t] if i in crossed else coord[o])[i]
+                       == coord[y][i] for i in range(len(dims)))]
+    stages = []
+    for j in reversed(range(len(dims))):
+        peers = [me + (c - coord[me][j]) * strides[j]
+                 for c in range(dims[j])]
+        mine = held_by(me)
+        sent = [[b for b in mine if coord[b[1]][j] == c]
+                for c in range(dims[j])]
+        came = [[b for b in held_by(y) if coord[b[1]][j] == coord[me][j]]
+                for y in peers]
+        stages.append((j, sent, came))
+        crossed.add(j)
+    return tuple(stages)
+
+
+def _rows(x: torch.Tensor, cuts, rest) -> torch.Tensor:
+    """The rows ``cuts`` ((start, count), ...) of ``x`` one after
+    another: a view where they are one range."""
+    if len(cuts) == 1:
+        return x.narrow(0, *cuts[0])
+    if not cuts:
+        return x.new_empty((0,) + rest)
+    return torch.cat([x.narrow(0, *c) for c in cuts])
+
 
 class SequentialRanks:
     """``size`` ranks of one process that take turns: ``run`` starts one
@@ -657,6 +746,8 @@ class _SequentialAxis:
         return out.view(out.shape)
 
     def all_to_all(self, parts, shapes) -> List[torch.Tensor]:
+        """``GroupAxis.all_to_all``'s: parts of any sizes, empty ones
+        too; each part checked against the shape its receiver expects."""
         sent = self.ranks.exchange(self.rank, list(parts), list)
         got = [sent[r][self.rank] for r in range(self.size)]
         for r, (t, shape) in enumerate(zip(got, shapes)):
@@ -731,18 +822,30 @@ class _SumBatch(torch.autograd.Function):
         return ctx.data.all_reduce(g), None
 
 
-class _ScatterSlots(torch.autograd.Function):
-    """(size, ...) -> this rank's entry of the sum over the data axes
-    (reduce-scatter); the backward all-gathers."""
+class _SendRows(torch.autograd.Function):
+    """Ragged rows to ranks over the data axes (``all_to_all_rows``); the
+    backward sends each row's gradient back to the rank it came from (the
+    reverse all-to-all, the sizes transposed)."""
 
     @staticmethod
-    def forward(ctx, x, data):
-        ctx.data = data
-        return data.reduce_scatter(x)
+    def forward(ctx, x, data, sizes):
+        ctx.data, ctx.sizes = data, sizes
+        return all_to_all_rows(_axes_of(data), x, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.data.all_gather(g), None
+        return all_to_all_rows(_axes_of(ctx.data), g.contiguous(),
+                               transposed(ctx.sizes)), None, None
+
+
+def _axes_of(data) -> list:
+    """The axes of a data seam: a ``DataAxes``' own, else the one axis."""
+    return data.axes if isinstance(data, DataAxes) else [data]
+
+
+def transposed(sizes: Sequence[Sequence[int]]) -> List[List[int]]:
+    """``sizes[r][q]`` as ``out[q][r]``: the return trip's sizes."""
+    return [list(col) for col in zip(*sizes)]
 
 
 class _GatherSlots(torch.autograd.Function):
@@ -1158,13 +1261,13 @@ class TensorParallel:
         """An integer count summed over the data axes (no gradient)."""
         return t if self.data is None else self.data.all_reduce(t)
 
-    def scatter_slots(self, t: torch.Tensor) -> torch.Tensor:
-        """(data size, ...) -> this data rank's entry of the sum."""
-        return _ScatterSlots.apply(t, self.data)
-
-    def gather_slots(self, t: torch.Tensor) -> torch.Tensor:
-        """(...) -> (data size, ...): every data rank's."""
-        return all_gather_grad(t, self.data)
+    def send_rows(self, x: torch.Tensor,
+                  sizes: Sequence[Sequence[int]]) -> torch.Tensor:
+        """Rows to the data ranks (``all_to_all_rows``: ``x`` this rank's
+        rows for each rank in turn, ``sizes[r][q]`` the rows rank r sends
+        rank q), the rows each rank sent here in rank order; the gradient
+        goes back the same way (``_SendRows``)."""
+        return _SendRows.apply(x, self.data, sizes)
 
     # -- the vocabulary -------------------------------------------------------
     def embed(self, ids: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ from repro_torch.core.collab import adaptive as tad
 from repro_torch.core.partition import energy_model as tem
 from repro_torch.core.partition import profiles as tprof
 from torch_parity import cnn_configs
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: scenario -> (edge compute profile, policy knobs, energy knobs or None);
 #: every scenario starts at c=3 with candidates {0, 3, N//2, N-1, N}

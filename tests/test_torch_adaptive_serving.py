@@ -33,6 +33,7 @@ from repro_torch import serving as tserving
 from repro_torch.core.partition import energy_model as tem
 from repro_torch.core.partition import profiles as tprof
 from torch_parity import fp32_tol, free_port, port_params, ref_tree, tiny_setup
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: ``chip_smoke.py``'s ``ran_at`` (the split each request ran at, from a
 #: switch list): one reconstruction for the card and for these tests

@@ -23,6 +23,7 @@ from repro_torch.configs import registry as treg
 from repro_torch.interop import transformer_params_from_reference
 from repro_torch.models.layers import attention as tatt
 from torch_parity import stack_tol, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 DTYPES = ["float32", "bfloat16"]
 #: (causal, window)

@@ -39,6 +39,7 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as ttr
 from torch_parity import (EPS32, both_reference_paths, model_batch_np,
                           stack_tol, to_f32, transformer_params_np)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 ARCH = "hubert-xlarge"
 #: the smoke config at the published head dim

@@ -21,6 +21,7 @@ from repro_torch.core.collab import faults as tf
 from repro_torch.core.collab.runtime import (CollabRunner, SplitFnBank,
                                              _warm_input)
 from torch_parity import free_port, port_params, tiny_setup
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 N_LAYERS = len(tiny_setup()[1].layers)
 

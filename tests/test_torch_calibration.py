@@ -24,6 +24,7 @@ from repro_torch.core.partition import profiles as tprof
 from repro_torch.core.partition import splitter as tsplit
 from repro_torch.models.cnn import masks_to
 from torch_parity import cnn_configs, port_params, tiny_setup
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 
 def test_measure_threads_outputs_forward():

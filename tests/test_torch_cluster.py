@@ -12,6 +12,7 @@ from repro.core.collab import cluster as rcl
 from repro_torch import serving as tserving
 from repro_torch.core.collab import cluster as tcl
 from torch_parity import free_port, port_params, tiny_setup
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 
 class _Clock:

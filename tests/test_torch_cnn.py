@@ -15,6 +15,7 @@ from repro.models import cnn as rcnn
 from repro_torch.models import cnn as tcnn
 from torch_parity import (fp32_tol, port_masks, port_params, ref_tree,
                           tiny_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 
 def _deployed(variant):

@@ -22,6 +22,7 @@ from repro_torch.core.pruning import ddpg as td
 from repro_torch.core.pruning.policy import search_pruning_policy
 from repro_torch.models import cnn as tcnn
 from torch_parity import EPS32, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 CNN_CONFIGS = {"tiny": (lambda m: m.tiny_cnn_config(num_classes=38,
                                                       width=0.2, hw=32)),

@@ -39,11 +39,14 @@ from repro_torch.launch import specs as tspecs
 from repro_torch.roofline import analysis, hw
 from repro_torch.sharding import specs as sh
 from repro_torch.sharding.tensor_parallel import ROUTE_SPLIT
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 SHAPE_NAMES = tuple(tspecs.SHAPES)
 SMALL = (2, 2)
+#: every record's keys; ``MOE_KEYS`` only an MoE config's records hold
+MOE_KEYS = {"moe_dispatch_sizes", "moe_forward"}
 RECORD_KEYS = {"arch", "shape", "mesh", "grad_accum", "chips", "status",
-               "data_split",
+               "data_split", *MOE_KEYS,
                "scan_counted", "trace_s", "backend", "token_dtype",
                "model_axis", "memory_analysis", "analytic_memory",
                "cost_analysis", "collectives", "roofline", "params_total",
@@ -352,7 +355,8 @@ def test_every_arch_traces_under_fake_mode(arch, tmp_path, no_group):
                                         shape)[0]
             continue
         written.append(f"torch_{arch}_{shape}_2x2.json")
-        assert set(rec) == RECORD_KEYS
+        assert set(rec) == RECORD_KEYS - (
+            set() if cfg.moe is not None else MOE_KEYS)
         assert set(rec["roofline"]) == ROOFLINE_KEYS
         assert rec["status"] == "ok" and rec["scan_counted"] is False
         assert rec["cost_analysis"]["flops"] > 0
@@ -398,8 +402,8 @@ def test_each_stack_records_its_route(arch, route, tmp_path, no_group):
     """The smoke config's ``decode_32k`` cell on a fake (2, 2) mesh: the
     record is ``ok`` and names the route its step took, the split one for
     every stack. The MoE stacks' expert products split over "model" (the
-    data axes' reduce-scatter of the dispatch buffer and the "model"
-    all-reduces are counted); the Mamba2 stacks' SSD heads split over
+    data axes' all-to-all of the kept rows and the "model" all-reduces are
+    counted, no reduce-scatter); the Mamba2 stacks' SSD heads split over
     "model" (the out product's and the gated norm's all-reduces, the
     all-to-alls that bring ``w_in``'s ranges and the conv rows)."""
     rec = dryrun.run_one(arch, "decode_32k", False, str(tmp_path),
@@ -410,7 +414,9 @@ def test_each_stack_records_its_route(arch, route, tmp_path, no_group):
     assert ops["all-reduce"] > 0
     assert rec["collectives"]["bytes_by_mesh_dim"]["model"] > 0
     if treg.get_config(arch).moe is not None:
-        assert ops["reduce-scatter"] > 0
+        assert "reduce-scatter" not in ops
+        assert "data" in rec["collectives"]["bytes_by_op_and_mesh_dim"][
+            "all-to-all"]
     else:
         assert ops["all-to-all"] > 0
 
@@ -440,6 +446,41 @@ def test_run_one_keeps_its_records_in_out_dir(tmp_path, monkeypatch,
     assert _records(out) == ["torch_mixtral-8x7b_long_500k_2x2x2.json",
                              "torch_qwen2-7b_train_4k_2x2_ga2.json"]
     assert _records(cwd) == [] and _records(tmp_path) == ["cwd", "out"]
+
+
+def test_moe_prefill_sends_each_kept_row_once_over_data(tmp_path, no_group):
+    """The smoke Mixtral's ``prefill_32k`` (16 rows of 32,768 tokens a data
+    rank) on a fake (2, 2) mesh: no reduce-scatter of dispatch slots over
+    "data", and the "data" all-to-all's operand is what rank 0 sends of
+    the balanced routing, counted here by hand: each (rank, expert) holds
+    Tl k / E consecutive slots (rank 0's first), data rank q computes
+    slots [q Cb, (q + 1) Cb) below the capacity C; rank 0 sends its rows
+    outside its own block and returns the outputs of the rows that reach
+    it, d bf16 values a row, at each of its 2 experts and 2 layers. The
+    record's ``moe_forward`` counts the 2 MoE layers' forward calls, a
+    part of the step's FLOPs."""
+    rec = dryrun.run_one("mixtral-8x7b", "prefill_32k", False, str(tmp_path),
+                         mesh_shape=(2, 2), smoke=True)
+    assert rec["moe_dispatch_sizes"] == "balanced"
+    share = rec["moe_forward"]
+    assert share["calls"] == 2
+    assert 0 < share["flops"] < rec["cost_analysis"]["flops"]
+    by = rec["collectives"]["bytes_by_op_and_mesh_dim"]
+    assert "data" not in by.get("reduce-scatter", {})
+    cfg = treg.get_smoke_config("mixtral-8x7b")
+    S, B = tspecs.SHAPES["prefill_32k"]
+    n, E, k = 2, cfg.moe.num_experts, cfg.moe.top_k
+    tl = B // n * S
+    share = tl * k // E                       # a (rank, expert)'s rows
+    C = -(-math.ceil(n * tl * k / E * cfg.moe.capacity_factor) // 8) * 8
+    Cb = -(-C // n)
+    mine = (0, min(share, Cb))               # rank 0's rows in block 0
+    sent = share - (mine[1] - mine[0])
+    got = sum(max(0, min((r + 1) * share, Cb, C) - max(r * share, 0))
+              for r in range(1, n))
+    rows = (sent + got) * (E // 2) * cfg.num_layers
+    assert by["all-to-all"]["data"] == rows * cfg.d_model * 2
+    assert rows > 0
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x7b",

@@ -24,6 +24,7 @@ from repro_torch.core.partition import latency_model as tlat
 from repro_torch.core.partition import profiles as tprof
 from repro_torch.core.partition import splitter as tsplit
 from torch_parity import cnn_configs, port_params, ref_tree, tiny_setup
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: (energy profile, the compute profile it pairs with) by name
 PAIRS = {"mcu": "MCU_EDGE", "pi": "PI_EDGE", "phone": "PHONE_EDGE",

@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.layers import attention as port_attn
 from torch_parity import BF16_SPACING, EPS32, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 # name: (B, S, H, Hkv, D, causal, window)
 CASES = {

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models.transformer import check_supported
 from torch_parity import flash_bf16_tolerance, p_in_bf16_attention, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 # (B, S, H, Hkv, D, causal, window): gemma-7b's 16/16 heads of 256,
 # nemotron-4-340b's 96/8 heads of 192 and hubert-xlarge's non-causal 16/16

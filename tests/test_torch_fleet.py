@@ -33,6 +33,7 @@ from repro_torch.core.partition.latency_model import (LayerCost,
                                                       batched_server_time)
 from repro_torch.core.partition.profiles import PHONE_EDGE, PI_EDGE
 from torch_parity import cnn_configs
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.fleet
 

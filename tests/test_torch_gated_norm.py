@@ -32,6 +32,7 @@ from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref
 from repro_torch.models.layers import norms as tnorms
 from repro_torch.models.layers import ssm as tssm
 from torch_parity import BF16_SPACING, EPS32, to_f32, transformer_params_np
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 BF16, F32 = torch.bfloat16, torch.float32

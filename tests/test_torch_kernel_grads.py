@@ -45,6 +45,7 @@ from repro_torch.kernels.rmsnorm import ops as rops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd_scan import ops as sops
 from torch_parity import BF16_SPACING, EPS32, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: (name, B, S, H, Hkv, D, causal, window, seq_k)
 FLASH = [("causal_gqa2", 2, 9, 4, 2, 16, True, None, None),

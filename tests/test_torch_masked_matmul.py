@@ -13,6 +13,7 @@ from repro.kernels.masked_matmul.ops import masked_matmul as ref_masked_matmul
 from repro_torch.kernels.masked_matmul.ops import masked_matmul
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 from torch_parity import EPS32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 # (M, K, N, mask kind)
 CASES = {

@@ -19,6 +19,7 @@ from repro_torch.kernels.masked_matmul import ops
 from repro_torch.kernels.masked_matmul.ops import masked_matmul_q8
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 from torch_parity import port_masks, port_params, tiny_setup
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 # name: (M, K, N, bits, per_channel); AlexNet-like shapes at small widths
 CASES = {

@@ -18,6 +18,7 @@ from repro_torch.core.pruning import masks as tmasks
 from repro_torch.interop import transformer_params_from_reference
 from torch_parity import (port_params, ref_tree, tiny_setup,
                           transformer_params_np)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 DENSE = ["qwen2-7b", "qwen1.5-4b", "gemma-7b", "nemotron-4-340b"]
 

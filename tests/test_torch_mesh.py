@@ -15,7 +15,6 @@ import os
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.data.tokens import MarkovTokens
@@ -26,8 +25,11 @@ from repro_torch.optim import adamw
 from repro_torch.optim.optimizers import global_sq_norm, tree_leaves
 from repro_torch.optim.schedules import constant
 from repro_torch.sharding import specs as sh
+from torch_ranks import init_group, spawn
 
 MESHES = ((1, 2), (2, 1))
+#: seconds the 2 ranks may take (about 10 alone)
+DEADLINE = 300
 STEPS = 2
 LR = 1e-3
 #: AdamW's eps: near the gradients' own size (the clipped gradient's
@@ -79,8 +81,7 @@ def _rank(rank: int, port: int, out: str) -> None:
     import torch.distributed as dist
     torch.set_num_threads(1)        # two ranks beside the other workers
     from torch.distributed.device_mesh import init_device_mesh
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=2)
+    init_group(rank, 2, port)
     try:
         cfg, params, batch = _setup()
         for shape in MESHES:
@@ -100,8 +101,7 @@ def _rank(rank: int, port: int, out: str) -> None:
 def two_rank_runs(tmp_path_factory):
     from torch_parity import free_port
     out = str(tmp_path_factory.mktemp("mesh"))
-    mp.start_processes(_rank, args=(free_port(), out), nprocs=2,
-                       start_method="spawn")
+    spawn(_rank, (free_port(), out), 2, DEADLINE)
     return {shape: torch.load(os.path.join(out, f"{shape[0]}x{shape[1]}.pt"))
             for shape in MESHES}
 

@@ -50,6 +50,7 @@ from repro_torch.models.layers import moe as tmoe
 from repro_torch.models.layers.rope import rope_angles
 from torch_parity import (assert_rows_close, both_reference_paths, stack_tol,
                           to_f32, transformer_params_np)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 ARCH = "deepseek-v3-671b"
 DTYPES = ["float32", "bfloat16"]

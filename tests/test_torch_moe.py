@@ -49,6 +49,7 @@ from repro_torch.models import transformer as ttr
 from repro_torch.models.layers import moe as tmoe
 from torch_parity import (assert_rows_close, both_reference_paths,
                           stack_tol, to_f32, transformer_params_np)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 ARCH = "mixtral-8x7b"
 #: the lone layer's routing options: MoEConfig overrides

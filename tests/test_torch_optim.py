@@ -12,6 +12,7 @@ import torch
 from repro import optim as ropt
 from repro_torch import optim as topt
 from torch_parity import EPS32, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 STEPS = list(range(0, 200, 7)) + [19, 20, 21, 39, 40, 41, 199]
 

@@ -36,6 +36,7 @@ from repro_torch.core.partition.latency_model import (
 from repro_torch.data import synthetic as tsyn
 from repro_torch.models import cnn as tcnn
 from torch_parity import EPS32, fp32_tol, port_params, ref_tree, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 
 def _cfgs():

@@ -30,6 +30,7 @@ from repro_torch.core.partition import latency_model as tlat
 from repro_torch.core.partition import splitter as tsplit
 from repro_torch.core.partition.profiles import PAPER_PROFILE as T_PAPER
 from torch_parity import port_params, ref_tree, tiny_setup
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 VARIANTS = {
     "plain": {},

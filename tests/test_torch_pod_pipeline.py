@@ -29,7 +29,6 @@ import os
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.configs.registry import get_config as tget
@@ -40,6 +39,7 @@ from repro_torch.launch.mesh import host_mesh
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as ttr
 from repro_torch.sharding import specs as sh
+from torch_ranks import init_group, spawn
 
 PIPE_ARCHS = ("qwen2-7b", "mamba2-2.7b", "mixtral-8x7b")
 SERVE_ARCHS = ("qwen2-7b", "mamba2-2.7b")
@@ -48,6 +48,8 @@ SERVE_MESHES = ((2, 1), (1, 2))
 SPLIT_MESHES = ((2, 1, 2), (2, 2, 1))
 B, S, M = 4, 16, 2
 DECODE_STEPS = 2
+#: seconds each spawn's ranks may take (about 30 alone)
+DEADLINE = 400
 #: the reference test's bound on the pipelined logits against ``forward``
 PIPE_ATOL = 2e-3
 #: float32: the mesh steps are the same sums as the one-process steps
@@ -110,8 +112,7 @@ def _rank(rank: int, port: int, inputs: str, out: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=2)
+    init_group(rank, 2, port)
     try:
         data = torch.load(inputs, weights_only=False)
         got = {}
@@ -140,8 +141,7 @@ def _split_ranks(rank: int, port: int, inputs: str, out: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=4)
+    init_group(rank, 4, port)
     try:
         data = torch.load(inputs, weights_only=False)
         got = {}
@@ -180,8 +180,7 @@ def two_ranks(shared, tmp_path_factory):
     out = str(tmp_path_factory.mktemp("pods"))
     inputs = os.path.join(out, "inputs.pt")
     torch.save(shared, inputs)
-    mp.start_processes(_rank, args=(free_port(), inputs, out), nprocs=2,
-                       start_method="spawn")
+    spawn(_rank, (free_port(), inputs, out), 2, DEADLINE)
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(2)]
 
@@ -192,8 +191,7 @@ def four_ranks(shared, tmp_path_factory):
     out = str(tmp_path_factory.mktemp("split_pods"))
     inputs = os.path.join(out, "inputs.pt")
     torch.save({k: shared[k] for k in PIPE_ARCHS + ("tokens",)}, inputs)
-    mp.start_processes(_split_ranks, args=(free_port(), inputs, out),
-                       nprocs=4, start_method="spawn")
+    spawn(_split_ranks, (free_port(), inputs, out), 4, DEADLINE)
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(4)]
 

@@ -14,6 +14,7 @@ import torch
 from repro.core.collab import quant as rquant
 from repro_torch.core.collab import quant as tquant
 from torch_parity import fp32_tol, port_masks, port_params, ref_tree, tiny_setup
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -17,6 +17,7 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.models.layers import norms as tnorms
 from torch_parity import BF16_SPACING, EPS32, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 SHAPES = [(8, 64), (3, 5, 128), (1, 1, 1, 256), (300, 96), (77, 3584)]
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

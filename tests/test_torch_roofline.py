@@ -20,6 +20,7 @@ from repro_torch.core.partition import profiles as tprof
 from repro_torch.roofline import analysis as tan
 from repro_torch.roofline import hw
 from torch_parity import cnn_configs
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")

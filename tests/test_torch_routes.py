@@ -28,6 +28,7 @@ from repro_torch.interop import transformer_params_from_reference as to_port
 from repro_torch.kernels import build
 from repro_torch.kernels.masked_matmul import ops
 from torch_parity import flash_bf16_tolerance, p_in_bf16_attention, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: Qwen2-7B's FFN up/gate product: K = d_model, N = d_ff
 K, N = 3584, 18944

@@ -13,6 +13,7 @@ from repro.core.collab.adaptive import AdaptivePolicy
 from repro_torch import serving as tserving
 from torch_parity import (codec_bound, fp32_tol, port_params, ref_tree,
                           tiny_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 SPLITS = (0, 3, 10, 13)          # 13 = N: every layer on the edge
 

@@ -47,6 +47,7 @@ from repro_torch.core.partition.profiles import FaultSchedule as TSchedule
 from repro_torch.models.cnn import cnn_abs_bound
 from torch_parity import (fp32_tol, free_port, port_params, ref_tree,
                           tiny_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 N_LAYERS = len(tiny_setup()[1].layers)     # splits 0..N
 # section -> the plan's codec and whether it carries a quant, batching or

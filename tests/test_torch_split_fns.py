@@ -17,6 +17,7 @@ from repro_torch.core.collab import quant as tquant
 from repro_torch.core.collab import runtime as trt
 from torch_parity import (fp32_tol, port_masks, port_params, ref_tree,
                           tiny_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: (masked, compact, pack, int8)
 DEPLOYMENTS = {"dense": (False, False, False, False),

@@ -30,6 +30,7 @@ from repro_torch.interop import transformer_params_from_reference as to_port
 from repro_torch.kernels.ssd_scan import ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from torch_parity import BF16_SPACING, ssd_inputs, ssd_tolerance, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: the kernel's chunk, and the steps of its pass-3 tiles
 Q = ops.CHUNK

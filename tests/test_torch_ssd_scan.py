@@ -24,6 +24,7 @@ from repro_torch.kernels.ssd_scan import ops
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_scan_ref
 from torch_parity import BF16_SPACING, ssd_inputs, ssd_tolerance, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 # name: (B, S, H, G, P, N, chunk)
 CASES = {

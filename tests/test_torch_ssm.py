@@ -34,6 +34,7 @@ from repro_torch.interop import transformer_params_from_reference as to_port
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import ssm as tssm
 from torch_parity import BF16_SPACING, EPS32, to_f32, transformer_params_np
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 
 def _tol(want, dtype: str) -> float:

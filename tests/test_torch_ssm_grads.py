@@ -42,6 +42,7 @@ from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_ref
 from repro_torch.kernels.ssd_scan import ops as sops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from torch_parity import BF16_SPACING, EPS32, ssd_inputs, to_f32
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: (name, B, S, H, G, P, N, chunk, head mask, gradient of the final state)
 SSD = [("ragged_groups_dstate", 2, 21, 4, 2, 4, 5, 8, "partial", True),

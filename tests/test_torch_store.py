@@ -39,6 +39,7 @@ from repro_torch.models import transformer as ttr
 from repro_torch.models.layers.ssm import SSMCache
 from torch_parity import (LOSS_RTOL32, adamw_step_both, port_batch,
                           tiny_setup, train_batch_np, train_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 
 def _same_bits(got, want) -> bool:

@@ -20,6 +20,7 @@ from repro_torch import serving as tserving
 from repro_torch.core.collab import protocol as tprotocol
 from torch_parity import (codec_bound, fp32_tol, port_params, ref_tree,
                           tiny_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: ``chip_smoke.py``'s helpers that rebuild a stream's frames
 #: (``stream_frames``, ``stream_expected``): one reconstruction for the card

@@ -2,11 +2,12 @@
 (``repro_torch.sharding.tensor_parallel`` through ``launch.steps``' mesh
 steps) against the port's one-process steps and the reference's
 unsharded ``prefill``, ``decode_step`` and ``jax.value_and_grad`` of
-``loss_fn``, on the same numpy arrays.
+``loss_fn``, on the same numpy arrays (``torch_mesh_steps.case_inputs``).
 
-One spawn of four gloo ranks (``mp.start_processes``, spawn; inputs and
-results through files in ``tmp_path``) runs a (1, 4) and a (2, 2) ("data",
-"model") mesh for each case: the smoke Qwen2-7B (GQA with QKV biases,
+One spawn of four gloo ranks (``torch_ranks.spawn``: a deadline of its
+own; inputs and results through files in ``tmp_path``) runs a (1, 4) and
+a (2, 2) ("data", "model") mesh for each case of
+``torch_mesh_steps.CASES``: the smoke Qwen2-7B (GQA with QKV biases,
 masks at ratio 0.5), Qwen2-VL-7B (M-RoPE, a vision prefix), gemma-7b
 (MHA, GeGLU, tied and scaled embeddings), nemotron-4-340b (``sq_relu``),
 HuBERT-XLarge (bidirectional, ``embeds`` input, all logits), a
@@ -28,7 +29,10 @@ state lies whole on every rank. Each case:
 the prefill's logits and cache, 4 decode steps (the cache written in
 place), and 2 AdamW steps (the loss, the first step's gradient, every
 parameter after); the MoE cases also each MoE layer's ``drop_frac`` in
-the prefill.
+the prefill. The three MoE cases run on (2, 2) a second time with the
+MoE dispatch's exchange the all-to-all of the kept rows replaced
+(``torch_ranks.slot_exchange``: the slot buffer reduce-scattered, the
+outputs all-gathered): every tensor the same bits.
 
 Tolerances (float32): the mesh's logits and caches within
 ``stack_tol`` of the one-process run's (the same sums split over ranks
@@ -39,24 +43,9 @@ leaf's largest entry plus 1e-4 of one step's lr, its gradient within
 the training parity tests state). Against the reference: logits within
 ``stack_tol``, the loss within ``LOSS_RTOL32``, each gradient leaf within
 ``GRAD_RTOL32`` of its largest entry; ``drop_frac`` exactly the
-reference ``moe_forward``'s on the whole batch. The 2-expert Mixtral and
-the Mamba2 case also take a ``grad_accum`` = 2 step on (2, 2).
-The same spawn runs the sequence split over "data" (context
-parallelism, ``sharding.context_parallel``): a B = 1 prefill and 4
-decode steps of the smoke Qwen2-7B, Mixtral-8x7B, DeepSeek-V3, Mamba2-2.7B
-and Zamba2-1.2B on the (2, 2) mesh through the mesh steps (each data
-rank its block of the 16 positions and of the cache's 20 slots), within
-``stack_tol`` of the one-process steps and of the reference's jitted
-``prefill`` / ``decode_step``, and 2 AdamW steps of the same batch (each
-data rank its block of the positions) held to the one-process steps and
-to the reference's ``jax.value_and_grad`` and ``make_train_step``; the
-same train steps for DeepSeek-V3 at ``grad_accum`` 2 (each microbatch of
-1 row a sequence split) and for Qwen2-7B on 15 positions (a batch
-neither split divides, whole on both data ranks); and the serving steps
-at a cache of 21 slots, which the data ranks do not divide (every rank
-holds each leaf whole, as ``cache_specs`` lays it out), for Qwen2-7B, a
-Mixtral whose window of 24 lies between the 16 positions and twice the
-21 slots, DeepSeek-V3 and Zamba2-1.2B.
+reference ``moe_forward``'s on the whole batch. The sequence split over
+"data" and the ``grad_accum`` steps on (2, 2) are
+``test_torch_tensor_parallel_data.py``'s, with a spawn of their own.
 In-process: the head, expert and SSD-head splits of the registry
 configs at "model" 1, 2 and 16, MLA's per-leaf head ranges,
 ``Regather``, the routes, and the shares of a split run one after
@@ -67,117 +56,34 @@ This file imports no JAX at module level: the spawned ranks import it by
 name."""
 from __future__ import annotations
 
-import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 from repro_torch.configs.registry import ARCH_IDS, get_config, \
     get_smoke_config
 from repro_torch.sharding.tensor_parallel import (
     ROUTE_SPLIT, SequentialRanks, TensorParallel, expert_split, head_split,
     kv_cache_layout, mesh_route, tp_supported)
+from torch_mesh_steps import (B, CASES, DECODE, FAULT_CASE, S, case_inputs,
+                              close, hold_to_one_process, leaves,
+                              port_config, reference_cache_leaves,
+                              stack_tol32, train_steps, whole)
+from torch_ranks import init_group, slot_exchange, spawn
 
-#: (name, registry arch, config overrides, masked); ``moe`` overrides
-#: fields of the config's ``MoEConfig``
-CASES = (("qwen2-7b", "qwen2-7b", {}, True),
-         ("qwen2-vl-7b", "qwen2-vl-7b", {}, False),
-         ("gemma-7b", "gemma-7b", {}, False),
-         ("nemotron-4-340b", "nemotron-4-340b", {}, False),
-         ("hubert-xlarge", "hubert-xlarge", {}, False),
-         ("gqa-10-over-2", "qwen2-7b",
-          dict(num_heads=10, num_kv_heads=2, head_dim=32), True),
-         ("mixtral-8x7b", "mixtral-8x7b", {}, False),
-         ("deepseek-v3-671b", "deepseek-v3-671b", {}, True),
-         ("mixtral-2-experts", "mixtral-8x7b",
-          dict(moe=dict(num_experts=2, top_k=1, capacity_factor=0.5)),
-          False),
-         ("mamba2-2.7b", "mamba2-2.7b", {}, True),
-         ("zamba2-1.2b", "zamba2-1.2b", {}, False),
-         ("mamba2-10-heads-2-groups", "mamba2-2.7b",
-          dict(d_model=160, ssm=dict(n_groups=2)), True))
-#: the case whose whole-batch capacity binds where the per-rank one
-#: would not (the fault of a dispatch per data rank)
-FAULT_CASE = "mixtral-2-experts"
-#: the Mamba2 case run with microbatches on (2, 2), its rows' shares of
-#: the labels uneven (the fault of microbatches cut from a rank's rows)
-SSM_FAULT_CASE = "mamba2-2.7b"
-ACCUM_CASES = (FAULT_CASE, SSM_FAULT_CASE)
-#: the cases served on a sequence split over the (2, 2) mesh's "data":
-#: B = 1 row of ``CP_S`` positions
-CP_CASES = ("qwen2-7b", "mixtral-8x7b", "deepseek-v3-671b", "mamba2-2.7b",
-            "zamba2-1.2b")
-CP_S = 16
-#: the cases served on a sequence split at ``CP_S + DECODE + 1`` slots,
-#: which 2 data ranks do not divide, with their config overrides: the
-#: Mixtral's window between ``CP_S`` and twice the slots
-CP_WHOLE = {"qwen2-7b": {}, "mixtral-8x7b": {"sliding_window": 24},
-            "deepseek-v3-671b": {}, "zamba2-1.2b": {}}
 NAMES = [c[0] for c in CASES]
 MESHES = ((1, 4), (2, 2))
 MESH_IDS = ["1x4", "2x2"]
-B, S, DECODE = 2, 8, 4
-#: the train step's other splits over the (2, 2) mesh's "data", by key:
-#: (case, rows, positions, grad_accum). "cp_accum": 2 rows in 2
-#: microbatches, each of 1 row, so each a sequence split; "cp_whole": 1
-#: row of an odd count of positions, which neither split divides, so
-#: every data rank holds it whole
-CP_TRAIN = {"cp_accum": ("deepseek-v3-671b", 2, CP_S, 2),
-            "cp_whole": ("qwen2-7b", 1, CP_S - 1, 1)}
-#: (case, slots) of every sequence split run against the reference
-CP_RUNS = ([(n, CP_S + DECODE) for n in CP_CASES]
-           + [(n, CP_S + DECODE + 1) for n in CP_WHOLE])
-#: the fault's case with microbatches: ``ACCUM`` of the rows of a batch of
-#: ``ACCUM_B`` (each microbatch split over the (2, 2) mesh's data ranks)
-ACCUM, ACCUM_B = 2, 4
-LR = 1e-3
-#: AdamW's eps near the gradients' size (as ``tests/test_torch_mesh.py``):
-#: an update moves with the gradient, not with the sign of an entry near 0
-EPS = 1e-3
-METRIC_RTOL = 1e-6
-PARAM_ULPS = 4
-UPDATE_RTOL = 1e-4
-EPS32 = float(np.finfo(np.float32).eps)
-
-
-def _case(name):
-    return next(c for c in CASES if c[0] == name)
-
-
-def _configured(cfg, over):
-    """``cfg`` in float32 with the case's overrides (``moe`` and ``ssm``:
-    fields of its ``MoEConfig`` or ``SSMConfig``), for either package's
-    config."""
-    over = dict(over)
-    for sub in ("moe", "ssm"):
-        if over.get(sub):
-            over[sub] = dataclasses.replace(getattr(cfg, sub), **over[sub])
-    return cfg.replace(dtype="float32", **over)
-
-
-def _port_config(name):
-    _, arch, over, _ = _case(name)
-    return _configured(get_smoke_config(arch), over)
+#: the cases run on (2, 2) on the slot exchange too
+MOE_CASES = ("mixtral-8x7b", "deepseek-v3-671b", FAULT_CASE)
+#: seconds the four ranks may take (about 90 alone)
+DEADLINE = 900
 
 
 def _max_len(cfg) -> int:
     return S + (cfg.vision_tokens or 0) + DECODE
-
-
-def _leaves(tree):
-    from repro_torch.optim.optimizers import tree_leaves
-    return tree_leaves(tree)
-
-
-def _whole(t):
-    """A copy of ``t`` whole: a DTensor gathered (a replicated one's
-    ``full_tensor`` is its local tensor, which a decode step then writes
-    in place)."""
-    from torch.distributed.tensor import DTensor
-    return (t.full_tensor() if isinstance(t, DTensor) else t).clone()
 
 
 def _steps(cfg, params, masks, batch, tokens, mesh=None) -> dict:
@@ -198,88 +104,17 @@ def _steps(cfg, params, masks, batch, tokens, mesh=None) -> dict:
             logits, cache = prefill(p, inputs)
         # each MoE layer's input rows (this rank's) and drop_frac
         out["moe"] = moe_calls
-        out["prefill"] = _whole(logits)
+        out["prefill"] = whole(logits)
         if cache is not None:
-            out["cache"] = [_whole(t) for t in _leaves(cache["runs"])]
+            out["cache"] = [whole(t) for t in leaves(cache["runs"])]
             decode = make_decode_step(cfg, masks=masks, device="cpu",
                                       mesh=mesh)
             out["decode"] = []
             for t in tokens:
                 logits, cache = decode(p, cache, t)
-                out["decode"].append(_whole(logits))
-            out["cache_after"] = [_whole(t) for t in _leaves(cache["runs"])]
-    out.update(_train(cfg, params, masks, batch, mesh))
-    return out
-
-
-def _sequence_steps(cfg, params, batch, tokens, mesh=None,
-                    max_len: int = CP_S + DECODE,
-                    train: bool = True) -> dict:
-    """A prefill (the cache at ``max_len`` slots) and ``DECODE`` decode
-    steps of a batch whose one row does not divide the mesh's data axes
-    (on ``mesh``: the sequence split), every tensor whole; with ``train``,
-    also 2 AdamW steps of the batch (``_train``)."""
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.sharding import specs as sh
-    p = params
-    if mesh is not None:
-        p = sh.distribute(params, sh.param_specs(params, cfg, mesh), mesh)
-    inputs = {k: v for k, v in batch.items() if k != "labels"}
-    with torch.no_grad():
-        logits, cache = make_prefill_step(cfg, max_len=max_len,
-                                          device="cpu", mesh=mesh)(p, inputs)
-        out = {"prefill": _whole(logits),
-               "cache": [_whole(t) for t in _leaves(cache["runs"])],
-               "decode": []}
-        decode = make_decode_step(cfg, device="cpu", mesh=mesh)
-        for t in tokens:
-            logits, cache = decode(p, cache, t)
-            out["decode"].append(_whole(logits))
-        out["cache_after"] = [_whole(t) for t in _leaves(cache["runs"])]
-    if train:
-        out["train"] = _train(cfg, params, None, batch, mesh)
-    return out
-
-
-def _train(cfg, params, masks, batch, mesh=None, steps: int = 2,
-           grad_accum: int = 1) -> dict:
-    """``steps`` AdamW steps of ``batch`` in ``grad_accum`` microbatches
-    through ``make_train_step`` (on ``mesh``, or in one process): its
-    route, each step's metrics, the first step's gradient and the
-    parameters after, every tensor whole."""
-    from torch.distributed.tensor import DTensor
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.optim import adamw
-    from repro_torch.optim.optimizers import Optimizer
-    from repro_torch.optim.schedules import constant
-    from repro_torch.sharding import specs as sh
-    opt = adamw(constant(LR), eps=EPS)
-    seen = []
-
-    def update(grads, state, p, **kw):
-        seen.append(grads)
-        return opt.update(grads, state, p, **kw)
-    state = opt.init(params)
-    p = params
-    if mesh is not None:
-        ps = sh.param_specs(params, cfg, mesh)
-        p = sh.distribute(params, ps, mesh)
-        state = sh.distribute(state, sh.opt_state_specs(state, ps), mesh)
-    step = make_train_step(cfg, Optimizer(opt.init, update), masks,
-                           grad_accum=grad_accum, device="cpu", mesh=mesh)
-    out = {"route": getattr(step, "route", None), "metrics": []}
-    for i in range(steps):
-        p, state, m = step(p, state, batch)
-        out["metrics"].append({k: float(v) for k, v in m.items()})
-        if i == 0:
-            g = _leaves(seen[0])
-            if mesh is not None:
-                g = [DTensor.from_local(t, mesh, q.placements,
-                                        run_check=False, shape=q.shape,
-                                        stride=q.stride())
-                     for t, q in zip(g, _leaves(p))]
-            out["grads"] = [_whole(t) for t in g]
-    out["params"] = [_whole(t) for t in _leaves(p)]
+                out["decode"].append(whole(logits))
+            out["cache_after"] = [whole(t) for t in leaves(cache["runs"])]
+    out.update(train_steps(cfg, params, masks, batch, mesh))
     return out
 
 
@@ -308,12 +143,11 @@ def _rank(rank: int, port: int, d: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     torch.set_num_threads(1)        # four ranks beside the other workers
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=4)
+    init_group(rank, 4, port)
     try:
         for name in NAMES:
             inp = torch.load(os.path.join(d, f"{name}.in.pt"))
-            cfg = _port_config(name)
+            cfg = port_config(name)
             for shape, sid in zip(MESHES, MESH_IDS):
                 mesh = init_device_mesh("cpu", shape,
                                         mesh_dim_names=("data", "model"))
@@ -321,41 +155,12 @@ def _rank(rank: int, port: int, d: str) -> None:
                              inp["tokens"], mesh)
                 if rank == 0:
                     torch.save(got, os.path.join(d, f"{name}.{sid}.pt"))
-        # the faults' cases with microbatches: the (2, 2) mesh's
-        # microbatch must be the reference's rows, not every rank's i-th
-        # chunk
-        for name in ACCUM_CASES:
-            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
-            mesh = init_device_mesh("cpu", (2, 2),
-                                    mesh_dim_names=("data", "model"))
-            got = _train(_port_config(name), inp["params"], inp["masks"],
-                         inp["accum_batch"], mesh, steps=1,
-                         grad_accum=ACCUM)
-            if rank == 0:
-                torch.save(got, os.path.join(d, f"{name}.accum.pt"))
-        # B = 1: the sequence split over "data"
-        mesh = init_device_mesh("cpu", (2, 2),
-                                mesh_dim_names=("data", "model"))
-        for name in CP_CASES:
-            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
-            got = _sequence_steps(_port_config(name), inp["params"],
-                                  inp["cp_batch"], inp["cp_tokens"], mesh)
-            if rank == 0:
-                torch.save(got, os.path.join(d, f"{name}.cp.pt"))
-        for name, over in CP_WHOLE.items():
-            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
-            got = _sequence_steps(_port_config(name).replace(**over),
-                                  inp["params"], inp["cp_batch"],
-                                  inp["cp_tokens"], mesh,
-                                  max_len=CP_S + DECODE + 1, train=False)
-            if rank == 0:
-                torch.save(got, os.path.join(d, f"{name}.cpw.pt"))
-        for key, (name, _, _, accum) in CP_TRAIN.items():
-            inp = torch.load(os.path.join(d, f"{name}.in.pt"))
-            got = _train(_port_config(name), inp["params"], None, inp[key],
-                         mesh, grad_accum=accum)
-            if rank == 0:
-                torch.save(got, os.path.join(d, f"{name}.{key}.pt"))
+            if name in MOE_CASES:
+                with slot_exchange():
+                    got = _steps(cfg, inp["params"], inp["masks"],
+                                 inp["batch"], inp["tokens"], mesh)
+                if rank == 0:
+                    torch.save(got, os.path.join(d, f"{name}.slots.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -374,98 +179,27 @@ def one_thread():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{name: {"numpy": the shared arrays, "one": the one-process run,
-    "1x4" / "2x2": the mesh runs}}: the inputs made here from numpy (the
-    reference's parameter layout, masks at ratio 0.5 where the case asks),
-    the ranks spawned once for every case."""
-    import jax
-    import jax.numpy as jnp
-    from repro.configs import registry as rreg
-    from repro.core.pruning import masks as rmasks
-    from repro_torch.interop import (transformer_masks_from_reference,
-                                     transformer_params_from_reference)
-    from torch_parity import free_port, train_batch_np, transformer_params_np
+    "1x4" / "2x2": the mesh runs, and for ``MOE_CASES`` "slots": the (2, 2)
+    run on the slot exchange}}: the inputs made here from numpy
+    (``case_inputs``: the reference's parameter layout, masks at ratio 0.5
+    where the case asks), the ranks spawned once for every case."""
+    from torch_parity import free_port
     d = str(tmp_path_factory.mktemp("tp"))
     out = {}
-    for name, arch, over, masked in CASES:
-        cr = _configured(rreg.get_smoke_config(arch), over)
-        pn = transformer_params_np(cr, seed=3)
-        mn = None
-        if masked:
-            n = len(rmasks.transformer_prunable_units(cr))
-            mn = jax.tree_util.tree_map(
-                np.asarray, rmasks.transformer_masks_from_ratios(
-                    jax.tree_util.tree_map(jnp.asarray, pn), cr, [0.5] * n))
-        bn = train_batch_np(cr, B, S, seed=5)
-        tok = np.random.default_rng(6).integers(
-            0, cr.vocab_size, (DECODE, B, 1)).astype(np.int32)
-        inp = {"params": transformer_params_from_reference(pn),
-               "masks": transformer_masks_from_reference(mn),
-               "batch": {k: torch.from_numpy(np.asarray(v))
-                         for k, v in bn.items()},
-               "tokens": [torch.from_numpy(t.astype(np.int64))
-                          for t in tok]}
-        if name in ACCUM_CASES:
-            acc = train_batch_np(cr, ACCUM_B, S, seed=8)
-            if name == SSM_FAULT_CASE:
-                # row 0 keeps 2 labels of 8: the rows' shares differ
-                acc["labels"][0, 2:] = -1
-            inp["accum_batch"] = {k: torch.from_numpy(np.asarray(v))
-                                  for k, v in acc.items()}
-            out[name] = {"accum_batch": acc}
-        if name in CP_CASES:
-            cp_bn = train_batch_np(cr, 1, CP_S, seed=7)
-            inp["cp_batch"] = {k: torch.from_numpy(np.asarray(v))
-                               for k, v in cp_bn.items()}
-            inp["cp_tokens"] = [torch.from_numpy(t[:1].astype(np.int64))
-                                for t in tok]
-            cp = out.setdefault(name, {})
-            cp["cp_numpy"] = (cp_bn, tok[:, :1])
-            cp["cp_one"] = _sequence_steps(
-                _port_config(name), inp["params"], inp["cp_batch"],
-                inp["cp_tokens"])
-            for key, (_, rows, positions, accum) in (
-                    (k, v) for k, v in CP_TRAIN.items() if v[0] == name):
-                bn_k = train_batch_np(cr, rows, positions, seed=9)
-                inp[key] = {k: torch.from_numpy(np.asarray(v))
-                            for k, v in bn_k.items()}
-                cp[key + "_numpy"] = bn_k
-                cp[key + "_one"] = _train(_port_config(name), inp["params"],
-                                          None, inp[key], grad_accum=accum)
-            if name in CP_WHOLE:
-                cp["cpw_one"] = _sequence_steps(
-                    _port_config(name).replace(**CP_WHOLE[name]),
-                    inp["params"], inp["cp_batch"], inp["cp_tokens"],
-                    max_len=CP_S + DECODE + 1, train=False)
+    for name in NAMES:
+        arrays, inp = case_inputs(name)
         torch.save(inp, os.path.join(d, f"{name}.in.pt"))
-        out.setdefault(name, {}).update(
-            numpy=(cr, pn, mn, bn, tok),
-            one=_steps(_port_config(name), inp["params"], inp["masks"],
-                       inp["batch"], inp["tokens"]))
-    mp.start_processes(_rank, args=(free_port(), d), nprocs=4,
-                       start_method="spawn")
+        out[name] = {"numpy": arrays,
+                     "one": _steps(port_config(name), inp["params"],
+                                   inp["masks"], inp["batch"],
+                                   inp["tokens"])}
+    spawn(_rank, (free_port(), d), 4, DEADLINE)
     for name in NAMES:
         for sid in MESH_IDS:
             out[name][sid] = torch.load(os.path.join(d, f"{name}.{sid}.pt"))
-    for name in ACCUM_CASES:
-        out[name]["accum"] = torch.load(os.path.join(d, f"{name}.accum.pt"))
-    for name in CP_CASES:
-        out[name]["cp"] = torch.load(os.path.join(d, f"{name}.cp.pt"))
-    for name in CP_WHOLE:
-        out[name]["cpw"] = torch.load(os.path.join(d, f"{name}.cpw.pt"))
-    for key, (name, *_) in CP_TRAIN.items():
-        out[name][key] = torch.load(os.path.join(d, f"{name}.{key}.pt"))
+    for name in MOE_CASES:
+        out[name]["slots"] = torch.load(os.path.join(d, f"{name}.slots.pt"))
     return out
-
-
-def _close(got, want, tol_of):
-    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() <= tol_of(want)
-
-
-def _stack_tol(want):
-    from torch_parity import stack_tol
-    return stack_tol(want, "float32")
 
 
 # ---------------------------------------------------------------------------
@@ -476,10 +210,10 @@ def _stack_tol(want):
 def test_mesh_prefill_and_cache_match_one_process(name, sid, runs):
     got, want = runs[name][sid], runs[name]["one"]
     assert got["route"] == ROUTE_SPLIT
-    _close(got["prefill"], want["prefill"], _stack_tol)
-    assert ("cache" in got) == ("cache" in want) == _port_config(name).causal
+    close(got["prefill"], want["prefill"], stack_tol32)
+    assert ("cache" in got) == ("cache" in want) == port_config(name).causal
     for g, w in zip(got.get("cache", []), want.get("cache", [])):
-        _close(g, w, _stack_tol)
+        close(g, w, stack_tol32)
 
 
 @pytest.mark.parametrize("sid", MESH_IDS)
@@ -488,151 +222,42 @@ def test_mesh_decode_steps_match_one_process(name, sid, runs):
     got, want = runs[name][sid], runs[name]["one"]
     assert len(got["decode"]) == len(want["decode"]) == DECODE
     for g, w in zip(got["decode"], want["decode"]):
-        _close(g, w, _stack_tol)
+        close(g, w, stack_tol32)
     for g, w in zip(got["cache_after"], want["cache_after"]):
-        _close(g, w, _stack_tol)
-
-
-def _hold_to_one_process(got, want) -> None:
-    """A mesh's train steps (``_train``) against the one-process steps':
-    each step's metrics within ``METRIC_RTOL``, the parameters after them
-    within ``PARAM_ULPS`` of a leaf's largest entry plus ``UPDATE_RTOL``
-    of one step's lr."""
-    assert len(got["metrics"]) == len(want["metrics"])
-    for gm, wm in zip(got["metrics"], want["metrics"]):
-        assert set(gm) == set(wm)
-        for k, v in wm.items():
-            assert abs(gm[k] - v) <= METRIC_RTOL * max(abs(v), 1.0)
-    assert len(got["params"]) == len(want["params"])
-    for g, w in zip(got["params"], want["params"]):
-        tol = PARAM_ULPS * EPS32 * float(w.abs().max()) + UPDATE_RTOL * LR
-        _close(g, w, lambda _: tol)
+        close(g, w, stack_tol32)
 
 
 @pytest.mark.parametrize("sid", MESH_IDS)
 @pytest.mark.parametrize("name", NAMES)
 def test_mesh_train_steps_match_one_process(name, sid, runs):
-    _hold_to_one_process(runs[name][sid], runs[name]["one"])
+    hold_to_one_process(runs[name][sid], runs[name]["one"])
 
 
-def _check_sequence_steps(got, want) -> None:
-    """The prefill's logits and cache and the decode steps' logits and
-    cache of ``_sequence_steps`` within ``stack_tol`` of ``want``'s."""
-    _close(got["prefill"], want["prefill"], _stack_tol)
-    assert len(got["decode"]) == len(want["decode"]) == DECODE
-    for key in ("cache", "cache_after"):
-        assert len(got[key]) == len(want[key])
-        for g, w in zip(got[key], want[key]):
-            _close(g, w, _stack_tol)
-    for g, w in zip(got["decode"], want["decode"]):
-        _close(g, w, _stack_tol)
+def _same_bits(got, want) -> bool:
+    """Whether two results of ``_steps`` (nested dicts, lists, tuples,
+    tensors and numbers) hold the same values, tensors by ``torch.equal``."""
+    if torch.is_tensor(got):
+        return torch.is_tensor(want) and torch.equal(got, want)
+    if isinstance(got, dict):
+        return (isinstance(want, dict) and set(got) == set(want)
+                and all(_same_bits(got[k], want[k]) for k in got))
+    if isinstance(got, (list, tuple)):
+        return (isinstance(want, (list, tuple)) and len(got) == len(want)
+                and all(_same_bits(a, b) for a, b in zip(got, want)))
+    return got == want
 
 
-@pytest.mark.parametrize("name", CP_CASES)
-def test_mesh_sequence_split_matches_one_process(name, runs):
-    """B = 1 on the (2, 2) mesh: the row does not divide "data", so each
-    data rank prefills its block of the 16 positions and holds its block
-    of the cache's 20 slots (``cache_specs``); the prefill's logits and
-    cache and 4 decode steps' logits and cache within ``stack_tol`` of the
-    one-process steps."""
-    _check_sequence_steps(runs[name]["cp"], runs[name]["cp_one"])
-
-
-@pytest.mark.parametrize("name", list(CP_WHOLE))
-def test_mesh_sequence_split_keeps_slots_it_does_not_divide_whole(name,
-                                                                  runs):
-    """B = 1 on the (2, 2) mesh at a cache of 21 slots, which the 2 data
-    ranks do not divide: each data rank prefills its block of the 16
-    positions but holds every leaf's 21 slots whole (``cache_specs``),
-    placed so (each leaf gathers to 21 slots, not 42) and read so by the
-    decode steps (every rank writes the slot and attends all of them; the
-    Mixtral's window of 24 against its 21 rolling slots, not against 42):
-    within ``stack_tol`` of the one-process steps."""
-    _check_sequence_steps(runs[name]["cpw"], runs[name]["cpw_one"])
-
-
-def _reference_adamw(cr, pn, bn, grad_accum: int, steps: int = 2):
-    """The reference's ``make_train_step`` with AdamW (``LR``, eps
-    ``EPS``) for ``steps`` steps of ``bn``: each step's metrics, and the
-    parameters after them as numpy leaves in its tree's order."""
-    import jax
-    import jax.numpy as jnp
-    from repro.launch import steps as rsteps
-    from repro.optim import adamw as radamw
-    from repro.optim import constant as rconstant
-    from torch_parity import to_f32
-    j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
-    opt = radamw(rconstant(LR), eps=EPS)
-    step = rsteps.make_train_step(cr, opt, None, grad_accum)
-    p, metrics = j(pn), []
-    state = opt.init(p)
-    for _ in range(steps):
-        p, state, m = step(p, state, j(bn))
-        metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, [to_f32(a) for a in jax.tree_util.tree_leaves(p)]
-
-
-def _check_sequence_train(got, one, cr, pn, bn, grad_accum: int) -> None:
-    """The mesh's 2 AdamW steps of ``bn`` (``_train``, ``grad_accum``
-    microbatches) held to the one-process steps (``_hold_to_one_process``)
-    and to the reference: the first step's loss within ``LOSS_RTOL32``
-    and gradient within ``GRAD_RTOL32`` of ``jax.value_and_grad`` of its
-    ``loss_fn`` (over its microbatches), each step's loss within
-    ``LOSS_RTOL32`` of its ``make_train_step``'s and the parameters after
-    the 2 steps within the one-process tolerance of its."""
-    from repro_torch.interop import transformer_params_from_reference
-    from repro_torch.optim.optimizers import tree_map
-    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
-                              port_grad_leaves)
-    assert got["route"] == ROUTE_SPLIT
-    _hold_to_one_process(got, one)
-    rows = np.asarray(bn["labels"]).shape[0]
-    first, grads = _reference_microbatches(
-        cr, pn, None, bn, np.array_split(np.arange(rows), grad_accum))
-    assert abs(got["metrics"][0]["loss"] - first["loss"]) <= \
-        LOSS_RTOL32 * abs(first["loss"])
-    like = transformer_params_from_reference(pn)
-
-    def as_reference(flat):
-        flat = iter(flat)
-        return port_grad_leaves(tree_map(lambda _: next(flat), like))
-    assert_grads_close32(as_reference(got["grads"]), grads)
-    metrics, params = _reference_adamw(cr, pn, bn, grad_accum)
-    for gm, wm in zip(got["metrics"], metrics):
-        assert abs(gm["loss"] - wm["loss"]) <= LOSS_RTOL32 * abs(wm["loss"])
-    for g, w in zip(as_reference(got["params"]), params):
-        tol = PARAM_ULPS * EPS32 * float(np.abs(w).max()) + UPDATE_RTOL * LR
-        _close(g, w, lambda _: tol)
-
-
-@pytest.mark.parametrize("name", CP_CASES)
-def test_mesh_train_step_refuses_a_sequence_split(name, runs):
-    """(Named for the refusal it held until the train step took a
-    sequence split.) B = 1 on the (2, 2) mesh: the row does not divide
-    "data", so each data rank trains its block of the 16 positions (K and
-    V, MLA's latents, the conv's halo and the SSD state exchanged, each
-    exchange's gradient sent back) weighted by its share of the labels;
-    2 AdamW steps held by ``_check_sequence_train`` to the one-process
-    steps and to the reference's."""
-    cr, pn = runs[name]["numpy"][:2]
-    _check_sequence_train(runs[name]["cp"]["train"],
-                          runs[name]["cp_one"]["train"], cr, pn,
-                          runs[name]["cp_numpy"][0], 1)
-
-
-@pytest.mark.parametrize("key", list(CP_TRAIN))
-def test_mesh_train_step_takes_sequence_microbatches_and_whole_batches(
-        key, runs):
-    """On the (2, 2) mesh: DeepSeek-V3's 2 rows in ``grad_accum`` = 2
-    microbatches of 1 row, each microbatch a sequence split of its own
-    (its MoE dispatch, router and MTP losses the microbatch's); and
-    Qwen2-7B's one row of 15 positions, which neither the rows nor the
-    positions split, held whole on both data ranks, each rank's loss
-    weighted 1/2. 2 AdamW steps each, held by ``_check_sequence_train``."""
-    name, *_, accum = CP_TRAIN[key]
-    cr, pn = runs[name]["numpy"][:2]
-    _check_sequence_train(runs[name][key], runs[name][key + "_one"], cr, pn,
-                          runs[name][key + "_numpy"], accum)
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_mesh_moe_all_to_all_gives_the_slot_exchange_bits(name, runs):
+    """On the (2, 2) mesh (a row a data rank) the MoE dispatch's
+    all-to-all of the kept rows gives every tensor of the prefill, the
+    cache, the decode steps and 2 AdamW steps (metrics, the first step's
+    gradient, the parameters after) and each MoE layer's input and
+    ``drop_frac`` with the same bits as the slot buffer's reduce-scatter
+    and the outputs' all-gather it replaced: the same rows reach the same
+    slots, the expert products run on the same blocks, and the outputs
+    come back to the same places."""
+    assert _same_bits(runs[name]["2x2"], runs[name]["slots"])
 
 
 # ---------------------------------------------------------------------------
@@ -647,24 +272,6 @@ def _reference(name, runs, fn):
     if key not in _REFERENCE:
         _REFERENCE[key] = fn(*runs[name]["numpy"])
     return _REFERENCE[key]
-
-
-def _reference_cache_leaves(cr, cache):
-    """The reference's cache leaves of its runs, as numpy, stacked as the
-    port's are: a hybrid's ssm run, ((groups, period, ...), tail), flat
-    over its layers."""
-    import jax
-    from torch_parity import to_f32
-    if not cr.shared_attn_period:
-        return [to_f32(c) for c in jax.tree_util.tree_leaves(cache["runs"])]
-    out = []
-    for rc in cache["runs"]:
-        parts = [p for p in rc if p is not None]
-        for f, nd in (("conv", 3), ("state", 4)):
-            out.append(np.concatenate(
-                [to_f32(getattr(p, f)).reshape(
-                    (-1,) + getattr(p, f).shape[-nd:]) for p in parts]))
-    return out
 
 
 def _reference_serve(cr, pn, mn, bn, tok):
@@ -682,7 +289,7 @@ def _reference_serve(cr, pn, mn, bn, tok):
     out = {"prefill": to_f32(logits)}
     if cache is None:
         return out
-    out["cache"] = _reference_cache_leaves(cr, cache)
+    out["cache"] = reference_cache_leaves(cr, cache)
     out["decode"] = []
     for t in tok:
         logits, cache = rtr.decode_step(j(pn), cr, cache, jnp.asarray(t),
@@ -696,50 +303,11 @@ def _reference_serve(cr, pn, mn, bn, tok):
 def test_mesh_serving_matches_reference(name, sid, runs):
     want = _reference(name, runs, _reference_serve)
     got = runs[name][sid]
-    _close(got["prefill"], want["prefill"], _stack_tol)
+    close(got["prefill"], want["prefill"], stack_tol32)
     for g, w in zip(got.get("cache", []), want.get("cache", [])):
-        _close(g, w, _stack_tol)
+        close(g, w, stack_tol32)
     for g, w in zip(got.get("decode", []), want.get("decode", [])):
-        _close(g, w, _stack_tol)
-
-
-def _reference_sequence_serve(cr, bn, tok, pn, max_len):
-    """The reference's jitted prefill (the cache at ``max_len`` slots)
-    and decode steps on one row: its logits and cache leaves as
-    ``_sequence_steps`` gives them."""
-    import jax
-    import jax.numpy as jnp
-    from repro.models import transformer as rtr
-    from torch_parity import to_f32
-    j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
-    prefill = jax.jit(lambda p, b: rtr.prefill(p, cr, b, max_len=max_len))
-    decode = jax.jit(lambda p, c, t: rtr.decode_step(p, cr, c, t))
-    inputs = {k: v for k, v in bn.items() if k != "labels"}
-    logits, cache = prefill(j(pn), j(inputs))
-    out = {"prefill": to_f32(logits),
-           "cache": _reference_cache_leaves(cr, cache), "decode": []}
-    for t in tok:
-        logits, cache = decode(j(pn), cache, jnp.asarray(t, jnp.int32))
-        out["decode"].append(to_f32(logits))
-    out["cache_after"] = _reference_cache_leaves(cr, cache)
-    return out
-
-
-@pytest.mark.parametrize("name,slots", CP_RUNS,
-                         ids=[f"{n}-{k}" for n, k in CP_RUNS])
-def test_mesh_sequence_split_matches_reference(name, slots, runs):
-    """The sequence split's mesh run on the (2, 2) mesh (a cache of 20
-    slots, split over "data", or of 21, whole on every data rank): the
-    prefill's logits and cache and 4 decode steps' logits and cache within
-    ``stack_tol`` of the reference's unsharded ``prefill`` and
-    ``decode_step`` on the same row and tokens."""
-    cr, pn = runs[name]["numpy"][:2]
-    whole = slots != CP_S + DECODE
-    if whole:
-        cr = cr.replace(**CP_WHOLE[name])
-    want = _reference_sequence_serve(cr, *runs[name]["cp_numpy"], pn,
-                                     slots)
-    _check_sequence_steps(runs[name]["cpw" if whole else "cp"], want)
+        close(g, w, stack_tol32)
 
 
 def _reference_train(cr, pn, mn, bn, tok):
@@ -831,7 +399,7 @@ def test_sequential_ranks_give_the_one_process_logits(name, m):
     queries sent to the cache)."""
     from repro_torch.models import transformer as tr
     from torch_parity import model_batch_np
-    cfg = _port_config(name)
+    cfg = port_config(name)
     if cfg.num_heads < m:
         pytest.skip("more ranks than heads")
     params = tr.init_params(cfg, 0, device="cpu")
@@ -856,7 +424,7 @@ def test_sequential_ranks_give_the_one_process_logits(name, m):
     for r in got[1:]:
         assert all(torch.equal(a, b) for a, b in zip(r, got[0]))
     for g, w in zip(got[0], want):
-        _close(g, w, _stack_tol)
+        close(g, w, stack_tol32)
 
 
 def test_sequential_ranks_fail_every_rank_when_one_fails():
@@ -919,7 +487,7 @@ def test_decode_sends_the_queries_not_the_cache(layout):
     over = (dict(num_heads=10, num_kv_heads=2, head_dim=32)
             if layout == "dims" else
             dict(num_heads=10, num_kv_heads=2, head_dim=30))
-    cfg = _port_config("qwen2-7b").replace(**over)
+    cfg = port_config("qwen2-7b").replace(**over)
     params = tr.init_params(cfg, 0, device="cpu")
     batch = {k: torch.as_tensor(v)
              for k, v in model_batch_np(cfg, B, 24, seed=4).items()}
@@ -956,7 +524,7 @@ def test_decode_sends_the_queries_not_the_cache(layout):
                 * (tp.kv_dims[1] - tp.kv_dims[0]) for tp in shares)
     moved = seen[min(marks):]
     assert moved and all(n < shard for _, n in moved)
-    _close(got[0], want, _stack_tol)
+    close(got[0], want, stack_tol32)
 
 
 @pytest.mark.parametrize("arch,route", [
@@ -1113,94 +681,6 @@ def test_moe_dispatch_takes_the_whole_batch_on_the_data_axes(runs):
     tree = tree_map(lambda _: next(flat),
                     transformer_params_from_reference(pn))
     assert_grads_close32(port_grad_leaves(tree), grads)
-
-
-def _reference_microbatches(cr, pn, mn, bn, rows):
-    """The reference's train step in microbatches of ``rows`` (lists of
-    row indices of ``bn``): each microbatch's ``jax.value_and_grad`` of
-    ``loss_fn``, the metrics averaged and the gradients summed in fp32 and
-    divided, as its ``make_train_step`` does with ``grad_accum``."""
-    from torch_parity import reference_loss_and_grads
-    parts = [reference_loss_and_grads(
-        cr, pn, {k: np.asarray(v)[r] for k, v in bn.items()}, mn)
-        for r in rows]
-    metrics = {k: float(np.mean([m[k] for _, m, _ in parts]))
-               for k in parts[0][1]}
-    metrics["loss"] = float(np.mean([loss for loss, _, _ in parts]))
-    grads = [sum(np.asarray(g[i], np.float32) for _, _, g in parts)
-             / len(parts) for i in range(len(parts[0][2]))]
-    return metrics, grads
-
-
-def test_moe_microbatches_are_the_reference_rows_on_the_data_axes(runs):
-    """The fault's case with ``grad_accum`` = 2 on the (2, 2) mesh: the
-    mesh's microbatch i is the reference's contiguous chunk i of the whole
-    batch, each split over the data ranks, not the union of every data
-    rank's i-th chunk of its own rows (rows {0, 2} and {1, 3} of 4, whose
-    capacities, drops and balance losses differ on these inputs). The
-    loss, ``moe_aux``, ``moe_z`` and the gradient match the reference's
-    step in microbatches within ``LOSS_RTOL32`` / ``GRAD_RTOL32``."""
-    from repro_torch.interop import transformer_params_from_reference
-    from repro_torch.optim.optimizers import tree_map
-    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
-                              port_grad_leaves)
-    cr, pn, mn = runs[FAULT_CASE]["numpy"][:3]
-    bn, got = runs[FAULT_CASE]["accum_batch"], runs[FAULT_CASE]["accum"]
-    n = ACCUM_B // ACCUM
-    want, grads = _reference_microbatches(
-        cr, pn, mn, bn, [list(range(i * n, (i + 1) * n))
-                         for i in range(ACCUM)])
-    # a microbatch a data rank's i-th chunk of its own rows would make
-    per = ACCUM_B // 2
-    apart, _ = _reference_microbatches(
-        cr, pn, mn, bn, [[r * per + i for r in range(2)]
-                         for i in range(ACCUM)])
-    assert any(abs(apart[k] - want[k]) > LOSS_RTOL32 * abs(want[k])
-               for k in ("loss", "moe_aux"))
-    assert got["route"] == ROUTE_SPLIT
-    for k in ("loss", "moe_aux", "moe_z"):
-        assert abs(got["metrics"][0][k] - want[k]) <= \
-            LOSS_RTOL32 * abs(want[k])
-    flat = iter(got["grads"])
-    tree = tree_map(lambda _: next(flat),
-                    transformer_params_from_reference(pn))
-    assert_grads_close32(port_grad_leaves(tree), grads)
-
-
-def test_ssm_microbatches_are_the_reference_rows_on_the_data_axes(runs):
-    """The smoke Mamba2 with ``grad_accum`` = 2 on the (2, 2) mesh (B = 4,
-    row 0 keeping 2 of its 8 labels): microbatch i is the reference's
-    contiguous chunk i of the whole batch, each split over the data ranks.
-    The mesh steps that took each rank's rows first and cut those into
-    microbatches ran rows {0, 2} and {1, 3}, and with the rows' shares of
-    the labels uneven each microbatch's mean differs. The loss, ``xent``
-    and every gradient leaf match ``jax.value_and_grad`` of the
-    reference's ``loss_fn`` over its microbatches within ``LOSS_RTOL32`` /
-    ``GRAD_RTOL32``."""
-    from repro_torch.interop import transformer_params_from_reference
-    from repro_torch.optim.optimizers import tree_map
-    from torch_parity import (LOSS_RTOL32, assert_grads_close32,
-                              port_grad_leaves)
-    cr, pn, mn = runs[SSM_FAULT_CASE]["numpy"][:3]
-    bn = runs[SSM_FAULT_CASE]["accum_batch"]
-    got = runs[SSM_FAULT_CASE]["accum"]
-    n = ACCUM_B // ACCUM
-    want, grads = _reference_microbatches(
-        cr, pn, mn, bn, [list(range(i * n, (i + 1) * n))
-                         for i in range(ACCUM)])
-    per = ACCUM_B // 2
-    apart, _ = _reference_microbatches(
-        cr, pn, mn, bn, [[r * per + i for r in range(2)]
-                         for i in range(ACCUM)])
-    assert abs(apart["loss"] - want["loss"]) > LOSS_RTOL32 * abs(want["loss"])
-    for k in ("loss", "xent"):
-        assert abs(got["metrics"][0][k] - want[k]) <= \
-            LOSS_RTOL32 * abs(want[k])
-    flat = iter(got["grads"])
-    tree = tree_map(lambda _: next(flat),
-                    transformer_params_from_reference(pn))
-    assert_grads_close32(port_grad_leaves(tree), grads)
-    assert got["route"] == ROUTE_SPLIT
 
 
 def _ranges(cut):

@@ -28,6 +28,7 @@ from torch_parity import (BF16_SPACING, LOSS_RTOL32, assert_grads_close32,
                           port_batch, port_grad_leaves, port_loss_and_grads,
                           reference_loss_and_grads, to_f32, train_batch_np,
                           train_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 FAMILIES = ["qwen2-7b", "gemma-7b", "qwen2-vl-7b", "hubert-xlarge"]
 

@@ -22,6 +22,7 @@ from torch_parity import (LOSS_RTOL32, assert_grads_close32, port_batch,
                           port_grad_leaves, port_loss_and_grads,
                           reference_loss_and_grads, train_batch_np,
                           train_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("masked", [True, False])

@@ -32,6 +32,7 @@ from torch_parity import (LOSS_RTOL32, adamw_step_both,
                           port_batch, port_grad_leaves, port_loss_and_grads,
                           reference_loss_and_grads, train_batch_np,
                           train_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: ``chip_smoke.py``'s ``pruned_grads`` and ``expected_train_launches``,
 #: which phase 20 holds on the card

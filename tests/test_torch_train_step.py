@@ -40,6 +40,7 @@ from repro_torch.optim.schedules import constant
 from torch_parity import (LOSS_RTOL32, adamw_step_both,
                           assert_adamw_step_close, port_batch,
                           port_loss_and_grads, train_batch_np, train_setup)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: ``chip_smoke.py``'s ``pruned_grads``: one list of the pruned units'
 #: gradient slices for the card and for these tests

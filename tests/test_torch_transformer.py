@@ -50,6 +50,7 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as ttr
 from torch_parity import (BF16_SPACING, EPS32, model_batch_np, to_f32,
                           transformer_params_np)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 #: configs a refusal case pinned, each built from a registry module's smoke
 #: configs (``reg``: the reference's or the port's): an MoE stack whose

@@ -40,6 +40,7 @@ from repro_torch.models import transformer as ttr
 from repro_torch.models.layers import rope as trope
 from torch_parity import (both_reference_paths, model_batch_np, stack_tol,
                           to_f32, transformer_params_np)
+from torch_parity import one_thread  # noqa: F401 (autouse)
 
 ARCH = "qwen2-vl-7b"
 SIDE = 4          # the smoke config's 16 vision tokens on a 4 x 4 grid

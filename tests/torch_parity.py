@@ -8,6 +8,7 @@ import socket
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.models import cnn as rcnn
@@ -22,6 +23,19 @@ EPS32 = float(np.finfo(np.float32).eps)
 #: most 2**-7 * |v| apart, so two roundings of nearby fp32 values to bf16
 #: differ by at most their fp32 gap plus that much
 BF16_SPACING = 2.0 ** -7
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for a port test module's work, restored after.
+    The suite runs six workers on the host's cores, and a worker's
+    default of a thread a core made small ops wait on each other: the
+    DDPG search test took 119 s alone at 8 threads and 2.9 s at one, and
+    466 s under the suite's load. A module takes it by importing it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_f32(x) -> np.ndarray:
