@@ -1,0 +1,6 @@
+"""``cloud_stage_ms.<cell kind>``: the stream's cloud stage busy seconds
+(the program's ``StageStats.busy_s``) over the images it served, in ms."""
+
+
+def read(rec):
+    return rec.get("cloud_stage_ms")
